@@ -1,0 +1,119 @@
+"""Bridge from the JAX package's params/state pytree and bundles.
+
+- ``read_msgpack`` decodes a file written by ``flax.serialization.to_bytes``
+  (the JAX package's ``params.msgpack``) into nested dicts of numpy arrays,
+  with ``msgpack`` alone: flax stores an array as msgpack ext type 1 holding
+  ``(shape, dtype name, C-order bytes)``, a numpy scalar as ext type 3 with
+  the same payload, and splits arrays above its chunk size into
+  ``{"__msgpack_chunked_array__": True, "shape": .., "chunks": ..}``.
+- ``conv_hwio_to_oihw`` converts conv weights: HWIO -> OIHW, which also maps
+  a depthwise ``[3,3,1,C]`` to ``[C,1,3,3]``.
+- ``captioner_from_tree`` builds a port ``Captioner`` from the reference
+  layout: dense ``[in, out]`` weights, embedding ``table`` and ``out_bias``
+  stay as they are; conv weights go HWIO -> OIHW; BN ``scale``/``offset``
+  and moving ``mean``/``var`` go into the encoder module.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+def _bf16_to_f32(raw: bytes) -> np.ndarray:
+    bits = np.frombuffer(raw, dtype=np.uint16).astype(np.uint32) << 16
+    return bits.view(np.float32)
+
+
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    import msgpack
+
+    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":  # no numpy bfloat16: widen to float32
+        arr = _bf16_to_f32(buf)
+    else:
+        arr = np.frombuffer(buf, dtype=np.dtype(dtype_name.decode()))
+    return arr.reshape(shape, order="C").copy()
+
+
+def _ext_hook(code: int, data: bytes):
+    import msgpack
+
+    if code == _EXT_NDARRAY:
+        return _ndarray_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def _unchunk(tree):
+    if isinstance(tree, dict):
+        if _CHUNKED in tree:
+            shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+            chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+            return np.concatenate(chunks).reshape(shape)
+        return {k: _unchunk(v) for k, v in tree.items()}
+    return tree
+
+
+def read_msgpack(src: Union[str, bytes]) -> Dict[str, Any]:
+    """flax msgpack (a path or the bytes) -> nested dicts of numpy arrays."""
+    import msgpack
+
+    if isinstance(src, (str, os.PathLike)):
+        with open(src, "rb") as f:
+            src = f.read()
+    return _unchunk(msgpack.unpackb(src, ext_hook=_ext_hook, raw=False))
+
+
+def read_jax_bundle(directory: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A JAX inference bundle's ``params.msgpack`` -> (params, model_state)."""
+    payload = read_msgpack(os.path.join(directory, "params.msgpack"))
+    return payload["params"], payload["model_state"]
+
+
+def conv_hwio_to_oihw(w) -> np.ndarray:
+    """[kh, kw, I/groups, O] -> [O, I/groups, kh, kw]."""
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+
+def tree_to_torch(tree, device=None, dtype=None):
+    """Nested dicts of arrays -> the same dicts of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+    else:
+        t = torch.from_numpy(np.array(tree))  # a writable copy
+    return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
+
+
+def _cast_weights(tree, dt):
+    """Cast every dense weight ``w`` to the compute dtype once, at load.
+    ``dense`` casts its weight per call anyway; rounding once gives the same
+    values without a cast per step."""
+    if isinstance(tree, dict):
+        return {k: (v.to(dt) if k == "w" else _cast_weights(v, dt))
+                for k, v in tree.items()}
+    return tree
+
+
+def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
+                        device="cpu"):
+    """Reference-layout (params, state) -> a port ``Captioner`` on ``device``."""
+    from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner
+    from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import MobileNetV2
+
+    device = torch.device(device)
+    encoder = MobileNetV2(opts.encoder_scale).load(
+        params["encoder"], state["encoder"]
+    ).to(device)
+    dense = {k: params[k] for k in ("img_embed", "img_global", "decoder")}
+    dense = _cast_weights(tree_to_torch(dense, device, torch.float32), opts.dtype)
+    return Captioner(encoder=encoder, params=dense)

@@ -1,0 +1,234 @@
+"""Adaptive-attention ("visual sentinel") LSTM decoder with tied embeddings,
+decode side; port of ``myimagecaptioningmodel_tpu/models/decoder.py``.
+
+Params are the reference's dict layout (dense weights ``[in, out]``) holding
+torch tensors. One decode step, as the reference (the sentinel gate reads the
+previous hidden state, ``p_hid`` the new one):
+
+    xt = [word_emb ; global_feat];  h, c = lstm(xt, h_prev, c_prev)
+    sentinel = sigmoid(fc(xt) + fc(h_prev)) * tanh(c)
+    p_hid = tanh(fc(h));  ctx = adaptive attention;  out = tanh(fc(ctx + p_hid))
+    logits = fc(out, E) @ embedding_table^T + out_bias
+
+``greedy_decode_ids`` runs the fused step kernels when ``use_kernels`` is on
+(CUDA), and the plain step otherwise. Unlike the reference it needs no model
+dims gate and pads no batch: the kernels take any B >= 1 and mask their own
+ragged edges, and decoding is per row either way.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple
+
+import torch
+
+from myimagecaptioningmodel_tpu_torch.ops import layers as L
+from myimagecaptioningmodel_tpu_torch.ops.attention import adaptive_attention
+from myimagecaptioningmodel_tpu_torch.ops.lstm import lstm_from_gates
+
+Params = Dict[str, Any]
+
+
+class DecoderDims(NamedTuple):
+    vocab_size: int = 12295
+    embedding_size: int = 256
+    hidden_dim: int = 1024
+    feat_channels: int = 1280  # encoder output channels
+    vocab_pad_multiple: int = 1
+
+    @property
+    def padded_vocab(self) -> int:
+        """Table/logits rows: vocab rounded up; padded entries carry a -1e9
+        output bias and never win the argmax."""
+        m = self.vocab_pad_multiple
+        return -(-self.vocab_size // m) * m
+
+    @classmethod
+    def from_config(cls, md) -> "DecoderDims":
+        return cls(
+            vocab_size=md.decoder.vocab_size,
+            embedding_size=md.decoder.embedding_size,
+            hidden_dim=md.decoder.hidden_dim,
+            feat_channels=md.encoder.encoder_channel,
+            vocab_pad_multiple=getattr(md.decoder, "vocab_pad_multiple", 1),
+        )
+
+
+def _xavier(gen: torch.Generator, fan_in: int, fan_out: int) -> torch.Tensor:
+    lim = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty((fan_in, fan_out)).uniform_(-lim, lim, generator=gen)
+
+
+def init_dense(gen: torch.Generator, in_dim: int, out_dim: int) -> Params:
+    return {"w": _xavier(gen, in_dim, out_dim), "b": torch.zeros(out_dim)}
+
+
+def init(gen: torch.Generator, dims: DecoderDims, parity_init: bool = False) -> Params:
+    """The reference's decoder param dict, drawn from ``gen``."""
+    E, H, V = dims.embedding_size, dims.hidden_dim, dims.padded_vocab
+    lim = 1.0 if parity_init else 1.0 / (E ** 0.5)
+    out_bias = torch.zeros(V)
+    out_bias[dims.vocab_size:] = -1e9  # padded vocab rows never win
+    return {
+        "embedding": {"table": torch.empty((V, E)).uniform_(-lim, lim, generator=gen)},
+        "lstm": {"w": _xavier(gen, E + H + H, 4 * H), "b": torch.zeros(4 * H)},
+        "img_v": init_dense(gen, H, H),
+        "img_k": init_dense(gen, H, H),
+        "gate_x": init_dense(gen, E + H, H),
+        "gate_h": init_dense(gen, H, H),
+        "p_hid": init_dense(gen, H, H),
+        "hid_emb": init_dense(gen, H, H),
+        "sent_emb": init_dense(gen, H, H),
+        "attention": {"score": init_dense(gen, H, 1)},
+        "out": init_dense(gen, H, H),
+        "out_proj": init_dense(gen, H, E),
+        "out_bias": out_bias,
+    }
+
+
+class Precomputed(NamedTuple):
+    """Per-image tensors computed once, reused by all decode steps."""
+
+    img_v: torch.Tensor  # [B, k, H] tanh value projection
+    img_k: torch.Tensor  # [B, k, H] key projection
+    global_feat: torch.Tensor  # [B, H]
+    lstm_gx: torch.Tensor  # [B, 4H] global-feat part of the LSTM gates
+    gate_gx: torch.Tensor  # [B, H] global-feat part of the sentinel gate
+
+
+def _row_matmul(p: Params, x: torch.Tensor, lo: int, hi, dt) -> torch.Tensor:
+    """x @ W[lo:hi] in the compute dtype."""
+    return torch.matmul(x.to(dt), p["w"][lo:hi].to(dt))
+
+
+def precompute(params: Params, p_img_feat: torch.Tensor, global_feat: torch.Tensor,
+               compute_dtype=torch.bfloat16) -> Precomputed:
+    """Hoist every step-invariant piece out of the decode loop: attention
+    keys/values and the global-feature parts of both gates."""
+    dt = compute_dtype
+    img_v = torch.tanh(L.dense(params["img_v"], p_img_feat, dt)).to(dt)
+    img_k = L.dense(params["img_k"], p_img_feat, dt).to(dt)
+    E = params["embedding"]["table"].shape[1]
+    H = params["gate_h"]["w"].shape[0]
+    # lstm["w"] rows: [0:E) word emb | [E:E+H) global feat | [E+H:) h_prev
+    lstm_gx = _row_matmul(params["lstm"], global_feat, E, E + H, dt).float()
+    gate_gx = _row_matmul(params["gate_x"], global_feat, E, E + H, dt).float()
+    return Precomputed(img_v, img_k, global_feat, lstm_gx, gate_gx)
+
+
+def step_core(params: Params, pre: Precomputed, word: torch.Tensor,
+              h_prev: torch.Tensor, c_prev: torch.Tensor, parity_mode: bool = False,
+              padding_idx: int = 0, compute_dtype=torch.bfloat16):
+    """One decode step up to the tied-vocab head -> (h, c, proj [B, E])."""
+    dt = compute_dtype
+    word_emb = L.embed(params["embedding"], word, padding_idx)
+    E = word_emb.shape[-1]
+    H = h_prev.shape[-1]
+
+    lp = params["lstm"]
+    raw = _row_matmul(lp, word_emb, 0, E, dt) + _row_matmul(lp, h_prev, E + H, None, dt)
+    gates = raw.float() + pre.lstm_gx + lp["b"]
+    h, c = lstm_from_gates(gates, c_prev)
+
+    gp = params["gate_x"]
+    gate = torch.sigmoid(
+        _row_matmul(gp, word_emb, 0, E, dt).float()
+        + pre.gate_gx
+        + gp["b"]
+        + L.dense(params["gate_h"], h_prev, dt).float()
+    )
+    sentinel = gate * torch.tanh(c)
+
+    p_hid = torch.tanh(L.dense(params["p_hid"], h, dt))
+    hid_emb = L.dense(params["hid_emb"], p_hid, dt)
+    sent_key = L.dense(params["sent_emb"], sentinel, dt)
+    context, _alpha = adaptive_attention(
+        params["attention"], pre.img_k, pre.img_v, sent_key, sentinel, hid_emb,
+        parity_mode, dt,
+    )
+    out = torch.tanh(L.dense(params["out"], context + p_hid, dt))
+    proj = L.dense(params["out_proj"], out, dt)  # [B, E]
+    return h, c, proj
+
+
+def head_logits(params: Params, proj: torch.Tensor, compute_dtype=torch.bfloat16):
+    """Tied-embedding vocab head: proj @ table^T + bias -> [B, V] float32."""
+    dt = compute_dtype
+    table = params["embedding"]["table"]
+    return torch.matmul(proj.to(dt), table.to(dt).T).float() + params["out_bias"]
+
+
+def greedy_decode_ids(
+    params: Params,
+    pre: Precomputed,
+    max_length: int,
+    start_idx: int = 2,
+    parity_mode: bool = False,
+    padding_idx: int = 0,
+    compute_dtype=torch.bfloat16,
+    use_kernels: bool = False,
+    early_stop: bool = False,
+    stop_idx: int = 3,
+) -> torch.Tensor:
+    """Greedy decode, argmax feedback for ``max_length`` steps -> int32 [B, T].
+
+    ``use_kernels``: each step is the fused step (``ops/kernels/fused_step``)
+    ending in the vocab-argmax kernel; under ``parity_mode`` the plain step
+    runs with the vocab-argmax kernel as its head. ``early_stop`` ends the
+    loop once every row has emitted ``<stop>`` and fills later positions with
+    the padding id (captions equal the fixed-length decode's).
+    """
+    B = pre.global_feat.shape[0]
+    H = params["p_hid"]["w"].shape[0]
+    dev = pre.global_feat.device
+    dt = compute_dtype
+    h = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    c = torch.zeros_like(h)
+    word = torch.full((B,), start_idx, dtype=torch.int64, device=dev)
+
+    if use_kernels and not parity_mode:
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+
+        fp = FS.prepare(params, pre, padding_idx, dt)
+        img_k = pre.img_k.to(dt).contiguous()
+        img_v = pre.img_v.to(dt).contiguous()
+
+        def step(h, c, word):
+            h, c, _proj, nxt = FS.fused_decode_step(
+                fp, fp.emb_table[word], h, c, img_k, img_v,
+                with_head=True, compute_dtype=dt,
+            )
+            return h, c, nxt
+    else:
+        if use_kernels:
+            from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
+                greedy_vocab_argmax,
+            )
+
+            table = params["embedding"]["table"]
+
+            def argmax_head(proj):
+                return greedy_vocab_argmax(proj, table, params["out_bias"])
+        else:
+
+            def argmax_head(proj):
+                return torch.argmax(head_logits(params, proj, dt), dim=-1).to(torch.int32)
+
+        def step(h, c, word):
+            h, c, proj = step_core(params, pre, word, h, c, parity_mode,
+                                   padding_idx, dt)
+            return h, c, argmax_head(proj)
+
+    ids = torch.full((B, max_length), padding_idx, dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for t in range(max_length):
+        if early_stop and bool(done.all()):
+            break
+        h, c, nxt = step(h, c, word)
+        if early_stop:
+            nxt = torch.where(done, torch.full_like(nxt, padding_idx), nxt)
+            done = done | (nxt == stop_idx)
+        ids[:, t] = nxt
+        word = nxt.long()
+    return ids
