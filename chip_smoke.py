@@ -20,15 +20,40 @@ Phases (each prints one line; any failure exits non-zero with no result):
    kernel path's ids are held against the plain path's step by step; then
    the single-image ``infer`` path (B=1);
 5. timings with CUDA events after warm-up: ms per greedy batch and
-   captions/s at B=8 and B=128, kernel path and plain path.
+   captions/s at B=8 and B=128, kernel path and plain path;
+6. kernel A with an int8 table and its per-row scale against its plain
+   version at B in {8, 128}, V=12416, E=256, under the near-tie rule, plus
+   the forced tie on an int8 table;
+7. kernel C (``topk_vocab_head``) against ``topk_vocab_head_reference`` at
+   M in {32, 512} rows (8 and 128 images x beam 4), k in {1, 4, 8}, float32,
+   bfloat16 and int8 + scale tables (V=12416, E=256, 12295 real rows): lse
+   and the picked ids' logits (re-read from the plain float32 logits) to
+   1e-4 (float32) and 2e-2 (bfloat16, int8), ids under the near-tie rule at
+   every rank; a forced tie across blocks must come out in ascending index
+   order;
+8. the served beam: ``CaptionService(batch_size=8, beam_size=4)`` on phase
+   4's bundle, 24 requests from 8 threads: kernels B and C launch 35 x
+   dispatches times, A none; the same with ``quantize=True``; then a greedy
+   ``quantize=True`` service, where A and B launch 35 x dispatches times;
+9. beam correctness on one batch of 8, in bfloat16 and float32: the kernel
+   path's best beam, teacher-forced through the plain versions of the same
+   branch (``reference_step(with_head=False)`` and the plain head's float32
+   logits), re-scores to its reported score within 1e-3 (float32) and
+   2e-3 x steps (bfloat16); in float32 its score is at least the plain beam
+   path's less 1e-3; then the single-image ``infer`` path with beam 4 (B=1);
+10. timings: beam-4 ms per batch and captions/s at B=8 and B=128, float and
+   int8 weights, kernel path and plain path.
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
-exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16). Float32 products
-are compared with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
+exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
+the top-k head, at every rank whose plain sorted value is clear of both
+neighbouring ranks by that gap. Float32 products are compared with TF32 off
+(``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False).
 
-The line before the last is one JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object describing each kernel (the
+launches of A and B are phase 4's, those of C phase 8's beam service); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,6 +76,9 @@ KERNEL_A_SRC = "myimagecaptioningmodel_tpu_torch/csrc/vocab_head.cu"
 KERNEL_B_SRC = "myimagecaptioningmodel_tpu_torch/csrc/fused_step.cu"
 KERNEL_A_TPU = "myimagecaptioningmodel_tpu/ops/pallas/vocab_head.py:89"
 KERNEL_B_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_step.py:219"
+KERNEL_C_SRC = "myimagecaptioningmodel_tpu_torch/csrc/topk_head.cu"
+KERNEL_C_TPU = "myimagecaptioningmodel_tpu/ops/pallas/vocab_head.py:206"
+V_REAL, BEAM = 12295, 4
 
 
 def say(phase: str, **kv) -> None:
@@ -67,6 +95,22 @@ def near_tie_ok(ids, logits, dt) -> bool:
         clear = gap > 2e-2
     ref = logits.argmax(dim=-1).to(torch.int32)
     return bool(((ids.to(torch.int32) == ref) | ~clear).all())
+
+
+def near_tie_gap(logits, dt):
+    if dt == torch.float32:
+        return 1e-3 * logits.abs().amax(dim=-1, keepdim=True)
+    return 2e-2
+
+
+def ranks_clear(logits, k, dt):
+    """[B, k] bool: the plain sorted value at rank i is clear of ranks i-1
+    and i+1 by the near-tie gap (a near tie may swap two ranks, and then
+    only)."""
+    v = torch.sort(logits, dim=-1, descending=True).values[:, : k + 1]
+    after = (v[:, :-1] - v[:, 1:]) > near_tie_gap(logits, dt)
+    before = torch.cat([torch.ones_like(after[:, :1]), after[:, :-1]], dim=1)
+    return after & before
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -151,6 +195,121 @@ def phase_kernel_a(dev, gen):
         if not (bool((ids == 10).all()) and bool((ref == 10).all())):
             raise AssertionError(f"tie rule broken ({dt}): {ids.tolist()} vs {ref.tolist()}")
     say("kernel_a_tie", lowest_index_ok=True)
+    return worst, times
+
+
+# ---- phases 6 and 7 ----------------------------------------------------------
+
+
+def head_operands(gen, dev, rows, dt):
+    """proj [rows, E], a float or int8 table (int8 with its per-row scale,
+    from the port's quantize_weight) and a bias whose rows >= V_REAL are
+    -1e9, as the padded vocab's."""
+    from myimagecaptioningmodel_tpu_torch.ops.quantization import quantize_weight
+
+    proj = torch.randn(rows, E, generator=gen).to(dev)
+    t = (torch.rand(V_PAD, E, generator=gen) * 2 - 1).div(16)
+    if dt == torch.int8:
+        table, scale = (x.to(dev) for x in quantize_weight(t, axis=1))
+    else:
+        table, scale = t.to(dev, dt), None
+    bias = torch.randn(V_PAD, generator=gen).mul(0.1).to(dev)
+    bias[V_REAL:] = -1e9
+    return proj, table, bias, scale
+
+
+def tie_operands(gen, dev, dt, winners):
+    """Rows ``winners`` equal and best by far, in several vocab blocks."""
+    from myimagecaptioningmodel_tpu_torch.ops.quantization import quantize_weight
+
+    proj = torch.rand(8, E, generator=gen).to(dev)
+    t = torch.rand(V_PAD, E, generator=gen) / 64
+    t[winners] = 0.25
+    if dt == torch.int8:
+        table, scale = (x.to(dev) for x in quantize_weight(t, axis=1))
+    else:
+        table, scale = t.to(dev, dt), None
+    bias = torch.full((V_PAD,), -5.0, device=dev)
+    bias[winners] = 0.0
+    return proj, table, bias, scale
+
+
+TIE_WINNERS = [12000, 9000, 4097, 4096, 65, 64, 63, 10]
+
+
+def phase_kernel_a_int8(dev, gen):
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
+        greedy_vocab_argmax as kernel,
+        greedy_vocab_argmax_reference as plain,
+        head_logits_reference,
+    )
+
+    worst, times = 0.0, {}
+    for B in (8, 128):
+        proj, table, bias, scale = head_operands(gen, dev, B, torch.int8)
+        ids = kernel(proj, table, bias, scale)
+        torch.cuda.synchronize()
+        logits = head_logits_reference(proj, table, bias, scale)
+        ok = near_tie_ok(ids, logits, torch.int8)
+        ref = plain(proj, table, bias, scale)
+        err = float((logits.gather(1, ids.long()[:, None])
+                     - logits.gather(1, ref.long()[:, None])).abs().max())
+        worst = max(worst, err)
+        t_k = time_ms(lambda: kernel(proj, table, bias, scale))
+        t_p = time_ms(lambda: plain(proj, table, bias, scale))
+        times[B] = (t_k, t_p)
+        say("kernel_a_int8", B=B, near_tie_ok=ok, max_abs_err_of_picked_logit=err,
+            kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2))
+        if not ok:
+            raise AssertionError(f"kernel A (int8) disagrees with its plain version (B={B})")
+    proj, table, bias, scale = tie_operands(gen, dev, torch.int8, TIE_WINNERS)
+    ids, ref = kernel(proj, table, bias, scale), plain(proj, table, bias, scale)
+    if not (bool((ids == 10).all()) and bool((ref == 10).all())):
+        raise AssertionError(f"tie rule broken (int8): {ids.tolist()} vs {ref.tolist()}")
+    say("kernel_a_int8_tie", lowest_index_ok=True)
+    return worst, times
+
+
+def phase_kernel_c(dev, gen):
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
+        head_logits_reference,
+        topk_vocab_head as kernel,
+        topk_vocab_head_reference as plain,
+    )
+
+    worst, times = 0.0, {}
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        for M in (8 * BEAM, 128 * BEAM):
+            proj, table, bias, scale = head_operands(gen, dev, M, dt)
+            logits = head_logits_reference(proj, table, bias, scale)
+            for k in (1, 4, 8):
+                vals, ids, lse = kernel(proj, table, bias, k, scale)
+                torch.cuda.synchronize()
+                _rv, ri, rlse = plain(proj, table, bias, k, scale)
+                err_lse = float((lse - rlse).abs().max())
+                err_v = float((vals - logits.gather(1, ids.long())).abs().max())
+                ids_ok = bool(((ids == ri) | ~ranks_clear(logits, k, dt)).all())
+                ok = err_lse <= tol and err_v <= tol and ids_ok and int(ids.max()) < V_REAL
+                if dt != torch.float32:
+                    worst = max(worst, err_lse, err_v)
+                t_k = time_ms(lambda: kernel(proj, table, bias, k, scale))
+                t_p = time_ms(lambda: plain(proj, table, bias, k, scale))
+                times[(dt, M, k)] = (t_k, t_p)
+                say("kernel_c", dtype=str(dt).split(".")[-1], M=M, k=k, tol=tol,
+                    err_lse=err_lse, err_vals=err_v, ids_near_tie_ok=ids_ok,
+                    kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2))
+                if not ok:
+                    raise AssertionError(
+                        f"kernel C disagrees with its plain version ({dt}, M={M}, k={k})")
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        proj, table, bias, scale = tie_operands(gen, dev, dt, TIE_WINNERS)
+        vals, ids, _lse = kernel(proj, table, bias, 8, scale)
+        _rv, ri, _rl = plain(proj, table, bias, 8, scale)
+        want = [sorted(TIE_WINNERS)] * 8
+        if ids.tolist() != want or ri.tolist() != want or bool((vals != vals[:, :1]).any()):
+            raise AssertionError(f"top-k tie order broken ({dt}): {ids.tolist()}")
+    say("kernel_c_tie", ascending_index_ok=True)
     return worst, times
 
 
@@ -321,7 +480,135 @@ def phase_slice(dev, seed, root, overrides=()):
     if len(one) != steps or not isinstance(sentence, str):
         raise AssertionError(f"infer (B=1) gave {one!r}")
     say("slice_infer", B=1, ids_len=len(one), matches_served=one == results[0]["ids"])
-    return launches, model, opts
+    return launches, model, opts, cfg
+
+
+# ---- phases 8 and 9 -----------------------------------------------------------
+
+
+SERVED = (  # (label, CaptionService options, kernels that launch once per step)
+    ("beam", dict(beam_size=BEAM), ("fused_decode_step", "topk_vocab_head")),
+    ("beam_int8", dict(beam_size=BEAM, quantize=True), ("fused_decode_step", "topk_vocab_head")),
+    ("greedy_int8", dict(quantize=True), ("fused_decode_step", "greedy_vocab_argmax")),
+)
+
+
+def phase_served_beam(dev, seed, cfg):
+    """-> (launch counts of the float beam service, {label: model}, the
+    float beam service's options)."""
+    from myimagecaptioningmodel_tpu_torch.inference.server import CaptionService
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
+
+    counters = {"fused_decode_step": FS.fused_decode_step,
+                "greedy_vocab_argmax": VH.greedy_vocab_argmax,
+                "topk_vocab_head": VH.topk_vocab_head}
+    steps = cfg.model.decoder.infer_max_length
+    images = np.random.RandomState(seed).rand(24, *cfg.data.image_shape, 3).astype(np.float32)
+    models, beam_launches = {}, None
+    for label, kw, per_step in SERVED:
+        t0 = time.perf_counter()
+        svc = CaptionService(cfg, batch_size=8, max_wait_ms=50.0, device=dev, **kw)
+        load_s = round(time.perf_counter() - t0, 2)
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                results = list(pool.map(svc.caption_array, images))
+            launches = {name: fn.launches for name, fn in counters.items()}
+            st = svc.stats()
+        finally:
+            svc.close()
+        for r in results:
+            if len(r["ids"]) != steps or not isinstance(r["caption"], str):
+                raise AssertionError(f"{label}: bad answer: {r}")
+        d = st["dispatches"]
+        if st["served"] != 24 or not 3 <= d <= 24 or round(st["mean_batch_fill"] * d) != 24:
+            raise AssertionError(f"{label}: counters do not reconcile: {st}")
+        # CPU tensors launch nothing
+        want = {name: steps * d if name in per_step and dev.type == "cuda" else 0
+                for name in counters}
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, expected {want} "
+                                 f"for {d} dispatches")
+        say("served_" + label, load_and_warmup_s=load_s, requests=24, dispatches=d,
+            decode_ms_p50=st["decode_ms_p50"],
+            launches=json.dumps(launches).replace(" ", ""),
+            distinct_captions=len({tuple(r["ids"]) for r in results}))
+        models[label] = svc.model
+        if label == "beam":
+            beam_launches, opts = launches, svc.opts
+    return beam_launches, models, opts
+
+
+def teacher_forced_scores(model, opts, images, ids):
+    """Sum of log-softmax of ``ids`` until <stop>, through the plain versions
+    of the fused-head branch: ``reference_step(with_head=False)`` and the
+    plain head's float32 logits -> (scores [B], steps [B])."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import head_logits_reference
+
+    dt = opts.dtype
+    prm = model.params["decoder"]
+    emb = prm["embedding"]
+    table, scale = ((emb["table_q"], emb["scale"]) if "table_q" in emb
+                    else (emb["table"].to(dt), None))
+    img_embed, _f, gf = C.img2feature(model, images, opts)
+    pre = D.precompute(prm, img_embed, gf, dt)
+    fp = FS.prepare(prm, pre, opts.padding_idx, dt)
+    img_k, img_v = pre.img_k.to(dt).contiguous(), pre.img_v.to(dt).contiguous()
+    B = ids.shape[0]
+    h = torch.zeros(B, img_k.shape[-1], device=ids.device)
+    c = torch.zeros_like(h)
+    word = torch.full((B,), opts.start_idx, dtype=torch.long, device=ids.device)
+    total = torch.zeros(B, device=ids.device)
+    steps = torch.zeros(B, device=ids.device)
+    alive = torch.ones(B, dtype=torch.bool, device=ids.device)
+    for t in range(ids.shape[1]):
+        h, c, proj, _w = FS.reference_step(fp, fp.emb_table[word], h, c, img_k, img_v,
+                                           with_head=False, compute_dtype=dt)
+        logp = torch.log_softmax(head_logits_reference(proj, table, prm["out_bias"], scale), -1)
+        word = ids[:, t].long()
+        total += torch.where(alive, logp.gather(1, word[:, None])[:, 0], 0.0)
+        steps += alive.float()
+        alive &= word != opts.stop_idx
+    return total, steps
+
+
+@torch.no_grad()
+def phase_beam_correct(dev, model, opts, cfg, seed):
+    from myimagecaptioningmodel_tpu_torch.inference import infer
+    from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
+
+    rng = np.random.RandomState(seed + 2)
+    images = torch.as_tensor(rng.rand(8, *cfg.data.image_shape, 3).astype(np.float32)).to(dev)
+    for dtype in ("bfloat16", "float32"):
+        o = opts._replace(compute_dtype=dtype, use_kernels=True)
+        ids, score = beam_decode(model, images, o, BEAM, stop_idx=o.stop_idx)
+        rescore, steps = teacher_forced_scores(model, o, images, ids)
+        tol = 1e-3 if dtype == "float32" else 2e-3 * steps
+        err = (rescore - score).abs()
+        ok = bool((err <= tol).all())
+        p_ids, p_score = beam_decode(model, images, o._replace(use_kernels=False), BEAM,
+                                     stop_idx=o.stop_idx)
+        line = dict(dtype=dtype, rescore_max_abs_err=float(err.max()),
+                    steps=[int(x) for x in steps.tolist()], rescore_ok=ok,
+                    rows_equal_to_plain=float((ids == p_ids).all(dim=1).float().mean()))
+        if dtype == "float32":
+            not_worse = bool((score >= p_score - 1e-3).all())
+            ok = ok and not_worse
+            line.update(score_not_below_plain=not_worse,
+                        min_score_minus_plain=float((score - p_score).min()))
+        say("beam_vs_plain", **line)
+        if not ok:
+            raise AssertionError(f"beam kernel path disagrees with the plain versions ({dtype})")
+    one, sentence = infer.caption_array(cfg, images[0].cpu().numpy(), beam_size=BEAM, device=dev)
+    steps = cfg.model.decoder.infer_max_length
+    if len(one) != steps or not isinstance(sentence, str):
+        raise AssertionError(f"infer (B=1, beam {BEAM}) gave {one!r}")
+    say("beam_infer", B=1, beam=BEAM, ids_len=len(one))
 
 
 # ---- phase 5 ----------------------------------------------------------------
@@ -349,6 +636,31 @@ def phase_timing(model, opts, seed):
     return out
 
 
+# ---- phase 10 ---------------------------------------------------------------
+
+
+def phase_beam_timing(models, opts, seed):
+    from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
+
+    rng = np.random.RandomState(seed + 3)
+    for label in ("beam", "beam_int8"):
+        model = models[label]
+        for B in (8, 128):
+            imgs = torch.as_tensor(rng.rand(B, 224, 224, 3).astype(np.float32)).to(model.device)
+            t = {}
+            for path in ("plain", "kernel", "kernel", "plain"):
+                o = opts._replace(use_kernels=(path == "kernel"))
+                ms = time_ms(lambda: beam_decode(model, imgs, o, BEAM, stop_idx=o.stop_idx),
+                             reps=3, warmup=1)
+                t.setdefault(path, []).append(ms)
+            k, p = min(t["kernel"]), min(t["plain"])
+            say("timing_" + label, beam=BEAM, B=B, kernel_ms_per_batch=round(k, 3),
+                plain_ms_per_batch=round(p, 3), kernel_captions_per_s=round(B / k * 1e3, 1),
+                plain_captions_per_s=round(B / p * 1e3, 1),
+                runs_kernel=[round(x, 3) for x in t["kernel"]],
+                runs_plain=[round(x, 3) for x in t["plain"]])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -374,17 +686,27 @@ def main(argv=None) -> int:
                          vocab_pad_multiple=128)
     err_b, t_b = phase_kernel_b(dev, gen, tree_to_torch(D.init(gen, dims), dev))
     with tempfile.TemporaryDirectory() as root:
-        launches, model, opts = phase_slice(dev, args.seed, root)
+        launches, model, opts, cfg = phase_slice(dev, args.seed, root)
         phase_timing(model, opts, args.seed)
+        err_a8, _t_a8 = phase_kernel_a_int8(dev, gen)
+        err_c, t_c = phase_kernel_c(dev, gen)
+        beam_launches, models, beam_opts = phase_served_beam(dev, args.seed, cfg)
+        phase_beam_correct(dev, models["beam"], beam_opts, cfg, args.seed)
+        phase_beam_timing(models, beam_opts, args.seed)
 
     bf16 = torch.bfloat16
     kernels = [
         {"name": "greedy_vocab_argmax", "route": "cuda", "source": KERNEL_A_SRC,
          "replaces": KERNEL_A_TPU, "launches": launches["greedy_vocab_argmax"],
-         "max_abs_err": err_a, "ms": t_a[(bf16, 8)][0], "plain_ms": t_a[(bf16, 8)][1]},
+         "max_abs_err": max(err_a, err_a8), "ms": t_a[(bf16, 8)][0],
+         "plain_ms": t_a[(bf16, 8)][1]},
         {"name": "fused_decode_step", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": KERNEL_B_TPU, "launches": launches["fused_decode_step"],
          "max_abs_err": err_b, "ms": t_b[(bf16, 8)][0], "plain_ms": t_b[(bf16, 8)][1]},
+        {"name": "topk_vocab_head", "route": "cuda", "source": KERNEL_C_SRC,
+         "replaces": KERNEL_C_TPU, "launches": beam_launches["topk_vocab_head"],
+         "max_abs_err": err_c, "ms": t_c[(bf16, 8 * BEAM, BEAM)][0],
+         "plain_ms": t_c[(bf16, 8 * BEAM, BEAM)][1]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

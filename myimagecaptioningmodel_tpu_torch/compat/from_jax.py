@@ -11,7 +11,10 @@
 - ``captioner_from_tree`` builds a port ``Captioner`` from the reference
   layout: dense ``[in, out]`` weights, embedding ``table`` and ``out_bias``
   stay as they are; conv weights go HWIO -> OIHW; BN ``scale``/``offset``
-  and moving ``mean``/``var`` go into the encoder module.
+  and moving ``mean``/``var`` go into the encoder module. With ``quantize``
+  it stores the decoder as int8 (``ops/quantization.py``), quantizing the
+  float32 weights before anything is rounded to the compute dtype, as the
+  reference quantizes its float32 params at load.
 """
 
 from __future__ import annotations
@@ -97,7 +100,8 @@ def tree_to_torch(tree, device=None, dtype=None):
 def _cast_weights(tree, dt):
     """Cast every dense weight ``w`` to the compute dtype once, at load.
     ``dense`` casts its weight per call anyway; rounding once gives the same
-    values without a cast per step."""
+    values without a cast per step. int8 ``w_q`` and their float32
+    ``scale`` stay as they are."""
     if isinstance(tree, dict):
         return {k: (v.to(dt) if k == "w" else _cast_weights(v, dt))
                 for k, v in tree.items()}
@@ -105,8 +109,9 @@ def _cast_weights(tree, dt):
 
 
 def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
-                        device="cpu"):
-    """Reference-layout (params, state) -> a port ``Captioner`` on ``device``."""
+                        device="cpu", quantize: bool = False):
+    """Reference-layout (params, state) -> a port ``Captioner`` on ``device``;
+    ``quantize`` stores the decoder's weights as int8."""
     from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner
     from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
@@ -114,6 +119,11 @@ def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
     encoder = MobileNetV2(opts.encoder_scale).load(
         params["encoder"], state["encoder"]
     ).to(device)
-    dense = {k: params[k] for k in ("img_embed", "img_global", "decoder")}
-    dense = _cast_weights(tree_to_torch(dense, device, torch.float32), opts.dtype)
+    dense = tree_to_torch({k: params[k] for k in ("img_embed", "img_global", "decoder")},
+                          device, torch.float32)
+    if quantize:
+        from myimagecaptioningmodel_tpu_torch.ops.quantization import quantize_decoder
+
+        dense["decoder"] = quantize_decoder(dense["decoder"])
+    dense = _cast_weights(dense, opts.dtype)
     return Captioner(encoder=encoder, params=dense)

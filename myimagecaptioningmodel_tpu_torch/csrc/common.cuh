@@ -1,5 +1,5 @@
 // Shared device helpers for the decode-path kernels (vocab_head.cu,
-// fused_step.cu): 16-byte vector loads unpacked to float, rounding to the
+// topk_head.cu, fused_step.cu): 16-byte vector loads unpacked to float, rounding to the
 // compute dtype, the warp product that every [M, K] x [K, N] product of those
 // kernels runs through, and a warp reduce-scatter.
 //
@@ -18,7 +18,7 @@
 namespace capk {
 
 // dtype codes shared with the Python wrappers
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 // elements of T in one 16-byte vector
 template <typename T>

@@ -1,4 +1,5 @@
-// Greedy tied-vocab head: ids[b] = argmax_v (proj[b] . table[v] + bias[v]).
+// Greedy tied-vocab head: ids[b] = argmax_v (proj[b] . table[v] (* scale[v])
+// + bias[v]).
 //
 // Replaces myimagecaptioningmodel_tpu/ops/pallas/vocab_head.py::
 // greedy_vocab_argmax. The TPU kernel walks the vocab in 2048-row blocks on
@@ -7,13 +8,11 @@
 // the running state becomes a two-pass reduction:
 //
 //   1. vocab_argmax_partial: grid (32-row vocab block) x (8- or 16-row batch
-//      tile). Each warp takes 4 table rows; a lane loads 16 bytes of each
-//      (the rows' 256 bf16 elements are one coalesced 512-byte read per
-//      warp), multiplies them with the batch rows staged in shared memory,
-//      and the lane partial sums meet in one warp reduce-scatter. Float32
-//      accumulation of compute-dtype operands, as the TPU kernel's
-//      preferred_element_type=float32 dot. The block adds the bias, masks
-//      rows >= V to -inf and writes one (max, index) per batch row.
+//      tile). The block's logits come from vocab_block_logits
+//      (vocab_block.cuh: float32 accumulation of compute-dtype operands, as
+//      the TPU kernel's preferred_element_type=float32 dot; an int8 table's
+//      scale after the sum, then the bias; rows >= V masked to -inf); the
+//      block writes one (max, index) per batch row.
 //   2. vocab_argmax_combine: one warp per batch row reduces the block pairs.
 //
 // Tie rule: jnp.argmax returns the LOWEST index among equal maxima. Every
@@ -23,104 +22,35 @@
 //
 // What bounds it on an H100: the table is read once per 16-row batch tile
 // (12416 x 256 bf16 = 6.4 MB, about 2 us of HBM bandwidth, L2 for the later
-// tiles); the [B, V] logits never reach device memory, only B x 388
-// (max, index) pairs do. At B = 128 the product is 0.8 GFLOP of FMA on CUDA
-// cores; a tensor-core version is later work.
-#include "common.cuh"
+// tiles; int8 halves it); the [B, V] logits never reach device memory, only
+// B x 388 (max, index) pairs do. At B = 128 the product is 0.8 GFLOP of FMA
+// on CUDA cores; a tensor-core version is later work.
+#include "vocab_block.cuh"
 
 namespace capk {
 
-constexpr int kHeadWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kVocabBlock = kHeadWarps * kRowsPerWarp;  // table rows per block
-
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
 template <typename T, int MT>
 __global__ void __launch_bounds__(kHeadWarps * 32)
-    vocab_argmax_partial(const float* __restrict__ proj,  // [M, E] f32
-                         const T* __restrict__ table,     // [V, E]
-                         const float* __restrict__ bias,  // [V]
-                         float* __restrict__ part_v,      // [M, nblk]
-                         int* __restrict__ part_i,        // [M, nblk]
+    vocab_argmax_partial(const float* __restrict__ proj,   // [M, E] f32
+                         const T* __restrict__ table,      // [V, E]
+                         const float* __restrict__ bias,   // [V]
+                         const float* __restrict__ scale,  // [V] or null
+                         float* __restrict__ part_v,       // [M, nblk]
+                         int* __restrict__ part_i,         // [M, nblk]
                          int M, int V, int E) {
-  constexpr int W = Vec<T>::W, R = kRowsPerWarp, NVAL = R * MT, PER = NVAL / 32;
-  constexpr int NCH = MT / W;  // 16-byte chunks of one e across the MT rows
   extern __shared__ __align__(16) unsigned char smem[];
-  // Batch rows rounded to T. Element (e, m) lives in 16-byte chunk
-  // (e % W, m / W, e / W) of a [W][NCH][EQ] chunk array, so that when lane
-  // q reads element j of its e-vector q, the 32 lanes read 32 consecutive
-  // chunks (no bank conflicts); a plain [E][MT] layout puts the lanes W * MT
-  // elements apart, on the same banks.
-  uint4* Pc = reinterpret_cast<uint4*>(smem);
-  __shared__ float red_v[kVocabBlock][MT];
-  __shared__ int red_i[kVocabBlock][MT];
-  const int nblk = gridDim.x, m0 = blockIdx.y * MT, EQ = E / W;
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch) {
-    for (int e = threadIdx.x; e < E; e += blockDim.x) {
-      float f[W];
-#pragma unroll
-      for (int j = 0; j < W; ++j) {
-        const int row = m0 + ch * W + j;
-        f[j] = row < M ? proj[(long)row * E + e] : 0.f;
-      }
-      Pc[((long)(e % W) * NCH + ch) * EQ + e / W] = pack(f);
-    }
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int vbase = blockIdx.x * kVocabBlock + warp * R;
-  float acc[NVAL];  // acc[r * MT + m]
-#pragma unroll
-  for (int i = 0; i < NVAL; ++i) acc[i] = 0.f;
-  for (int q = lane; q < EQ; q += 32) {
-    float tf[R][W];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (vbase + r < V) {
-        load_vec<T>(table + (long)(vbase + r) * E + q * W, tf[r]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < W; ++j) tf[r][j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      float p[MT];
-#pragma unroll
-      for (int ch = 0; ch < NCH; ++ch) {
-        float f[W];
-        unpack(Pc[((long)j * NCH + ch) * EQ + q], f);
-#pragma unroll
-        for (int x = 0; x < W; ++x) p[ch * W + x] = f[x];
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc[r * MT + m] = fmaf(p[m], tf[r][j], acc[r * MT + m]);
-    }
-  }
-  warp_reduce_scatter<NVAL>(acc, lane);
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int idx = PER * lane + i, r = idx / MT, m = idx % MT, v = vbase + r;
-    red_v[warp * R + r][m] = v < V ? acc[i] + bias[v] : -INFINITY;
-    red_i[warp * R + r][m] = v;
-  }
-  __syncthreads();
+  __shared__ float lg[kVocabBlock][MT + 1];
+  const int nblk = gridDim.x, m0 = blockIdx.y * MT, v0 = blockIdx.x * kVocabBlock;
+  vocab_block_logits<T, MT>(proj, table, bias, scale, M, V, E, m0, v0, smem, lg);
   for (int m = threadIdx.x; m < MT; m += blockDim.x) {
     const int row = m0 + m;
     if (row >= M) continue;
     float bv = -INFINITY;
     int bi = INT_MAX;
     for (int r = 0; r < kVocabBlock; ++r) {
-      if (better(red_v[r][m], red_i[r][m], bv, bi)) {
-        bv = red_v[r][m];
-        bi = red_i[r][m];
+      if (better(lg[r][m], v0 + r, bv, bi)) {
+        bv = lg[r][m];
+        bi = v0 + r;
       }
     }
     part_v[(long)row * nblk + blockIdx.x] = bv;
@@ -157,14 +87,14 @@ __global__ void __launch_bounds__(32)
 
 template <typename T, int MT>
 static bool launch_partial(const float* proj, const void* table, const float* bias,
-                           float* part_v, int* part_i, int M, int V, int E,
-                           cudaStream_t stream) {
+                           const float* scale, float* part_v, int* part_i, int M, int V,
+                           int E, cudaStream_t stream) {
   static const bool raised = raise_smem_limit(vocab_argmax_partial<T, MT>);
-  const size_t smem = (size_t)MT * E * sizeof(T);
+  const size_t smem = staged_bytes<T, MT>(E);
   if (!raised || smem > kMaxDynamicSmem) return false;
   dim3 grid((V + kVocabBlock - 1) / kVocabBlock, (M + MT - 1) / MT);
   vocab_argmax_partial<T, MT><<<grid, kHeadWarps * 32, smem, stream>>>(
-      proj, static_cast<const T*>(table), bias, part_v, part_i, M, V, E);
+      proj, static_cast<const T*>(table), bias, scale, part_v, part_i, M, V, E);
   return true;
 }
 
@@ -172,32 +102,31 @@ static bool launch_partial(const float* proj, const void* table, const float* bi
 
 extern "C" {
 
-// Number of vocab blocks, i.e. the width of the wrapper's part_v / part_i.
+// Number of vocab blocks, i.e. the width of the wrappers' partial buffers
+// (the greedy and the top-k head share the block size).
 int capk_vocab_argmax_nblocks(int V) {
   return (V + capk::kVocabBlock - 1) / capk::kVocabBlock;
 }
 
-// ids[M] = argmax over proj[M, E] . table[V, E]^T + bias[V].
-// table_dtype: capk::kF32 or capk::kBF16; proj is float32 and is rounded to
-// the table's dtype before the product. E must be a multiple of 8.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for shapes the kernel
+// ids[M] = argmax over proj[M, E] . table[V, E]^T (* scale[V]) + bias[V].
+// table_dtype: capk::kF32, kBF16, or kI8 with a float32 scale (null for the
+// float tables); proj is float32 and is rounded to the table's dtype (to
+// bfloat16 for int8) before the product. E must be a multiple of 8.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for operands the kernel
 // does not take).
 int capk_vocab_argmax(int table_dtype, int M, int V, int E, const float* proj,
-                      const void* table, const float* bias, float* part_v,
-                      int* part_i, int* out, cudaStream_t stream) {
-  if (M < 1 || E % 8 != 0) return (int)cudaErrorInvalidValue;
-  bool ok;
-  if (table_dtype == capk::kBF16) {
-    using T = __nv_bfloat16;
-    ok = M <= 8 ? capk::launch_partial<T, 8>(proj, table, bias, part_v, part_i, M, V, E, stream)
-                : capk::launch_partial<T, 16>(proj, table, bias, part_v, part_i, M, V, E, stream);
-  } else if (table_dtype == capk::kF32) {
-    ok = M <= 8
-             ? capk::launch_partial<float, 8>(proj, table, bias, part_v, part_i, M, V, E, stream)
-             : capk::launch_partial<float, 16>(proj, table, bias, part_v, part_i, M, V, E, stream);
-  } else {
-    ok = false;
-  }
+                      const void* table, const float* bias, const float* scale,
+                      float* part_v, int* part_i, int* out, cudaStream_t stream) {
+  if (M < 1 || V < 1 || (table_dtype == capk::kI8) != (scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool ok = capk::dispatch_table_dtype(table_dtype, [&](auto tag) {
+    using T = capk::TableT<decltype(tag)>;
+    if (E % 8 != 0) return false;
+    return M <= 8 ? capk::launch_partial<T, 8>(proj, table, bias, scale, part_v, part_i,
+                                               M, V, E, stream)
+                  : capk::launch_partial<T, 16>(proj, table, bias, scale, part_v, part_i,
+                                                M, V, E, stream);
+  });
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -1,6 +1,6 @@
 """Bundle loading for decode; port of ``load_bundle`` in
-``myimagecaptioningmodel_tpu/evaluation/evaluate.py`` (greedy decode, one
-device).
+``myimagecaptioningmodel_tpu/evaluation/evaluate.py`` (greedy and beam
+decode, float or int8 decoder weights, one device).
 
 Model options come from the bundle's own ``config.json``, as in the
 reference: a bundle is a self-contained artifact and its dims, parity mode
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from myimagecaptioningmodel_tpu_torch.compat.from_jax import captioner_from_tree
+from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
 from myimagecaptioningmodel_tpu_torch.models import captioner
 from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner, ModelOptions
 from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
@@ -23,22 +24,17 @@ from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
 
 def load_bundle(
     cfg, bundle: str = "infer", beam_size: int = 0, quantize: bool = False,
-    early_stop: bool = False, device=None,
+    early_stop: bool = False, device=None, length_norm: float = 0.0,
 ) -> Tuple[Captioner, object, ModelOptions, Callable]:
     """-> (model, bundle_cfg, opts, decode) with ``decode(model, images)`` ->
     int32 ids [B, infer_max_length] on ``device``.
 
-    ``device`` defaults to CUDA when available; ``opts.use_kernels`` is on
-    exactly when the device is CUDA. ``early_stop`` ends the greedy loop once
-    every row has emitted ``<stop>`` (same captions)."""
-    if beam_size and beam_size > 1:
-        raise NotImplementedError(
-            "beam search is not ported yet (ROADMAP.md, queue 1 item 9)"
-        )
-    if quantize:
-        raise NotImplementedError(
-            "int8 serving is not ported yet (ROADMAP.md, queue 1 item 10)"
-        )
+    ``beam_size`` 0/1 -> greedy; > 1 -> beam search. ``quantize`` stores the
+    decoder weights as int8 (``ops/quantization.py``). ``early_stop`` ends
+    the decode loop once every row (greedy) or every beam (beam) is finished
+    (same captions). ``length_norm`` (beam only) divides the final beam
+    scores by ``len ** length_norm``. ``device`` defaults to CUDA when
+    available; ``opts.use_kernels`` is on exactly when the device is CUDA."""
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
@@ -47,10 +43,15 @@ def load_bundle(
     opts = ModelOptions.from_config(bundle_cfg)._replace(
         use_kernels=device.type == "cuda", early_stop_decode=early_stop
     )
-    model = captioner_from_tree(params, model_state, opts, device)
+    model = captioner_from_tree(params, model_state, opts, device, quantize=quantize)
 
-    def decode(model: Captioner, images) -> torch.Tensor:
-        return captioner.greedy_decode(model, images, opts)
+    if beam_size and beam_size > 1:
+        def decode(model: Captioner, images) -> torch.Tensor:
+            return beam_decode(model, images, opts, beam_size, length_norm=length_norm,
+                               stop_idx=opts.stop_idx)[0]
+    else:
+        def decode(model: Captioner, images) -> torch.Tensor:
+            return captioner.greedy_decode(model, images, opts)
 
     return model, bundle_cfg, opts, decode
 

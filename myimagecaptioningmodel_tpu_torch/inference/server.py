@@ -3,8 +3,10 @@
 
 The bundle is loaded once onto one device. Concurrent requests are collected
 into batches (dispatch when ``batch_size`` are waiting or ``max_wait_ms``
-after the first), decoded in one call, and answered individually. On CUDA
-each decode step runs the hand-written fused-step and vocab-argmax kernels.
+after the first), decoded in one call (greedy, or beam search with
+``--beam N``; float or, with ``--quantize``, int8 decoder weights), and
+answered individually. On CUDA each decode step runs the hand-written
+fused-step kernels and a vocab-head kernel (argmax greedy, top-k beam).
 Unlike the reference, which pads every batch to one compiled shape, a
 partial batch is decoded at its own size: the kernels take any batch.
 
@@ -12,11 +14,11 @@ Stdlib-only HTTP:
 
     python -m myimagecaptioningmodel_tpu_torch.inference.server \
         [--config cfg.json] [--device cuda] [--port 8765] [--batch 8] \
-        [--early-stop] [--max-wait-ms 5]
+        [--beam N] [--quantize] [--length-norm A] [--early-stop] [--max-wait-ms 5]
 
     POST /caption   body = raw image bytes (JPEG/PNG/...)
                     -> {"ids": [...], "caption": "..."}
-    GET  /healthz   -> {"status": "ok", "batch": B, ...}
+    GET  /healthz   -> {"status": "ok", "batch": B, "beam": W, ...}
 
 Image decoding (PIL) is its own step (``prepare``); in-process callers can
 submit already-normalized ``[H, W, 3]`` float32 arrays with
@@ -75,12 +77,14 @@ class CaptionService:
     def __init__(self, cfg, bundle: str = "infer", batch_size: int = 8,
                  beam_size: int = 0, quantize: bool = False,
                  early_stop: bool = False, max_wait_ms: float = 5.0,
-                 device=None) -> None:
+                 length_norm: float = 0.0, device=None) -> None:
         self.cfg = cfg
         self.batch_size = batch_size
+        self.beam_size = beam_size
         self.max_wait = max_wait_ms / 1000.0
         self.model, _bcfg, self.opts, self.decode = load_bundle(
             cfg, bundle, beam_size, quantize, early_stop=early_stop, device=device,
+            length_norm=length_norm,
         )
         self.device = self.model.device
         self.index_word = load_index_word(cfg, bundle)
@@ -227,6 +231,7 @@ def make_server(service: CaptionService, port: int = 8765,
                 self._send(200, {
                     "status": "ok",
                     "batch": service.batch_size,
+                    "beam": service.beam_size,
                     "max_wait_ms": service.max_wait * 1000.0,
                     "device": str(service.device),
                     **service.stats(),
@@ -273,8 +278,12 @@ def main(argv=None) -> None:
     ap.add_argument("--port", type=int, default=8765)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--beam", type=int, default=0, help="beam size (0/1: greedy)")
+    ap.add_argument("--quantize", action="store_true", help="int8 decoder weights")
     ap.add_argument("--early-stop", action="store_true")
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
+    ap.add_argument("--length-norm", type=float, default=0.0,
+                    help="beam only: normalize final scores by len**alpha")
     args = ap.parse_args(argv)
 
     cfg = (
@@ -283,12 +292,12 @@ def main(argv=None) -> None:
         else config_mod.default
     )
     service = CaptionService(
-        cfg, args.bundle, args.batch, early_stop=args.early_stop,
-        max_wait_ms=args.max_wait_ms, device=args.device,
+        cfg, args.bundle, args.batch, args.beam, args.quantize, args.early_stop,
+        args.max_wait_ms, args.length_norm, device=args.device,
     )
     server = make_server(service, args.port, args.host)
     print(f"caption server on http://{args.host}:{args.port} "
-          f"(batch {args.batch}, device {service.device})", flush=True)
+          f"(batch {args.batch}, beam {args.beam}, device {service.device})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -10,6 +10,10 @@ previous hidden state, ``p_hid`` the new one):
     p_hid = tanh(fc(h));  ctx = adaptive attention;  out = tanh(fc(ctx + p_hid))
     logits = fc(out, E) @ embedding_table^T + out_bias
 
+Params may hold int8 weights (``ops/quantization.py``): every product of
+such a weight applies its per-output-channel scale, and the tied head its
+per-row scale, where the reference does.
+
 ``greedy_decode_ids`` runs the fused step kernels when ``use_kernels`` is on
 (CUDA), and the plain step otherwise. Unlike the reference it needs no model
 dims gate and pads no batch: the kernels take any B >= 1 and mask their own
@@ -97,23 +101,43 @@ class Precomputed(NamedTuple):
     gate_gx: torch.Tensor  # [B, H] global-feat part of the sentinel gate
 
 
-def _row_matmul(p: Params, x: torch.Tensor, lo: int, hi, dt) -> torch.Tensor:
-    """x @ W[lo:hi] in the compute dtype."""
-    return torch.matmul(x.to(dt), p["w"][lo:hi].to(dt))
+def _dense_in_dim(p: Params) -> int:
+    return (p["w_q"] if "w_q" in p else p["w"]).shape[0]
+
+
+def _row_matmul(p: Params, x: torch.Tensor, lo: int, hi, dt, scaled: bool) -> torch.Tensor:
+    """x @ W[lo:hi] in the compute dtype, for a possibly int8 ``[I, O]`` weight.
+
+    ``scaled=True`` returns float32 in real units (an int8 weight's
+    per-output-channel scale applied). ``scaled=False`` returns the raw
+    product in dt without the scale: the caller sums row splits of one weight
+    first (the scale commutes with row slicing) and then multiplies by
+    ``_out_scale(p)``."""
+    w = p["w_q"] if "w_q" in p else p["w"]
+    y = torch.matmul(x.to(dt), w[lo:hi].to(dt))
+    if scaled and "w_q" in p:
+        y = y.float() * p["scale"]
+    return y.float() if scaled else y
+
+
+def _out_scale(p: Params):
+    return p["scale"] if "w_q" in p else None
 
 
 def precompute(params: Params, p_img_feat: torch.Tensor, global_feat: torch.Tensor,
                compute_dtype=torch.bfloat16) -> Precomputed:
     """Hoist every step-invariant piece out of the decode loop: attention
-    keys/values and the global-feature parts of both gates."""
+    keys/values and the global-feature parts of both gates (in real units:
+    int8 scales applied here, once)."""
     dt = compute_dtype
     img_v = torch.tanh(L.dense(params["img_v"], p_img_feat, dt)).to(dt)
     img_k = L.dense(params["img_k"], p_img_feat, dt).to(dt)
-    E = params["embedding"]["table"].shape[1]
-    H = params["gate_h"]["w"].shape[0]
+    emb = params["embedding"]
+    E = (emb["table_q"] if "table_q" in emb else emb["table"]).shape[1]
+    H = _dense_in_dim(params["gate_h"])
     # lstm["w"] rows: [0:E) word emb | [E:E+H) global feat | [E+H:) h_prev
-    lstm_gx = _row_matmul(params["lstm"], global_feat, E, E + H, dt).float()
-    gate_gx = _row_matmul(params["gate_x"], global_feat, E, E + H, dt).float()
+    lstm_gx = _row_matmul(params["lstm"], global_feat, E, E + H, dt, scaled=True)
+    gate_gx = _row_matmul(params["gate_x"], global_feat, E, E + H, dt, scaled=True)
     return Precomputed(img_v, img_k, global_feat, lstm_gx, gate_gx)
 
 
@@ -127,13 +151,21 @@ def step_core(params: Params, pre: Precomputed, word: torch.Tensor,
     H = h_prev.shape[-1]
 
     lp = params["lstm"]
-    raw = _row_matmul(lp, word_emb, 0, E, dt) + _row_matmul(lp, h_prev, E + H, None, dt)
-    gates = raw.float() + pre.lstm_gx + lp["b"]
+    raw = (_row_matmul(lp, word_emb, 0, E, dt, scaled=False)
+           + _row_matmul(lp, h_prev, E + H, None, dt, scaled=False)).float()
+    s = _out_scale(lp)
+    if s is not None:
+        raw = raw * s
+    gates = raw + pre.lstm_gx + lp["b"]
     h, c = lstm_from_gates(gates, c_prev)
 
     gp = params["gate_x"]
+    raw_g = _row_matmul(gp, word_emb, 0, E, dt, scaled=False).float()
+    sg = _out_scale(gp)
+    if sg is not None:
+        raw_g = raw_g * sg
     gate = torch.sigmoid(
-        _row_matmul(gp, word_emb, 0, E, dt).float()
+        raw_g
         + pre.gate_gx
         + gp["b"]
         + L.dense(params["gate_h"], h_prev, dt).float()
@@ -153,10 +185,24 @@ def step_core(params: Params, pre: Precomputed, word: torch.Tensor,
 
 
 def head_logits(params: Params, proj: torch.Tensor, compute_dtype=torch.bfloat16):
-    """Tied-embedding vocab head: proj @ table^T + bias -> [B, V] float32."""
+    """Tied-embedding vocab head: proj @ table^T (* scale) + bias -> [B, V]
+    float32. An int8 table's per-row scale multiplies the logit columns."""
     dt = compute_dtype
-    table = params["embedding"]["table"]
-    return torch.matmul(proj.to(dt), table.to(dt).T).float() + params["out_bias"]
+    emb = params["embedding"]
+    if "table_q" in emb:
+        logits = torch.matmul(proj.to(dt), emb["table_q"].to(dt).T).float() * emb["scale"]
+    else:
+        logits = torch.matmul(proj.to(dt), emb["table"].to(dt).T).float()
+    return logits + params["out_bias"]
+
+
+def step(params: Params, pre: Precomputed, word: torch.Tensor, h_prev: torch.Tensor,
+         c_prev: torch.Tensor, parity_mode: bool = False, padding_idx: int = 0,
+         compute_dtype=torch.bfloat16):
+    """One decode step -> (h, c, logits [B, V] float32)."""
+    h, c, proj = step_core(params, pre, word, h_prev, c_prev, parity_mode, padding_idx,
+                           compute_dtype)
+    return h, c, head_logits(params, proj, compute_dtype)
 
 
 def greedy_decode_ids(
@@ -173,14 +219,16 @@ def greedy_decode_ids(
 ) -> torch.Tensor:
     """Greedy decode, argmax feedback for ``max_length`` steps -> int32 [B, T].
 
-    ``use_kernels``: each step is the fused step (``ops/kernels/fused_step``)
-    ending in the vocab-argmax kernel; under ``parity_mode`` the plain step
-    runs with the vocab-argmax kernel as its head. ``early_stop`` ends the
-    loop once every row has emitted ``<stop>`` and fills later positions with
-    the padding id (captions equal the fixed-length decode's).
+    ``use_kernels``: each step is the fused step (``ops/kernels/fused_step``,
+    int8 params dequantized once at its ``prepare``) ending in the
+    vocab-argmax kernel; under ``parity_mode`` the plain step runs with the
+    vocab-argmax kernel as its head (on an int8 table with its scale).
+    ``early_stop`` ends the loop once every row has emitted ``<stop>`` and
+    fills later positions with the padding id (captions equal the
+    fixed-length decode's).
     """
     B = pre.global_feat.shape[0]
-    H = params["p_hid"]["w"].shape[0]
+    H = _dense_in_dim(params["p_hid"])
     dev = pre.global_feat.device
     dt = compute_dtype
     h = torch.zeros((B, H), dtype=torch.float32, device=dev)
@@ -206,10 +254,13 @@ def greedy_decode_ids(
                 greedy_vocab_argmax,
             )
 
-            table = params["embedding"]["table"]
+            emb = params["embedding"]
+            # an int8 table streams 1 byte per element, its scale fused
+            table, scale = ((emb["table_q"], emb["scale"]) if "table_q" in emb
+                            else (emb["table"], None))
 
             def argmax_head(proj):
-                return greedy_vocab_argmax(proj, table, params["out_bias"])
+                return greedy_vocab_argmax(proj, table, params["out_bias"], scale)
         else:
 
             def argmax_head(proj):

@@ -29,8 +29,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# dtype codes of csrc/common.cuh
+# dtype codes of csrc/common.cuh (int8 only for vocab tables)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TABLE_DTYPE_CODES = {**DTYPE_CODES, torch.int8: 2}
 
 _lock = threading.Lock()
 _lib = None
@@ -40,7 +41,8 @@ ptxas_log = ""
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "capk_vocab_argmax_nblocks": [_I],
-    "capk_vocab_argmax": [_I, _I, _I, _I] + [_VP] * 7,
+    "capk_vocab_argmax": [_I, _I, _I, _I] + [_VP] * 8,
+    "capk_topk_head": [_I] * 5 + [_VP] * 12,
     "capk_fused_step": [_I] * 5 + [_VP] * 22,
 }
 
@@ -125,6 +127,12 @@ def dtype_code(dt: torch.dtype) -> int:
     if dt not in DTYPE_CODES:
         raise TypeError(f"kernels take float32 or bfloat16, got {dt}")
     return DTYPE_CODES[dt]
+
+
+def table_dtype_code(dt: torch.dtype) -> int:
+    if dt not in TABLE_DTYPE_CODES:
+        raise TypeError(f"vocab heads take float32, bfloat16 or int8 tables, got {dt}")
+    return TABLE_DTYPE_CODES[dt]
 
 
 def require(t: torch.Tensor, name: str, device, dtype, shape) -> None:

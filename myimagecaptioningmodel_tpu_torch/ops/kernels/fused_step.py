@@ -28,11 +28,13 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from myimagecaptioningmodel_tpu_torch.models.decoder import _dense_in_dim
 from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
 from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
     greedy_vocab_argmax,
     greedy_vocab_argmax_reference,
 )
+from myimagecaptioningmodel_tpu_torch.ops.quantization import dense_weight, embedding_table
 
 
 class FusedStepParams(NamedTuple):
@@ -59,19 +61,20 @@ class FusedStepParams(NamedTuple):
 
 
 def prepare(params: Dict[str, Any], pre, padding_idx: int, dt) -> FusedStepParams:
-    """Slice/concat the decoder params into the kernels' layout (float
-    tables only)."""
-    lw = params["lstm"]["w"]
-    gw = params["gate_x"]["w"]
-    w_proj = params["out_proj"]["w"]
+    """Slice/concat the decoder params into the kernels' layout. int8 params
+    (``ops/quantization.py``) are dequantized here once, in float32, then
+    cast to ``dt``; the kernels themselves take only float tables."""
+    lw = dense_weight(params["lstm"])
+    gw = dense_weight(params["gate_x"])
+    w_proj = dense_weight(params["out_proj"])
     E = w_proj.shape[1]
-    H = params["p_hid"]["w"].shape[0]
-    table = params["embedding"]["table"]
+    H = _dense_in_dim(params["p_hid"])
+    table = embedding_table(params["embedding"])
     emb_table = table.clone()
     emb_table[padding_idx] = 0.0  # embed(padding_idx) == 0
 
     def w(name):
-        return params[name]["w"].to(dt).contiguous()
+        return dense_weight(params[name]).to(dt).contiguous()
 
     def b(name):
         return params[name]["b"].float().contiguous()
@@ -80,7 +83,7 @@ def prepare(params: Dict[str, Any], pre, padding_idx: int, dt) -> FusedStepParam
         emb_table=emb_table,
         w_word_cat=torch.cat([lw[:E], gw[:E]], dim=1).to(dt).contiguous(),
         w_hh_cat=torch.cat(
-            [lw[E + H:], params["gate_h"]["w"].to(lw.dtype)], dim=1
+            [lw[E + H:], dense_weight(params["gate_h"]).to(lw.dtype)], dim=1
         ).to(dt).contiguous(),
         gxb=torch.cat(
             [

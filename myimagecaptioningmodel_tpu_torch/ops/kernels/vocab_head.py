@@ -1,59 +1,112 @@
-"""Greedy tied-vocab head: argmax over ``proj @ table^T + bias``.
+"""Tied-vocab heads: argmax (greedy) and top-k + logsumexp (beam) over
+``proj @ table^T (* scale) + bias``.
 
-Port of ``myimagecaptioningmodel_tpu/ops/pallas/vocab_head.py::
-greedy_vocab_argmax``. On a CUDA tensor the wrapper launches the hand-written
-kernel of ``csrc/vocab_head.cu`` (design and bounds in that file's note: a
-split-vocab tiled product with a fused (max, index) reduction, then a
-per-row combine; only ``[B]`` ids reach device memory). On a CPU tensor it
-runs ``greedy_vocab_argmax_reference``, the plain version of the same math.
+Port of ``myimagecaptioningmodel_tpu/ops/pallas/vocab_head.py``. On a CUDA
+tensor each wrapper launches its hand-written kernel: ``greedy_vocab_argmax``
+the one of ``csrc/vocab_head.cu`` (kernel A), ``topk_vocab_head`` the one of
+``csrc/topk_head.cu`` (kernel C). Both share the block product of
+``csrc/vocab_block.cuh`` and keep the ``[B, V]`` logits out of device memory
+(design and bounds in the files' notes). On a CPU tensor a wrapper runs its
+plain version (``*_reference``).
 
-Ties go to the lowest index, as ``jnp.argmax`` does. int8 tables (the TPU
-kernel's ``scale`` argument) are not ported yet.
+Tables are float32, bfloat16, or int8 with a float32 per-row ``scale``
+(``ops/quantization.py``). As in the TPU kernels, ``proj`` is rounded to the
+table's dtype, or to bfloat16 for an int8 table whatever the compute dtype;
+products accumulate in float32; then ``* scale`` and ``+ bias``, in that
+order.
+
+Ties go to the lowest index, as ``jnp.argmax`` and ``jax.lax.top_k`` do:
+``topk_vocab_head`` returns ids sorted by value and then ascending index.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
 
-
-def greedy_vocab_argmax_reference(
-    proj: torch.Tensor, table: torch.Tensor, bias: torch.Tensor
-) -> torch.Tensor:
-    """Plain version: ``proj`` rounded to the table's dtype, float32 product."""
-    logits = torch.matmul(proj.to(table.dtype).float(), table.float().T) + bias
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+TOPK_MAX_K = 32  # csrc/topk_head.cu's kMaxK: one 32-row vocab block per warp
 
 
-def greedy_vocab_argmax(
-    proj: torch.Tensor,  # [B, E]
-    table: torch.Tensor,  # [V, E] float32 or bfloat16
-    bias: torch.Tensor,  # [V] float32
-) -> torch.Tensor:
-    """-> int32 [B] ids. Launches the CUDA kernel for CUDA tensors."""
-    if proj.device.type == "cpu":
-        return greedy_vocab_argmax_reference(proj, table, bias)
-    if proj.device.type != "cuda":
-        raise ValueError(f"no kernel for device {proj.device}")
+def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top ``k`` of the last axis -> (values, int64 indices), sorted by value
+    and then ascending index, as ``jax.lax.top_k`` orders ties
+    (``torch.topk`` promises no order for ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _head_dtype(table: torch.Tensor) -> torch.dtype:
+    return torch.bfloat16 if table.dtype == torch.int8 else table.dtype
+
+
+def head_logits_reference(proj, table, bias, scale=None) -> torch.Tensor:
+    """Float32 ``[B, V]`` logits as the kernels compute them."""
+    dt = _head_dtype(table)
+    logits = torch.matmul(proj.to(dt).float(), table.to(dt).float().T)
+    if scale is not None:
+        logits = logits * scale
+    return logits + bias
+
+
+def greedy_vocab_argmax_reference(proj, table, bias, scale=None) -> torch.Tensor:
+    """Plain version of kernel A -> int32 ``[B]``."""
+    return torch.argmax(head_logits_reference(proj, table, bias, scale), dim=-1).to(torch.int32)
+
+
+def topk_vocab_head_reference(proj, table, bias, k: int = 4, scale=None):
+    """Plain version of kernel C -> (vals [B,k] f32, ids [B,k] int32, lse [B] f32)."""
+    logits = head_logits_reference(proj, table, bias, scale)
+    vals, ids = topk_stable(logits, k)
+    return vals, ids.to(torch.int32), torch.logsumexp(logits, dim=-1)
+
+
+def _check_operands(proj, table, bias, scale):
+    """Validate CUDA operands -> (proj as contiguous float32, table dtype code)."""
     V, E = table.shape
     B = proj.shape[0]
     dev = proj.device
     proj = proj.float().contiguous()
     _build.require(proj, "proj", dev, torch.float32, (B, E))
+    code = _build.table_dtype_code(table.dtype)
     _build.require(table, "table", dev, table.dtype, (V, E))
     _build.require(bias, "bias", dev, torch.float32, (V,))
+    if (table.dtype == torch.int8) != (scale is not None):
+        raise ValueError("an int8 table needs its float32 scale, and only it")
+    if scale is not None:
+        _build.require(scale, "scale", dev, torch.float32, (V,))
     if E % 8:
-        raise ValueError(f"the kernel takes E in multiples of 8, got {E}")
+        raise ValueError(f"the kernels take E in multiples of 8, got {E}")
+    return proj, code
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def greedy_vocab_argmax(
+    proj: torch.Tensor,  # [B, E]
+    table: torch.Tensor,  # [V, E] float32, bfloat16 or int8
+    bias: torch.Tensor,  # [V] float32
+    scale: Optional[torch.Tensor] = None,  # [V] float32, for an int8 table
+) -> torch.Tensor:
+    """-> int32 [B] ids. Launches kernel A for CUDA tensors."""
+    if proj.device.type == "cpu":
+        return greedy_vocab_argmax_reference(proj, table, bias, scale)
+    if proj.device.type != "cuda":
+        raise ValueError(f"no kernel for device {proj.device}")
+    proj, code = _check_operands(proj, table, bias, scale)
+    (B, E), V, dev = proj.shape, table.shape[0], proj.device
     lib = _build.load_library()
     nblk = lib.capk_vocab_argmax_nblocks(V)
     part_v = torch.empty((B, nblk), dtype=torch.float32, device=dev)
     part_i = torch.empty((B, nblk), dtype=torch.int32, device=dev)
     out = torch.empty((B,), dtype=torch.int32, device=dev)
     err = lib.capk_vocab_argmax(
-        _build.dtype_code(table.dtype), B, V, E, proj.data_ptr(),
-        table.data_ptr(), bias.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
-        out.data_ptr(), _build.stream_ptr(dev),
+        code, B, V, E, proj.data_ptr(), table.data_ptr(), bias.data_ptr(), _ptr(scale),
+        part_v.data_ptr(), part_i.data_ptr(), out.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(err, "capk_vocab_argmax")
     greedy_vocab_argmax.launches += 1
@@ -61,3 +114,46 @@ def greedy_vocab_argmax(
 
 
 greedy_vocab_argmax.launches = 0
+
+
+def topk_vocab_head(
+    proj: torch.Tensor,  # [B, E]
+    table: torch.Tensor,  # [V, E] float32, bfloat16 or int8
+    bias: torch.Tensor,  # [V] float32
+    k: int = 4,
+    scale: Optional[torch.Tensor] = None,  # [V] float32, for an int8 table
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (vals [B,k] f32 raw logits, ids [B,k] int32, lse [B] f32); the
+    log-softmax of pick i is ``vals[:, i] - lse``. Launches kernel C for CUDA
+    tensors. ``1 <= k <= TOPK_MAX_K`` and ``k <= V`` on every device."""
+    V = table.shape[0]
+    if not 1 <= k <= min(TOPK_MAX_K, V):
+        raise ValueError(f"topk_vocab_head takes 1 <= k <= {TOPK_MAX_K} and k <= V={V}, "
+                         f"got k={k}")
+    if proj.device.type == "cpu":
+        return topk_vocab_head_reference(proj, table, bias, k, scale)
+    if proj.device.type != "cuda":
+        raise ValueError(f"no kernel for device {proj.device}")
+    proj, code = _check_operands(proj, table, bias, scale)
+    (B, E), dev = proj.shape, proj.device
+    lib = _build.load_library()
+    nblk = lib.capk_vocab_argmax_nblocks(V)
+    f32 = torch.float32
+    part_v = torch.empty((B, nblk, k), dtype=f32, device=dev)
+    part_i = torch.empty((B, nblk, k), dtype=torch.int32, device=dev)
+    part_m = torch.empty((B, nblk), dtype=f32, device=dev)
+    part_s = torch.empty((B, nblk), dtype=f32, device=dev)
+    vals = torch.empty((B, k), dtype=f32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    lse = torch.empty((B,), dtype=f32, device=dev)
+    err = lib.capk_topk_head(
+        code, B, V, E, k, proj.data_ptr(), table.data_ptr(), bias.data_ptr(), _ptr(scale),
+        part_v.data_ptr(), part_i.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
+        vals.data_ptr(), ids.data_ptr(), lse.data_ptr(), _build.stream_ptr(dev),
+    )
+    _build.check(err, "capk_topk_head")
+    topk_vocab_head.launches += 1
+    return vals, ids, lse
+
+
+topk_vocab_head.launches = 0

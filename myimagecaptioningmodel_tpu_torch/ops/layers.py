@@ -7,6 +7,9 @@ with like:
 - dense weights are ``[in, out]``; a dense layer computes AND returns the
   compute dtype, with the bias added in that dtype;
 - ``embed`` returns zeros for lookups of the padding id;
+- both take int8 params (``ops/quantization.py``): ``dense`` multiplies the
+  product by the per-output-channel scale, ``embed`` the gathered rows by
+  their per-row scale;
 - BN statistics are float32 and ``BN_EPS`` is 1e-5.
 
 One deliberate layout difference: ``conv2d`` takes PyTorch's NCHW activations
@@ -29,7 +32,10 @@ BN_EPS = 1e-5
 def dense(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """y = x @ W (+ b), computed and returned in ``compute_dtype``."""
     dt = compute_dtype
-    y = torch.matmul(x.to(dt), p["w"].to(dt))
+    if "w_q" in p:  # int8: the scale applies after the product, in dt
+        y = torch.matmul(x.to(dt), p["w_q"].to(dt)) * p["scale"].to(dt)
+    else:
+        y = torch.matmul(x.to(dt), p["w"].to(dt))
     if "b" in p:
         y = y + p["b"].to(dt)
     return y
@@ -37,7 +43,10 @@ def dense(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Ten
 
 def embed(p: Params, ids: torch.Tensor, padding_idx: Optional[int] = 0) -> torch.Tensor:
     """Gather table rows; lookups of ``padding_idx`` return zeros."""
-    out = p["table"][ids]
+    if "table_q" in p:  # int8: float32 rows times their scale
+        out = p["table_q"][ids].float() * p["scale"][ids].unsqueeze(-1)
+    else:
+        out = p["table"][ids]
     if padding_idx is not None:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     return out

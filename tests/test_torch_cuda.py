@@ -7,7 +7,10 @@ no JAX, so it also runs on a machine that has none:
 
 Tolerances: h', c', proj to atol 1e-4 in float32 (TF32 off) and 3e-2 in
 bfloat16; ids equal wherever the plain version's top-2 logit gap exceeds
-1e-3 x max|logit| (float32) or 2e-2 (bfloat16).
+1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables). The top-k
+head: lse and the picked ids' logits (re-read from the plain float32 logits)
+to 1e-4 (float32) and 2e-2 (bfloat16, int8); ids equal at every rank whose
+plain sorted value is clear of both neighbours by the same gap.
 """
 
 import pytest
@@ -54,6 +57,82 @@ def test_cuda_vocab_argmax_matches_plain(cuda, dt, B):
     assert _near_tie_ok(out, logits, dt)
 
 
+def _ranks_clear(logits, k, tol, dt):
+    """[B, k] bool: the plain sorted value at rank i is clear of its
+    neighbours at ranks i-1 and i+1 by the near-tie gap (a near tie may swap
+    two ranks, and then only)."""
+    v = torch.sort(logits, dim=-1, descending=True).values[:, : k + 1]
+    gap = tol * (logits.abs().amax(dim=-1, keepdim=True) if dt == torch.float32 else 1)
+    after = (v[:, :-1] - v[:, 1:]) > gap  # rank i vs i+1
+    before = torch.cat([torch.ones_like(after[:, :1]), after[:, :-1]], dim=1)
+    return after & before
+
+
+def _table(g, V, E, dt, cuda):
+    """-> (table, scale or None): a float table, or an int8 one with its
+    per-row scale."""
+    t = torch.randn(V, E, generator=g) / 16
+    if dt != torch.int8:
+        return t.to(cuda, dt), None
+    s = t.abs().amax(dim=1) / 127
+    return torch.round(t / s[:, None]).clamp(-127, 127).to(cuda, torch.int8), s.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 37, 128])
+def test_cuda_vocab_argmax_int8_matches_plain(cuda, B):
+    g = torch.Generator(device="cpu").manual_seed(B)
+    V, E = 12416, 256
+    proj = torch.randn(B, E, generator=g).to(cuda)
+    table, scale = _table(g, V, E, torch.int8, cuda)
+    bias = torch.randn(V, generator=g).to(cuda)
+    out = TVH.greedy_vocab_argmax(proj, table, bias, scale)
+    logits = TVH.head_logits_reference(proj, table, bias, scale)
+    assert _near_tie_ok(out, logits, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("M,k", [(1, 1), (32, 4), (37, 8), (512, 4), (128, 32)])
+def test_cuda_topk_head_matches_plain(cuda, dt, M, k):
+    g = torch.Generator(device="cpu").manual_seed(M + k)
+    V, E = 12416, 256
+    proj = torch.randn(M, E, generator=g).to(cuda)
+    table, scale = _table(g, V, E, dt, cuda)
+    bias = torch.randn(V, generator=g).to(cuda)
+    bias[12295:] = -1e9
+    vals, ids, lse = TVH.topk_vocab_head(proj, table, bias, k, scale)
+    rv, ri, rlse = TVH.topk_vocab_head_reference(proj, table, bias, k, scale)
+    logits = TVH.head_logits_reference(proj, table, bias, scale)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=tol)
+    torch.testing.assert_close(vals, logits.gather(1, ids.long()), rtol=0, atol=tol)
+    assert bool(((ids == ri) | ~_ranks_clear(logits, k, tol, dt)).all())
+    assert int(ids.max()) < 12295
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_heads_break_ties_by_index(cuda, dt):
+    """Equal logits in different vocab blocks: lowest index first."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    V, E = 12416, 256
+    proj = torch.rand(8, E, generator=g).to(cuda)
+    t = torch.rand(V, E, generator=g) / 64
+    winners = [12000, 9000, 4097, 4096, 65, 64, 63, 10]
+    t[winners] = 0.25
+    if dt == torch.int8:
+        s = t.abs().amax(dim=1) / 127
+        table, scale = torch.round(t / s[:, None]).to(cuda, torch.int8), s.to(cuda)
+    else:
+        table, scale = t.to(cuda, dt), None
+    bias = torch.full((V,), -5.0, device=cuda)
+    bias[winners] = 0.0
+    _v, ids, _l = TVH.topk_vocab_head(proj, table, bias, 8, scale)
+    assert ids.tolist() == [sorted(winners)] * 8
+    assert TVH.greedy_vocab_argmax(proj, table, bias, scale).tolist() == [10] * 8
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B", [1, 8, 128])
@@ -90,6 +169,19 @@ def test_cuda_wrappers_reject_bad_operands(cuda):
         TVH.greedy_vocab_argmax(proj, table.half(), bias)
     with pytest.raises(ValueError):
         TVH.greedy_vocab_argmax(proj, table.T.contiguous().T, bias)
+    with pytest.raises(ValueError, match="32"):
+        TVH.topk_vocab_head(proj, table, bias, 33)
+    with pytest.raises(ValueError):
+        TVH.topk_vocab_head(proj, table[:, :128], bias, 4)
+    with pytest.raises(TypeError):
+        TVH.topk_vocab_head(proj, table.half(), bias, 4)
+    q = table.to(torch.int8)
+    with pytest.raises(ValueError):  # an int8 table needs its scale
+        TVH.topk_vocab_head(proj, q, bias, 4)
+    with pytest.raises(ValueError):  # and a float table takes none
+        TVH.greedy_vocab_argmax(proj, table, bias, torch.ones(512, device=cuda))
+    with pytest.raises(ValueError):
+        TVH.topk_vocab_head(proj, q, bias, 4, torch.ones(100, device=cuda))
 
 
 @pytest.mark.cuda
@@ -101,3 +193,7 @@ def test_cuda_launch_counters(cuda):
     TVH.greedy_vocab_argmax(proj, table, bias)
     TVH.greedy_vocab_argmax(proj.cpu(), table.cpu(), bias.cpu())  # plain version
     assert TVH.greedy_vocab_argmax.launches == before + 1
+    before = TVH.topk_vocab_head.launches
+    TVH.topk_vocab_head(proj, table, bias, 4)
+    TVH.topk_vocab_head(proj.cpu(), table.cpu(), bias.cpu(), 4)  # plain version
+    assert TVH.topk_vocab_head.launches == before + 1

@@ -2,8 +2,9 @@
 against the JAX package's Pallas kernels, which run here in interpret mode.
 
 On CPU tensors the port's wrappers run their plain versions; those are held
-against JAX's kernels. Tolerances: float32 to 1e-5 for h', c' and proj, ids
-exact.
+against JAX's kernels. Tolerances: float32 to 1e-5 for h', c', proj and the
+top-k head's values and logsumexp (1e-4 with an int8 table, whose products
+run on bfloat16-rounded operands), ids exact.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py.
@@ -86,6 +87,94 @@ def test_vocab_argmax_padded_rows_never_win():
                                   jnp.asarray(bias), block_v=1024, interpret=True)
     np.testing.assert_array_equal(_np(out), _np(ref))
     assert _np(out).max() < real
+
+
+def test_vocab_argmax_int8_matches_jax_kernel():
+    """int8 table + per-row scale: proj rounded to bfloat16, the scale after
+    the product, then the bias (vocab_head.py:39-54)."""
+    rng = np.random.RandomState(2)
+    B, E, V = 8, 32, 1500
+    proj = rng.randn(B, E).astype(np.float32)
+    table_q = rng.randint(-127, 128, (V, E)).astype(np.int8)
+    scale = rng.uniform(0.01, 0.1, V).astype(np.float32)
+    bias = rng.randn(V).astype(np.float32)
+    ref = JVH.greedy_vocab_argmax(jnp.asarray(proj), jnp.asarray(table_q), jnp.asarray(bias),
+                                  scale=jnp.asarray(scale), block_v=512, interpret=True)
+    out = TVH.greedy_vocab_argmax(*map(torch.as_tensor, (proj, table_q, bias, scale)))
+    np.testing.assert_array_equal(_np(out), _np(ref))
+
+
+# ---- kernel C: top-k vocab head + logsumexp ---------------------------------
+
+
+@pytest.mark.parametrize("V,k,block_v", [(100, 4, 64), (2048, 4, 512), (3000, 8, 1024)])
+def test_topk_head_matches_jax_kernel(V, k, block_v):
+    rng = np.random.RandomState(3)
+    B, E = 16, 32
+    proj, table, bias = (rng.randn(B, E), rng.randn(V, E), rng.randn(V))
+    proj, table, bias = (a.astype(np.float32) for a in (proj, table, bias))
+    rv, ri, rlse = JVH.topk_vocab_head(jnp.asarray(proj), jnp.asarray(table),
+                                       jnp.asarray(bias), k=k, block_v=block_v,
+                                       interpret=True)
+    before = TVH.topk_vocab_head.launches
+    v, i, lse = TVH.topk_vocab_head(*map(torch.as_tensor, (proj, table, bias)), k)
+    assert (v.dtype, i.dtype, lse.dtype) == (torch.float32, torch.int32, torch.float32)
+    np.testing.assert_array_equal(_np(i), _np(ri))
+    np.testing.assert_allclose(_np(v), _np(rv), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-5)
+    assert TVH.topk_vocab_head.launches == before  # CPU: the plain version
+
+
+def test_topk_head_int8_matches_jax_kernel():
+    rng = np.random.RandomState(4)
+    B, E, V, k = 8, 16, 1000, 4
+    proj = rng.randn(B, E).astype(np.float32)
+    table_q = rng.randint(-127, 128, (V, E)).astype(np.int8)
+    scale = rng.uniform(0.01, 0.1, V).astype(np.float32)
+    bias = rng.randn(V).astype(np.float32)
+    rv, ri, rlse = JVH.topk_vocab_head(jnp.asarray(proj), jnp.asarray(table_q),
+                                       jnp.asarray(bias), k=k, scale=jnp.asarray(scale),
+                                       block_v=256, interpret=True)
+    v, i, lse = TVH.topk_vocab_head(*map(torch.as_tensor, (proj, table_q, bias)), k,
+                                    scale=torch.as_tensor(scale))
+    np.testing.assert_array_equal(_np(i), _np(ri))
+    np.testing.assert_allclose(_np(v), _np(rv), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-4, atol=1e-4)
+
+
+def test_topk_head_ties_in_ascending_index_order():
+    """Equal logits across and within blocks come out lowest index first, as
+    jax.lax.top_k orders them."""
+    rng = np.random.RandomState(5)
+    B, E, V, k = 4, 16, 3000, 6
+    table = rng.randn(V, E).astype(np.float32) * 0.01
+    proj = np.abs(rng.randn(B, E)).astype(np.float32)
+    bias = np.full(V, -50.0, np.float32)
+    winners = [2999, 1500, 1024, 1023, 7, 0]
+    table[winners] = 3.0
+    bias[winners] = 0.0
+    _v, ri, _l = JVH.topk_vocab_head(jnp.asarray(proj), jnp.asarray(table), jnp.asarray(bias),
+                                     k=k, block_v=1024, interpret=True)
+    _v, i, _l = TVH.topk_vocab_head(*map(torch.as_tensor, (proj, table, bias)), k)
+    np.testing.assert_array_equal(_np(i), _np(ri))
+    assert (_np(i) == sorted(winners)).all()
+
+
+def test_topk_stable_orders_ties_as_jax():
+    x = np.array([[1.0, 3.0, 3.0, 0.5, 3.0, 1.0], [2.0, 2.0, 2.0, 2.0, 2.0, 2.0]], np.float32)
+    jv, ji = jax.lax.top_k(jnp.asarray(x), 4)
+    tv, ti = TVH.topk_stable(torch.as_tensor(x), 4)
+    np.testing.assert_array_equal(_np(ti), _np(ji))
+    np.testing.assert_array_equal(_np(tv), _np(jv))
+
+
+def test_topk_head_refuses_k_above_limit():
+    proj, table, bias = torch.zeros(2, 16), torch.zeros(100, 16), torch.zeros(100)
+    with pytest.raises(ValueError, match=str(TVH.TOPK_MAX_K)):
+        TVH.topk_vocab_head(proj, table, bias, TVH.TOPK_MAX_K + 1)
+    with pytest.raises(ValueError):
+        TVH.topk_vocab_head(proj, table[:3], bias[:3], 4)  # k > V
+    assert TVH.topk_vocab_head(proj, table, bias, TVH.TOPK_MAX_K)[1].shape == (2, 32)
 
 
 # ---- kernel B: fused decode step -------------------------------------------

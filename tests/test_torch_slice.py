@@ -218,6 +218,10 @@ def test_port_imports_without_jax():
         "import myimagecaptioningmodel_tpu_torch.inference.infer\n"
         "import myimagecaptioningmodel_tpu_torch.compat.from_jax\n"
         "import myimagecaptioningmodel_tpu_torch.ops.kernels.fused_step\n"
+        "import myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head\n"
+        "import myimagecaptioningmodel_tpu_torch.ops.quantization\n"
+        "import myimagecaptioningmodel_tpu_torch.inference.beam\n"
+        "import myimagecaptioningmodel_tpu_torch.evaluation.evaluate\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
