@@ -10,8 +10,10 @@ Phases (each prints one line; any failure exits non-zero with no result):
    B in {8, 128}, V=12416, E=256, float32 and bfloat16 tables, plus a forced
    tie that must resolve to the lowest index;
 3. kernel B (``fused_decode_step``) against ``reference_step`` at
-   B in {1, 8, 128}, H=1024, E=256, k=49, V=12416: h', c', proj to atol 1e-4
-   in float32 and 3e-2 in bfloat16, the word under the near-tie rule;
+   B in {1, 8, 128} with its head and, as beam search calls it, at
+   M in {32, 512} rows (8 and 128 images x beam 4) without it; H=1024,
+   E=256, k=49, V=12416: h', c', proj to atol 1e-4 in float32 and 3e-2 in
+   bfloat16, the word under the near-tie rule;
 4. the slice: a full-width LSTM captioner (MobileNetV2 x1.0 at 224 px,
    H=1024, E=256, vocab 12295 padded to 12416, 35 steps, bfloat16) with
    random weights from ``--seed``, written as a port bundle, served by
@@ -28,13 +30,16 @@ Phases (each prints one line; any failure exits non-zero with no result):
    M in {32, 512} rows (8 and 128 images x beam 4), k in {1, 4, 8}, float32,
    bfloat16 and int8 + scale tables (V=12416, E=256, 12295 real rows): lse
    and the picked ids' logits (re-read from the plain float32 logits) to
-   1e-4 (float32) and 2e-2 (bfloat16, int8), ids under the near-tie rule at
-   every rank; a forced tie across blocks must come out in ascending index
-   order;
+   1e-4 for every table dtype (the plain version rounds as the kernel does;
+   on an H100 the errors read 9.5e-7 for lse and 2.1e-6 for the values),
+   ids under the near-tie rule at every rank; a forced tie across blocks
+   must come out in ascending index order;
 8. the served beam: ``CaptionService(batch_size=8, beam_size=4)`` on phase
    4's bundle, 24 requests from 8 threads: kernels B and C launch 35 x
    dispatches times, A none; the same with ``quantize=True``; then a greedy
    ``quantize=True`` service, where A and B launch 35 x dispatches times;
+   each service's stored decoder size and its peak device memory above what
+   was allocated before it loaded;
 9. beam correctness on one batch of 8, in bfloat16 and float32: the kernel
    path's best beam, teacher-forced through the plain versions of the same
    branch (``reference_step(with_head=False)`` and the plain head's float32
@@ -278,8 +283,8 @@ def phase_kernel_c(dev, gen):
     )
 
     worst, times = 0.0, {}
+    tol = 1e-4
     for dt in (torch.float32, torch.bfloat16, torch.int8):
-        tol = 1e-4 if dt == torch.float32 else 2e-2
         for M in (8 * BEAM, 128 * BEAM):
             proj, table, bias, scale = head_operands(gen, dev, M, dt)
             logits = head_logits_reference(proj, table, bias, scale)
@@ -331,32 +336,39 @@ def _step_inputs(dev, gen, B, dt, params):
 
 
 def phase_kernel_b(dev, gen, params32):
+    """Greedy rows (with the head) and beam rows (without it, as beam search
+    calls it on 8 and 128 images x beam 4)."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
 
     worst = 0.0
     times = {}
+    cases = [(B, True) for B in (1, 8, 128)] + [(M, False) for M in (8 * BEAM, 128 * BEAM)]
     for dt in (torch.float32, torch.bfloat16):
         tol = 1e-4 if dt == torch.float32 else 3e-2
-        for B in (1, 8, 128):
+        for B, head in cases:
             args = _step_inputs(dev, gen, B, dt, params32)
-            out = FS.fused_decode_step(*args, with_head=True, compute_dtype=dt)
+            out = FS.fused_decode_step(*args, with_head=head, compute_dtype=dt)
             torch.cuda.synchronize()
-            ref = FS.reference_step(*args, with_head=True, compute_dtype=dt)
+            ref = FS.reference_step(*args, with_head=head, compute_dtype=dt)
             errs = [float((o - r).abs().max()) for o, r in zip(out[:3], ref[:3])]
-            fp = args[0]
-            logits = torch.matmul(ref[2].to(dt).float(), fp.head_table.float().T) + fp.head_bias
-            ok = near_tie_ok(out[3], logits, dt) and max(errs) <= tol
+            ok = max(errs) <= tol
+            if head:
+                fp = args[0]
+                logits = (torch.matmul(ref[2].to(dt).float(), fp.head_table.float().T)
+                          + fp.head_bias)
+                ok = ok and near_tie_ok(out[3], logits, dt)
             if dt == torch.bfloat16:
                 worst = max(worst, *errs)
-            t_k = time_ms(lambda: FS.fused_decode_step(*args, with_head=True, compute_dtype=dt))
-            t_p = time_ms(lambda: FS.reference_step(*args, with_head=True, compute_dtype=dt))
-            times[(dt, B)] = (t_k, t_p)
-            say("kernel_b", dtype=str(dt).split(".")[-1], B=B, atol=tol,
+            t_k = time_ms(lambda: FS.fused_decode_step(*args, with_head=head, compute_dtype=dt))
+            t_p = time_ms(lambda: FS.reference_step(*args, with_head=head, compute_dtype=dt))
+            times[(dt, B, head)] = (t_k, t_p)
+            say("kernel_b", dtype=str(dt).split(".")[-1], rows=B, with_head=head, atol=tol,
                 tf32=torch.backends.cuda.matmul.allow_tf32,
-                err_h=errs[0], err_c=errs[1], err_proj=errs[2], word_near_tie_ok=ok,
+                err_h=errs[0], err_c=errs[1], err_proj=errs[2], ok=ok,
                 kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2))
             if not ok:
-                raise AssertionError(f"kernel B disagrees with reference_step ({dt}, B={B})")
+                raise AssertionError(
+                    f"kernel B disagrees with reference_step ({dt}, rows={B}, head={head})")
     return worst, times
 
 
@@ -401,6 +413,7 @@ def plain_teacher_forced_ok(model, opts, images, ids):
     check each step's argmax under the near-tie rule -> (ok, steps checked)."""
     from myimagecaptioningmodel_tpu_torch.models import captioner as C
     from myimagecaptioningmodel_tpu_torch.models import decoder as D
+    from myimagecaptioningmodel_tpu_torch.ops.quantization import dense_in_dim
 
     dt = opts.dtype
     prm = model.params["decoder"]
@@ -408,7 +421,7 @@ def plain_teacher_forced_ok(model, opts, images, ids):
         img_embed, _f, gf = C.img2feature(model, images, opts)
         pre = D.precompute(prm, img_embed, gf, dt)
         B = ids.shape[0]
-        h = torch.zeros(B, prm["p_hid"]["w"].shape[0], device=ids.device)
+        h = torch.zeros(B, dense_in_dim(prm["p_hid"]), device=ids.device)
         c = torch.zeros_like(h)
         word = torch.full((B,), opts.start_idx, dtype=torch.long, device=ids.device)
         for t in range(ids.shape[1]):
@@ -500,6 +513,9 @@ def phase_served_beam(dev, seed, cfg):
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
     from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
 
+    def stored_bytes(tree):
+        return sum(stored_bytes(v) if isinstance(v, dict) else v.nbytes for v in tree.values())
+
     counters = {"fused_decode_step": FS.fused_decode_step,
                 "greedy_vocab_argmax": VH.greedy_vocab_argmax,
                 "topk_vocab_head": VH.topk_vocab_head}
@@ -507,6 +523,9 @@ def phase_served_beam(dev, seed, cfg):
     images = np.random.RandomState(seed).rand(24, *cfg.data.image_shape, 3).astype(np.float32)
     models, beam_launches = {}, None
     for label, kw, per_step in SERVED:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         svc = CaptionService(cfg, batch_size=8, max_wait_ms=50.0, device=dev, **kw)
         load_s = round(time.perf_counter() - t0, 2)
@@ -533,6 +552,8 @@ def phase_served_beam(dev, seed, cfg):
                                  f"for {d} dispatches")
         say("served_" + label, load_and_warmup_s=load_s, requests=24, dispatches=d,
             decode_ms_p50=st["decode_ms_p50"],
+            decoder_stored_mib=round(stored_bytes(svc.model.params["decoder"]) / 2**20, 2),
+            peak_mib_above_base=round((torch.cuda.max_memory_allocated(dev) - base) / 2**20, 1),
             launches=json.dumps(launches).replace(" ", ""),
             distinct_captions=len({tuple(r["ids"]) for r in results}))
         models[label] = svc.model
@@ -549,12 +570,11 @@ def teacher_forced_scores(model, opts, images, ids):
     from myimagecaptioningmodel_tpu_torch.models import decoder as D
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
     from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import head_logits_reference
+    from myimagecaptioningmodel_tpu_torch.ops.quantization import head_table
 
     dt = opts.dtype
     prm = model.params["decoder"]
-    emb = prm["embedding"]
-    table, scale = ((emb["table_q"], emb["scale"]) if "table_q" in emb
-                    else (emb["table"].to(dt), None))
+    table, scale = head_table(prm["embedding"], dt)
     img_embed, _f, gf = C.img2feature(model, images, opts)
     pre = D.precompute(prm, img_embed, gf, dt)
     fp = FS.prepare(prm, pre, opts.padding_idx, dt)
@@ -702,7 +722,8 @@ def main(argv=None) -> int:
          "plain_ms": t_a[(bf16, 8)][1]},
         {"name": "fused_decode_step", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": KERNEL_B_TPU, "launches": launches["fused_decode_step"],
-         "max_abs_err": err_b, "ms": t_b[(bf16, 8)][0], "plain_ms": t_b[(bf16, 8)][1]},
+         "max_abs_err": err_b, "ms": t_b[(bf16, 8, True)][0],
+         "plain_ms": t_b[(bf16, 8, True)][1]},
         {"name": "topk_vocab_head", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": KERNEL_C_TPU, "launches": beam_launches["topk_vocab_head"],
          "max_abs_err": err_c, "ms": t_c[(bf16, 8 * BEAM, BEAM)][0],

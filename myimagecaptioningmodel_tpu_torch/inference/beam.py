@@ -38,11 +38,12 @@ from typing import Tuple
 import torch
 
 from myimagecaptioningmodel_tpu_torch.models import decoder as decoder_mod
-from myimagecaptioningmodel_tpu_torch.models.decoder import Precomputed, _dense_in_dim
+from myimagecaptioningmodel_tpu_torch.models.decoder import Precomputed
 from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
     topk_stable,
     topk_vocab_head,
 )
+from myimagecaptioningmodel_tpu_torch.ops.quantization import dense_in_dim, head_table
 
 NEG_INF = -1e9
 
@@ -66,9 +67,8 @@ def beam_search_ids(
     W = beam_size
     dev = pre.global_feat.device
     dt = compute_dtype
-    H = _dense_in_dim(params["p_hid"])
-    emb = params["embedding"]
-    V = (emb["table_q"] if "table_q" in emb else emb["table"]).shape[0]
+    H = dense_in_dim(params["p_hid"])
+    V = head_table(params["embedding"])[0].shape[0]
     pre_t = Precomputed(*(t.repeat_interleave(W, dim=0) for t in pre))
 
     if use_kernels and W > 1 and not parity_mode:
@@ -77,10 +77,9 @@ def beam_search_ids(
         fp = FS.prepare(params, pre_t, padding_idx, dt)
         img_k = pre_t.img_k.to(dt).contiguous()
         img_v = pre_t.img_v.to(dt).contiguous()
-        if "table_q" in emb:  # int8 streams 1 byte per element through the head
-            head_table, head_scale = emb["table_q"], emb["scale"]
-        else:
-            head_table, head_scale = emb["table"].to(dt).contiguous(), None
+        # an int8 table streams 1 byte per element through the head
+        table, scale = head_table(params["embedding"], dt)
+        table = table.contiguous()
         # finished beams: a single <pad> candidate at zero cost
         pad_row = torch.full((W,), NEG_INF, device=dev)
         pad_row[0] = 0.0
@@ -91,7 +90,7 @@ def beam_search_ids(
                 compute_dtype=dt,
             )
             vals, cand_ids, lse = topk_vocab_head(
-                proj, head_table, params["out_bias"], W, scale=head_scale
+                proj, table, params["out_bias"], W, scale=scale
             )  # [B*W, W] x2, [B*W]
             logp = (vals - lse[:, None]).reshape(B, W, W)
             cand_ids = cand_ids.long().reshape(B, W, W)

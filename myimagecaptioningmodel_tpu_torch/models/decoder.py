@@ -30,6 +30,11 @@ import torch
 from myimagecaptioningmodel_tpu_torch.ops import layers as L
 from myimagecaptioningmodel_tpu_torch.ops.attention import adaptive_attention
 from myimagecaptioningmodel_tpu_torch.ops.lstm import lstm_from_gates
+from myimagecaptioningmodel_tpu_torch.ops.quantization import (
+    dense_in_dim,
+    head_table,
+    is_quantized,
+)
 
 Params = Dict[str, Any]
 
@@ -101,10 +106,6 @@ class Precomputed(NamedTuple):
     gate_gx: torch.Tensor  # [B, H] global-feat part of the sentinel gate
 
 
-def _dense_in_dim(p: Params) -> int:
-    return (p["w_q"] if "w_q" in p else p["w"]).shape[0]
-
-
 def _row_matmul(p: Params, x: torch.Tensor, lo: int, hi, dt, scaled: bool) -> torch.Tensor:
     """x @ W[lo:hi] in the compute dtype, for a possibly int8 ``[I, O]`` weight.
 
@@ -113,15 +114,15 @@ def _row_matmul(p: Params, x: torch.Tensor, lo: int, hi, dt, scaled: bool) -> to
     product in dt without the scale: the caller sums row splits of one weight
     first (the scale commutes with row slicing) and then multiplies by
     ``_out_scale(p)``."""
-    w = p["w_q"] if "w_q" in p else p["w"]
+    w = p["w_q"] if is_quantized(p) else p["w"]
     y = torch.matmul(x.to(dt), w[lo:hi].to(dt))
-    if scaled and "w_q" in p:
+    if scaled and is_quantized(p):
         y = y.float() * p["scale"]
     return y.float() if scaled else y
 
 
 def _out_scale(p: Params):
-    return p["scale"] if "w_q" in p else None
+    return p["scale"] if is_quantized(p) else None
 
 
 def precompute(params: Params, p_img_feat: torch.Tensor, global_feat: torch.Tensor,
@@ -132,9 +133,8 @@ def precompute(params: Params, p_img_feat: torch.Tensor, global_feat: torch.Tens
     dt = compute_dtype
     img_v = torch.tanh(L.dense(params["img_v"], p_img_feat, dt)).to(dt)
     img_k = L.dense(params["img_k"], p_img_feat, dt).to(dt)
-    emb = params["embedding"]
-    E = (emb["table_q"] if "table_q" in emb else emb["table"]).shape[1]
-    H = _dense_in_dim(params["gate_h"])
+    E = head_table(params["embedding"])[0].shape[1]
+    H = dense_in_dim(params["gate_h"])
     # lstm["w"] rows: [0:E) word emb | [E:E+H) global feat | [E+H:) h_prev
     lstm_gx = _row_matmul(params["lstm"], global_feat, E, E + H, dt, scaled=True)
     gate_gx = _row_matmul(params["gate_x"], global_feat, E, E + H, dt, scaled=True)
@@ -188,11 +188,10 @@ def head_logits(params: Params, proj: torch.Tensor, compute_dtype=torch.bfloat16
     """Tied-embedding vocab head: proj @ table^T (* scale) + bias -> [B, V]
     float32. An int8 table's per-row scale multiplies the logit columns."""
     dt = compute_dtype
-    emb = params["embedding"]
-    if "table_q" in emb:
-        logits = torch.matmul(proj.to(dt), emb["table_q"].to(dt).T).float() * emb["scale"]
-    else:
-        logits = torch.matmul(proj.to(dt), emb["table"].to(dt).T).float()
+    table, scale = head_table(params["embedding"])
+    logits = torch.matmul(proj.to(dt), table.to(dt).T).float()
+    if scale is not None:
+        logits = logits * scale
     return logits + params["out_bias"]
 
 
@@ -228,7 +227,7 @@ def greedy_decode_ids(
     fixed-length decode's).
     """
     B = pre.global_feat.shape[0]
-    H = _dense_in_dim(params["p_hid"])
+    H = dense_in_dim(params["p_hid"])
     dev = pre.global_feat.device
     dt = compute_dtype
     h = torch.zeros((B, H), dtype=torch.float32, device=dev)
@@ -254,10 +253,8 @@ def greedy_decode_ids(
                 greedy_vocab_argmax,
             )
 
-            emb = params["embedding"]
             # an int8 table streams 1 byte per element, its scale fused
-            table, scale = ((emb["table_q"], emb["scale"]) if "table_q" in emb
-                            else (emb["table"], None))
+            table, scale = head_table(params["embedding"])
 
             def argmax_head(proj):
                 return greedy_vocab_argmax(proj, table, params["out_bias"], scale)

@@ -30,8 +30,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 # dtype codes of csrc/common.cuh (int8 only for vocab tables)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TABLE_DTYPE_CODES = {**DTYPE_CODES, torch.int8: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
 _lib = None
@@ -125,14 +124,8 @@ def stream_ptr(device: torch.device) -> int:
 
 def dtype_code(dt: torch.dtype) -> int:
     if dt not in DTYPE_CODES:
-        raise TypeError(f"kernels take float32 or bfloat16, got {dt}")
+        raise TypeError(f"kernels take float32, bfloat16 or int8, got {dt}")
     return DTYPE_CODES[dt]
-
-
-def table_dtype_code(dt: torch.dtype) -> int:
-    if dt not in TABLE_DTYPE_CODES:
-        raise TypeError(f"vocab heads take float32, bfloat16 or int8 tables, got {dt}")
-    return TABLE_DTYPE_CODES[dt]
 
 
 def require(t: torch.Tensor, name: str, device, dtype, shape) -> None:

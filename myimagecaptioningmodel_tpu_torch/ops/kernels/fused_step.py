@@ -28,13 +28,16 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from myimagecaptioningmodel_tpu_torch.models.decoder import _dense_in_dim
 from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
 from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
     greedy_vocab_argmax,
     greedy_vocab_argmax_reference,
 )
-from myimagecaptioningmodel_tpu_torch.ops.quantization import dense_weight, embedding_table
+from myimagecaptioningmodel_tpu_torch.ops.quantization import (
+    dense_in_dim,
+    dense_weight,
+    embedding_table,
+)
 
 
 class FusedStepParams(NamedTuple):
@@ -68,7 +71,7 @@ def prepare(params: Dict[str, Any], pre, padding_idx: int, dt) -> FusedStepParam
     gw = dense_weight(params["gate_x"])
     w_proj = dense_weight(params["out_proj"])
     E = w_proj.shape[1]
-    H = _dense_in_dim(params["p_hid"])
+    H = dense_in_dim(params["p_hid"])
     table = embedding_table(params["embedding"])
     emb_table = table.clone()
     emb_table[padding_idx] = 0.0  # embed(padding_idx) == 0
@@ -168,6 +171,8 @@ def fused_decode_step(
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
     dt = compute_dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the fused step computes in float32 or bfloat16, got {dt}")
     dev = h.device
     B, H = h.shape
     E = fp.w_proj.shape[1]

@@ -70,7 +70,7 @@ def _check_operands(proj, table, bias, scale):
     dev = proj.device
     proj = proj.float().contiguous()
     _build.require(proj, "proj", dev, torch.float32, (B, E))
-    code = _build.table_dtype_code(table.dtype)
+    code = _build.dtype_code(table.dtype)
     _build.require(table, "table", dev, table.dtype, (V, E))
     _build.require(bias, "bias", dev, torch.float32, (V,))
     if (table.dtype == torch.int8) != (scale is not None):

@@ -24,6 +24,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from myimagecaptioningmodel_tpu_torch.ops.quantization import is_quantized
+
 Params = Dict[str, Any]
 
 BN_EPS = 1e-5
@@ -32,7 +34,7 @@ BN_EPS = 1e-5
 def dense(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """y = x @ W (+ b), computed and returned in ``compute_dtype``."""
     dt = compute_dtype
-    if "w_q" in p:  # int8: the scale applies after the product, in dt
+    if is_quantized(p):  # int8: the scale applies after the product, in dt
         y = torch.matmul(x.to(dt), p["w_q"].to(dt)) * p["scale"].to(dt)
     else:
         y = torch.matmul(x.to(dt), p["w"].to(dt))
@@ -43,7 +45,7 @@ def dense(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Ten
 
 def embed(p: Params, ids: torch.Tensor, padding_idx: Optional[int] = 0) -> torch.Tensor:
     """Gather table rows; lookups of ``padding_idx`` return zeros."""
-    if "table_q" in p:  # int8: float32 rows times their scale
+    if is_quantized(p):  # int8: float32 rows times their scale
         out = p["table_q"][ids].float() * p["scale"][ids].unsqueeze(-1)
     else:
         out = p["table"][ids]

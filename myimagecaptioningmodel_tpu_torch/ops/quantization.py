@@ -11,12 +11,13 @@ same absmax / 127 scale with a 1e-12 floor, ``torch.round`` (half to even, as
 - a quantized leaf is ``{"w_q": int8, "scale": f32}`` (embedding:
   ``{"table_q", "scale"}``); ``layers.dense``/``embed``, the decoder and the
   vocab heads detect them, so ``quantize_decoder``'s output is a drop-in
-  param dict for the decode functions.
+  param dict for the decode functions. The helpers below are the one place
+  that reads a leaf whichever way it is stored.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -32,6 +33,8 @@ def quantize_weight(w: torch.Tensor, axis: int = 0) -> Tuple[torch.Tensor, torch
 
 
 def dequantize(w_q: torch.Tensor, scale: torch.Tensor, axis: int, dtype) -> torch.Tensor:
+    """``w_q * scale`` in ``dtype``, the scale broadcast along ``axis`` (the
+    axis ``quantize_weight`` reduced over)."""
     shape = [1] * w_q.ndim
     shape[1 - axis if w_q.ndim == 2 else -1] = scale.shape[0]
     return w_q.to(dtype) * scale.reshape(shape).to(dtype)
@@ -61,15 +64,29 @@ def is_quantized(p: Dict[str, Any]) -> bool:
     return "w_q" in p or "table_q" in p
 
 
+def dense_in_dim(p: Dict[str, Any]) -> int:
+    """Rows ``I`` of a dense ``[I, O]`` weight, int8 or float."""
+    return (p["w_q"] if is_quantized(p) else p["w"]).shape[0]
+
+
 def dense_weight(p: Dict[str, Any]) -> torch.Tensor:
     """``[I, O]`` view of a dense weight, dequantized in float32 if int8."""
-    if "w_q" in p:
-        return p["w_q"].float() * p["scale"][None, :]
+    if is_quantized(p):
+        return dequantize(p["w_q"], p["scale"], 0, torch.float32)
     return p["w"]
 
 
 def embedding_table(p: Dict[str, Any]) -> torch.Tensor:
     """``[V, E]`` view of the tied embedding, dequantized in float32 if int8."""
-    if "table_q" in p:
-        return p["table_q"].float() * p["scale"][:, None]
+    if is_quantized(p):
+        return dequantize(p["table_q"], p["scale"], 1, torch.float32)
     return p["table"]
+
+
+def head_table(p: Dict[str, Any], dt=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The tied embedding as the vocab heads take it -> (table, scale): the
+    int8 table with its float32 per-row scale, or the float table (cast to
+    ``dt`` if given) and None."""
+    if is_quantized(p):
+        return p["table_q"], p["scale"]
+    return (p["table"] if dt is None else p["table"].to(dt)), None

@@ -6,11 +6,14 @@ no JAX, so it also runs on a machine that has none:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: h', c', proj to atol 1e-4 in float32 (TF32 off) and 3e-2 in
-bfloat16; ids equal wherever the plain version's top-2 logit gap exceeds
-1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables). The top-k
-head: lse and the picked ids' logits (re-read from the plain float32 logits)
-to 1e-4 (float32) and 2e-2 (bfloat16, int8); ids equal at every rank whose
-plain sorted value is clear of both neighbours by the same gap.
+bfloat16, with the head (greedy rows) and without it (beam rows); ids equal
+wherever the plain version's top-2 logit gap exceeds 1e-3 x max|logit|
+(float32) or 2e-2 (bfloat16 and int8 tables). The top-k head: lse and the
+picked ids' logits (re-read from the plain float32 logits) to 1e-4 for every
+table dtype, since the plain version rounds as the kernel does (on an H100
+the errors read 9.5e-7 for lse and 2.1e-6 for the values); ids equal at
+every rank whose plain sorted value is clear of both neighbours by the
+near-tie gap.
 """
 
 import pytest
@@ -57,12 +60,15 @@ def test_cuda_vocab_argmax_matches_plain(cuda, dt, B):
     assert _near_tie_ok(out, logits, dt)
 
 
-def _ranks_clear(logits, k, tol, dt):
+def _ranks_clear(logits, k, dt):
     """[B, k] bool: the plain sorted value at rank i is clear of its
     neighbours at ranks i-1 and i+1 by the near-tie gap (a near tie may swap
     two ranks, and then only)."""
     v = torch.sort(logits, dim=-1, descending=True).values[:, : k + 1]
-    gap = tol * (logits.abs().amax(dim=-1, keepdim=True) if dt == torch.float32 else 1)
+    if dt == torch.float32:
+        gap = 1e-3 * logits.abs().amax(dim=-1, keepdim=True)
+    else:
+        gap = 2e-2
     after = (v[:, :-1] - v[:, 1:]) > gap  # rank i vs i+1
     before = torch.cat([torch.ones_like(after[:, :1]), after[:, :-1]], dim=1)
     return after & before
@@ -104,10 +110,9 @@ def test_cuda_topk_head_matches_plain(cuda, dt, M, k):
     vals, ids, lse = TVH.topk_vocab_head(proj, table, bias, k, scale)
     rv, ri, rlse = TVH.topk_vocab_head_reference(proj, table, bias, k, scale)
     logits = TVH.head_logits_reference(proj, table, bias, scale)
-    tol = 1e-4 if dt == torch.float32 else 2e-2
-    torch.testing.assert_close(lse, rlse, rtol=0, atol=tol)
-    torch.testing.assert_close(vals, logits.gather(1, ids.long()), rtol=0, atol=tol)
-    assert bool(((ids == ri) | ~_ranks_clear(logits, k, tol, dt)).all())
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    torch.testing.assert_close(vals, logits.gather(1, ids.long()), rtol=0, atol=1e-4)
+    assert bool(((ids == ri) | ~_ranks_clear(logits, k, dt)).all())
     assert int(ids.max()) < 12295
 
 
@@ -133,10 +138,7 @@ def test_cuda_heads_break_ties_by_index(cuda, dt):
     assert TVH.greedy_vocab_argmax(proj, table, bias, scale).tolist() == [10] * 8
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [1, 8, 128])
-def test_cuda_fused_step_matches_plain(cuda, dt, B):
+def _step_args(cuda, B, dt):
     g = torch.Generator(device="cpu").manual_seed(0)
     dims = TD.DecoderDims(vocab_size=12295, embedding_size=256, hidden_dim=1024,
                           vocab_pad_multiple=128)
@@ -148,14 +150,24 @@ def test_cuda_fused_step_matches_plain(cuda, dt, B):
     word = torch.randint(0, 12295, (B,), generator=g).to(cuda)
     h = (torch.randn(B, 1024, generator=g) * 0.1).to(cuda)
     c = (torch.randn(B, 1024, generator=g) * 0.1).to(cuda)
-    args = (fp, fp.emb_table[word], h, c, pre.img_k, pre.img_v)
-    out = TFS.fused_decode_step(*args, with_head=True, compute_dtype=dt)
-    ref = TFS.reference_step(*args, with_head=True, compute_dtype=dt)
+    return fp, fp.emb_table[word], h, c, pre.img_k, pre.img_v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,head", [(1, True), (8, True), (128, True),
+                                    (32, False), (512, False)])  # beam: 8, 128 x beam 4
+def test_cuda_fused_step_matches_plain(cuda, dt, B, head):
+    args = _step_args(cuda, B, dt)
+    fp = args[0]
+    out = TFS.fused_decode_step(*args, with_head=head, compute_dtype=dt)
+    ref = TFS.reference_step(*args, with_head=head, compute_dtype=dt)
     tol = 1e-4 if dt == torch.float32 else 3e-2
     for t, r in zip(out[:3], ref[:3]):
         torch.testing.assert_close(t, r, rtol=0, atol=tol)
-    logits = torch.matmul(ref[2].to(dt).float(), fp.head_table.float().T) + fp.head_bias
-    assert _near_tie_ok(out[3], logits, dt)
+    if head:
+        logits = torch.matmul(ref[2].to(dt).float(), fp.head_table.float().T) + fp.head_bias
+        assert _near_tie_ok(out[3], logits, dt)
 
 
 @pytest.mark.cuda

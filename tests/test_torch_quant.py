@@ -78,6 +78,24 @@ def test_quantize_weight_and_dequantize(axis):
         np.asarray(JQ.dequantize(jq, js, axis, F32)))
 
 
+def test_leaf_views_int8_and_float(decoders):
+    """dense_weight / embedding_table dequantize as the JAX package's do;
+    dense_in_dim and head_table read a leaf whichever way it is stored."""
+    p, jq, tq = decoders
+    tp = tree_to_torch(jax.tree_util.tree_map(np.asarray, p))
+    for key in ("lstm", "p_hid", "out_proj"):
+        np.testing.assert_array_equal(_np(TQ.dense_weight(tq[key])),
+                                      np.asarray(JQ.dense_weight(jq[key])), err_msg=key)
+        assert TQ.dense_in_dim(tq[key]) == TQ.dense_in_dim(tp[key]) == p[key]["w"].shape[0]
+    np.testing.assert_array_equal(_np(TQ.embedding_table(tq["embedding"])),
+                                  np.asarray(JQ.embedding_table(jq["embedding"])))
+    table, scale = TQ.head_table(tq["embedding"], torch.bfloat16)
+    assert table.dtype == torch.int8 and scale.dtype == torch.float32
+    table, scale = TQ.head_table(tp["embedding"], torch.bfloat16)
+    assert table.dtype == torch.bfloat16 and scale is None
+    assert TQ.head_table(tp["embedding"])[0] is tp["embedding"]["table"]
+
+
 def test_int8_dense_and_embed(decoders):
     _p, jq, tq = decoders
     rng = np.random.RandomState(2)
