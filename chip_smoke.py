@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -47,7 +47,26 @@ Phases (each prints one line; any failure exits non-zero with no result):
    2e-3 x steps (bfloat16); in float32 its score is at least the plain beam
    path's less 1e-3; then the single-image ``infer`` path with beam 4 (B=1);
 10. timings: beam-4 ms per batch and captions/s at B=8 and B=128, float and
-   int8 weights, kernel path and plain path.
+   int8 weights, kernel path and plain path;
+11. kernel F (``matmul_stats``) against ``_matmul_stats_reference`` at the
+   training path's 1x1-conv shapes (B=128, 224 px), a ragged M and an
+   unaligned K, N, in float32 (TF32 off) and bfloat16: y, and sum / sumsq
+   against float64 sums of the kernel's own y (limits in
+   ``phase_kernel_f``); us per call for the kernel, its plain version and
+   ``torch.mm`` alone, and each shape's bound;
+12. the training slice at full width (MobileNetV2 x1.0 at 224 px, H=1024,
+   E=256, vocab 12295 padded to 12416, sentence length 35), random weights
+   from ``--seed`` through ``compat/from_jax.train_tree``: (a) one B=32
+   step in float32 fused and unfused, each held against a float64 step
+   (limits at ``TRAIN_LIMITS``); (b) kernel F launches 35 times per forward
+   fused and never unfused; (c) 20 bfloat16 fused steps at B=128 on one
+   batch (lr 1e-3): the loss is finite and falls, F launches 700 times;
+   (d) the trained model exported with ``export_inference_bundle`` and
+   served greedily by ``load_bundle`` on CUDA: A and B launch 35 times;
+13. train-step timing with CUDA events, bfloat16, B=128, unfused (plain)
+   and fused (kernel) in the order plain, kernel, kernel, plain: ms per
+   step, images/s, peak device memory above base; then one profiled step
+   of each, device time by kernel kind and the top kernels.
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -57,8 +76,12 @@ neighbouring ranks by that gap. Float32 products are compared with TF32 off
 ``torch.backends.cudnn.allow_tf32`` set False).
 
 The line before the last is one JSON object describing each kernel (the
-launches of A and B are phase 4's, those of C phase 8's beam service); the
-last line is ``{"ok": true, "device": {...}}``.
+launches of A and B are phase 4's, those of C phase 8's beam service, those
+of F phase 12 (c)'s; ``bound_ms`` from the inputs' bytes at 3.35 TB/s and
+their operations at the peak rate of their type, whichever is longer;
+``library_ms`` one ``torch.addmm`` of the logits for A and C, ``torch.mm``
+for F, each doing less than the kernel, none for B); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -71,6 +94,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -84,6 +108,8 @@ KERNEL_B_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_step.py:219"
 KERNEL_C_SRC = "myimagecaptioningmodel_tpu_torch/csrc/topk_head.cu"
 KERNEL_C_TPU = "myimagecaptioningmodel_tpu/ops/pallas/vocab_head.py:206"
 V_REAL, BEAM = 12295, 4
+KERNEL_F_SRC = "myimagecaptioningmodel_tpu_torch/csrc/matmul_bn.cu"
+KERNEL_F_TPU = "myimagecaptioningmodel_tpu/ops/pallas/matmul_bn.py:72"
 
 
 def say(phase: str, **kv) -> None:
@@ -130,6 +156,14 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def logits_addmm(proj, table, bias):
+    """The yardstick beside kernels A and C: one ``torch.addmm`` of the
+    [rows, V] logits in the table's dtype. It does less than either kernel
+    (no argmax, no top-k, no logsumexp)."""
+    dt = table.dtype
+    return torch.addmm(bias.to(dt), proj.to(dt), table.t())
 
 
 # ---- phase 1 ----------------------------------------------------------------
@@ -180,10 +214,11 @@ def phase_kernel_a(dev, gen):
             worst = max(worst, err) if dt == torch.bfloat16 else worst
             t_k = time_ms(lambda: kernel(proj, table, bias))
             t_p = time_ms(lambda: plain(proj, table, bias))
-            times[(dt, B)] = (t_k, t_p)
+            t_l = time_ms(lambda: logits_addmm(proj, table, bias))
+            times[(dt, B)] = (t_k, t_p, t_l)
             say("kernel_a", dtype=str(dt).split(".")[-1], B=B, near_tie_ok=ok,
                 max_abs_err_of_picked_logit=err, kernel_us=round(t_k * 1e3, 2),
-                plain_us=round(t_p * 1e3, 2))
+                plain_us=round(t_p * 1e3, 2), addmm_logits_us=round(t_l * 1e3, 2))
             if not ok:
                 raise AssertionError(f"kernel A disagrees with its plain version ({dt}, B={B})")
     # forced tie: identical rows in different blocks -> lowest index wins
@@ -300,10 +335,13 @@ def phase_kernel_c(dev, gen):
                     worst = max(worst, err_lse, err_v)
                 t_k = time_ms(lambda: kernel(proj, table, bias, k, scale))
                 t_p = time_ms(lambda: plain(proj, table, bias, k, scale))
-                times[(dt, M, k)] = (t_k, t_p)
+                t_l = (time_ms(lambda: logits_addmm(proj, table, bias))
+                       if dt != torch.int8 else None)
+                times[(dt, M, k)] = (t_k, t_p, t_l)
                 say("kernel_c", dtype=str(dt).split(".")[-1], M=M, k=k, tol=tol,
                     err_lse=err_lse, err_vals=err_v, ids_near_tie_ok=ids_ok,
-                    kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2))
+                    kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2),
+                    addmm_logits_us=None if t_l is None else round(t_l * 1e3, 2))
                 if not ok:
                     raise AssertionError(
                         f"kernel C disagrees with its plain version ({dt}, M={M}, k={k})")
@@ -681,6 +719,475 @@ def phase_beam_timing(models, opts, seed):
                 runs_plain=[round(x, 3) for x in t["plain"]])
 
 
+# ---- bounds ------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+
+
+def bound(nbytes: float, ops: float, dt) -> Tuple[float, str]:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak rate of the inputs' type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dt]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def head_bytes(rows, dt, out_bytes_per_row):
+    """proj [rows, E] f32 + table [V, E] + bias [V] f32 + the outputs."""
+    es = torch.tensor([], dtype=dt).element_size()
+    return rows * E * 4 + V_PAD * E * es + V_PAD * 4 + rows * out_bytes_per_row
+
+
+def bound_a(B, dt):
+    return bound(head_bytes(B, dt, 4), 2 * B * V_PAD * E, dt)
+
+
+def bound_c(M, k, dt):
+    return bound(head_bytes(M, dt, 8 * k + 4), 2 * M * V_PAD * E, dt)
+
+
+def bound_b(B, dt):
+    """The fused step with its head: the step's operands and outputs
+    (fused_step.py's list) plus kernel A's table and bias."""
+    es = torch.tensor([], dtype=dt).element_size()
+    weights = E * 5 * H + H * 5 * H + 4 * H * H + H * E + H  # in the compute dtype
+    step = (weights * es + (4 * H + E + 1) * 4  # + the f32 biases
+            + B * (E * es + 2 * H * 4 + 2 * K_SLOTS * H * es + 5 * H * 4)  # per-row inputs
+            + B * (2 * H * 4 + E * 4 + 4))  # h', c', proj, word
+    ops = 2 * B * weights + 4 * B * K_SLOTS * H + 2 * B * V_PAD * E
+    return bound(step + head_bytes(B, dt, 0), ops, dt)
+
+
+def bound_f(M, K, N, dt):
+    es = torch.tensor([], dtype=dt).element_size()
+    return bound((M * K + K * N + M * N) * es + 2 * N * 4, 2 * M * K * N, dt)
+
+
+# ---- phase 11 ----------------------------------------------------------------
+
+# (conv, M, K, N): kernel F's shapes on the training path at B=128, 224 px,
+# then a ragged M, and rows that are not whole 16-byte vectors
+F_SHAPES = (
+    ("conv2_1_expand", 1605632, 32, 32),
+    ("conv3_1_expand", 1605632, 16, 96),
+    ("conv3_2_expand", 401408, 24, 144),
+    ("conv6_2_linear", 25088, 576, 96),
+    ("conv9", 6272, 320, 1280),
+    ("ragged", 1000, 24, 144),
+    ("ragged_unaligned", 1000, 11, 37),
+)
+F_STATS_TOL = 5e-5  # |sum - exact| / sum|y| and |sumsq - exact| / sumsq
+
+
+def forward_f_shapes(B=128, size=224, scale=1.0):
+    """(conv, M, K, N) of every stride-1 1x1 conv of one MobileNetV2 forward,
+    the convs that go through kernel F, in order."""
+    from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import BOTTLENECK_PARAMS
+
+    hw, in_c, shapes = size // 2, int(32 * scale), []
+    for stage, (t, c, n, s) in enumerate(BOTTLENECK_PARAMS, start=2):
+        c = int(c * scale)
+        for i in range(1, n + 1):
+            exp = int(round(in_c * t))
+            shapes.append((f"conv{stage}_{i}_expand", B * hw * hw, in_c, exp))
+            hw //= s if i == 1 else 1
+            shapes.append((f"conv{stage}_{i}_linear", B * hw * hw, exp, c))
+            in_c = c
+    shapes.append(("conv9", B * hw * hw, in_c, 1280))
+    return shapes
+
+
+def say_forward_bound(dt=torch.bfloat16):
+    """The summed bound of kernel F over one forward at B=128, 224 px."""
+    shapes = forward_f_shapes()
+    es = torch.tensor([], dtype=dt).element_size()
+    nbytes = sum((M * K + K * N + M * N) * es + 2 * N * 4 for _c, M, K, N in shapes)
+    ops = sum(2 * M * K * N for _c, M, K, N in shapes)
+    bounds = [(bound_f(M, K, N, dt), c) for c, M, K, N in shapes]
+    largest = max(bounds)
+    say("kernel_f_forward_bound", dtype=str(dt).split(".")[-1], launches=len(shapes),
+        gbytes=round(nbytes / 1e9, 4), gflop=round(ops / 1e9, 2),
+        bound_us_sum=round(sum(b[0][0] for b in bounds) * 1e3, 2),
+        all_by_bytes=all(b[0][1] == "bytes" for b in bounds),
+        largest=largest[1], largest_bound_us=round(largest[0][0] * 1e3, 2))
+    return shapes
+
+
+def bf16_ulp(mag):
+    """One bf16 ulp (8 significant bits) of each magnitude."""
+    return torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+
+
+def accumulation_bound(x, w):
+    """How far two float32 sums of the same K products, in other orders, may
+    lie apart: 2 K 2^-24 sum_k |x w| (where y cancels to near zero, that is
+    more than a bf16 ulp of y)."""
+    K = x.shape[1]
+    return 2 * K * 2.0 ** -24 * torch.matmul(x.float().abs(), w.float().abs())
+
+
+def phase_kernel_f(dev, seed):
+    """Kernel F against its plain version. y: float32 (TF32 off) to 1e-4 x
+    max|y|, bfloat16 to one bf16 ulp of the larger magnitude (the two
+    accumulate in other orders, so a value may round to the neighbouring bf16
+    number) plus ``accumulation_bound``. sum and sumsq against float64 sums of the kernel's own stored y,
+    to F_STATS_TOL: float32 adds up to ~800 terms in order per thread, whose
+    worst-case rounding is ~800 x 6e-8."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.matmul_bn import (
+        _matmul_stats_reference as plain,
+        matmul_stats as kernel,
+    )
+
+    shapes = {c: (M, K, N) for c, M, K, N in say_forward_bound()}
+    if any(shapes[c] != (M, K, N) for c, M, K, N in F_SHAPES if c in shapes):
+        raise AssertionError("F_SHAPES disagree with the forward's 1x1 convs")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    worst, times = 0.0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, M, K, N in F_SHAPES:
+            x = torch.randn(M, K, device=dev, generator=g).to(dt)
+            w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5).to(dt)
+            y, s, q = kernel(x, w)
+            torch.cuda.synchronize()
+            ry, rs, rq = plain(x, w)
+            yf, ryf = y.float(), ry.float()
+            diff = (yf - ryf).abs()
+            err_y = float(diff.max())
+            beyond_one_ulp = None
+            if dt == torch.float32:
+                ok_y = err_y <= 1e-4 * float(ryf.abs().max())
+            else:
+                over = diff - bf16_ulp(torch.maximum(yf.abs(), ryf.abs()))
+                ok_y = bool((over <= accumulation_bound(x, w)).all())
+                beyond_one_ulp = int((over > 0).sum())
+                worst = max(worst, err_y)
+            y64 = y.double()
+            err_s = float(((s.double() - y64.sum(0)).abs() / y64.abs().sum(0).clamp_min(1e-30)).max())
+            q64 = (y64 * y64).sum(0)
+            err_q = float(((q.double() - q64).abs() / q64.clamp_min(1e-30)).max())
+            del y64, q64
+            err_plain = float(((s - rs).abs() / ryf.abs().sum(0).clamp_min(1e-30)).max())
+            ok = ok_y and err_s <= F_STATS_TOL and err_q <= F_STATS_TOL
+            t_k = time_ms(lambda: kernel(x, w), reps=10)
+            t_p = time_ms(lambda: plain(x, w), reps=10)
+            t_l = time_ms(lambda: torch.mm(x, w), reps=10)
+            b_ms, b_by = bound_f(M, K, N, dt)
+            times[(dt, name)] = (t_k, t_p, t_l, b_ms, b_by)
+            say("kernel_f", dtype=str(dt).split(".")[-1], conv=name, M=M, K=K, N=N,
+                err_y=err_y, y_ok=ok_y,
+                beyond_one_ulp=beyond_one_ulp, err_sum=err_s, err_sumsq=err_q,
+                stats_tol=F_STATS_TOL, sum_vs_plain=err_plain,
+                kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2),
+                mm_us=round(t_l * 1e3, 2), bound_us=round(b_ms * 1e3, 2), bound_by=b_by)
+            if not ok:
+                raise AssertionError(f"kernel F disagrees with its plain version ({dt}, {name})")
+            del x, w, y, ry, yf, ryf, diff
+    torch.cuda.empty_cache()
+    return worst, times
+
+
+# ---- phases 12 and 13 ----------------------------------------------------------
+
+GROUPS = ("decoder", "encoder", "img_embed", "img_global")  # tree_leaves order
+
+
+def train_cfg(root, dtype, fuse, batch, lr):
+    from myimagecaptioningmodel_tpu_torch.config import Config, replace_nested
+
+    cfg = Config()
+    for path, value in (("train.checkpoint_path", os.path.join(root, "save")),
+                        ("data.dict_path", os.path.join(root, "dataset")),
+                        ("model.compute_dtype", dtype), ("model.fuse_bn_stats", fuse),
+                        ("train.batch_size", batch), ("train.learning_rate", lr)):
+        cfg = replace_nested(cfg, path, value)
+    return cfg
+
+
+def train_batch(cfg, dev, seed):
+    """Random images and captions: <start>, words, <stop>, then padding."""
+    rng = np.random.RandomState(seed)
+    B, T = cfg.train.batch_size, cfg.model.decoder.sentence_length
+    images = rng.rand(B, *cfg.data.image_shape, 3).astype(np.float32)
+    caps = np.zeros((B, T), np.int64)
+    caps[:, 0] = cfg.data.start_idx
+    for b in range(B):
+        n = rng.randint(8, T)
+        caps[b, 1:n] = rng.randint(4, cfg.model.decoder.vocab_size, n - 1)
+        caps[b, n] = cfg.data.stop_idx
+    return torch.as_tensor(images).to(dev), torch.as_tensor(caps).to(dev)
+
+
+def trainer(cfg, ref_params, ref_state, dev):
+    """-> (train step, params, optimizer state, BN state) on ``dev`` from a
+    reference-layout tree, through compat/from_jax's float32 path."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import train_tree
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import build_steps, make_optimizer
+    from myimagecaptioningmodel_tpu_torch.training import lr_schedules
+
+    opts = C.ModelOptions.from_config(cfg)
+    schedule = lr_schedules.from_config(cfg)
+    optimizer = make_optimizer(cfg, schedule)
+    dtype = torch.float64 if opts.compute_dtype == "float64" else torch.float32
+    params, state = train_tree(ref_params, ref_state, device=dev, dtype=dtype)
+    steps = build_steps(opts, optimizer, schedule, cfg.train.grad_accum_steps)
+    return steps.train_step, params, optimizer.init(params), state
+
+
+def rel_l2(a, b):
+    num = sum(float(((x.double() - y.double()) ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y.double() ** 2).sum()) for y in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def bn_state_errors(fused, unfused, momentum=0.9):
+    """(worst mean error in units of the batch std, worst relative var
+    error) over every BN channel. Both runs start from mean 0, var 1, so the
+    batch statistics are the new state less ``momentum`` x the old."""
+    def pairs(a, b):
+        if "mean" in b:
+            yield a, b
+        else:
+            for k in b:
+                yield from pairs(a[k], b[k])
+
+    worst_m = worst_v = 0.0
+    for a, b in pairs(fused, unfused):
+        var = ((b["var"].double() - momentum) / (1 - momentum)).clamp_min(0)
+        dm = (a["mean"].double() - b["mean"].double()).abs() / (1 - momentum)
+        dv = (a["var"].double() - b["var"].double()).abs() / (1 - momentum)
+        worst_m = max(worst_m, float((dm / (var.sqrt() + 1e-6)).max()))
+        worst_v = max(worst_v, float((dv / (var + 1e-6)).max()))
+    return worst_m, worst_v
+
+
+# Phase 12 (a) holds the fused float32 step as close to a float64 step (the
+# unfused path with float64 weights and compute, float32 only where the
+# reference casts to it) as the unfused float32 step is. The two float32
+# steps differ by the order of the BN sums and of the 1x1 products only, but
+# float32 rounding noise grows through the backward of the encoder's 52 BN
+# layers (the JAX package checks its fused path in float64 for that reason),
+# and Adam's first update is close to lr x sign(g), so where g is within the
+# noise its sign is arbitrary. Against the float64 step, for each parameter
+# group: the gradient's relative L2 error and the BN statistics' errors
+# (means in units of the channel's std, variances relative) at most twice
+# the unfused step's plus 1e-6, and the share of updates that agree to
+# 1e-3 x lr at most 0.01 below it; the loss to 1e-5.
+TRAIN_LIMITS = {"loss_rel": 1e-5, "error_ratio": 2.0, "error_floor": 1e-6,
+                "update_agree_drop": 0.01}
+
+
+def step_errors(run, ref, lr):
+    """A float32 run's errors against the float64 run, by group."""
+    loss, grads, updates, state = run
+    rloss, rgrads, rupdates, rstate = ref
+    out = {"loss_rel": abs(loss - rloss) / abs(rloss)}
+    for g in GROUPS:
+        out[f"grad_rel_l2_{g}"] = rel_l2(grads[g], rgrads[g])
+        agree = sum(int(((a.double() - b).abs() <= 1e-3 * lr).sum())
+                    for a, b in zip(updates[g], rupdates[g]))
+        out[f"update_agree_share_{g}"] = agree / sum(b.numel() for b in rupdates[g])
+    out["bn_mean_in_std"], out["bn_var_rel"] = bn_state_errors(state, rstate)
+    return out
+
+
+def phase_train(dev, seed, root):
+    """(a) fused against unfused, (b) kernel F's launches per forward, (c)
+    the loss falls, (d) the trained model exported and served. -> (launches
+    of (c), the trained (params, state, cfg), timing inputs)."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import reference_tree
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import tree_leaves
+    from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
+
+    lr = 1e-3
+    cfg32 = train_cfg(root, "float32", False, 32, lr)
+    ref_params, ref_state = C.init(torch.Generator().manual_seed(seed),
+                                   C.ModelOptions.from_config(cfg32))
+    n_params = sum(p.numel() for p in tree_leaves(ref_params))
+    images, caps = train_batch(cfg32, dev, seed)
+
+    # (a) + (b): one step from the same weights, float32 fused and unfused,
+    # and the float64 reference
+    runs = {}
+    for label, dtype, fuse in (("unfused", "float32", False), ("fused", "float32", True),
+                               ("float64", "float64", False)):
+        cfg = train_cfg(root, dtype, fuse, 32, lr)
+        step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
+        before = {g: [p.detach().clone() for p in tree_leaves(params[g])] for g in GROUPS}
+        MB.matmul_stats.launches = 0
+        params, opt_state, new_state, _n, loss, _lr = step(params, opt_state, state, 0,
+                                                           images, caps)
+        torch.cuda.synchronize()
+        launches = MB.matmul_stats.launches
+        want = 35 if fuse else 0
+        if launches != want:
+            raise AssertionError(f"kernel F launched {launches} times in one forward, "
+                                 f"expected {want} (fuse_bn_stats={fuse})")
+        sizes = [len(tree_leaves(params[g])) for g in GROUPS]
+        mu = opt_state.adam.mu  # (1 - b1) x the gradient after one step
+        grads, i = {}, 0
+        for g, n in zip(GROUPS, sizes):
+            grads[g] = mu[i:i + n]
+            i += n
+        updates = {g: [p.detach() - b for p, b in zip(tree_leaves(params[g]), before[g])]
+                   for g in GROUPS}
+        runs[label] = (float(loss), grads, updates, new_state)
+        say("train_step_one", B=32, dtype=dtype, fuse_bn_stats=fuse, loss=float(loss),
+            kernel_f_launches=launches)
+        del step, params, opt_state, state, before
+    lim = TRAIN_LIMITS
+    errs = {label: step_errors(runs[label], runs["float64"], lr) for label in ("unfused", "fused")}
+    for label in ("unfused", "fused"):
+        say("train_vs_float64", path=label, **errs[label])
+    fu, un = errs["fused"], errs["unfused"]
+    bad = [k for k in fu if k.startswith(("grad", "bn"))
+           and fu[k] > lim["error_ratio"] * un[k] + lim["error_floor"]]
+    bad += [k for k in fu if k.startswith("update") and fu[k] < un[k] - lim["update_agree_drop"]]
+    bad += ["loss_rel"] if fu["loss_rel"] > lim["loss_rel"] else []
+    say("train_fused_vs_unfused", limits=json.dumps(lim).replace(" ", ""), failed=bad,
+        ok=not bad)
+    if bad:
+        raise AssertionError(f"the fused train step is further from float64 than the "
+                             f"unfused one: {bad}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # (c) bf16, B=128, fused: 20 steps on one fixed batch, the main path
+    cfg = train_cfg(root, "bfloat16", True, 128, lr)
+    images, caps = train_batch(cfg, dev, seed + 1)
+    step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
+    MB.matmul_stats.launches = 0
+    losses, t0 = [], time.perf_counter()
+    for i in range(20):
+        params, opt_state, state, _n, loss, _lr = step(params, opt_state, state, i,
+                                                       images, caps)
+        losses.append(float(loss))
+    seconds = time.perf_counter() - t0
+    launches = {"matmul_stats": MB.matmul_stats.launches}
+    finite = all(np.isfinite(losses))
+    say("train_bf16", B=128, steps=20, params=n_params, first_loss=losses[0],
+        last_loss=losses[-1], losses=[round(x, 4) for x in losses], finite=finite,
+        seconds=round(seconds, 2), launches=json.dumps(launches).replace(" ", ""))
+    if not finite or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if launches["matmul_stats"] != 35 * 20:
+        raise AssertionError(f"kernel F: {launches} launches in 20 steps, expected 700")
+
+    # (d) export the trained model and serve it greedily from the bundle
+    p_np, s_np = reference_tree(params, state)
+    ckpt.export_inference_bundle(os.path.join(cfg.train.checkpoint_path, "trained"),
+                                 p_np, s_np, cfg, vocab_src_dir=cfg.data.dict_path)
+    model, _bcfg, opts, decode = load_bundle(cfg, "trained", device=dev)
+    FS.fused_decode_step.launches = 0
+    VH.greedy_vocab_argmax.launches = 0
+    ids = decode(model, images[:8])
+    torch.cuda.synchronize()
+    served = {"fused_decode_step": FS.fused_decode_step.launches,
+              "greedy_vocab_argmax": VH.greedy_vocab_argmax.launches}
+    steps = cfg.model.decoder.infer_max_length
+    if served != {k: steps for k in served} or tuple(ids.shape) != (8, steps):
+        raise AssertionError(f"serving the trained bundle: launches {served}, "
+                             f"ids {tuple(ids.shape)}")
+    ok, checked = plain_teacher_forced_ok(model, opts._replace(use_kernels=False),
+                                          images[:8], ids)
+    say("train_then_serve", bundle="trained", B=8, launches=json.dumps(served).replace(" ", ""),
+        near_tie_ok=ok, steps_checked=checked,
+        distinct_captions=len({tuple(r) for r in ids.tolist()}))
+    if not ok:
+        raise AssertionError(f"the served trained model disagrees with the plain path "
+                             f"at step {checked}")
+    del model
+    return launches, (ref_params, ref_state, params, opt_state, state, images, caps)
+
+
+def kernel_kind(name: str) -> str:
+    """A coarse class of a device kernel, from its name."""
+    n = name.lower()
+    for kind, marks in (("kernel_f", ("matmul_stats", "stats_reduce")),
+                        ("conv", ("conv", "cudnn", "dgrad", "wgrad", "fprop")),
+                        ("gemm", ("gemm", "cutlass", "xmma", "cublas")),
+                        ("reduce", ("reduce",)),
+                        ("elementwise", ("elementwise", "copy", "fill", "cat", "index"))):
+        if any(m in n for m in marks):
+            return kind
+    return "other"
+
+
+def phase_train_timing(dev, root, trained):
+    """ms per bf16 train step at B=128, unfused (plain) and fused (kernel),
+    in turns; then one profiled fused step."""
+    ref_params, ref_state, params, opt_state, state, images, caps = trained
+    step_fns = {}
+    for path, fuse in (("plain", False), ("kernel", True)):
+        cfg = train_cfg(root, "bfloat16", fuse, 128, 1e-3)
+        step_fns[path] = trainer(cfg, ref_params, ref_state, dev)[0]
+    B, reps = images.shape[0], 3
+    n = [0]
+
+    def run(path, k):
+        nonlocal params, opt_state, state
+        for _ in range(k):
+            params, opt_state, state, _s, _l, _lr = step_fns[path](
+                params, opt_state, state, n[0], images, caps)
+            n[0] += 1
+
+    t, peak = {}, {}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        run(path, 1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(path, reps)
+        end.record()
+        torch.cuda.synchronize()
+        t.setdefault(path, []).append(start.elapsed_time(end) / reps)
+        peak.setdefault(path, []).append((torch.cuda.max_memory_allocated(dev) - base) / 2**20)
+    out = {}
+    for path in ("plain", "kernel"):
+        ms = min(t[path])
+        out[path] = ms
+        say("train_timing", path=path, fuse_bn_stats=path == "kernel", B=B, dtype="bfloat16",
+            ms_per_step=round(ms, 3), images_per_s=round(B / ms * 1e3, 1),
+            runs_ms=[round(x, 3) for x in t[path]],
+            peak_mib_above_base=round(max(peak[path]), 1))
+
+    # where a step's device time goes, unfused and fused
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):  # a kernel's own device time
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    for path in ("plain", "kernel"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(path, 1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(dev_us(e) for e in events) / 1e3
+        by_kind = {}
+        for e in events:
+            kind = kernel_kind(e.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + dev_us(e) / 1e3
+        say("train_profile", path=path, wall_ms=round(wall_ms, 3), device_busy_ms=round(busy_ms, 3),
+            device_idle_share=round(max(0.0, 1 - busy_ms / wall_ms), 4),
+            busy_share_of_timed_step=round(busy_ms / out[path], 4),
+            kernel_launches=sum(e.count for e in events),
+            **{f"{k}_ms": round(v, 3) for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])})
+        for e in sorted(events, key=dev_us, reverse=True)[:8]:
+            print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:110]}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -713,21 +1220,35 @@ def main(argv=None) -> int:
         beam_launches, models, beam_opts = phase_served_beam(dev, args.seed, cfg)
         phase_beam_correct(dev, models["beam"], beam_opts, cfg, args.seed)
         phase_beam_timing(models, beam_opts, args.seed)
+        del models
+        torch.cuda.empty_cache()
+        err_f, t_f = phase_kernel_f(dev, args.seed)
+        train_launches, trained = phase_train(dev, args.seed, root)
+        phase_train_timing(dev, root, trained)
 
     bf16 = torch.bfloat16
+    f_key = (bf16, "conv3_1_expand")
+    b_a, b_b, b_c = bound_a(8, bf16), bound_b(8, bf16), bound_c(8 * BEAM, BEAM, bf16)
     kernels = [
         {"name": "greedy_vocab_argmax", "route": "cuda", "source": KERNEL_A_SRC,
          "replaces": KERNEL_A_TPU, "launches": launches["greedy_vocab_argmax"],
          "max_abs_err": max(err_a, err_a8), "ms": t_a[(bf16, 8)][0],
-         "plain_ms": t_a[(bf16, 8)][1]},
+         "plain_ms": t_a[(bf16, 8)][1], "bound_ms": b_a[0], "bound_by": b_a[1],
+         "library_ms": t_a[(bf16, 8)][2]},
         {"name": "fused_decode_step", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": KERNEL_B_TPU, "launches": launches["fused_decode_step"],
          "max_abs_err": err_b, "ms": t_b[(bf16, 8, True)][0],
-         "plain_ms": t_b[(bf16, 8, True)][1]},
+         "plain_ms": t_b[(bf16, 8, True)][1], "bound_ms": b_b[0], "bound_by": b_b[1],
+         "library_ms": None},
         {"name": "topk_vocab_head", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": KERNEL_C_TPU, "launches": beam_launches["topk_vocab_head"],
          "max_abs_err": err_c, "ms": t_c[(bf16, 8 * BEAM, BEAM)][0],
-         "plain_ms": t_c[(bf16, 8 * BEAM, BEAM)][1]},
+         "plain_ms": t_c[(bf16, 8 * BEAM, BEAM)][1], "bound_ms": b_c[0], "bound_by": b_c[1],
+         "library_ms": t_c[(bf16, 8 * BEAM, BEAM)][2]},
+        {"name": "matmul_stats", "route": "cuda", "source": KERNEL_F_SRC,
+         "replaces": KERNEL_F_TPU, "launches": train_launches["matmul_stats"],
+         "max_abs_err": err_f, "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
+         "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

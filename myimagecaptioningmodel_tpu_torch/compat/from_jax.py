@@ -15,6 +15,13 @@
   it stores the decoder as int8 (``ops/quantization.py``), quantizing the
   float32 weights before anything is rounded to the compute dtype, as the
   reference quantizes its float32 params at load.
+- ``train_tree`` carries a reference (params, state) across for training:
+  float32 tensors (float64 on request) on an explicit device, conv weights
+  OIHW, ``requires_grad`` on every param. Nothing is rounded to the compute
+  dtype (no ``_cast_weights``): the tree holds the master weights, and each
+  op casts to the compute dtype as the reference's ``dense`` does.
+  ``reference_tree`` is the way back: numpy in the reference layout (HWIO
+  convs), as ``training/checkpoint.export_inference_bundle`` takes it.
 """
 
 from __future__ import annotations
@@ -86,12 +93,18 @@ def conv_hwio_to_oihw(w) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 2, 0, 1)))
 
 
+def oihw_to_hwio(w) -> np.ndarray:
+    """[O, I/groups, kh, kw] -> [kh, kw, I/groups, O]."""
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
+
+
 def tree_to_torch(tree, device=None, dtype=None):
-    """Nested dicts of arrays -> the same dicts of tensors on ``device``."""
+    """Nested dicts of arrays -> the same dicts of tensors on ``device``,
+    copies that share no memory with ``tree``."""
     if isinstance(tree, dict):
         return {k: tree_to_torch(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        t = tree.detach()
+        t = tree.detach().clone()
     else:
         t = torch.from_numpy(np.array(tree))  # a writable copy
     return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
@@ -109,13 +122,14 @@ def _cast_weights(tree, dt):
 
 
 def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
-                        device="cpu", quantize: bool = False):
-    """Reference-layout (params, state) -> a port ``Captioner`` on ``device``;
+                        device=None, quantize: bool = False):
+    """Reference-layout (params, state) -> a port ``Captioner`` on ``device``
+    (CUDA unless the caller passes another; ``resolve_device``);
     ``quantize`` stores the decoder's weights as int8."""
-    from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner
+    from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner, resolve_device
     from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
-    device = torch.device(device)
+    device = resolve_device(device)
     encoder = MobileNetV2(opts.encoder_scale).load(
         params["encoder"], state["encoder"]
     ).to(device)
@@ -127,3 +141,40 @@ def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
         dense["decoder"] = quantize_decoder(dense["decoder"])
     dense = _cast_weights(dense, opts.dtype)
     return Captioner(encoder=encoder, params=dense)
+
+
+def _map_encoder_convs(params, fn):
+    enc = {name: {**p, "conv": {"w": fn(p["conv"]["w"])}} for name, p in params["encoder"].items()}
+    return {**params, "encoder": enc}
+
+
+def train_tree(params: Dict[str, Any], state: Dict[str, Any], device=None,
+               dtype=torch.float32):
+    """Reference-layout (params, state) -> the same trees as ``dtype`` tensors
+    on ``device`` (CUDA unless the caller passes another), encoder convs
+    OIHW, every param a leaf with ``requires_grad``."""
+    from myimagecaptioningmodel_tpu_torch.models.captioner import resolve_device
+
+    device = resolve_device(device)
+    p = tree_to_torch(_map_encoder_convs(params, conv_hwio_to_oihw), device, dtype)
+
+    def leaves(t):
+        for v in t.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+    for leaf in leaves(p):
+        leaf.requires_grad_(True)
+    return p, tree_to_torch(state, device, dtype)
+
+
+def reference_tree(params: Dict[str, Any], state: Dict[str, Any]):
+    """A training tree -> (params, state) as float32 numpy (float64 for a
+    float64 tree) in the reference layout (encoder convs HWIO)."""
+
+    def to_np(tree):
+        if isinstance(tree, dict):
+            return {k: to_np(v) for k, v in tree.items()}
+        t = tree.detach().cpu()
+        return (t if t.dtype == torch.float64 else t.float()).numpy()
+
+    return _map_encoder_convs(to_np(params), oihw_to_hwio), to_np(state)

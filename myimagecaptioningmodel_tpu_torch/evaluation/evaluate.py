@@ -18,7 +18,11 @@ import torch
 from myimagecaptioningmodel_tpu_torch.compat.from_jax import captioner_from_tree
 from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
 from myimagecaptioningmodel_tpu_torch.models import captioner
-from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner, ModelOptions
+from myimagecaptioningmodel_tpu_torch.models.captioner import (
+    Captioner,
+    ModelOptions,
+    resolve_device,
+)
 from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
 
 
@@ -33,11 +37,11 @@ def load_bundle(
     decoder weights as int8 (``ops/quantization.py``). ``early_stop`` ends
     the decode loop once every row (greedy) or every beam (beam) is finished
     (same captions). ``length_norm`` (beam only) divides the final beam
-    scores by ``len ** length_norm``. ``device`` defaults to CUDA when
-    available; ``opts.use_kernels`` is on exactly when the device is CUDA."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    scores by ``len ** length_norm``. ``device`` defaults to CUDA, and
+    without a card that is an error (``resolve_device``): the CPU runs only
+    when asked for with ``device="cpu"``. ``opts.use_kernels`` is on exactly
+    when the device is CUDA."""
+    device = resolve_device(device)
     directory = os.path.join(cfg.train.checkpoint_path, bundle)
     params, model_state, bundle_cfg = ckpt.load_inference_bundle(directory)
     opts = ModelOptions.from_config(bundle_cfg)._replace(

@@ -15,7 +15,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from myimagecaptioningmodel_tpu.evaluation import metrics
+from myimagecaptioningmodel_tpu_torch.evaluation import metrics
 from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import (
     load_bundle,
     load_index_word,
@@ -44,7 +44,8 @@ def caption_array(
 ) -> Tuple[List[int], str]:
     """Normalized [H, W, 3] float32 image -> (raw id list, sentence).
     ``beam_size > 1`` = beam search; ``quantize`` = int8 decoder weights;
-    ``length_norm`` = beam score normalization by len**alpha."""
+    ``length_norm`` = beam score normalization by len**alpha. Runs on CUDA
+    unless ``device="cpu"`` is given."""
     model, _bcfg, _opts, decode = load_bundle(
         cfg, bundle, beam_size, quantize, early_stop=early_stop, device=device,
         length_norm=length_norm,
@@ -61,7 +62,7 @@ def caption_image(
     early_stop: bool = False, length_norm: float = 0.0, device=None,
 ) -> Tuple[List[int], str]:
     """PIL image -> (raw id list, detokenized sentence)."""
-    from myimagecaptioningmodel_tpu.data import image as image_mod
+    from myimagecaptioningmodel_tpu_torch.data import image as image_mod
 
     arr = image_mod.process_image(
         img, cfg.data.image_shape, cfg.data.image_mean, cfg.data.image_std
@@ -107,7 +108,8 @@ def cli(argv=None) -> str:
     ap.add_argument("--early-stop", action="store_true")
     ap.add_argument("--length-norm", type=float, default=0.0,
                     help="beam only: normalize final scores by len**alpha")
-    ap.add_argument("--device", default=None, help="cuda or cpu (default: cuda if present)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; an error without a card) or cpu")
     args = ap.parse_args(argv)
     cfg = config_mod.Config.from_json_file(args.config) if args.config else None
     return main(args.url, cfg, args.bundle, args.beam, args.quantize, args.early_stop,

@@ -37,7 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from myimagecaptioningmodel_tpu.evaluation import metrics
+from myimagecaptioningmodel_tpu_torch.evaluation import metrics
 from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import (
     load_bundle,
     load_index_word,
@@ -51,7 +51,7 @@ def decode_image_bytes(data: bytes, shape, mean, std) -> np.ndarray:
 
     from PIL import Image
 
-    from myimagecaptioningmodel_tpu.data import image as image_mod
+    from myimagecaptioningmodel_tpu_torch.data import image as image_mod
 
     try:
         img = Image.open(io.BytesIO(data)).convert("RGB")
@@ -72,7 +72,8 @@ class _Request:
 
 
 class CaptionService:
-    """Bundle on one device + dynamic batcher thread."""
+    """Bundle on one device + dynamic batcher thread; the device is CUDA
+    unless ``device="cpu"`` is given (``load_bundle``)."""
 
     def __init__(self, cfg, bundle: str = "infer", batch_size: int = 8,
                  beam_size: int = 0, quantize: bool = False,
@@ -274,7 +275,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", help="JSON config file")
     ap.add_argument("--bundle", default="infer")
-    ap.add_argument("--device", default=None, help="cuda or cpu (default: cuda if present)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; an error without a card) or cpu")
     ap.add_argument("--port", type=int, default=8765)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--batch", type=int, default=8)

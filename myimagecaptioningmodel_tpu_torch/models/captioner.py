@@ -1,15 +1,23 @@
-"""Image-captioning model facade, decode side; port of
+"""Image-captioning model facade; port of
 ``myimagecaptioningmodel_tpu/models/captioner.py``.
 
 Feature path (as the reference's ``img2feature``): encoder NHWC
 [B,7,7,1280] -> [B,49,1280] flattened in NHWC order; per-position dense+relu
 -> img_embed [B,49,H]; mean over positions -> dense+relu -> global_feat [B,H].
 
-A ``Captioner`` pairs the eval-mode MobileNetV2 module with the dense
-params (``img_embed``, ``img_global``, ``decoder``) in the reference's dict
-layout, all on one device. ``init`` draws the reference's (params, state)
-pytree; ``compat/from_jax.captioner_from_tree`` turns such a pytree into a
-``Captioner``.
+Serving: a ``Captioner`` pairs the eval-mode MobileNetV2 module with the
+dense params (``img_embed``, ``img_global``, ``decoder``) in the reference's
+dict layout, all on one device; ``compat/from_jax.captioner_from_tree``
+builds one from a reference-layout (params, state) pytree.
+
+Training works on the (params, state) tree itself, as the reference does:
+``img2feature_tree`` (train-mode BN, new state), ``loss_terms`` (masked CE
+sum and token count over teacher-forced logits) and ``loss_fn`` (their
+token mean). ``compat/from_jax.train_tree`` makes the tree: float32 master
+weights with ``requires_grad``; each op casts to the compute dtype.
+
+``init`` draws the reference's (params, state) pytree. Entry points run on
+CUDA unless the caller asks for the CPU (``resolve_device``).
 """
 
 from __future__ import annotations
@@ -31,23 +39,49 @@ TRANSFORMER_TODO = (
 )
 
 
+BN_STAT_ROWS_TODO = (
+    "model.bn_stat_rows > 0 (subset-statistics BN) is not ported yet "
+    "(ROADMAP.md, queue 1)"
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Without a card that is an error, never a quiet move to the CPU:
+    pass ``device="cpu"`` to run there."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on a GPU unless asked for the CPU "
+            "(pass device=\"cpu\", or --device cpu on the command line)"
+        )
+    return device
+
+
 class ModelOptions(NamedTuple):
-    """Static model options derived from config (decode subset of the
-    reference's)."""
+    """Static model options derived from config (the LSTM family's fields of
+    the reference's)."""
 
     dims: DecoderDims
+    sentence_length: int = 35
     infer_max_length: int = 35
     start_idx: int = 2
     padding_idx: int = 0
+    encoder_trainable: bool = True
     encoder_scale: float = 1.0
     parity_mode: bool = False
     compute_dtype: str = "bfloat16"
     use_kernels: bool = False  # hand-written CUDA kernels on the decode path
+    # the encoder's stride-1 1x1 convs through kernel F (training only)
+    fuse_bn_stats: bool = False
+    bn_stat_rows: int = 0  # > 0 is not ported (BN_STAT_ROWS_TODO)
     early_stop_decode: bool = False
     stop_idx: int = 3
     # ((mean,)*3, (std,)*3) for normalizing raw uint8 image batches
     image_norm: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
     arch: str = "lstm"
+    # uniform label smoothing over the real vocab rows; 0 = hard targets
+    label_smoothing: float = 0.0
 
     @classmethod
     def from_config(cls, cfg) -> "ModelOptions":
@@ -59,12 +93,17 @@ class ModelOptions(NamedTuple):
             raise ValueError(f"unknown model.decoder.arch: {arch!r}")
         return cls(
             dims=DecoderDims.from_config(md),
+            sentence_length=md.decoder.sentence_length,
             infer_max_length=md.decoder.infer_max_length,
             start_idx=cfg.data.start_idx,
             padding_idx=cfg.data.padding_idx,
+            encoder_trainable=md.encoder.encoder_trainable,
             encoder_scale=float(getattr(md.encoder, "encoder_scale", 1.0)),
             parity_mode=md.parity_mode,
             compute_dtype=md.compute_dtype,
+            fuse_bn_stats=md.fuse_bn_stats,
+            bn_stat_rows=md.bn_stat_rows,
+            label_smoothing=float(cfg.train.label_smoothing),
             stop_idx=cfg.data.stop_idx,
             image_norm=(
                 tuple(float(m) for m in cfg.data.image_mean),
@@ -131,13 +170,63 @@ def img2feature(model: Captioner, images, opts: ModelOptions):
     return img_embed, feat, global_feat
 
 
-@torch.no_grad()
-def greedy_decode(model: Captioner, images, opts: ModelOptions) -> torch.Tensor:
-    """Greedy caption ids int32 [B, infer_max_length] (eval-mode BN)."""
-    img_embed, _feat, global_feat = img2feature(model, images, opts)
-    pre = decoder_mod.precompute(model.params["decoder"], img_embed, global_feat, opts.dtype)
+def img2feature_tree(params: Params, state: Params, images, opts: ModelOptions,
+                     train: bool = True):
+    """The reference's ``img2feature`` on a (params, state) tree (OIHW conv
+    weights) -> (img_embed [B,k,H], raw feats [B,k,C], global_feat [B,H],
+    new state). ``train`` normalizes with batch statistics and returns the
+    updated moving statistics; otherwise the state comes back as it was."""
+    if train and opts.bn_stat_rows > 0:
+        raise NotImplementedError(BN_STAT_ROWS_TODO)
+    dt = opts.dtype
+    images = prepare_images(images, opts, params["img_embed"]["w"].device)
+    feat, enc_state = mobilenet_v2.apply(
+        params["encoder"], state["encoder"], images, train=train,
+        trainable=opts.encoder_trainable, scale=opts.encoder_scale,
+        compute_dtype=dt, fuse_bn_stats=opts.fuse_bn_stats,
+    )
+    B = feat.shape[0]
+    feat = feat.reshape(B, -1, feat.shape[-1])  # [B, 49, 1280] (NHWC flatten)
+    img_embed = torch.relu(L.dense(params["img_embed"], feat, dt))
+    global_feat = torch.relu(L.dense(params["img_global"], feat.mean(dim=1), dt))
+    return img_embed, feat, global_feat, {"encoder": enc_state}
+
+
+def loss_terms(params: Params, state: Params, images, captions: torch.Tensor,
+               opts: ModelOptions, train: bool = True):
+    """Unreduced loss -> (masked CE sum, non-pad token count, new state); the
+    (sum, count) split is what gradient accumulation needs."""
+    captions = torch.as_tensor(captions).to(params["img_embed"]["w"].device).long()
+    source, target = captions[:, :-1], captions[:, 1:]
+    mask = (target != opts.padding_idx).float()
+    img_embed, _feat, global_feat, new_state = img2feature_tree(
+        params, state, images, opts, train)
+    dec = params["decoder"]
+    pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
+    logits = decoder_mod.teacher_forcing_logits(
+        dec, pre, source, opts.parity_mode, opts.padding_idx, opts.dtype)  # [B, T, V]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, target[..., None])[..., 0]
+    ce = logz - gold
+    if opts.label_smoothing > 0.0:
+        # uniform smoothing over the real vocab rows (padded rows excluded)
+        eps = opts.label_smoothing
+        mean_logit = logits[..., : opts.dims.vocab_size].mean(dim=-1)
+        ce = (1.0 - eps) * ce + eps * (logz - mean_logit)
+    return (ce * mask).sum(), mask.sum(), new_state
+
+
+def loss_fn(params: Params, state: Params, images, captions, opts: ModelOptions,
+            train: bool = True):
+    """Masked token-mean teacher-forcing cross-entropy -> (scalar, new state)."""
+    ce_sum, n_tok, new_state = loss_terms(params, state, images, captions, opts, train)
+    return ce_sum / torch.clamp(n_tok, min=1.0), new_state
+
+
+def _decode_features(dec: Params, img_embed, global_feat, opts: ModelOptions):
+    pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
     return decoder_mod.greedy_decode_ids(
-        model.params["decoder"],
+        dec,
         pre,
         opts.infer_max_length,
         opts.start_idx,
@@ -148,3 +237,19 @@ def greedy_decode(model: Captioner, images, opts: ModelOptions) -> torch.Tensor:
         early_stop=opts.early_stop_decode,
         stop_idx=opts.stop_idx,
     )
+
+
+@torch.no_grad()
+def greedy_decode(model: Captioner, images, opts: ModelOptions) -> torch.Tensor:
+    """Greedy caption ids int32 [B, infer_max_length] (eval-mode BN)."""
+    img_embed, _feat, global_feat = img2feature(model, images, opts)
+    return _decode_features(model.params["decoder"], img_embed, global_feat, opts)
+
+
+@torch.no_grad()
+def greedy_decode_tree(params: Params, state: Params, images, opts: ModelOptions):
+    """Greedy caption ids from a training (params, state) tree (eval-mode BN
+    with the moving statistics)."""
+    img_embed, _feat, global_feat, _ = img2feature_tree(params, state, images, opts,
+                                                        train=False)
+    return _decode_features(params["decoder"], img_embed, global_feat, opts)

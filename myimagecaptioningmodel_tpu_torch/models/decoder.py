@@ -18,6 +18,13 @@ per-row scale, where the reference does.
 (CUDA), and the plain step otherwise. Unlike the reference it needs no model
 dims gate and pads no batch: the kernels take any B >= 1 and mask their own
 ragged edges, and decoding is per row either way.
+
+``teacher_forcing_logits`` is the training forward, with the reference's
+structure: everything that does not feed the recurrence is batched over
+time, a Python loop over T keeps only the h-recurrent product (each step
+under ``torch.utils.checkpoint``, the reference's ``remat``), and the
+all-steps attention scores are checkpointed too, so the backward recomputes
+the ``[T, B, k, H]`` tanh tensor instead of storing it.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import math
 from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from myimagecaptioningmodel_tpu_torch.ops import layers as L
 from myimagecaptioningmodel_tpu_torch.ops.attention import adaptive_attention
@@ -202,6 +210,91 @@ def step(params: Params, pre: Precomputed, word: torch.Tensor, h_prev: torch.Ten
     h, c, proj = step_core(params, pre, word, h_prev, c_prev, parity_mode, padding_idx,
                            compute_dtype)
     return h, c, head_logits(params, proj, compute_dtype)
+
+
+def _recurrent_step(h, c, gx_t, w_hh, dt):
+    gates = gx_t + torch.matmul(h.to(dt), w_hh).float()
+    return lstm_from_gates(gates, c)
+
+
+def _attn_scores(w, b, img_k, h_emb, dt):
+    """e[t, b, k] = tanh(img_k[b, k] + h_emb[t, b]) @ w + b."""
+    z_img = torch.tanh(img_k[None].to(dt) + h_emb[:, :, None, :])
+    return L.dense({"w": w, "b": b}, z_img, dt)[..., 0]
+
+
+def teacher_forcing_logits(
+    params: Params,
+    pre: Precomputed,
+    source: torch.Tensor,  # [B, T] input words (caption[:, :-1])
+    parity_mode: bool = False,
+    padding_idx: int = 0,
+    compute_dtype=torch.bfloat16,
+    remat: bool = True,
+) -> torch.Tensor:
+    """Training forward over the whole caption -> logits [B, T, V] float32."""
+    B, T = source.shape
+    H = dense_in_dim(params["p_hid"])
+    dt = compute_dtype
+    dev = pre.global_feat.device
+    h0 = torch.zeros((B, H), dtype=torch.float32, device=dev)
+
+    # the word, global and bias gate terms of every step, batched over time
+    word_emb = L.embed(params["embedding"], source, padding_idx)  # [B, T, E]
+    E = word_emb.shape[-1]
+    lw = params["lstm"]["w"]
+    gx = (torch.matmul(word_emb.to(dt), lw[:E].to(dt)).float()
+          + pre.lstm_gx[:, None, :] + params["lstm"]["b"])  # [B, T, 4H]
+    gx_tm = gx.transpose(0, 1)  # time-major
+    w_hh = lw[E + H:].to(dt)
+
+    h, c = h0, torch.zeros_like(h0)
+    hs, cs = [], []
+    for t in range(T):  # only the h-recurrent product is inside the loop
+        if remat:
+            h, c = checkpoint(_recurrent_step, h, c, gx_tm[t], w_hh, dt, use_reentrant=False)
+        else:
+            h, c = _recurrent_step(h, c, gx_tm[t], w_hh, dt)
+        hs.append(h)
+        cs.append(c)
+    hs, cs = torch.stack(hs), torch.stack(cs)  # [T, B, H]
+    h_prev_seq = torch.cat([h0[None], hs[:-1]], dim=0)  # h_{t-1}
+
+    # the post-recurrence step math (as step_core), batched over [T, B, .]
+    gw = params["gate_x"]["w"]
+    gate = torch.sigmoid(
+        torch.matmul(word_emb.to(dt), gw[:E].to(dt)).transpose(0, 1).float()
+        + pre.gate_gx
+        + params["gate_x"]["b"]
+        + L.dense(params["gate_h"], h_prev_seq, dt).float()
+    )
+    sentinel = gate * torch.tanh(cs)  # [T, B, H]
+    p_hid = torch.tanh(L.dense(params["p_hid"], hs, dt))
+    hid_emb = L.dense(params["hid_emb"], p_hid, dt)
+    sent_key = L.dense(params["sent_emb"], sentinel, dt)
+
+    if parity_mode:
+        k1 = pre.img_v.shape[1] + 1
+        context = (pre.img_v.sum(dim=1).float()[None] + sentinel) / k1
+    else:
+        score = params["attention"]["score"]
+        if remat:
+            e_img = checkpoint(_attn_scores, score["w"], score["b"], pre.img_k, hid_emb, dt,
+                               use_reentrant=False)
+        else:
+            e_img = _attn_scores(score["w"], score["b"], pre.img_k, hid_emb, dt)
+        z_sent = torch.tanh(sent_key + hid_emb)
+        e_sent = L.dense(score, z_sent, dt)
+        e = torch.cat([e_img, e_sent], dim=-1).float()
+        alpha = torch.softmax(e, dim=-1)  # [T, B, k+1]
+        context = (
+            torch.einsum("tbk,bkh->tbh", alpha[..., :-1].to(dt), pre.img_v.to(dt)).float()
+            + alpha[..., -1:] * sentinel
+        )
+
+    out = torch.tanh(L.dense(params["out"], context + p_hid, dt))
+    proj = L.dense(params["out_proj"], out, dt)  # [T, B, E]
+    return head_logits(params, proj, dt).transpose(0, 1)  # [B, T, V]
 
 
 def greedy_decode_ids(

@@ -1,11 +1,24 @@
-"""MobileNetV2 encoder, eval mode; port of
+"""MobileNetV2 encoder; port of
 ``myimagecaptioningmodel_tpu/models/mobilenet_v2.py``.
 
 Same architecture and parameter names: conv3x3 s2, then the inverted-residual
 stages of ``BOTTLENECK_PARAMS``, then a 1x1 conv to 1280 channels, BN after
-every conv, ReLU6. Input and output are NHWC like the reference's; inside,
-activations are NCHW tensors, kept in channels-last memory on CUDA. BN uses
-the moving statistics (buffers), so features are per-image.
+every conv, ReLU6. Input and output are NHWC like the reference's.
+
+Two forwards:
+
+- ``MobileNetV2``, the serving module (eval mode): activations are NCHW
+  tensors inside, kept in channels-last memory on CUDA; BN uses the moving
+  statistics (buffers), so features are per-image; no gradient.
+- ``apply``, the reference's functional ``apply`` on a (params, state) tree
+  whose conv weights are OIHW (``compat/from_jax.train_tree``): in train
+  mode BN normalizes with batch statistics and the new moving statistics
+  come back as a new state tree, as in the reference. Activations are NHWC
+  views of channels-last memory. ``trainable=False`` detaches the params
+  (no gradient) while the moving statistics still update.
+  ``fuse_bn_stats`` sends every stride-1 1x1 conv through kernel F
+  (``ops/kernels/matmul_bn.conv1x1_bn_train``), under the reference's
+  condition.
 
 ``init`` builds the reference's parameter pytree (HWIO conv weights, BN
 params and state) from a ``torch.Generator``; ``MobileNetV2.load`` takes that
@@ -140,3 +153,62 @@ class MobileNetV2(nn.Module):
                     x = x + residual
         x = layers["conv9"](x, compute_dtype)
         return x.permute(0, 2, 3, 1).contiguous()  # NHWC
+
+
+# ---- functional forward (training) ---------------------------------------------
+
+
+def _apply_conv_bn(p, s, x, stride: int, padding: int, groups: int, act: bool,
+                   train: bool, compute_dtype, fuse_bn_stats: bool):
+    """conv + BN (+ ReLU6) on NHWC ``x`` -> (y NHWC, {"bn": new state})."""
+    w = p["conv"]["w"]  # OIHW
+    if (fuse_bn_stats and train and groups == 1 and stride == 1 and padding == 0
+            and w.shape[2] == 1 and w.shape[3] == 1):
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
+
+        x, mean, var = MB.conv1x1_bn_train(w, p["bn"], x, compute_dtype)
+        bn_s = L.moving_update(s["bn"], mean, var)
+    else:
+        x = L.conv2d(w, x.permute(0, 3, 1, 2), stride, padding, groups,
+                     compute_dtype).permute(0, 2, 3, 1)
+        if train:
+            x, bn_s = L.batch_norm_train(p["bn"], s["bn"], x)
+        else:
+            x, bn_s = L.batch_norm(p["bn"], s["bn"], x, channel_axis=-1), s["bn"]
+    return (L.relu6(x) if act else x), {"bn": bn_s}
+
+
+def apply(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,
+          train: bool = True, trainable: bool = True, scale: float = 1.0,
+          compute_dtype=torch.bfloat16, fuse_bn_stats: bool = False):
+    """NHWC [B, H, W, 3] -> (NHWC [B, H/32, W/32, 1280] features, new state)."""
+    if not trainable:  # the reference's per-call stop_gradient
+        params = {name: {k: {n: t.detach() for n, t in leaf.items()} for k, leaf in p.items()}
+                  for name, p in params.items()}
+    if x.is_cuda:  # NHWC contiguous == NCHW in channels-last memory
+        x = x.contiguous()
+    new_state: Dict[str, Any] = {}
+
+    def conv_bn(name, x, stride, padding, groups=1, act=True):
+        y, new_state[name] = _apply_conv_bn(
+            params[name], state[name], x, stride, padding, groups, act, train,
+            compute_dtype, fuse_bn_stats,
+        )
+        return y
+
+    x = conv_bn("conv1_1", x, 2, 1)
+    in_c = int(32 * scale)
+    for stage, (t, c, n, s) in enumerate(BOTTLENECK_PARAMS, start=2):
+        c = int(c * scale)
+        for i in range(1, n + 1):
+            name = f"conv{stage}_{i}"
+            exp = int(round(in_c * t))
+            residual = x
+            x = conv_bn(name + "_expand", x, 1, 0)
+            x = conv_bn(name + "_dwise", x, s if i == 1 else 1, 1, groups=exp)
+            x = conv_bn(name + "_linear", x, 1, 0, act=False)
+            if i > 1:  # shortcut on non-first blocks of a stage
+                x = x + residual
+            in_c = c
+    x = conv_bn("conv9", x, 1, 0)
+    return x, new_state

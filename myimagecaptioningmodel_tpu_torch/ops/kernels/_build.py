@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The library
 lands in the package's ``build/`` directory under a name keyed by a hash of
 the sources and flags, so a changed source rebuilds and an unchanged one is
 reused. A machine with a CUDA device but no ``nvcc`` is an error: there is no
@@ -25,10 +26,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # dtype codes of csrc/common.cuh (int8 only for vocab tables)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -43,6 +42,8 @@ _SIGNATURES = {
     "capk_vocab_argmax": [_I, _I, _I, _I] + [_VP] * 8,
     "capk_topk_head": [_I] * 5 + [_VP] * 12,
     "capk_fused_step": [_I] * 5 + [_VP] * 22,
+    "capk_matmul_stats_partial_rows": [_I] * 3,
+    "capk_matmul_stats": [_I] * 4 + [_VP] * 5 + [_I] + [_VP] * 3,
 }
 
 
@@ -71,28 +72,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcapk_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs, what: str) -> str:
+    """Wait for every process; raise with the failures' output."""
+    logs, failed = [], []
+    for name, proc in procs:
+        out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError(f"nvcc failed to {what}:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
 def _compile(target: Path) -> None:
     global build_seconds, ptxas_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):  # one nvcc per source, in parallel
+            obj = os.path.join(work, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )))
+        log = _run(procs, "compile")
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.Popen([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _run([("link", link)], "link")
         os.replace(tmp, target)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
-    ptxas_log = proc.stderr
+    ptxas_log = log
 
 
 def load_library() -> ctypes.CDLL:

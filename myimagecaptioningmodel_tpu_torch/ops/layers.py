@@ -15,11 +15,17 @@ with like:
 One deliberate layout difference: ``conv2d`` takes PyTorch's NCHW activations
 and OIHW weights (``compat/from_jax.py`` converts HWIO). ``batch_norm`` takes
 the channel axis as an argument for that reason.
+
+Train-mode BN (``batch_norm_train``) is the reference's ``_bn_train``: one
+pass of float32 statistics (float64 for float64 inputs), ``E[x^2] - mean^2``
+clamped at 0, the *biased* variance, and a backward written by hand in two
+passes over (x, dy). The moving statistics keep ``BN_MOMENTUM`` of the old
+value (``nn.BatchNorm2d``'s momentum and unbiased running variance differ).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +34,7 @@ from myimagecaptioningmodel_tpu_torch.ops.quantization import is_quantized
 
 Params = Dict[str, Any]
 
+BN_MOMENTUM = 0.9  # Paddle batch_norm default
 BN_EPS = 1e-5
 
 
@@ -83,3 +90,73 @@ def batch_norm(
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 6.0)
+
+
+# ---- train-mode batch norm ----------------------------------------------------
+
+
+def init_batch_norm(num_ch: int) -> Tuple[Params, Params]:
+    """(params, state): scale 1 / offset 0, moving mean 0 / var 1."""
+    return ({"scale": torch.ones(num_ch), "offset": torch.zeros(num_ch)},
+            {"mean": torch.zeros(num_ch), "var": torch.ones(num_ch)})
+
+
+def stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """BN statistics dtype: float32, float64 for float64 inputs."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def bn_normalize(x, mean, var, scale, offset):
+    """(x - mean) * rsqrt(var + eps) * scale + offset in the statistics'
+    dtype, over a channel-last ``x`` -> (y in ``x.dtype``, inv)."""
+    inv = torch.rsqrt(var + BN_EPS)
+    y = ((x.to(mean.dtype) - mean) * (inv * scale) + offset).to(x.dtype)
+    return y, inv
+
+
+def bn_backward(dy, x, mean, inv, scale):
+    """The reference's two-pass BN backward over a channel-last ``x`` (the
+    statistics take no cotangent) -> (dx in ``x.dtype``, dscale, doffset)."""
+    sd = mean.dtype
+    dims = tuple(range(x.ndim - 1))
+    n = x.numel() // x.shape[-1]
+    dy32 = dy.to(sd)
+    xhat = (x.to(sd) - mean) * inv
+    doffset = dy32.sum(dims)  # pass 1: both sums in one read of (dy, x)
+    dscale = (dy32 * xhat).sum(dims)
+    dx = (scale * inv / n) * (n * dy32 - doffset - xhat * dscale)  # pass 2
+    return dx.to(x.dtype), dscale.to(scale.dtype), doffset.to(scale.dtype)
+
+
+class _BNTrain(torch.autograd.Function):
+    """(scale, offset, channel-last x) -> (y, batch mean, batch var)."""
+
+    @staticmethod
+    def forward(ctx, scale, offset, x):
+        x32 = x.to(stat_dtype(x))
+        dims = tuple(range(x.ndim - 1))
+        mean = x32.mean(dims)
+        var = torch.clamp(x32.square().mean(dims) - mean.square(), min=0.0)
+        y, inv = bn_normalize(x, mean, var, scale, offset)
+        ctx.save_for_backward(scale, x, mean, inv)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        scale, x, mean, inv = ctx.saved_tensors
+        dx, dscale, doffset = bn_backward(dy, x, mean, inv, scale)
+        return dscale, doffset, dx
+
+
+def moving_update(s: Params, mean: torch.Tensor, var: torch.Tensor) -> Params:
+    """New moving statistics: ``BN_MOMENTUM * old + (1 - BN_MOMENTUM) * batch``."""
+    return {"mean": BN_MOMENTUM * s["mean"] + (1.0 - BN_MOMENTUM) * mean,
+            "var": BN_MOMENTUM * s["var"] + (1.0 - BN_MOMENTUM) * var}
+
+
+def batch_norm_train(p: Params, s: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """Train-mode BN over all but the last (channel) axis of ``x`` ->
+    (y in ``x.dtype``, new moving statistics)."""
+    y, mean, var = _BNTrain.apply(p["scale"], p["offset"], x)
+    return y, moving_update(s, mean, var)

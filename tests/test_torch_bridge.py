@@ -99,7 +99,8 @@ def test_jax_bundle_converts_to_port_bundle(tmp_path, jax_tree):
         "COMMITTED", "config.json", "params.npz", "word_dict.npy"]
     params, state, cfg2 = tckpt.load_inference_bundle(str(tmp_path / "port"))
     _assert_same_tree({"params": params, "model_state": state}, jax_tree)
-    assert cfg2 == cfg
+    # the port keeps its own Config class: the same fields and values
+    assert cfg2.to_dict() == cfg.to_dict()
     # a JAX bundle is not silently read as a port bundle
     with pytest.raises(FileNotFoundError, match="convert_jax_bundle"):
         tckpt.load_inference_bundle(str(tmp_path / "jax"))

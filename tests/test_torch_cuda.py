@@ -13,7 +13,14 @@ picked ids' logits (re-read from the plain float32 logits) to 1e-4 for every
 table dtype, since the plain version rounds as the kernel does (on an H100
 the errors read 9.5e-7 for lse and 2.1e-6 for the values); ids equal at
 every rank whose plain sorted value is clear of both neighbours by the
-near-tie gap.
+near-tie gap. Kernel F: y to 1e-4 x max|y| in float32; in bfloat16 to one
+bf16 ulp of the larger magnitude plus the float32 accumulation-order bound
+2 K 2^-24 sum_k |x w| (the two sums add in other orders, so a value may
+round to the neighbouring bf16 number, or further where y cancels to near
+zero); sum and sumsq to 5e-5 of sum|y| and of sumsq against float64 sums of
+the kernel's own y (float32 adds up to ~800 terms in order per thread), the
+same bits from run to run; the fused 1x1 conv + BN against the unfused conv
+and BN in float32 to 1e-4 of each output's largest magnitude.
 """
 
 import pytest
@@ -21,7 +28,9 @@ import torch
 
 from myimagecaptioningmodel_tpu_torch.compat.from_jax import tree_to_torch
 from myimagecaptioningmodel_tpu_torch.models import decoder as TD
+from myimagecaptioningmodel_tpu_torch.ops import layers as TL
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as TFS
+from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as TMB
 from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as TVH
 
 
@@ -209,3 +218,55 @@ def test_cuda_launch_counters(cuda):
     TVH.topk_vocab_head(proj, table, bias, 4)
     TVH.topk_vocab_head(proj.cpu(), table.cpu(), bias.cpu(), 4)  # plain version
     assert TVH.topk_vocab_head.launches == before + 1
+
+
+# kernel F's (M, K, N) on the training path at B=128, 224 px, a ragged M, and
+# rows that are not whole 16-byte vectors
+F_SHAPES = [(1605632, 32, 32), (1605632, 16, 96), (401408, 24, 144), (25088, 576, 96),
+            (6272, 320, 1280), (1000, 24, 144), (1000, 11, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", F_SHAPES)
+def test_cuda_matmul_stats_matches_plain(cuda, dt, M, K, N):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, device=cuda, generator=g).to(dt)
+    w = (torch.randn(K, N, device=cuda, generator=g) / K ** 0.5).to(dt)
+    y, s, q = TMB.matmul_stats(x, w)
+    ry, _rs, _rq = TMB._matmul_stats_reference(x, w)
+    yf, ryf = y.float(), ry.float()
+    if dt == torch.float32:
+        assert (yf - ryf).abs().max() <= 1e-4 * ryf.abs().max()
+    else:
+        mag = torch.maximum(yf.abs(), ryf.abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        acc = 2 * K * 2.0 ** -24 * torch.matmul(x.float().abs(), w.float().abs())
+        assert ((yf - ryf).abs() <= ulp + acc).all()
+    y64 = y.double()
+    assert ((s.double() - y64.sum(0)).abs() <= 5e-5 * y64.abs().sum(0)).all()
+    q64 = (y64 * y64).sum(0)
+    assert ((q.double() - q64).abs() <= 5e-5 * q64).all()
+    _y2, s2, q2 = TMB.matmul_stats(x, w)
+    assert torch.equal(s, s2) and torch.equal(q, q2)
+
+
+@pytest.mark.cuda
+def test_cuda_conv1x1_bn_train_matches_unfused(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = (torch.randn(4, 14, 14, 96, device=cuda, generator=g) + 0.5).requires_grad_()
+    w = (torch.randn(576, 96, 1, 1, device=cuda, generator=g) / 96 ** 0.5).requires_grad_()
+    bn = {"scale": (1 + 0.1 * torch.randn(576, device=cuda, generator=g)).requires_grad_(),
+          "offset": (0.1 * torch.randn(576, device=cuda, generator=g)).requires_grad_()}
+    dy = torch.randn(4, 14, 14, 576, device=cuda, generator=g)
+    y, mean, var = TMB.conv1x1_bn_train(w, bn, x, torch.float32)
+    before = TMB.matmul_stats.launches
+    grads = torch.autograd.grad(y, (w, bn["scale"], bn["offset"], x), dy)
+    assert TMB.matmul_stats.launches == before  # the backward is plain PyTorch
+    conv = TL.conv2d(w, x.permute(0, 3, 1, 2), compute_dtype=torch.float32).permute(0, 2, 3, 1)
+    ry, new = TL.batch_norm_train(bn, {"mean": torch.zeros(576, device=cuda),
+                                       "var": torch.ones(576, device=cuda)}, conv)
+    rgrads = torch.autograd.grad(ry, (w, bn["scale"], bn["offset"], x), dy)
+    for got, want in ((y, ry), (mean, new["mean"] / 0.1), (var, (new["var"] - 0.9) / 0.1),
+                      *zip(grads, rgrads)):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()

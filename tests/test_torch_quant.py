@@ -201,7 +201,7 @@ def test_bridge_quantizes_float32_before_the_cast():
     opts = tcap.ModelOptions.from_config(cfg)
     params, state = tcap.init(torch.Generator().manual_seed(1), opts)
     params, state = (jax.tree_util.tree_map(_np, t) for t in (params, state))
-    model = captioner_from_tree(params, state, opts, quantize=True)
+    model = captioner_from_tree(params, state, opts, device="cpu", quantize=True)
     want = dict(_leaves(JQ.quantize_decoder(jax.tree_util.tree_map(jnp.asarray,
                                                                    params["decoder"]))))
     got = dict(_leaves(model.params["decoder"]))

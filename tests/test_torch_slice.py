@@ -77,7 +77,7 @@ def setup():
         lambda p, s, x: jcap.img2feature(p, s, x, jopts, train=False)
     )(params, state, images)
     topts = tcap.ModelOptions.from_config(cfg)
-    model = captioner_from_tree(params, state, topts)
+    model = captioner_from_tree(params, state, topts, device="cpu")
     return cfg, params, state, images, (img_embed, feat, gf), topts, model
 
 
