@@ -193,14 +193,14 @@ def img2feature_tree(params: Params, state: Params, images, opts: ModelOptions,
 
 
 def loss_terms(params: Params, state: Params, images, captions: torch.Tensor,
-               opts: ModelOptions, train: bool = True):
-    """Unreduced loss -> (masked CE sum, non-pad token count, new state); the
-    (sum, count) split is what gradient accumulation needs."""
+               opts: ModelOptions):
+    """Unreduced train-mode loss -> (masked CE sum, non-pad token count, new
+    state); the (sum, count) split is what gradient accumulation needs."""
     captions = torch.as_tensor(captions).to(params["img_embed"]["w"].device).long()
     source, target = captions[:, :-1], captions[:, 1:]
     mask = (target != opts.padding_idx).float()
     img_embed, _feat, global_feat, new_state = img2feature_tree(
-        params, state, images, opts, train)
+        params, state, images, opts, train=True)
     dec = params["decoder"]
     pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
     logits = decoder_mod.teacher_forcing_logits(
@@ -216,10 +216,9 @@ def loss_terms(params: Params, state: Params, images, captions: torch.Tensor,
     return (ce * mask).sum(), mask.sum(), new_state
 
 
-def loss_fn(params: Params, state: Params, images, captions, opts: ModelOptions,
-            train: bool = True):
+def loss_fn(params: Params, state: Params, images, captions, opts: ModelOptions):
     """Masked token-mean teacher-forcing cross-entropy -> (scalar, new state)."""
-    ce_sum, n_tok, new_state = loss_terms(params, state, images, captions, opts, train)
+    ce_sum, n_tok, new_state = loss_terms(params, state, images, captions, opts)
     return ce_sum / torch.clamp(n_tok, min=1.0), new_state
 
 

@@ -230,7 +230,6 @@ def teacher_forcing_logits(
     parity_mode: bool = False,
     padding_idx: int = 0,
     compute_dtype=torch.bfloat16,
-    remat: bool = True,
 ) -> torch.Tensor:
     """Training forward over the whole caption -> logits [B, T, V] float32."""
     B, T = source.shape
@@ -251,10 +250,7 @@ def teacher_forcing_logits(
     h, c = h0, torch.zeros_like(h0)
     hs, cs = [], []
     for t in range(T):  # only the h-recurrent product is inside the loop
-        if remat:
-            h, c = checkpoint(_recurrent_step, h, c, gx_tm[t], w_hh, dt, use_reentrant=False)
-        else:
-            h, c = _recurrent_step(h, c, gx_tm[t], w_hh, dt)
+        h, c = checkpoint(_recurrent_step, h, c, gx_tm[t], w_hh, dt, use_reentrant=False)
         hs.append(h)
         cs.append(c)
     hs, cs = torch.stack(hs), torch.stack(cs)  # [T, B, H]
@@ -278,11 +274,8 @@ def teacher_forcing_logits(
         context = (pre.img_v.sum(dim=1).float()[None] + sentinel) / k1
     else:
         score = params["attention"]["score"]
-        if remat:
-            e_img = checkpoint(_attn_scores, score["w"], score["b"], pre.img_k, hid_emb, dt,
-                               use_reentrant=False)
-        else:
-            e_img = _attn_scores(score["w"], score["b"], pre.img_k, hid_emb, dt)
+        e_img = checkpoint(_attn_scores, score["w"], score["b"], pre.img_k, hid_emb, dt,
+                           use_reentrant=False)
         z_sent = torch.tanh(sent_key + hid_emb)
         e_sent = L.dense(score, z_sent, dt)
         e = torch.cat([e_img, e_sent], dim=-1).float()

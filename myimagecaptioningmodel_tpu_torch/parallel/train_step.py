@@ -25,6 +25,8 @@ from myimagecaptioningmodel_tpu_torch.models.captioner import ModelOptions
 
 Params = Dict[str, Any]
 
+B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults (eps_root 0)
+
 
 def tree_leaves(tree) -> List[torch.Tensor]:
     """Leaves of nested dicts in key order (the order ``tree_map`` rebuilds)."""
@@ -74,10 +76,8 @@ class Optimizer:
     clip and the EMA each optional."""
 
     def __init__(self, schedule: Callable[[int], float], clip: Optional[float] = None,
-                 ema_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8) -> None:
+                 ema_decay: float = 0.0) -> None:
         self.schedule, self.clip, self.ema_decay = schedule, clip, ema_decay
-        self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params: Params) -> OptState:
         leaves = tree_leaves(params)
@@ -96,17 +96,16 @@ class Optimizer:
         if self.clip:
             g = [torch.clamp(x, -self.clip, self.clip) for x in g]
         count, mu, nu = state.adam
-        b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - b1)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
+        torch._foreach_mul_(mu, B1)
+        torch._foreach_add_(mu, g, alpha=1.0 - B1)
+        torch._foreach_mul_(nu, B2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - B2)
         t = count + 1
         # u = -lr(count) * mu_hat / (sqrt(nu_hat) + eps)
-        denom = torch._foreach_div(nu, 1.0 - b2 ** t)
+        denom = torch._foreach_div(nu, 1.0 - B2 ** t)
         torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, 1.0 - b1 ** t)
+        torch._foreach_add_(denom, EPS)
+        upd = torch._foreach_div(mu, 1.0 - B1 ** t)
         torch._foreach_div_(upd, denom)
         torch._foreach_mul_(upd, -self.schedule(count))
         ema = state.ema
@@ -149,7 +148,7 @@ def build_steps(opts: ModelOptions, optimizer: Optimizer, schedule,
         g_sum = [torch.zeros_like(p) for p in leaves]
         ce_total, tok_total, mstate = 0.0, 0.0, model_state
         for im, cp in zip(images.chunk(a), captions.chunk(a)):
-            ce_sum, n_tok, mstate = captioner.loss_terms(params, mstate, im, cp, opts, True)
+            ce_sum, n_tok, mstate = captioner.loss_terms(params, mstate, im, cp, opts)
             if a == 1:  # the token mean itself, as the reference differentiates it
                 ce_sum = ce_sum / torch.clamp(n_tok, min=1.0)
             g = torch.autograd.grad(ce_sum, leaves, allow_unused=True)

@@ -37,7 +37,7 @@ import myimagecaptioningmodel_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, chip_fault_check
 print(len(names))
 """
 
@@ -50,11 +50,11 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
-    """Imports inside functions too: every line of the port and of
-    chip_smoke.py."""
+    """Imports inside functions too: every line of the port and of the
+    scripts that drive it on the card."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
                          r"myimagecaptioningmodel_tpu)(\.|\s|$)")
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_fault_check.py"]
     bad = [f"{f}:{i}" for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
     assert not bad, bad
@@ -92,12 +92,10 @@ def test_metrics_and_image_copies_match_the_jax_package():
     index_word = {i: f"w{i}" for i in range(20)}
     pred = rng.randint(0, 20, (6, 9))
     pred[0, 3] = 3  # a <stop> mid-caption
-    real = [[[f"w{j}" for j in rng.randint(4, 20, 7)] for _ in range(2)] for _ in range(6)]
     for ids in pred:
         assert tmetrics.filter_ids(ids, index_word) == jmetrics.filter_ids(ids, index_word)
     words = tmetrics.filter_ids(pred[1], index_word)
     assert tmetrics.words2sentence(words) == jmetrics.words2sentence(words)
-    assert tmetrics.calc_bleu(pred, real, index_word) == jmetrics.calc_bleu(pred, real, index_word)
     img = Image.fromarray(rng.randint(0, 255, (30, 40, 3), np.uint8))
     args = ((16, 16), (0.4, 0.5, 0.6), (0.2, 0.3, 0.25))
     arr = timage.process_image(img, *args)
