@@ -1,10 +1,11 @@
-"""Plant faults in kernel F's statistics and in the fused train step, and read
-what each scores against ``chip_smoke.py``'s limits, beside the sound path.
+"""Plant faults in kernel F's statistics, in the fused train step and in
+kernel E's inputs, and read what each scores against ``chip_smoke.py``'s
+limits, beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
-only; nothing on disk changes. Two parts:
+only; nothing on disk changes. Three parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -18,10 +19,21 @@ only; nothing on disk changes. Two parts:
    one: the unbiased variance; the mean over M-1 rows; the statistics
    missing the rows past the last whole 128-row tile; the backward missing
    the ``xhat * dscale`` term of dx.
+3. Phase 15's check (``chip_smoke.e_check`` against ``E_RESCORE`` and the
+   near-tie gaps): kernel E in bfloat16 at 8 and 128 images x beam 4, with
+   and without early stops, run on inputs that plant a fault a kernel could
+   make, and held against the plain path on the sound inputs: positions off
+   by one step; the v projection's bias dropped (a bias on k would be no
+   fault: it shifts every score of a row alike); each row attending to the
+   next image's memory; LayerNorm gains 1% high; the last 32-row block of
+   the real vocabulary missing from the head; the ``in_proj`` bias dropped.
+
+    python3 chip_fault_check.py --parts 3   # part 3 only
 
 Each fault prints one ``[fault]`` line with its readings and whether the
 limits catch it; the script exits non-zero if the sound path fails its
-limits or a fault of part 2 goes uncaught.
+limits or a fault of parts 2 or 3 goes uncaught (but for the LayerNorm
+gain, which part 3 reads for the limit's resolution).
 """
 
 from __future__ import annotations
@@ -164,11 +176,75 @@ def train_fault_readings(dev, seed, root):
     return failed
 
 
+def _shift_pos(f):
+    return f._replace(pos=torch.cat([f.pos[1:], f.pos[-1:]]))
+
+
+def _v_bias_dropped(f):
+    D = f.w_o.shape[1]
+    b = f.b_qkv.clone()
+    b[:, 2 * D:] = 0.0
+    return f._replace(b_qkv=b)
+
+
+def _ln_gain(f):
+    ln = f.ln.clone()
+    ln[:, 0::2] *= 1.01
+    return f._replace(ln=ln)
+
+
+def _head_block_dropped(f):
+    bias = f.out_bias.clone()
+    bias[S.V_REAL - 32:S.V_REAL] = -1e9
+    return f._replace(out_bias=bias)
+
+
+# read for the gate's resolution, not required to fail: 1% on the LayerNorm
+# gains moves bf16 beam scores about as much as rounding does
+E_BELOW_RESOLUTION = ("ln_gain_plus_1pct",)
+E_FAULTS = {
+    "sound": lambda f: f,
+    "pos_off_by_one": _shift_pos,
+    "v_bias_dropped": _v_bias_dropped,
+    "memory_of_next_image": lambda f: f._replace(mem_kv=f.mem_kv.roll(1, dims=2)),
+    "ln_gain_plus_1pct": _ln_gain,
+    "head_block_dropped": _head_block_dropped,
+    "in_proj_bias_dropped": lambda f: f._replace(in_proj_b=torch.zeros_like(f.in_proj_b)),
+}
+
+
+def e_fault_readings(dev, seed):
+    """Part 3 -> {fault: caught in some case}."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import tree_to_torch
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    gen = torch.Generator().manual_seed(seed)
+    params = tree_to_torch(S.randomize_affine(TTF.init(gen, S.tf_dims()), gen), dev)
+    dt, caught = torch.bfloat16, {}
+    for n_img in (8, 128):
+        pre = S.tf_pre(gen, dev, params, n_img, dt)
+        for label in ("none", "mixed"):
+            bias = S.stop_biases(params, pre, dt)["mixed"] if label == "mixed" else 0.0
+            p = S.with_stop_bias(params, bias)
+            ftp = FT.prepare(p, pre, S.TF_HEADS, dt)
+            ref = FT.fused_beam_decode_reference(ftp, S.TF_STEPS, S.TF_HEADS, S.BEAM,
+                                                 compute_dtype=dt, early_stop=True)
+            for fault, plant in E_FAULTS.items():
+                ok, readings, _ = S.e_check(p, pre, ftp, dt, ref, kernel_ftp=plant(ftp))
+                caught[fault] = caught.get(fault, False) or not ok
+                S.say("fault", check="phase15", dtype="bfloat16", images=n_img, stop=label,
+                      fault=fault, caught=not ok, **readings)
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parts", default="1,2,3", help="comma-separated parts to run")
     args = ap.parse_args(argv)
+    parts = {int(x) for x in args.parts.split(",")}
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
         return 2
@@ -177,15 +253,21 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     S.phase_card_and_build()
     S.say("limits", F_STATS_TOL=json.dumps(S.F_STATS_TOL).replace(" ", ""),
-          TRAIN_LIMITS=json.dumps(S.TRAIN_LIMITS).replace(" ", ""))
-    caught11 = stats_fault_readings(dev, args.seed)
-    with tempfile.TemporaryDirectory() as root:
-        failed12 = train_fault_readings(dev, args.seed, root)
-    summary = {"phase11_caught": caught11, "phase12a_failed": failed12}
+          TRAIN_LIMITS=json.dumps(S.TRAIN_LIMITS).replace(" ", ""),
+          E_RESCORE=S.E_RESCORE[torch.bfloat16], E_GAP=S.E_GAP[torch.bfloat16])
+    summary = {}
+    if 1 in parts:
+        summary["phase11_caught"] = stats_fault_readings(dev, args.seed)
+    if 2 in parts:
+        with tempfile.TemporaryDirectory() as root:
+            summary["phase12a_failed"] = train_fault_readings(dev, args.seed, root)
+    if 3 in parts:
+        summary["phase15_caught"] = e_fault_readings(dev, args.seed)
     print(json.dumps(summary))
-    if caught11["sound"] or failed12["sound"]:
+    if any(bool(v["sound"]) for v in summary.values()):
         return 1
-    return 0 if all(failed12[f] for f in TRAIN_FAULTS if f != "sound") else 1
+    return 0 if all(bool(v[f]) for k, v in summary.items() if k != "phase11_caught"
+                    for f in v if f != "sound" and f not in E_BELOW_RESOLUTION) else 1
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving and training paths once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card:
+the LSTM family served and trained, then the transformer family served.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -67,7 +68,41 @@ Phases (each prints one line; any failure exits non-zero with no result):
    and fused (kernel) in the order plain, kernel, kernel, plain, 5 steps a
    window: ms per step over all 10 timed steps of each path (each window's
    beside it), images/s, peak device memory above base; then one profiled
-   step of each, device time by kernel kind and the top kernels.
+   step of each, device time by kernel kind and the top kernels;
+14. kernel D (``fused_greedy_decode``) against its plain version at full
+   width (the default config with ``arch="transformer"``: D=1024, 4 layers, 8
+   heads, MLP 4096, E=256, vocab 12295 padded to 12416, 50 memory slots, 35
+   steps; random weights and image features): float32 at B=8 with ids equal,
+   bfloat16 at B=8 and B=128; fixed length and early stop, with a bias on
+   <stop> that stops rows at different steps and one that stops every row
+   at step 0 (the device-side flag then skips the rest). Every id must be
+   the plain argmax of ``teacher_forcing_logits`` on the kernel's own ids
+   under the near-tie rule, with <pad> after <stop>; µs per decode for the
+   kernel and the plain version, the kernel launches per decode, the bound,
+   and a profile of one bf16 decode at each B;
+15. kernel E (``fused_beam_decode``, beam 4, early stop on) at 8 and 128
+   images (32 and 512 rows; 128 images give each warp of ``beam_select``
+   16 images), float32 and bfloat16, with no <stop> bias (beams run 35
+   steps) and the "mixed" one. E's beams are replayed through the plain
+   KV-cached step (``beam_replay``): at every step each chosen candidate
+   must lie within the plain top 4 of the 4 x V candidates on E's own
+   prefixes, up to the step's near-tie gap (``beam_gap``), with no
+   candidate chosen twice, and in the plain order where no near tie is;
+   lengths equal, <pad> and identity back-pointers after the early stop;
+   every beam's score, and the best beam's teacher-forced re-score, within
+   ``E_RESCORE`` x sqrt(live steps) of the plain one; every image with no
+   near tie at any step has words, back-pointers and lengths equal to the
+   plain version's (float32: and scores to 1e-4). The transformer weights
+   get random biases and LayerNorm parameters (``randomize_affine``).
+   Times, bound and profile;
+16. a full-width random transformer bundle from ``--seed`` served greedy and
+   beam 4 by ``CaptionService(batch_size=8)`` to 24 requests from 8 threads:
+   D (greedy) or E (beam) launches once per dispatch and no LSTM kernel
+   launches; the served model's greedy ids held against the plain
+   teacher-forced logits; ms per batch and captions/s at B=8 and B=128,
+   kernel path (weights packed once at load, and, beside it, packed on
+   every batch) and plain path (the plain KV-cached loop of
+   ``models/transformer.py``).
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -78,10 +113,12 @@ neighbouring ranks by that gap. Float32 products are compared with TF32 off
 
 The line before the last is one JSON object describing each kernel (the
 launches of A and B are phase 4's, those of C phase 8's beam service, those
-of F phase 12 (c)'s; ``bound_ms`` from the inputs' bytes at 3.35 TB/s and
-their operations at the peak rate of their type, whichever is longer;
-``library_ms`` one ``torch.addmm`` of the logits for A and C, ``torch.mm``
-for F, each doing less than the kernel, none for B); the last line is
+of F phase 12 (c)'s, those of D and E phase 16's services, one per decode;
+``bound_ms`` from the inputs' bytes at 3.35 TB/s and their operations at the
+peak rate of their type, whichever is longer (for D and E the bytes each
+step must read again, ``bound_tf``); ``library_ms`` one ``torch.addmm`` of
+the logits for A and C, ``torch.mm`` for F, each doing less than the kernel,
+none for B, D and E); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -111,6 +148,10 @@ KERNEL_C_TPU = "myimagecaptioningmodel_tpu/ops/pallas/vocab_head.py:206"
 V_REAL, BEAM = 12295, 4
 KERNEL_F_SRC = "myimagecaptioningmodel_tpu_torch/csrc/matmul_bn.cu"
 KERNEL_F_TPU = "myimagecaptioningmodel_tpu/ops/pallas/matmul_bn.py:72"
+KERNEL_DE_SRC = "myimagecaptioningmodel_tpu_torch/csrc/fused_transformer.cu"
+KERNEL_D_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py:1061"
+KERNEL_E_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py:1198"
+TF_STEPS, TF_HEADS, STOP = 35, 8, 3
 
 
 def say(phase: str, **kv) -> None:
@@ -1154,6 +1195,26 @@ def phase_train(dev, seed, root):
     return launches, (ref_params, ref_state, params, opt_state, state, images, caps)
 
 
+def dev_us(e):
+    """A profiled kernel's own device time, µs."""
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+
+def profile_events(fn):
+    """Run ``fn`` once under torch.profiler -> (wall ms up to a synchronize,
+    its device-kernel events by name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
 def kernel_kind(name: str) -> str:
     """A coarse class of a device kernel, from its name."""
     n = name.lower()
@@ -1212,20 +1273,8 @@ def phase_train_timing(dev, root, trained):
             peak_mib_above_base=round(max(peak[path]), 1))
 
     # where a step's device time goes, unfused and fused
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):  # a kernel's own device time
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-
     for path in ("plain", "kernel"):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(path, 1)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        wall_ms, events = profile_events(lambda: run(path, 1))
         busy_ms = sum(dev_us(e) for e in events) / 1e3
         by_kind = {}
         for e in events:
@@ -1238,6 +1287,451 @@ def phase_train_timing(dev, root, trained):
             **{f"{k}_ms": round(v, 3) for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])})
         for e in sorted(events, key=dev_us, reverse=True)[:8]:
             print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:110]}", flush=True)
+    return out
+
+
+# ---- phases 14-16: the transformer family -------------------------------------
+
+
+def tf_dims():
+    """The default config with ``arch="transformer"``: D=1024, 4 layers, 8
+    heads, MLP 4096, E=256, vocab 12295 padded to 12416, 35 positions."""
+    from myimagecaptioningmodel_tpu_torch.models.transformer import TransformerDims
+
+    return TransformerDims(vocab_size=V_REAL, embedding_size=E, model_dim=H, num_layers=4,
+                           num_heads=TF_HEADS, mlp_ratio=4, max_positions=TF_STEPS,
+                           vocab_pad_multiple=128)
+
+
+def randomize_affine(tree, gen):
+    """Random biases (0.02 N) and LayerNorm gains (1 + 0.1 N) and offsets in
+    place of init's zeros and ones, in place, so that the checks read the
+    kernels' bias and norm paths. ``out_bias`` (the padded rows' -1e9)
+    stays."""
+    if isinstance(tree, list):
+        for v in tree:
+            randomize_affine(v, gen)
+    elif isinstance(tree, dict):
+        if "b" in tree and ("w" in tree or "g" in tree):
+            tree["b"] = 0.02 * torch.randn(tree["b"].shape, generator=gen)
+        if "g" in tree:
+            tree["g"] = 1.0 + 0.1 * torch.randn(tree["g"].shape, generator=gen)
+        for k, v in tree.items():
+            if k not in ("b", "g"):
+                randomize_affine(v, gen)
+    return tree
+
+
+def tf_pre(gen, dev, params, n_img, dt):
+    """Random image features [n_img, 49, H] and [n_img, H] -> the memory."""
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+    img = torch.rand(n_img, K_SLOTS, H, generator=gen).to(dev)
+    gf = torch.rand(n_img, H, generator=gen).to(dev)
+    return TTF.precompute(params, img, gf, TF_HEADS, dt)
+
+
+def with_stop_bias(params, bias):
+    p = dict(params)
+    p["out_bias"] = params["out_bias"].clone()
+    p["out_bias"][STOP] += bias
+    return p
+
+
+def stop_biases(params, pre, dt):
+    """Biases on <stop> that put it first at step 0 in about half the rows
+    ("mixed": rows stop at different steps) and, by a margin of 1, in every
+    row ("all": the decode ends after one step)."""
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+    start = torch.full((pre.batch, 1), 2, dtype=torch.long, device=params["pos"].device)
+    logits = TTF.teacher_forcing_logits(params, pre, start, tf_dims(), 0, dt)[:, 0]
+    gap = logits.max(dim=-1).values - logits[:, STOP]
+    return {"mixed": float(gap.median()) + 1e-3, "all": float(gap.max()) + 1.0}
+
+
+def tf_token_logits(params, pre, ids, dt):
+    """Teacher-forced float32 logits [B, T, V] on ``ids`` (inputs <start> +
+    ids[:, :-1]) and the mask of the positions up to each row's first
+    <stop>."""
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+    ids = ids.long()
+    src = torch.cat([torch.full_like(ids[:, :1], 2), ids[:, :-1]], dim=1)
+    logits = TTF.teacher_forcing_logits(params, pre, src, tf_dims(), 0, dt)
+    after_stop = torch.cumsum((ids == STOP).int(), dim=1) - (ids == STOP).int() > 0
+    return logits, ~after_stop
+
+
+def greedy_tf_check(params, pre, ids, dt, early):
+    """Kernel D's ids against the plain argmax of the teacher-forced logits
+    on its own ids, under the near-tie rule, at every position up to the
+    first <stop> (``early``: <pad> after it) -> (ok, max gap of a picked id
+    below the plain maximum)."""
+    logits, live = tf_token_logits(params, pre, ids, dt)
+    B, T, V = logits.shape
+    if not early:
+        live = torch.ones_like(live)
+    flat = logits[live]
+    ok = near_tie_ok(ids[live], flat, dt) if flat.numel() else True
+    picked = flat.gather(1, ids[live].long()[:, None])[:, 0] if flat.numel() else flat
+    err = float((flat.max(dim=-1).values - picked).max()) if flat.numel() else 0.0
+    if early:
+        ok = ok and bool((ids[~live] == 0).all())
+    return ok, err
+
+
+def beam_rescore(params, pre, ids, dt):
+    """Sum of the teacher-forced log-softmax of ``ids`` up to and including
+    each row's first <stop> -> (scores [B], steps [B])."""
+    logits, live = tf_token_logits(params, pre, ids, dt)
+    tok = torch.log_softmax(logits, dim=-1).gather(-1, ids.long()[..., None])[..., 0]
+    return (tok * live).sum(dim=1), live.sum(dim=1)
+
+
+def bound_tf(rows, n_img, steps, dims, dt, T=TF_STEPS):
+    """Least ms of one decode of ``steps`` steps (the steps this run's data
+    needed): each step reads the layer weights (117 MB in bf16, more than the
+    50 MB L2 holds, so a step cannot reuse the previous step's), the head
+    and embedding weights, the table, every image's memory once and each
+    row's cache prefix, and writes each row's new k, v; the ids once. The
+    products' operations at the peak rate of their type."""
+    es = torch.tensor([], dtype=dt).element_size()
+    D, L, F, V = dims.model_dim, dims.num_layers, dims.model_dim * dims.mlp_ratio, V_PAD
+    weights = L * (6 * D * D + 2 * D * F) + 2 * D * E + V * E
+    small = 4 * (L * (3 * D + 4 * D + F + 6 * D) + V + 2 * D + E + TF_STEPS * D)
+    per_step = weights * es + small + n_img * L * 2 * (K_SLOTS + 1) * D * es
+    caches = sum(rows * L * 2 * (t + 2) * D * es for t in range(steps))  # read t+1, write 1
+    nbytes = steps * per_step + caches + rows * T * 4
+    ops = steps * 2 * rows * (weights + L * 2 * (K_SLOTS + 1 + T) * D)
+    return bound(nbytes, ops, dt)
+
+
+def device_profile(label, fn, top=6):
+    """One profiled call of ``fn``: wall ms, device busy ms (the sum of its
+    kernels' device time), kernel launches, and the kernels that took the
+    most device time."""
+    wall_ms, events = profile_events(fn)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    say(label + "_profile", wall_ms=round(wall_ms, 3), device_busy_ms=round(busy_ms, 3),
+        device_idle_share=round(max(0.0, 1 - busy_ms / wall_ms), 4),
+        kernel_launches=sum(e.count for e in events))
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:110]}", flush=True)
+
+
+def phase_kernel_d(dev, gen, params):
+    """Kernel D against its plain version at full width: bf16 at B=8 and
+    B=128, fixed length and early stop (a <stop> bias that stops rows at
+    different steps, and one that stops every row at step 0); float32 at
+    B=8, ids equal."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    worst, times = 0.0, {}
+    for dt, B in ((torch.float32, 8), (torch.bfloat16, 8), (torch.bfloat16, 128)):
+        pre = tf_pre(gen, dev, params, B, dt)
+        biases = stop_biases(params, pre, dt)
+        for label, bias in (("fixed", 0.0), ("mixed", biases["mixed"]), ("all", biases["all"])):
+            early = label != "fixed"
+            p = with_stop_bias(params, bias)
+            ftp = FT.prepare(p, pre, TF_HEADS, dt)
+            ids = FT.fused_greedy_decode(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt,
+                                         early_stop=early)
+            torch.cuda.synchronize()
+            ref = FT.fused_greedy_decode_reference(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt,
+                                                   early_stop=early)
+            ok, err = greedy_tf_check(p, pre, ids, dt, early)
+            same = float((ids == ref).all(dim=1).float().mean())
+            if dt == torch.float32:
+                ok = ok and same == 1.0
+            else:
+                worst = max(worst, err)
+            steps = int((ids != 0).any(dim=0).sum()) if early else TF_STEPS
+            line = dict(dtype=str(dt).split(".")[-1], B=B, stop=label, ok=ok,
+                        near_tie_max_gap=err, rows_equal_to_plain=same, steps_run=steps,
+                        kernel_launches_per_decode=FT.fused_greedy_decode.kernel_launches)
+            if label != "mixed":
+                t_k = time_ms(lambda: FT.fused_greedy_decode(
+                    ftp, TF_STEPS, TF_HEADS, compute_dtype=dt, early_stop=early), reps=3, warmup=1)
+                t_p = time_ms(lambda: FT.fused_greedy_decode_reference(
+                    ftp, TF_STEPS, TF_HEADS, compute_dtype=dt, early_stop=early), reps=2,
+                    warmup=1)
+                b = bound_tf(B, B, steps, tf_dims(), dt)
+                times[(dt, B, label)] = (t_k, t_p, *b)
+                line.update(kernel_us=round(t_k * 1e3, 1), plain_us=round(t_p * 1e3, 1),
+                            bound_us=round(b[0] * 1e3, 1), bound_by=b[1])
+            say("kernel_d", **line)
+            if dt == torch.bfloat16 and label == "fixed":
+                device_profile(f"kernel_d_B{B}", lambda: FT.fused_greedy_decode(
+                    ftp, TF_STEPS, TF_HEADS, compute_dtype=dt))
+            if not ok:
+                raise AssertionError(f"kernel D disagrees with the plain path ({dt}, B={B}, "
+                                     f"{label})")
+    return worst, times
+
+
+# Limits of phase 15 (kernel E against the plain path along E's own beams,
+# ``beam_replay``). A beam's score may differ from the plain score of the
+# same words by ``E_RESCORE[dt]`` x sqrt(the steps it was live): the kernel
+# and the plain step round their activations after sums taken in other
+# orders, and those errors are independent from step to step. Set between
+# what the sound kernel and planted faults read on an H100
+# (``chip_fault_check.py`` part 3, bf16 at 8 and 128 images): the sound
+# kernel at most 0.0175; a dropped v bias at least 0.055, the head missing
+# its last 32-row vocabulary block 0.031-0.035 without early stops; LayerNorm
+# gains 1% high read 0.023 at most and pass (the bf16 resolution). float32:
+# at most 1.03e-5 (two float32 ulps of a 35-step score). At step t two
+# candidates' plain cumulative scores are a near tie within the per-step
+# gap (bf16: 2e-2, as for A and C) plus what both beams may have drifted.
+E_RESCORE = {torch.float32: 3e-5, torch.bfloat16: 2.5e-2}
+E_GAP = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def beam_gap(dt, t: int) -> float:
+    """The near-tie gap between two candidates' cumulative scores at step t."""
+    return E_GAP[dt] + 2 * E_RESCORE[dt] * t ** 0.5
+
+
+def beam_replay(params, pre, quad, dt):
+    """Replay kernel E's beams (words and back-pointers [T, n_img, W]) through
+    the plain KV-cached step of ``models/transformer.py``: at every step the
+    plain cumulative score of each of the W x V candidates on E's own
+    prefixes. -> readings: ``shortfall``, the most by which a chosen
+    candidate fell below the plain W-th best less the step's near-tie gap
+    (> 0 fails); ``repeats``, candidates chosen twice at one step;
+    ``order_bad``, image-steps clear of near ties whose choices are not the
+    plain top-W in order; ``tail_ok``, <pad> words and identity
+    back-pointers after the early stop; ``lengths_ok``; ``rescore``
+    [n_img, W], |E's score - the plain score of its beam|; ``live`` [n_img,
+    W], the steps each beam was unfinished; ``clear`` [n_img], images with no
+    near tie at any step."""
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+    words, srcs, scores, lens = quad
+    T, n, W = words.shape
+    dev, dims = words.device, tf_dims()
+    V = dims.padded_vocab
+    pre_r = TTF.TransformerPre([k.repeat_interleave(W, 0) for k in pre.mem_k],
+                               [v.repeat_interleave(W, 0) for v in pre.mem_v])
+    caches = TTF._init_cache(dims, n * W, T, dt, dev)
+    layers = TTF.prepare_decode_layers(params)
+    word = torch.full((n * W,), 2, dtype=torch.long, device=dev)
+    score = torch.full((n, W), -1e9, device=dev)
+    score[:, 0] = 0.0
+    fin = torch.zeros((n, W), dtype=torch.bool, device=dev)
+    length = torch.zeros((n, W), dtype=torch.int32, device=dev)
+    pad_only = torch.full((V,), -1e9, device=dev)
+    pad_only[0] = 0.0
+    offs = (torch.arange(n, device=dev) * W)[:, None]
+    ident = torch.arange(W, device=dev)
+    clear = torch.ones(n, dtype=torch.bool, device=dev)
+    out = dict(shortfall=-float("inf"), repeats=0, order_bad=0, tail_ok=True)
+    for t in range(T):
+        if bool(fin.all()):
+            out["tail_ok"] = bool((words[t:] == 0).all() and (srcs[t:] == ident).all())
+            break
+        x = TTF._decode_step(params, pre_r, dims, word, caches, t, 0, dt, layers)
+        logp = torch.log_softmax(TTF.head_logits(params, x, dt), dim=-1).reshape(n, W, V)
+        cand = (score[..., None] + torch.where(fin[..., None], pad_only, logp)).reshape(n, -1)
+        top, top_i = torch.topk(cand, W + 1, dim=1)
+        src, wd = srcs[t].long(), words[t].long()
+        pick = src * V + wd
+        chosen = cand.gather(1, pick)
+        gap = beam_gap(dt, t)
+        out["shortfall"] = max(out["shortfall"], float((top[:, W - 1:W] - chosen).max()) - gap)
+        srt = pick.sort(dim=1).values
+        out["repeats"] += int((srt[:, 1:] == srt[:, :-1]).sum())
+        step_clear = ((top[:, :-1] - top[:, 1:]) > gap).all(dim=1)
+        out["order_bad"] += int(((pick != top_i[:, :W]).any(dim=1) & step_clear).sum())
+        clear &= step_clear
+        rows = (offs + src).reshape(-1)
+        caches = [(ck[rows], cv[rows]) for ck, cv in caches]
+        prev = fin.gather(1, src)
+        fin = prev | (wd == STOP)
+        length = length.gather(1, src) + (~prev).int()
+        score, word = chosen, wd.reshape(-1)
+    out.update(lengths_ok=bool((length == lens).all()), rescore=(score - scores).abs(),
+               live=length, clear=clear)
+    return out
+
+
+def e_check(p, pre, ftp, dt, ref, kernel_ftp=None):
+    """Kernel E (on ``kernel_ftp``, else ``ftp``) held against the plain path
+    on the sound ``p``/``ftp``: ``beam_replay``'s readings, every beam's
+    score within ``E_RESCORE`` x sqrt(live steps) of the replay's, the best
+    beam re-scored with ``teacher_forcing_logits`` the same way, and,
+    for every image with no near tie, words, back-pointers and lengths
+    equal to the plain version's ``ref`` (float32: scores to 1e-4 too).
+    -> (ok, readings, quad)."""
+    from myimagecaptioningmodel_tpu_torch.ops.backtrack import beam_backtrack
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    quad = FT.fused_beam_decode(ftp if kernel_ftp is None else kernel_ftp, TF_STEPS, TF_HEADS,
+                                BEAM, compute_dtype=dt, early_stop=True)
+    torch.cuda.synchronize()
+    r = beam_replay(p, pre, quad, dt)
+    limit = E_RESCORE[dt]
+    live = r["live"].clamp(min=1).float().sqrt()
+    ids, score = beam_backtrack(*quad, 0.0)
+    tf_score, tf_steps = beam_rescore(p, pre, ids, dt)
+    tf_err = (tf_score - score).abs()
+    same = ((quad[0] == ref[0]).all(dim=0).all(dim=1) & (quad[1] == ref[1]).all(dim=0).all(dim=1)
+            & (quad[3] == ref[3]).all(dim=1))
+    if dt == torch.float32:
+        same &= ((quad[2] - ref[2]).abs() <= 1e-4).all(dim=1)
+    clear = r["clear"]
+    readings = dict(
+        selection_shortfall=r["shortfall"], repeats=r["repeats"], order_bad=r["order_bad"],
+        tail_ok=r["tail_ok"], lengths_ok=r["lengths_ok"],
+        rescore_per_sqrt_step=float((r["rescore"] / live).max()),
+        rescore_max_abs_err=float(r["rescore"].max()),
+        tf_rescore_per_sqrt_step=float((tf_err / tf_steps.clamp(min=1).sqrt()).max()),
+        images_clear=int(clear.sum()),
+        clear_images_equal_to_plain=bool((same | ~clear).all()),
+        rows_equal_to_plain=float(same.float().mean()))
+    ok = (r["shortfall"] <= 0 and r["repeats"] == 0 and r["order_bad"] == 0 and r["tail_ok"]
+          and r["lengths_ok"] and readings["rescore_per_sqrt_step"] <= limit
+          and readings["tf_rescore_per_sqrt_step"] <= limit
+          and readings["clear_images_equal_to_plain"])
+    return ok, readings, quad
+
+
+def phase_kernel_e(dev, gen, params):
+    """Kernel E against its plain path at full width, beam 4, early stop on,
+    float32 and bf16 at 8 and 128 images (``e_check``), with no bias on
+    <stop> (beams run all 35 steps) and with the "mixed" one (beams finish at
+    different steps)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    worst, times = 0.0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for n_img in (8, 128):
+            pre = tf_pre(gen, dev, params, n_img, dt)
+            for label in ("none", "mixed"):
+                bias = stop_biases(params, pre, dt)["mixed"] if label == "mixed" else 0.0
+                p = with_stop_bias(params, bias)
+                ftp = FT.prepare(p, pre, TF_HEADS, dt)
+                ref = FT.fused_beam_decode_reference(ftp, TF_STEPS, TF_HEADS, BEAM,
+                                                     compute_dtype=dt, early_stop=True)
+                ok, readings, quad = e_check(p, pre, ftp, dt, ref)
+                if dt == torch.bfloat16:
+                    worst = max(worst, readings["rescore_max_abs_err"])
+                steps_run = int((quad[0] != 0).any(dim=2).any(dim=1).sum())
+                line = dict(dtype=str(dt).split(".")[-1], images=n_img, beam=BEAM, stop=label,
+                            ok=ok, **readings, steps_run=steps_run,
+                            kernel_launches_per_decode=FT.fused_beam_decode.kernel_launches)
+                if label == "none":
+                    t_k = time_ms(lambda: FT.fused_beam_decode(
+                        ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt, early_stop=True),
+                        reps=3, warmup=1)
+                    t_p = time_ms(lambda: FT.fused_beam_decode_reference(
+                        ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt, early_stop=True),
+                        reps=2, warmup=1)
+                    b = bound_tf(n_img * BEAM, n_img, steps_run, tf_dims(), dt)
+                    times[(dt, n_img)] = (t_k, t_p, *b)
+                    line.update(kernel_us=round(t_k * 1e3, 1), plain_us=round(t_p * 1e3, 1),
+                                bound_us=round(b[0] * 1e3, 1), bound_by=b[1])
+                say("kernel_e", **line)
+                if dt == torch.bfloat16 and label == "none":
+                    device_profile(f"kernel_e_{n_img}x{BEAM}", lambda: FT.fused_beam_decode(
+                        ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt, early_stop=True))
+                if not ok:
+                    raise AssertionError(f"kernel E disagrees with the plain path ({dt}, "
+                                         f"{n_img} images, {label})")
+    return worst, times
+
+
+TF_SERVED = (("greedy", dict(), "fused_greedy_decode"),
+             ("beam", dict(beam_size=BEAM), "fused_beam_decode"))
+
+
+def phase_tf_served(dev, seed, root):
+    """A full-width random transformer bundle served greedy and beam 4 by
+    ``CaptionService(batch_size=8)``: D or E launches once per dispatch and
+    no LSTM kernel launches; the served greedy ids hold against the plain
+    teacher-forced logits; then ms per batch and captions/s, kernel path and
+    plain path. -> launch counts {D, E}."""
+    from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
+    from myimagecaptioningmodel_tpu_torch.inference.server import CaptionService
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
+
+    cfg = write_bundle(os.path.join(root, "transformer"), seed,
+                       (("model.decoder.arch", "transformer"),))
+    counters = {"fused_greedy_decode": FT.fused_greedy_decode,
+                "fused_beam_decode": FT.fused_beam_decode,
+                "fused_decode_step": FS.fused_decode_step,
+                "greedy_vocab_argmax": VH.greedy_vocab_argmax,
+                "topk_vocab_head": VH.topk_vocab_head}
+    images = np.random.RandomState(seed).rand(24, *cfg.data.image_shape, 3).astype(np.float32)
+    out, models = {}, {}
+    for label, kw, kernel in TF_SERVED:
+        t0 = time.perf_counter()
+        svc = CaptionService(cfg, batch_size=8, max_wait_ms=50.0, device=dev, **kw)
+        load_s = round(time.perf_counter() - t0, 2)
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                results = list(pool.map(svc.caption_array, images))
+            launches = {name: fn.launches for name, fn in counters.items()}
+            st = svc.stats()
+        finally:
+            svc.close()
+        d = st["dispatches"]
+        if any(len(r["ids"]) != TF_STEPS or not isinstance(r["caption"], str) for r in results):
+            raise AssertionError(f"transformer {label}: bad answer")
+        if st["served"] != 24 or not 3 <= d <= 24 or round(st["mean_batch_fill"] * d) != 24:
+            raise AssertionError(f"transformer {label}: counters do not reconcile: {st}")
+        want = {name: d if name == kernel else 0 for name in counters}
+        if launches != want:
+            raise AssertionError(f"transformer {label}: launches {launches}, expected {want}")
+        say("tf_served_" + label, load_and_warmup_s=load_s, requests=24, dispatches=d,
+            decode_ms_p50=st["decode_ms_p50"], launches=json.dumps(launches).replace(" ", ""),
+            kernel_launches_per_decode=counters[kernel].kernel_launches,
+            distinct_captions=len({tuple(r["ids"]) for r in results}))
+        out[kernel] = launches[kernel]
+        models[label] = (svc.model, svc.opts)
+
+    # the served model's greedy ids against the plain teacher-forced logits
+    model, opts = models["greedy"]
+    dt = opts.dtype
+    batch = torch.as_tensor(images[:8]).to(dev)
+    with torch.no_grad():
+        ids = C.greedy_decode(model, batch, opts)
+        img_embed, _f, gf = C.img2feature(model, batch, opts)
+        pre = TTF.precompute(model.params["decoder"], img_embed, gf, TF_HEADS, dt)
+        ok, err = greedy_tf_check(model.params["decoder"], pre, ids, dt, False)
+    say("tf_served_vs_plain", B=8, near_tie_ok=ok, near_tie_max_gap=err)
+    if not ok:
+        raise AssertionError("the served transformer disagrees with the plain path")
+
+    rng = np.random.RandomState(seed + 4)
+    for label, kw, _kernel in TF_SERVED:
+        model, opts = models[label]
+        for B in (8, 128):
+            imgs = torch.as_tensor(rng.rand(B, 224, 224, 3).astype(np.float32)).to(dev)
+            t = {}
+            # "repack": the kernel path packing the weights on every batch
+            for path in ("plain", "kernel", "repack", "kernel", "repack", "plain"):
+                o = opts._replace(use_kernels=path != "plain")
+                m = model._replace(decoder_packed=None) if path == "repack" else model
+                if label == "beam":
+                    fn = lambda: beam_decode(m, imgs, o, BEAM, stop_idx=o.stop_idx)  # noqa: E731
+                else:
+                    fn = lambda: C.greedy_decode(m, imgs, o)  # noqa: E731
+                t.setdefault(path, []).append(time_ms(fn, reps=2, warmup=1))
+            k, p = min(t["kernel"]), min(t["plain"])
+            say("tf_timing_" + label, B=B, kernel_ms_per_batch=round(k, 3),
+                plain_ms_per_batch=round(p, 3), kernel_captions_per_s=round(B / k * 1e3, 1),
+                plain_captions_per_s=round(B / p * 1e3, 1),
+                repack_ms_per_batch=round(min(t["repack"]), 3),
+                runs_kernel=[round(x, 3) for x in t["kernel"]],
+                runs_repack=[round(x, 3) for x in t["repack"]],
+                runs_plain=[round(x, 3) for x in t["plain"]])
     return out
 
 
@@ -1278,6 +1772,15 @@ def main(argv=None) -> int:
         err_f, t_f = phase_kernel_f(dev, args.seed)
         train_launches, trained = phase_train(dev, args.seed, root)
         phase_train_timing(dev, root, trained)
+        del trained
+        torch.cuda.empty_cache()
+        from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+        tf_params = tree_to_torch(randomize_affine(TTF.init(gen, tf_dims()), gen), dev)
+        err_d, t_d = phase_kernel_d(dev, gen, tf_params)
+        err_e, t_e = phase_kernel_e(dev, gen, tf_params)
+        del tf_params
+        tf_launches = phase_tf_served(dev, args.seed, root)
 
     bf16 = torch.bfloat16
     f_key = (bf16, "conv3_1_expand")
@@ -1303,6 +1806,13 @@ def main(argv=None) -> int:
          "max_abs_err": err_f, "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
          "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2]},
     ]
+    for name, tpu, err, (t_k, t_p, b_ms, b_by) in (
+            ("fused_greedy_decode", KERNEL_D_TPU, err_d, t_d[(bf16, 8, "fixed")]),
+            ("fused_beam_decode", KERNEL_E_TPU, err_e, t_e[(bf16, 8)])):
+        kernels.append({"name": name, "route": "cuda", "source": KERNEL_DE_SRC, "replaces": tpu,
+                        "launches": tf_launches[name], "max_abs_err": err, "ms": t_k,
+                        "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

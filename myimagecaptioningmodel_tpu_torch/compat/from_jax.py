@@ -6,6 +6,11 @@
   ``(shape, dtype name, C-order bytes)``, a numpy scalar as ext type 3 with
   the same payload, and splits arrays above its chunk size into
   ``{"__msgpack_chunked_array__": True, "shape": .., "chunks": ..}``.
+- flax writes a tuple (the transformer's ``decoder/layers``) as a dict keyed
+  ``"0"``, ``"1"``, ..., and an npz bundle's flat keys come back the same
+  way; ``tree_to_torch`` turns such a dict, and a tuple, into a list in
+  index order, so a JAX pytree, a msgpack bundle and an npz bundle give the
+  same port tree.
 - ``conv_hwio_to_oihw`` converts conv weights: HWIO -> OIHW, which also maps
   a depthwise ``[3,3,1,C]`` to ``[C,1,3,3]``.
 - ``captioner_from_tree`` builds a port ``Captioner`` from the reference
@@ -98,9 +103,20 @@ def oihw_to_hwio(w) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
 
 
+def _is_index_dict(tree) -> bool:
+    """A dict keyed "0", "1", ..., "n-1": how flax and the npz bundle store a
+    tuple."""
+    return bool(tree) and sorted(tree) == sorted(str(i) for i in range(len(tree)))
+
+
 def tree_to_torch(tree, device=None, dtype=None):
     """Nested dicts of arrays -> the same dicts of tensors on ``device``,
-    copies that share no memory with ``tree``."""
+    copies that share no memory with ``tree``; tuples, lists and index-keyed
+    dicts become lists in index order."""
+    if isinstance(tree, dict) and _is_index_dict(tree):
+        tree = [tree[str(i)] for i in range(len(tree))]
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_torch(v, device, dtype) for v in tree]
     if isinstance(tree, dict):
         return {k: tree_to_torch(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
@@ -118,6 +134,8 @@ def _cast_weights(tree, dt):
     if isinstance(tree, dict):
         return {k: (v.to(dt) if k == "w" else _cast_weights(v, dt))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_weights(v, dt) for v in tree]
     return tree
 
 
@@ -125,10 +143,16 @@ def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
                         device=None, quantize: bool = False):
     """Reference-layout (params, state) -> a port ``Captioner`` on ``device``
     (CUDA unless the caller passes another; ``resolve_device``);
-    ``quantize`` stores the decoder's weights as int8."""
+    ``quantize`` stores the decoder's weights as int8. A transformer
+    decoder served through its kernels (``opts.use_kernels``) also keeps its
+    weights packed for them, once."""
     from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner, resolve_device
     from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
+    if quantize and opts.arch == "transformer":
+        from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_transformer import INT8_TODO
+
+        raise NotImplementedError(INT8_TODO)
     device = resolve_device(device)
     encoder = MobileNetV2(opts.encoder_scale).load(
         params["encoder"], state["encoder"]
@@ -140,7 +164,12 @@ def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
 
         dense["decoder"] = quantize_decoder(dense["decoder"])
     dense = _cast_weights(dense, opts.dtype)
-    return Captioner(encoder=encoder, params=dense)
+    packed = None
+    if opts.arch == "transformer" and opts.use_kernels:
+        from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_transformer import pack_weights
+
+        packed = pack_weights(dense["decoder"], opts.dtype)
+    return Captioner(encoder=encoder, params=dense, decoder_packed=packed)
 
 
 def _map_encoder_convs(params, fn):

@@ -166,6 +166,251 @@ __device__ __forceinline__ void vocab_block_logits(
   __syncthreads();
 }
 
+// ---- the heads' kernels: kernel A's argmax and kernel C's top-k, each a
+// per-block partial and a per-row combine (design in vocab_head.cu and
+// topk_head.cu). Each returns at once when *skip is set: the whole-decode
+// kernels (fused_transformer.cu) pass their early-stop flag, the heads'
+// own entries null.
+template <typename T, int MT>
+__global__ void __launch_bounds__(kHeadWarps * 32)
+    vocab_argmax_partial(const float* __restrict__ proj,   // [M, E] f32
+                         const T* __restrict__ table,      // [V, E]
+                         const float* __restrict__ bias,   // [V]
+                         const float* __restrict__ scale,  // [V] or null
+                         float* __restrict__ part_v,       // [M, nblk]
+                         int* __restrict__ part_i,         // [M, nblk]
+                         int M, int V, int E, const int* __restrict__ skip) {
+  if (skip != nullptr && *skip) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float lg[kVocabBlock][MT + 1];
+  const int nblk = gridDim.x, m0 = blockIdx.y * MT, v0 = blockIdx.x * kVocabBlock;
+  vocab_block_logits<T, MT>(proj, table, bias, scale, M, V, E, m0, v0, smem, lg);
+  for (int m = threadIdx.x; m < MT; m += blockDim.x) {
+    const int row = m0 + m;
+    if (row >= M) continue;
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+    for (int r = 0; r < kVocabBlock; ++r) {
+      if (better(lg[r][m], v0 + r, bv, bi)) {
+        bv = lg[r][m];
+        bi = v0 + r;
+      }
+    }
+    part_v[(long)row * nblk + blockIdx.x] = bv;
+    part_i[(long)row * nblk + blockIdx.x] = bi;
+  }
+}
+
+static __global__ void __launch_bounds__(32)
+    vocab_argmax_combine(const float* __restrict__ part_v,
+                         const int* __restrict__ part_i, int nblk,
+                         int* __restrict__ out, const int* __restrict__ skip) {
+  if (skip != nullptr && *skip) return;
+  const int row = blockIdx.x, lane = threadIdx.x;
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  for (int b = lane; b < nblk; b += 32) {
+    const float v = part_v[(long)row * nblk + b];
+    const int i = part_i[(long)row * nblk + b];
+    if (better(v, i, bv, bi)) {
+      bv = v;
+      bi = i;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
+    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+    if (better(ov, oi, bv, bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  if (lane == 0) out[row] = bi;
+}
+
+template <typename T, int MT>
+static bool launch_partial(const float* proj, const void* table, const float* bias,
+                           const float* scale, float* part_v, int* part_i, int M, int V,
+                           int E, const int* skip, cudaStream_t stream) {
+  static const bool raised = raise_smem_limit(vocab_argmax_partial<T, MT>);
+  const size_t smem = staged_bytes<T, MT>(E);
+  if (!raised || smem > kMaxDynamicSmem) return false;
+  dim3 grid((V + kVocabBlock - 1) / kVocabBlock, (M + MT - 1) / MT);
+  vocab_argmax_partial<T, MT><<<grid, kHeadWarps * 32, smem, stream>>>(
+      proj, static_cast<const T*>(table), bias, scale, part_v, part_i, M, V, E, skip);
+  return true;
+}
+
+constexpr int kMaxK = 32;  // vocab_head.py's TOPK_MAX_K
+constexpr int kCombineThreads = 256;
+
+template <typename T, int MT>
+__global__ void __launch_bounds__(kHeadWarps * 32)
+    topk_partial(const float* __restrict__ proj,   // [M, E] f32
+                 const T* __restrict__ table,      // [V, E]
+                 const float* __restrict__ bias,   // [V]
+                 const float* __restrict__ scale,  // [V] or null
+                 int k,
+                 float* __restrict__ part_v,  // [M, nblk, k]
+                 int* __restrict__ part_i,    // [M, nblk, k]
+                 float* __restrict__ part_m,  // [M, nblk]
+                 float* __restrict__ part_s,  // [M, nblk]
+                 int M, int V, int E, const int* __restrict__ skip) {
+  if (skip != nullptr && *skip) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float lg[kVocabBlock][MT + 1];
+  const int nblk = gridDim.x, m0 = blockIdx.y * MT, v0 = blockIdx.x * kVocabBlock;
+  vocab_block_logits<T, MT>(proj, table, bias, scale, M, V, E, m0, v0, smem, lg);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int vi = v0 + lane;
+  const bool valid = vi < V;
+  for (int m = warp; m < MT && m0 + m < M; m += kHeadWarps) {
+    const long base = (long)(m0 + m) * nblk + blockIdx.x;
+    const float l = lg[lane][m];
+    float mx = valid ? l : -INFINITY;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float s = valid ? expf(l - mx) : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) {
+      part_m[base] = mx;
+      part_s[base] = s;
+    }
+    bool taken = !valid;
+    for (int i = 0; i < k; ++i) {
+      float bv = taken ? -INFINITY : l;
+      int bi = taken ? INT_MAX : vi;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (better(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      // every lane now holds the block's i-th pick; a block with fewer than
+      // k rows left gives (-inf, INT_MAX), which loses to every real row
+      if (lane == 0) {
+        part_v[base * k + i] = bv;
+        part_i[base * k + i] = bi;
+      }
+      taken = taken || vi == bi;
+    }
+  }
+}
+
+// Best (v, i) of the block, left in sh_v[0] / sh_i[0]; ends synchronized.
+__device__ __forceinline__ void block_best(float bv, int bi, float* sh_v, int* sh_i) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
+    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+    if (better(ov, oi, bv, bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  __syncthreads();  // earlier readers of sh_v / sh_i are done
+  if (lane == 0) {
+    sh_v[warp] = bv;
+    sh_i[warp] = bi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kCombineThreads / 32; ++w) {
+      if (better(sh_v[w], sh_i[w], sh_v[0], sh_i[0])) {
+        sh_v[0] = sh_v[w];
+        sh_i[0] = sh_i[w];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Sum (or max) of v over the block, returned to every thread.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* sh) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = kMax ? fmaxf(v, o) : v + o;
+  }
+  __syncthreads();
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  v = sh[0];
+  for (int w = 1; w < kCombineThreads / 32; ++w) v = kMax ? fmaxf(v, sh[w]) : v + sh[w];
+  return v;
+}
+
+static __global__ void __launch_bounds__(kCombineThreads)
+    topk_combine(const float* __restrict__ part_v, const int* __restrict__ part_i,
+                 const float* __restrict__ part_m, const float* __restrict__ part_s,
+                 int nblk, int k, float* __restrict__ vals, int* __restrict__ ids,
+                 float* __restrict__ lse, const int* __restrict__ skip) {
+  if (skip != nullptr && *skip) return;
+  __shared__ float sh_v[kCombineThreads / 32];
+  __shared__ int sh_i[kCombineThreads / 32];
+  const int row = blockIdx.x;
+  const long n = (long)nblk * k;
+  const float* cv = part_v + row * n;
+  const int* ci = part_i + row * n;
+  // candidates are distinct vocab rows, so "ranks below the previous pick"
+  // excludes exactly the ones already taken
+  float pv = INFINITY;
+  int pi = -1;
+  for (int r = 0; r < k; ++r) {
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+    for (long c = threadIdx.x; c < n; c += kCombineThreads) {
+      const float v = cv[c];
+      const int i = ci[c];
+      if (better(pv, pi, v, i) && better(v, i, bv, bi)) {
+        bv = v;
+        bi = i;
+      }
+    }
+    block_best(bv, bi, sh_v, sh_i);
+    pv = sh_v[0];
+    pi = sh_i[0];
+    if (threadIdx.x == 0) {
+      vals[(long)row * k + r] = pv;
+      ids[(long)row * k + r] = pi;
+    }
+  }
+
+  const float* pm = part_m + (long)row * nblk;
+  const float* ps = part_s + (long)row * nblk;
+  float mx = -INFINITY;
+  for (int b = threadIdx.x; b < nblk; b += kCombineThreads) mx = fmaxf(mx, pm[b]);
+  mx = block_reduce<true>(mx, sh_v);
+  float s = 0.f;
+  for (int b = threadIdx.x; b < nblk; b += kCombineThreads) s += ps[b] * expf(pm[b] - mx);
+  s = block_reduce<false>(s, sh_v);
+  if (threadIdx.x == 0) lse[row] = mx + logf(s);
+}
+
+template <typename T, int MT>
+static bool launch_topk_partial(const float* proj, const void* table, const float* bias,
+                                const float* scale, int k, float* part_v, int* part_i,
+                                float* part_m, float* part_s, int M, int V, int E,
+                                const int* skip, cudaStream_t stream) {
+  static const bool raised = raise_smem_limit(topk_partial<T, MT>);
+  const size_t smem = staged_bytes<T, MT>(E);
+  if (!raised || smem > kMaxDynamicSmem) return false;
+  dim3 grid((V + kVocabBlock - 1) / kVocabBlock, (M + MT - 1) / MT);
+  topk_partial<T, MT><<<grid, kHeadWarps * 32, smem, stream>>>(
+      proj, static_cast<const T*>(table), bias, scale, k, part_v, part_i, part_m, part_s,
+      M, V, E, skip);
+  return true;
+}
+
 // Calls launch((T*)nullptr) with the table's element type T for a dtype
 // code (a generic lambda reads T back with TableT), false for an unknown code.
 template <class Launch>

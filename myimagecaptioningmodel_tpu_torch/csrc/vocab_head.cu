@@ -15,6 +15,9 @@
 //      block writes one (max, index) per batch row.
 //   2. vocab_argmax_combine: one warp per batch row reduces the block pairs.
 //
+// Both kernels live in vocab_block.cuh, where kernel D (fused_transformer.cu)
+// runs them too.
+//
 // Tie rule: jnp.argmax returns the LOWEST index among equal maxima. Every
 // comparison here (across the rows of a block, across blocks, across the
 // lanes of the combining warp) takes a candidate when its value is larger,
@@ -26,79 +29,6 @@
 // B x 388 (max, index) pairs do. At B = 128 the product is 0.8 GFLOP of FMA
 // on CUDA cores; a tensor-core version is later work.
 #include "vocab_block.cuh"
-
-namespace capk {
-
-template <typename T, int MT>
-__global__ void __launch_bounds__(kHeadWarps * 32)
-    vocab_argmax_partial(const float* __restrict__ proj,   // [M, E] f32
-                         const T* __restrict__ table,      // [V, E]
-                         const float* __restrict__ bias,   // [V]
-                         const float* __restrict__ scale,  // [V] or null
-                         float* __restrict__ part_v,       // [M, nblk]
-                         int* __restrict__ part_i,         // [M, nblk]
-                         int M, int V, int E) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float lg[kVocabBlock][MT + 1];
-  const int nblk = gridDim.x, m0 = blockIdx.y * MT, v0 = blockIdx.x * kVocabBlock;
-  vocab_block_logits<T, MT>(proj, table, bias, scale, M, V, E, m0, v0, smem, lg);
-  for (int m = threadIdx.x; m < MT; m += blockDim.x) {
-    const int row = m0 + m;
-    if (row >= M) continue;
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int r = 0; r < kVocabBlock; ++r) {
-      if (better(lg[r][m], v0 + r, bv, bi)) {
-        bv = lg[r][m];
-        bi = v0 + r;
-      }
-    }
-    part_v[(long)row * nblk + blockIdx.x] = bv;
-    part_i[(long)row * nblk + blockIdx.x] = bi;
-  }
-}
-
-__global__ void __launch_bounds__(32)
-    vocab_argmax_combine(const float* __restrict__ part_v,
-                         const int* __restrict__ part_i, int nblk,
-                         int* __restrict__ out) {
-  const int row = blockIdx.x, lane = threadIdx.x;
-  float bv = -INFINITY;
-  int bi = INT_MAX;
-  for (int b = lane; b < nblk; b += 32) {
-    const float v = part_v[(long)row * nblk + b];
-    const int i = part_i[(long)row * nblk + b];
-    if (better(v, i, bv, bi)) {
-      bv = v;
-      bi = i;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    if (better(ov, oi, bv, bi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
-  if (lane == 0) out[row] = bi;
-}
-
-template <typename T, int MT>
-static bool launch_partial(const float* proj, const void* table, const float* bias,
-                           const float* scale, float* part_v, int* part_i, int M, int V,
-                           int E, cudaStream_t stream) {
-  static const bool raised = raise_smem_limit(vocab_argmax_partial<T, MT>);
-  const size_t smem = staged_bytes<T, MT>(E);
-  if (!raised || smem > kMaxDynamicSmem) return false;
-  dim3 grid((V + kVocabBlock - 1) / kVocabBlock, (M + MT - 1) / MT);
-  vocab_argmax_partial<T, MT><<<grid, kHeadWarps * 32, smem, stream>>>(
-      proj, static_cast<const T*>(table), bias, scale, part_v, part_i, M, V, E);
-  return true;
-}
-
-}  // namespace capk
 
 extern "C" {
 
@@ -123,15 +53,15 @@ int capk_vocab_argmax(int table_dtype, int M, int V, int E, const float* proj,
     using T = capk::TableT<decltype(tag)>;
     if (E % 8 != 0) return false;
     return M <= 8 ? capk::launch_partial<T, 8>(proj, table, bias, scale, part_v, part_i,
-                                               M, V, E, stream)
+                                               M, V, E, nullptr, stream)
                   : capk::launch_partial<T, 16>(proj, table, bias, scale, part_v, part_i,
-                                                M, V, E, stream);
+                                                M, V, E, nullptr, stream);
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  capk::vocab_argmax_combine<<<M, 32, 0, stream>>>(part_v, part_i,
-                                                   capk_vocab_argmax_nblocks(V), out);
+  capk::vocab_argmax_combine<<<M, 32, 0, stream>>>(part_v, part_i, capk_vocab_argmax_nblocks(V),
+                                                   out, nullptr);
   return (int)cudaGetLastError();
 }
 

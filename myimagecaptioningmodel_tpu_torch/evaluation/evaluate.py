@@ -1,6 +1,7 @@
 """Bundle loading for decode; port of ``load_bundle`` in
 ``myimagecaptioningmodel_tpu/evaluation/evaluate.py`` (greedy and beam
-decode, float or int8 decoder weights, one device).
+decode, float or int8 decoder weights, one device; both decoder families,
+the transformer with float weights only).
 
 Model options come from the bundle's own ``config.json``, as in the
 reference: a bundle is a self-contained artifact and its dims, parity mode
@@ -34,7 +35,9 @@ def load_bundle(
     int32 ids [B, infer_max_length] on ``device``.
 
     ``beam_size`` 0/1 -> greedy; > 1 -> beam search. ``quantize`` stores the
-    decoder weights as int8 (``ops/quantization.py``). ``early_stop`` ends
+    decoder weights as int8 (``ops/quantization.py``); a transformer bundle
+    raises ``NotImplementedError`` for it (ROADMAP.md). A transformer bundle
+    decodes through kernels D (greedy) and E (beam) on CUDA. ``early_stop`` ends
     the decode loop once every row (greedy) or every beam (beam) is finished
     (same captions). ``length_norm`` (beam only) divides the final beam
     scores by ``len ** length_norm``. ``device`` defaults to CUDA, and

@@ -38,7 +38,9 @@ from typing import Tuple
 import torch
 
 from myimagecaptioningmodel_tpu_torch.models import decoder as decoder_mod
+from myimagecaptioningmodel_tpu_torch.models import transformer as transformer_mod
 from myimagecaptioningmodel_tpu_torch.models.decoder import Precomputed
+from myimagecaptioningmodel_tpu_torch.ops.backtrack import beam_backtrack
 from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
     topk_stable,
     topk_vocab_head,
@@ -146,21 +148,7 @@ def beam_search_ids(
     for _t in range(max_length - len(words)):
         words.append(torch.full((B, W), padding_idx, dtype=torch.long, device=dev))
         srcs.append(identity)
-
-    # backtrack from the final beams to step 0
-    ptr = identity
-    seq = []
-    for words_t, srcs_t in zip(reversed(words), reversed(srcs)):
-        seq.append(words_t.gather(1, ptr))
-        ptr = srcs_t.gather(1, ptr)
-    sequences = torch.stack(seq[::-1], dim=2)  # [B, W, T]
-
-    final = scores
-    if length_norm > 0:
-        final = scores / lengths.clamp(min=1).float() ** length_norm
-    best = torch.argmax(final, dim=1)  # first maximum: the lowest beam on ties
-    rows = torch.arange(B, device=dev)
-    return sequences[rows, best].to(torch.int32), final[rows, best]
+    return beam_backtrack(torch.stack(words), torch.stack(srcs), scores, lengths, length_norm)
 
 
 @torch.no_grad()
@@ -169,10 +157,17 @@ def beam_decode(model, images, opts, beam_size: int = 4, length_norm: float = 0.
     """Full-model beam decode (encoder + search) -> (ids [B, T], scores [B])."""
     from myimagecaptioningmodel_tpu_torch.models import captioner
 
-    if opts.arch == "transformer":
-        raise NotImplementedError(captioner.TRANSFORMER_TODO)
     img_embed, _feat, global_feat = captioner.img2feature(model, images, opts)
     dec = model.params["decoder"]
+    if opts.arch == "transformer":  # kernel E exactly when use_kernels is set
+        tpre = transformer_mod.precompute(dec, img_embed, global_feat,
+                                          opts.tdims.num_heads, opts.dtype)
+        return transformer_mod.beam_search_ids(
+            dec, tpre, opts.tdims, opts.infer_max_length, beam_size, opts.start_idx,
+            stop_idx, opts.padding_idx, length_norm, opts.dtype,
+            use_kernels=opts.use_kernels, early_stop=opts.early_stop_decode,
+            packed=model.decoder_packed,
+        )
     pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
     return beam_search_ids(
         dec, pre, opts.infer_max_length, beam_size, opts.start_idx, stop_idx,

@@ -18,6 +18,10 @@ weights with ``requires_grad``; each op casts to the compute dtype.
 
 ``init`` draws the reference's (params, state) pytree. Entry points run on
 CUDA unless the caller asks for the CPU (``resolve_device``).
+
+Both decoder families serve (``arch``: the LSTM of ``models/decoder.py``,
+the transformer of ``models/transformer.py``); only the LSTM trains so far
+(``TRANSFORMER_TRAIN_TODO``).
 """
 
 from __future__ import annotations
@@ -28,14 +32,16 @@ import torch
 
 from myimagecaptioningmodel_tpu_torch.models import decoder as decoder_mod
 from myimagecaptioningmodel_tpu_torch.models import mobilenet_v2
+from myimagecaptioningmodel_tpu_torch.models import transformer as transformer_mod
 from myimagecaptioningmodel_tpu_torch.models.decoder import DecoderDims
+from myimagecaptioningmodel_tpu_torch.models.transformer import TransformerDims
 from myimagecaptioningmodel_tpu_torch.ops import layers as L
 
 Params = Dict[str, Any]
 
-TRANSFORMER_TODO = (
-    "the transformer decoder family is not ported yet "
-    "(ROADMAP.md, queue 1 item 11: models/transformer.py)"
+TRANSFORMER_TRAIN_TODO = (
+    "training the transformer decoder is not ported yet "
+    "(ROADMAP.md, 'Left, in order' item 2)"
 )
 
 
@@ -80,6 +86,7 @@ class ModelOptions(NamedTuple):
     # ((mean,)*3, (std,)*3) for normalizing raw uint8 image batches
     image_norm: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
     arch: str = "lstm"
+    tdims: Optional[TransformerDims] = None  # arch == "transformer" only
     # uniform label smoothing over the real vocab rows; 0 = hard targets
     label_smoothing: float = 0.0
 
@@ -87,9 +94,7 @@ class ModelOptions(NamedTuple):
     def from_config(cls, cfg) -> "ModelOptions":
         md = cfg.model
         arch = getattr(md.decoder, "arch", "lstm")
-        if arch == "transformer":
-            raise NotImplementedError(TRANSFORMER_TODO)
-        if arch != "lstm":
+        if arch not in ("lstm", "transformer"):
             raise ValueError(f"unknown model.decoder.arch: {arch!r}")
         return cls(
             dims=DecoderDims.from_config(md),
@@ -110,6 +115,7 @@ class ModelOptions(NamedTuple):
                 tuple(float(s) for s in cfg.data.image_std),
             ),
             arch=arch,
+            tdims=TransformerDims.from_config(md) if arch == "transformer" else None,
         )
 
     @property
@@ -120,6 +126,9 @@ class ModelOptions(NamedTuple):
 class Captioner(NamedTuple):
     encoder: mobilenet_v2.MobileNetV2  # eval mode, BN moving stats as buffers
     params: Params  # {"img_embed", "img_global", "decoder"} tensors
+    # the transformer decoder's weights packed once for kernels D and E
+    # (``fused_transformer.pack_weights``), else None: packed per decode
+    decoder_packed: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -129,16 +138,17 @@ class Captioner(NamedTuple):
 def init(gen: torch.Generator, opts: ModelOptions) -> Tuple[Params, Params]:
     """The reference's ({encoder, img_embed, img_global, decoder} params,
     {encoder} BN state) pytree, as CPU float32 tensors drawn from ``gen``."""
-    if opts.arch != "lstm":
-        raise NotImplementedError(TRANSFORMER_TODO)
     enc_params, enc_state = mobilenet_v2.init(gen, scale=opts.encoder_scale)
     H, C = opts.dims.hidden_dim, opts.dims.feat_channels
     params = {
         "encoder": enc_params,
         "img_embed": decoder_mod.init_dense(gen, C, H),
         "img_global": decoder_mod.init_dense(gen, C, H),
-        "decoder": decoder_mod.init(gen, opts.dims, parity_init=opts.parity_mode),
     }
+    if opts.arch == "transformer":
+        params["decoder"] = transformer_mod.init(gen, opts.tdims)
+    else:
+        params["decoder"] = decoder_mod.init(gen, opts.dims, parity_init=opts.parity_mode)
     return params, {"encoder": enc_state}
 
 
@@ -196,6 +206,8 @@ def loss_terms(params: Params, state: Params, images, captions: torch.Tensor,
                opts: ModelOptions):
     """Unreduced train-mode loss -> (masked CE sum, non-pad token count, new
     state); the (sum, count) split is what gradient accumulation needs."""
+    if opts.arch != "lstm":
+        raise NotImplementedError(TRANSFORMER_TRAIN_TODO)
     captions = torch.as_tensor(captions).to(params["img_embed"]["w"].device).long()
     source, target = captions[:, :-1], captions[:, 1:]
     mask = (target != opts.padding_idx).float()
@@ -222,7 +234,16 @@ def loss_fn(params: Params, state: Params, images, captions, opts: ModelOptions)
     return ce_sum / torch.clamp(n_tok, min=1.0), new_state
 
 
-def _decode_features(dec: Params, img_embed, global_feat, opts: ModelOptions):
+def _decode_features(dec: Params, img_embed, global_feat, opts: ModelOptions,
+                     packed=None):
+    if opts.arch == "transformer":  # kernel D exactly when use_kernels is set
+        tpre = transformer_mod.precompute(dec, img_embed, global_feat,
+                                          opts.tdims.num_heads, opts.dtype)
+        return transformer_mod.greedy_decode_ids(
+            dec, tpre, opts.tdims, opts.infer_max_length, opts.start_idx,
+            opts.padding_idx, opts.dtype, use_kernels=opts.use_kernels,
+            early_stop=opts.early_stop_decode, stop_idx=opts.stop_idx, packed=packed,
+        )
     pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
     return decoder_mod.greedy_decode_ids(
         dec,
@@ -242,7 +263,8 @@ def _decode_features(dec: Params, img_embed, global_feat, opts: ModelOptions):
 def greedy_decode(model: Captioner, images, opts: ModelOptions) -> torch.Tensor:
     """Greedy caption ids int32 [B, infer_max_length] (eval-mode BN)."""
     img_embed, _feat, global_feat = img2feature(model, images, opts)
-    return _decode_features(model.params["decoder"], img_embed, global_feat, opts)
+    return _decode_features(model.params["decoder"], img_embed, global_feat, opts,
+                            model.decoder_packed)
 
 
 @torch.no_grad()

@@ -37,6 +37,7 @@ build_seconds = None  # wall time of the nvcc run, None if the library was reuse
 ptxas_log = ""
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+_PI, _PVP = ctypes.POINTER(_I), ctypes.POINTER(_VP)
 _SIGNATURES = {
     "capk_vocab_argmax_nblocks": [_I],
     "capk_vocab_argmax": [_I, _I, _I, _I] + [_VP] * 8,
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "capk_fused_step": [_I] * 5 + [_VP] * 22,
     "capk_matmul_stats_partial_rows": [_I] * 3,
     "capk_matmul_stats": [_I] * 4 + [_VP] * 5 + [_I] + [_VP] * 3,
+    "capk_fused_greedy_decode": [_PI, _PVP, _VP, _PI],
+    "capk_fused_beam_decode": [_PI, _PVP, _VP, _PI],
 }
 
 

@@ -1,0 +1,416 @@
+"""Whole-decode transformer kernels: greedy (kernel D) and beam search
+(kernel E).
+
+Port of ``myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py``
+(``prepare`` :149, float path; ``fused_greedy_decode`` :1061;
+``fused_beam_decode`` :1198). One call decodes all ``T`` steps: every layer
+(LayerNorm, the fused ``wqkv`` product writing k/v into the KV cache,
+self-attention over slots <= t, ``wo``, cross-attention over the image
+memory, ``fc1`` + GELU, ``fc2``), then the tied head, the next word and its
+embedding. D takes the argmax; E takes each row's top-W words and the
+logsumexp, then each image's top-W of its W^2 candidates, reorders the
+caches and keeps the finished/length bookkeeping. Early stop ends the decode
+once every row (every beam) is done.
+
+On CUDA tensors ``fused_greedy_decode`` and ``fused_beam_decode`` make one C
+call each that enqueues every kernel of the decode on PyTorch's stream
+(``csrc/fused_transformer.cu``, design and bounds in its note); early stop
+is a device-side flag, so a decode never synchronizes with the host. A shape
+the kernels cannot take raises. On CPU tensors they run the plain versions
+``fused_greedy_decode_reference`` and ``fused_beam_decode_reference`` on the
+same packed tensors, built from ``models/transformer.py``'s own step (the
+packed tensors viewed as its params), so the decode's mathematics has one
+home. ``pack_weights`` packs the weights once per loaded bundle; ``prepare``
+adds each batch's image memory.
+
+Numerics: the rounding points of ``models/transformer.py`` (dense products
+round operands and result to the compute dtype and add the bias there;
+LayerNorm, softmax, the residual stream, attention scores and vocab logits
+in float32; GELU's tanh form on the rounded product). The TPU kernel also
+rounds each ``k * q`` element to bfloat16 before summing; here the sum is
+float32, in the kernels and their plain versions alike.
+
+Beam rows are slot-major: beam slot w owns rows ``[w * n_img, (w + 1) *
+n_img)``, so the cross-attention memory is indexed by ``row % n_img`` and
+never repeated. The outputs are the quadruple ``ops.backtrack.
+beam_backtrack`` takes: words and source beams ``[T, n_img, W]``, scores and
+lengths ``[n_img, W]``.
+
+The TPU kernel's VMEM-budget gates (``fused_dims_ok``,
+``fused_beam_dims_ok``) and its pad-to-8 rows have no counterpart: the
+kernels take any batch >= 1 and beam widths 1 to 8.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from myimagecaptioningmodel_tpu_torch.models import transformer as TM
+from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
+from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
+    topk_stable,
+    topk_vocab_head_reference,
+)
+
+NEG_INF = TM.NEG_INF  # beam score floor
+BEAM_MAX = 8  # csrc/fused_transformer.cu's kMaxBeam
+INT8_TODO = ("int8 transformer weights and quantize_kv are not ported yet "
+             "(ROADMAP.md, 'Left, in order' item 1)")
+
+
+class FusedTransformerDecode(NamedTuple):
+    """Decode-invariant tensors: the weights (``pack_weights``) and one
+    batch's image memory (``prepare``). Dense weights ``[in, out]``
+    row-major in the compute dtype; biases, norms and positions float32."""
+
+    w_qkv: torch.Tensor  # [L, D, 3D] self-attention q | k | v
+    w_o: torch.Tensor  # [L, D, D]
+    w_xq: torch.Tensor  # [L, D, D]
+    w_xo: torch.Tensor  # [L, D, D]
+    w_fc1: torch.Tensor  # [L, D, F]
+    w_fc2: torch.Tensor  # [L, F, D]
+    b_qkv: torch.Tensor  # [L, 3D]: q_b | 0 (wk has no bias) | v_b
+    b_misc: torch.Tensor  # [L, 4, D]: wo_b, xq_b, xo_b, fc2_b
+    b_fc1: torch.Tensor  # [L, F]
+    ln: torch.Tensor  # [L, 6, D]: ln1 g, b, ln2 g, b, ln3 g, b
+    mem_kv: Optional[torch.Tensor]  # [L, 2, n_img, M, D] cross-attention K | V
+    table: torch.Tensor  # [V, E] tied embedding / head table
+    out_bias: torch.Tensor  # [V]
+    in_proj_w: torch.Tensor  # [E, D]
+    in_proj_b: torch.Tensor  # [D]
+    pos: torch.Tensor  # [P, D] learned positions
+    lnf: torch.Tensor  # [2, D] final LayerNorm g, b
+    out_proj_w: torch.Tensor  # [D, E]
+    out_proj_b: torch.Tensor  # [E]
+
+    @property
+    def dims(self) -> Tuple[int, int, int, int, int, int, int]:
+        """(L, D, F, M, n_img, V, E)"""
+        L, D, F_ = self.w_fc1.shape
+        n_img, M = self.mem_kv.shape[2:4]
+        V, E = self.table.shape
+        return L, D, F_, M, n_img, V, E
+
+
+def pack_weights(params, compute_dtype=torch.bfloat16) -> FusedTransformerDecode:
+    """Pack the decoder params into the kernels' layout, all but the image
+    memory (``mem_kv`` is None). A loaded bundle packs once and hands the
+    result to ``prepare`` on every decode."""
+    dt = compute_dtype
+    leaves = [params["embedding"], params["in_proj"], params["out_proj"]] + [
+        p for layer in params["layers"]
+        for sub in (layer["attn"], layer["xattn"], layer["mlp"]) for p in sub.values()]
+    if any("w_q" in p or "table_q" in p for p in leaves):
+        raise NotImplementedError(INT8_TODO)
+    f32 = torch.float32
+
+    def w(p):
+        return p["w"].to(dt)
+
+    def b(p, n):
+        return p["b"].float() if "b" in p else torch.zeros(n, dtype=f32, device=p["w"].device)
+
+    layers = params["layers"]
+    D = layers[0]["attn"]["wq"]["w"].shape[0]
+    F_ = layers[0]["mlp"]["fc1"]["w"].shape[1]
+
+    def stack(fn):
+        return torch.stack([fn(layer) for layer in layers]).contiguous()
+
+    return FusedTransformerDecode(
+        w_qkv=stack(lambda ly: torch.cat([w(ly["attn"][k]) for k in ("wq", "wk", "wv")], 1)),
+        w_o=stack(lambda ly: w(ly["attn"]["wo"])),
+        w_xq=stack(lambda ly: w(ly["xattn"]["wq"])),
+        w_xo=stack(lambda ly: w(ly["xattn"]["wo"])),
+        w_fc1=stack(lambda ly: w(ly["mlp"]["fc1"])),
+        w_fc2=stack(lambda ly: w(ly["mlp"]["fc2"])),
+        b_qkv=stack(lambda ly: torch.cat([b(ly["attn"][k], D) for k in ("wq", "wk", "wv")])),
+        b_misc=stack(lambda ly: torch.stack([b(ly["attn"]["wo"], D), b(ly["xattn"]["wq"], D),
+                                            b(ly["xattn"]["wo"], D), b(ly["mlp"]["fc2"], D)])),
+        b_fc1=stack(lambda ly: b(ly["mlp"]["fc1"], F_)),
+        ln=stack(lambda ly: torch.stack([ly[n][k].float() for n in ("ln1", "ln2", "ln3")
+                                        for k in ("g", "b")])),
+        mem_kv=None,
+        table=params["embedding"]["table"].to(dt).contiguous(),
+        out_bias=params["out_bias"].float().contiguous(),
+        in_proj_w=w(params["in_proj"]).contiguous(),
+        in_proj_b=b(params["in_proj"], D).contiguous(),
+        pos=params["pos"].float().contiguous(),
+        lnf=torch.stack([params["ln_f"]["g"], params["ln_f"]["b"]]).float().contiguous(),
+        out_proj_w=w(params["out_proj"]).contiguous(),
+        out_proj_b=b(params["out_proj"], params["out_proj"]["w"].shape[1]).contiguous(),
+    )
+
+
+def prepare(params, pre, n_heads: int, compute_dtype=torch.bfloat16,
+            packed=None) -> FusedTransformerDecode:
+    """The decoder params and ``models.transformer.precompute``'s per-layer
+    memory K/V ([B, M, heads, dh]) in the kernels' layout; ``packed``, if
+    given, is ``pack_weights(params, compute_dtype)`` made earlier."""
+    packed = pack_weights(params, compute_dtype) if packed is None else packed
+
+    def mem(x):  # [B, M, heads, dh] -> [B, M, D]
+        return x.reshape(*x.shape[:2], -1).to(compute_dtype)
+
+    return packed._replace(mem_kv=torch.stack([torch.stack([mem(k), mem(v)])
+                                               for k, v in zip(pre.mem_k, pre.mem_v)]).contiguous())
+
+
+# ---- plain versions -----------------------------------------------------------
+
+
+def _as_model(ftp: FusedTransformerDecode, n_heads: int, img: torch.Tensor):
+    """The packed tensors seen as ``models.transformer`` params (slices, no
+    copies), its dims, and the memory of each row's image ``img`` -> (params,
+    dims, pre)."""
+    L, D, F_, M, n_img, V, E = ftp.dims
+
+    def dense(w, b=None):
+        return {"w": w} if b is None else {"w": w, "b": b}
+
+    def norm(l, i):
+        return {"g": ftp.ln[l, 2 * i], "b": ftp.ln[l, 2 * i + 1]}
+
+    layers = [{
+        "ln1": norm(l, 0), "ln2": norm(l, 1), "ln3": norm(l, 2),
+        "attn": {"wq": dense(ftp.w_qkv[l, :, :D], ftp.b_qkv[l, :D]),
+                 "wk": dense(ftp.w_qkv[l, :, D:2 * D]),  # no bias, as the model
+                 "wv": dense(ftp.w_qkv[l, :, 2 * D:], ftp.b_qkv[l, 2 * D:]),
+                 "wo": dense(ftp.w_o[l], ftp.b_misc[l, 0])},
+        "xattn": {"wq": dense(ftp.w_xq[l], ftp.b_misc[l, 1]),
+                  "wo": dense(ftp.w_xo[l], ftp.b_misc[l, 2])},
+        "mlp": {"fc1": dense(ftp.w_fc1[l], ftp.b_fc1[l]),
+                "fc2": dense(ftp.w_fc2[l], ftp.b_misc[l, 3])},
+    } for l in range(L)]
+    params = {"embedding": {"table": ftp.table}, "in_proj": dense(ftp.in_proj_w, ftp.in_proj_b),
+              "pos": ftp.pos, "layers": layers, "ln_f": {"g": ftp.lnf[0], "b": ftp.lnf[1]},
+              "out_proj": dense(ftp.out_proj_w, ftp.out_proj_b), "out_bias": ftp.out_bias}
+    dims = TM.TransformerDims(vocab_size=V, embedding_size=E, model_dim=D, num_layers=L,
+                              num_heads=n_heads, mlp_ratio=F_ // D,
+                              max_positions=ftp.pos.shape[0])
+    pre = TM.TransformerPre(*([TM._split_heads(ftp.mem_kv[l, i][img], n_heads)
+                               for l in range(L)] for i in (0, 1)))
+    return params, dims, pre
+
+
+def fused_greedy_decode_reference(ftp: FusedTransformerDecode, max_length: int, n_heads: int,
+                                  start_idx: int = 2, padding_idx: int = 0,
+                                  compute_dtype=torch.bfloat16, early_stop: bool = False,
+                                  stop_idx: int = 3) -> torch.Tensor:
+    """Plain version of kernel D: ``models.transformer``'s KV-cached greedy
+    decode on the packed tensors -> int32 ids [B, max_length]."""
+    n_img = ftp.mem_kv.shape[2]
+    params, dims, pre = _as_model(ftp, n_heads, torch.arange(n_img, device=ftp.table.device))
+    return TM.greedy_decode_ids(params, pre, dims, max_length, start_idx, padding_idx,
+                                compute_dtype, early_stop=early_stop, stop_idx=stop_idx)
+
+
+def fused_beam_decode_reference(ftp: FusedTransformerDecode, max_length: int, n_heads: int,
+                                beam_size: int, start_idx: int = 2, padding_idx: int = 0,
+                                stop_idx: int = 3, compute_dtype=torch.bfloat16,
+                                early_stop: bool = False):
+    """Plain version of kernel E on slot-major rows: ``models.transformer``'s
+    KV-cached step, each row's top-W words and logsumexp, each image's top-W
+    of its W^2 candidates -> (words [T, n_img, W], srcs [T, n_img, W] int32,
+    scores [n_img, W] float32, lengths [n_img, W] int32)."""
+    dt, T, W = compute_dtype, max_length, beam_size
+    n_img, dev = ftp.mem_kv.shape[2], ftp.table.device
+    B = n_img * W
+    rows = torch.arange(B, device=dev)
+    params, dims, pre = _as_model(ftp, n_heads, rows % n_img)
+    layers = TM.prepare_decode_layers(params)
+    caches = TM._init_cache(dims, B, T, dt, dev)
+    word = torch.full((B,), start_idx, dtype=torch.long, device=dev)
+    scores = torch.where(rows < n_img, 0.0, NEG_INF)
+    fin = torch.zeros((B,), dtype=torch.bool, device=dev)
+    lens = torch.zeros((B,), dtype=torch.int32, device=dev)
+    words = torch.full((T, B), padding_idx, dtype=torch.int32, device=dev)
+    srcs = (rows // n_img).to(torch.int32).expand(T, B).clone()  # identity back-pointers
+    pad_row = torch.full((W,), NEG_INF, device=dev)
+    pad_row[0] = 0.0
+
+    def per_image(a):  # [B, W] slot-major -> [n_img, W (source slot) * W (k)]
+        return a.reshape(W, n_img, W).permute(1, 0, 2).reshape(n_img, W * W)
+
+    for t in range(T):
+        if early_stop and bool(fin.all()):
+            break
+        x = TM._decode_step(params, pre, dims, word, caches, t, padding_idx, dt, layers)
+        vals, ids, lse = topk_vocab_head_reference(TM.head_proj(params, x, dt), ftp.table,
+                                                   ftp.out_bias, W)
+        logp = torch.where(fin[:, None], pad_row, vals - lse[:, None])
+        cid = torch.where(fin[:, None], padding_idx, ids)
+        top, flat = topk_stable(per_image(scores[:, None] + logp), W)  # ties: lowest w * W + k
+        src = flat // W  # [n_img, W]
+        src_rows = (src * n_img + torch.arange(n_img, device=dev)[:, None]).T.reshape(-1)
+        new_word = per_image(cid).gather(1, flat).T.reshape(-1)
+        prev_fin = fin[src_rows]
+        fin = prev_fin | (new_word == stop_idx)
+        lens = lens[src_rows] + (~prev_fin).to(torch.int32)
+        scores = top.T.reshape(-1)
+        caches = [(ck[src_rows], cv[src_rows]) for ck, cv in caches]
+        words[t], srcs[t] = new_word, src.T.reshape(-1).to(torch.int32)
+        word = new_word.long()
+
+    def per_image_tm(a):  # [T, B] slot-major -> [T, n_img, W]
+        return a.reshape(T, W, n_img).permute(0, 2, 1)
+
+    return (per_image_tm(words), per_image_tm(srcs), scores.reshape(W, n_img).T,
+            lens.reshape(W, n_img).T)
+
+
+# ---- kernels --------------------------------------------------------------------
+
+
+def _check(ftp: FusedTransformerDecode, max_length: int, n_heads: int, dt, rows: int):
+    """Validate the packed operands on CUDA -> (L, D, F, M, n_img, V, E, P)."""
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernels D and E compute in float32 or bfloat16, got {dt}")
+    L, D, F_, M, n_img, V, E = ftp.dims
+    P = ftp.pos.shape[0]
+    dev, f32 = ftp.table.device, torch.float32
+    for name, shape, dtype in (
+        ("w_qkv", (L, D, 3 * D), dt), ("w_o", (L, D, D), dt), ("w_xq", (L, D, D), dt),
+        ("w_xo", (L, D, D), dt), ("w_fc1", (L, D, F_), dt), ("w_fc2", (L, F_, D), dt),
+        ("b_qkv", (L, 3 * D), f32), ("b_misc", (L, 4, D), f32), ("b_fc1", (L, F_), f32),
+        ("ln", (L, 6, D), f32), ("mem_kv", (L, 2, n_img, M, D), dt), ("table", (V, E), dt),
+        ("out_bias", (V,), f32), ("in_proj_w", (E, D), dt), ("in_proj_b", (D,), f32),
+        ("pos", (P, D), f32), ("lnf", (2, D), f32), ("out_proj_w", (D, E), dt),
+        ("out_proj_b", (E,), f32),
+    ):
+        _build.require(getattr(ftp, name), name, dev, dtype, shape)
+    if D % 8 or E % 8 or F_ % 8 or D % n_heads:
+        raise ValueError(f"kernels D and E take D, E, F in multiples of 8 and D a multiple "
+                         f"of heads, got D={D}, E={E}, F={F_}, heads={n_heads}")
+    if not 1 <= max_length <= P:
+        raise ValueError(f"max_length {max_length} outside 1..{P} (learned positions)")
+    if rows < 1 or M < 1:
+        raise ValueError(f"no rows ({rows}) or memory slots ({M}) to decode")
+    return L, D, F_, M, n_img, V, E, P
+
+
+# pointer order of csrc/fused_transformer.cu's TfPtrs
+_PTR_FIELDS = ("w_qkv", "w_o", "w_xq", "w_xo", "w_fc1", "w_fc2", "b_qkv", "b_misc",
+               "b_fc1", "ln", "mem_kv", "table", "out_bias", "in_proj_w", "in_proj_b",
+               "pos", "lnf", "out_proj_w", "out_proj_b")
+_WORK_FIELDS = ("x", "q", "ctx", "hmid", "proj", "word", "kc0", "vc0", "kc1", "vc1",
+                "part_v", "part_i", "part_m", "part_s", "vals", "ids_k", "lse", "done",
+                "flag", "scores", "lens", "src_rows", "words_tm", "srcs_tm")
+
+
+def _launch(entry: str, ftp, work: dict, ints, dev) -> int:
+    """One C call -> the number of kernels it enqueued."""
+    lib = _build.load_library()
+    ptrs = [getattr(ftp, f).data_ptr() for f in _PTR_FIELDS] + [
+        0 if work.get(f) is None else work[f].data_ptr() for f in _WORK_FIELDS]
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    n = ctypes.c_int(0)
+    _build.check(getattr(lib, entry)(c_ints, c_ptrs, _build.stream_ptr(dev), ctypes.byref(n)),
+                 entry)
+    return n.value
+
+
+def _work(ftp, rows, T, k, dt, beam: bool):
+    """Scratch, caches and state for one decode on ``rows`` rows."""
+    L, D, F_, M, n_img, V, E = ftp.dims
+    dev, f32, i32 = ftp.table.device, torch.float32, torch.int32
+    nblk = _build.load_library().capk_vocab_argmax_nblocks(V)
+
+    def empty(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    # the tensor-core products read their activation rows in whole 32-row
+    # tiles: ctx and hmid carry zero rows up to the next multiple of 32
+    padded = -(-rows // 32) * 32
+    work = dict(
+        x=empty(rows, D, dtype=f32), q=empty(rows, D),
+        ctx=torch.zeros((padded, D), dtype=dt, device=dev),
+        hmid=torch.zeros((padded, F_), dtype=dt, device=dev),
+        proj=empty(rows, E, dtype=f32), word=empty(rows, dtype=i32),
+        kc0=empty(L, rows, T, D), vc0=empty(L, rows, T, D),
+        part_v=empty(rows, nblk, k, dtype=f32), part_i=empty(rows, nblk, k, dtype=i32),
+        done=torch.zeros(rows, dtype=i32, device=dev), flag=torch.zeros(1, dtype=i32, device=dev),
+    )
+    if beam:
+        work.update(kc1=empty(L, rows, T, D), vc1=empty(L, rows, T, D),
+                    part_m=empty(rows, nblk, dtype=f32), part_s=empty(rows, nblk, dtype=f32),
+                    vals=empty(rows, k, dtype=f32), ids_k=empty(rows, k, dtype=i32),
+                    lse=empty(rows, dtype=f32), lens=torch.zeros(rows, dtype=i32, device=dev),
+                    src_rows=empty(rows, dtype=i32))
+    return work
+
+
+def fused_greedy_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: int,
+                        start_idx: int = 2, padding_idx: int = 0,
+                        compute_dtype=torch.bfloat16, early_stop: bool = False,
+                        stop_idx: int = 3) -> torch.Tensor:
+    """Whole greedy decode -> int32 ids [B, max_length] (B = the memory's
+    image count). Launches kernel D for CUDA tensors."""
+    dev = ftp.table.device
+    if dev.type == "cpu":
+        return fused_greedy_decode_reference(ftp, max_length, n_heads, start_idx, padding_idx,
+                                             compute_dtype, early_stop, stop_idx)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    dt, T = compute_dtype, max_length
+    L, D, F_, M, B, V, E, P = _check(ftp, T, n_heads, dt, ftp.mem_kv.shape[2])
+    work = _work(ftp, B, T, 1, dt, beam=False)
+    work["word"].fill_(start_idx)
+    work["words_tm"] = torch.full((T, B), padding_idx, dtype=torch.int32, device=dev)
+    ints = [_build.dtype_code(dt), L, D, F_, M, B, 0, V, E, T, n_heads, start_idx,
+            padding_idx, stop_idx, int(early_stop)]
+    fused_greedy_decode.kernel_launches = _launch("capk_fused_greedy_decode", ftp, work,
+                                                  ints, dev)
+    fused_greedy_decode.launches += 1
+    return work["words_tm"].T.contiguous()
+
+
+fused_greedy_decode.launches = 0
+fused_greedy_decode.kernel_launches = 0  # kernels enqueued by the last call
+
+
+def fused_beam_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: int,
+                      beam_size: int, start_idx: int = 2, padding_idx: int = 0,
+                      stop_idx: int = 3, compute_dtype=torch.bfloat16,
+                      early_stop: bool = False):
+    """Whole beam search -> (words [T, n_img, W], srcs [T, n_img, W] int32,
+    scores [n_img, W] float32, lengths [n_img, W] int32) for
+    ``ops.backtrack.beam_backtrack``. Launches kernel E for CUDA
+    tensors. ``1 <= beam_size <= 8`` on every device."""
+    W = beam_size
+    if not 1 <= W <= min(BEAM_MAX, ftp.table.shape[0]):
+        raise ValueError(f"kernel E takes beam sizes 1 to {BEAM_MAX}, got {W}")
+    dev = ftp.table.device
+    if dev.type == "cpu":
+        return fused_beam_decode_reference(ftp, max_length, n_heads, W, start_idx, padding_idx,
+                                           stop_idx, compute_dtype, early_stop)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    dt, T = compute_dtype, max_length
+    n_img = ftp.mem_kv.shape[2]
+    B = n_img * W
+    L, D, F_, M, n_img, V, E, P = _check(ftp, T, n_heads, dt, B)
+    work = _work(ftp, B, T, W, dt, beam=True)
+    rows = torch.arange(B, device=dev)
+    work["word"].fill_(start_idx)
+    work["scores"] = torch.where(rows < n_img, 0.0, NEG_INF).float()
+    work["words_tm"] = torch.full((T, B), padding_idx, dtype=torch.int32, device=dev)
+    work["srcs_tm"] = (rows // n_img).to(torch.int32).expand(T, B).contiguous()
+    ints = [_build.dtype_code(dt), L, D, F_, M, n_img, W, V, E, T, n_heads, start_idx,
+            padding_idx, stop_idx, int(early_stop)]
+    fused_beam_decode.kernel_launches = _launch("capk_fused_beam_decode", ftp, work, ints, dev)
+    fused_beam_decode.launches += 1
+
+    def per_image_tm(a):
+        return a.reshape(T, W, n_img).permute(0, 2, 1)
+
+    return (per_image_tm(work["words_tm"]), per_image_tm(work["srcs_tm"]),
+            work["scores"].reshape(W, n_img).T, work["lens"].reshape(W, n_img).T)
+
+
+fused_beam_decode.launches = 0
+fused_beam_decode.kernel_launches = 0  # kernels enqueued by the last call

@@ -33,13 +33,16 @@ VOCAB_FILES = ("word2idx.json", "idx2word.json", "word_dict.npy")
 
 
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dicts -> {"a/b/c": numpy array}."""
+    """Nested dicts -> {"a/b/c": numpy array}; a list or tuple is keyed by its
+    indices, as flax stores one (``compat/from_jax.tree_to_torch`` reads it
+    back as a list)."""
     flat: Dict[str, np.ndarray] = {}
-    for k, v in tree.items():
+    items = tree.items() if isinstance(tree, dict) else ((str(i), v) for i, v in enumerate(tree))
+    for k, v in items:
         if "/" in k:
             raise ValueError(f"pytree key {k!r} contains '/'")
         key = f"{prefix}{k}"
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list, tuple)):
             flat.update(flatten_tree(v, key + "/"))
         else:
             flat[key] = np.asarray(v)

@@ -20,7 +20,14 @@ round to the neighbouring bf16 number, or further where y cancels to near
 zero); sum and sumsq to 5e-5 of sum|y| and of sumsq against float64 sums of
 the kernel's own y (float32 adds up to ~800 terms in order per thread), the
 same bits from run to run; the fused 1x1 conv + BN against the unfused conv
-and BN in float32 to 1e-4 of each output's largest magnitude.
+and BN in float32 to 1e-4 of each output's largest magnitude. Kernels D and E
+(whole transformer decodes, small dims: D=256, E=128, 2 layers, 2 heads,
+V=2050, M=6, T=5) at B and n_img in {1, 8}, fixed length and early stop: in
+float32 ids (words, back-pointers, lengths) equal to the plain versions' and
+beam scores to 1e-4; in bfloat16 each greedy id the plain teacher-forced
+argmax on the kernel's own ids under the near-tie rule (<pad> after <stop>),
+and each best beam's teacher-forced score its returned score within 2e-2
+per step (the two round their bf16 activations after sums in other orders).
 """
 
 import pytest
@@ -28,8 +35,11 @@ import torch
 
 from myimagecaptioningmodel_tpu_torch.compat.from_jax import tree_to_torch
 from myimagecaptioningmodel_tpu_torch.models import decoder as TD
+from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
 from myimagecaptioningmodel_tpu_torch.ops import layers as TL
+from myimagecaptioningmodel_tpu_torch.ops.backtrack import beam_backtrack
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as TFS
+from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as TFT
 from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as TMB
 from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as TVH
 
@@ -270,3 +280,90 @@ def test_cuda_conv1x1_bn_train_matches_unfused(cuda):
     for got, want in ((y, ry), (mean, new["mean"] / 0.1), (var, (new["var"] - 0.9) / 0.1),
                       *zip(grads, rgrads)):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# ---- kernels D and E: whole transformer decodes -----------------------------------
+
+TF_DIMS = TTF.TransformerDims(vocab_size=2050, embedding_size=128, model_dim=256, num_layers=2,
+                              num_heads=2, mlp_ratio=2, max_positions=6, vocab_pad_multiple=2)
+
+
+def _tf_case(dev, n_img, dt, stop_bias, seed=0):
+    """Random small transformer params (a bias on <stop> so that rows stop at
+    different steps) and its memory for n_img images."""
+    gen = torch.Generator().manual_seed(seed)
+    params = tree_to_torch(TTF.init(gen, TF_DIMS), dev)
+    params["out_bias"][3] += stop_bias
+    img = torch.rand(n_img, 5, 256, generator=gen).to(dev)
+    gf = torch.rand(n_img, 256, generator=gen).to(dev)
+    return params, TTF.precompute(params, img, gf, 2, dt)
+
+
+def _tf_logits(params, pre, ids, dt):
+    """Teacher-forced logits on ``ids`` and the positions up to each row's
+    first <stop>."""
+    ids = ids.long()
+    src = torch.cat([torch.full_like(ids[:, :1], 2), ids[:, :-1]], dim=1)
+    logits = TTF.teacher_forcing_logits(params, pre, src, TF_DIMS, 0, dt)
+    after = torch.cumsum((ids == 3).int(), dim=1) - (ids == 3).int() > 0
+    return logits, ~after
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8, 256])  # 256 rows: the tensor-core product (bf16)
+def test_cuda_kernel_d_matches_plain(cuda, B, dt, early):
+    params, pre = _tf_case(cuda, B, dt, 2.5 if early else 0.0)
+    ftp = TFT.prepare(params, pre, 2, dt)
+    n = TFT.fused_greedy_decode.launches
+    ids = TFT.fused_greedy_decode(ftp, 5, 2, compute_dtype=dt, early_stop=early)
+    torch.cuda.synchronize()
+    assert TFT.fused_greedy_decode.launches == n + 1 and ids.dtype == torch.int32
+    ref = TFT.fused_greedy_decode_reference(ftp, 5, 2, compute_dtype=dt, early_stop=early)
+    if dt == torch.float32:
+        assert torch.equal(ids, ref)
+    logits, live = _tf_logits(params, pre, ids, dt)
+    if not early:
+        live = torch.ones_like(live)
+    assert _near_tie_ok(ids[live], logits[live], dt)
+    assert (ids[~live] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_img", [1, 8, 32])  # 32: each warp of beam_select takes 4 images
+def test_cuda_kernel_e_matches_plain(cuda, n_img, dt, early):
+    params, pre = _tf_case(cuda, n_img, dt, 2.5, seed=1)
+    ftp = TFT.prepare(params, pre, 2, dt)
+    n = TFT.fused_beam_decode.launches
+    quad = TFT.fused_beam_decode(ftp, 5, 2, 4, compute_dtype=dt, early_stop=early)
+    torch.cuda.synchronize()
+    assert TFT.fused_beam_decode.launches == n + 1
+    ref = TFT.fused_beam_decode_reference(ftp, 5, 2, 4, compute_dtype=dt, early_stop=early)
+    if dt == torch.float32:
+        for i, (got, want) in enumerate(zip(quad, ref)):
+            if i == 2:
+                assert (got - want).abs().max() <= 1e-4
+            else:
+                assert torch.equal(got, want), i
+    ids, score = beam_backtrack(*quad, 0.0)
+    logits, live = _tf_logits(params, pre, ids, dt)
+    tok = torch.log_softmax(logits, dim=-1).gather(-1, ids.long()[..., None])[..., 0]
+    rescore, steps = (tok * live).sum(dim=1), live.sum(dim=1)
+    tol = (1e-4 if dt == torch.float32 else 2.5e-2) * steps.float().sqrt()
+    assert ((rescore - score).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_d_e_refuse_what_they_cannot_take(cuda):
+    params, pre = _tf_case(cuda, 2, torch.float32, 0.0)
+    ftp = TFT.prepare(params, pre, 2, torch.float32)
+    with pytest.raises(ValueError, match="max_length"):
+        TFT.fused_greedy_decode(ftp, 7, 2, compute_dtype=torch.float32)  # 6 positions
+    with pytest.raises(ValueError, match="heads"):
+        TFT.fused_beam_decode(ftp, 5, 3, 2, compute_dtype=torch.float32)  # 256 % 3
+    with pytest.raises(TypeError):
+        TFT.fused_greedy_decode(ftp._replace(table=ftp.table.half()), 5, 2,
+                                compute_dtype=torch.float32)
