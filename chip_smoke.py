@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA card:
-the LSTM family served and trained, then the transformer family served.
+the LSTM family served and trained, the transformer family served (float and
+int8), and the fused-IRB eval encoder.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -102,7 +103,33 @@ Phases (each prints one line; any failure exits non-zero with no result):
    teacher-forced logits; ms per batch and captions/s at B=8 and B=128,
    kernel path (weights packed once at load, and, beside it, packed on
    every batch) and plain path (the plain KV-cached loop of
-   ``models/transformer.py``).
+   ``models/transformer.py``);
+17. kernel G (``fused_inverted_residual`` and ``fused_irb_chain``) against
+   its plain version at the 17 inverted-residual block shapes of
+   MobileNetV2 x1.0 at 224 px, B in {8, 128}, float32 (TF32 off) and
+   bfloat16: the NHWC entry with the expanded tensor in float32 and in the
+   activation dtype, and the chain entry, whose border rows, W tail and
+   channel pad must be exactly 0; max |kernel - plain| / max |plain| to
+   ``G_TOL``; µs per call of the kernel, its plain version and the folded
+   block as three cuDNN convolutions, and the bound (``bound_g``);
+18. the fused eval encoder at full width (MobileNetV2 x1.0, 224 px, B in
+   {8, 128}, float32 and bfloat16, random weights and random BN statistics
+   from ``--seed``): ``mobilenet_v2.apply(train=False, use_fused_irb=True)``
+   launches G 17 times a forward, and its features hold against the same
+   forward on G's plain version and against the plain eval encoder
+   (``ENC_TOL``); ms per forward of both encoders and a profile of one bf16
+   B=128 fused forward;
+19. int8 transformer serving: kernel D with the int8 weight stream, and
+   with int8 cross-attention memory too, at B=8 and B=128 bf16 (float32
+   B=8 ids equal to the plain version), each id the plain teacher-forced
+   argmax under the near-tie rule; kernel E with the int8 weight stream at
+   8 images through ``beam_replay`` and at 128 images by the best beam's
+   re-score, under ``E_RESCORE``; then phase 16's bundle served with
+   ``CaptionService(quantize=True)`` greedy and beam 4 (D or E launches
+   once per dispatch) and through ``load_bundle(quantize=True,
+   quantize_kv=True)``: the packed weights' size (the layer streams int8),
+   the peak device memory, ms per batch and captions/s, kernel and plain
+   path.
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -113,13 +140,16 @@ neighbouring ranks by that gap. Float32 products are compared with TF32 off
 
 The line before the last is one JSON object describing each kernel (the
 launches of A and B are phase 4's, those of C phase 8's beam service, those
-of F phase 12 (c)'s, those of D and E phase 16's services, one per decode;
-``bound_ms`` from the inputs' bytes at 3.35 TB/s and their operations at the
-peak rate of their type, whichever is longer (for D and E the bytes each
-step must read again, ``bound_tf``); ``library_ms`` one ``torch.addmm`` of
-the logits for A and C, ``torch.mm`` for F, each doing less than the kernel,
-none for B, D and E); the last line is
-``{"ok": true, "device": {...}}``.
+of F phase 12 (c)'s, those of D and E phase 16's services, one per decode,
+those of D's and E's int8 modes phase 19's services, and G's phase 18's
+first forward, 17; ``bound_ms`` from the inputs' bytes at 3.35 TB/s and
+their operations at the peak rate of their type, whichever is longer (for D
+and E the bytes each step must read again, ``bound_tf``); G's numbers are
+sums over the 17 blocks of one bf16 B=8 forward; ``library_ms`` one
+``torch.addmm`` of the logits for A and C, ``torch.mm`` for F, each doing
+less than the kernel, the three cuDNN convolutions of each block for G,
+none for B, D and E), after a line with the script's own seconds; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -151,6 +181,10 @@ KERNEL_F_TPU = "myimagecaptioningmodel_tpu/ops/pallas/matmul_bn.py:72"
 KERNEL_DE_SRC = "myimagecaptioningmodel_tpu_torch/csrc/fused_transformer.cu"
 KERNEL_D_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py:1061"
 KERNEL_E_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py:1198"
+# the int8 branches inside the same pallas_calls: D's int8_stream, int8_kv; E's
+KERNEL_D_INT8_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py:1088"
+KERNEL_D_INT8KV_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py:1089"
+KERNEL_E_INT8_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py:1234"
 TF_STEPS, TF_HEADS, STOP = 35, 8, 3
 
 
@@ -1389,21 +1423,24 @@ def beam_rescore(params, pre, ids, dt):
     return (tok * live).sum(dim=1), live.sum(dim=1)
 
 
-def bound_tf(rows, n_img, steps, dims, dt, T=TF_STEPS):
+def bound_tf(rows, n_img, steps, dims, dt, T=TF_STEPS, int8=False, int8_kv=False):
     """Least ms of one decode of ``steps`` steps (the steps this run's data
-    needed): each step reads the layer weights (117 MB in bf16, more than the
-    50 MB L2 holds, so a step cannot reuse the previous step's), the head
-    and embedding weights, the table, every image's memory once and each
-    row's cache prefix, and writes each row's new k, v; the ids once. The
-    products' operations at the peak rate of their type."""
+    needed): each step reads the layer weights (117 MB in bf16, 59 MB as
+    int8 with their scales; more than the 50 MB L2 holds, so a step cannot
+    reuse the previous step's), the head and embedding weights, the table,
+    every image's memory once (int8 with ``int8_kv``) and each row's cache
+    prefix, and writes each row's new k, v; the ids once. The products'
+    operations at the peak rate of the compute dtype they run in."""
     es = torch.tensor([], dtype=dt).element_size()
     D, L, F, V = dims.model_dim, dims.num_layers, dims.model_dim * dims.mlp_ratio, V_PAD
-    weights = L * (6 * D * D + 2 * D * F) + 2 * D * E + V * E
+    layer, head = L * (6 * D * D + 2 * D * F), 2 * D * E + V * E
     small = 4 * (L * (3 * D + 4 * D + F + 6 * D) + V + 2 * D + E + TF_STEPS * D)
-    per_step = weights * es + small + n_img * L * 2 * (K_SLOTS + 1) * D * es
+    small += 4 * (L * (7 * D + F) * int8 + L * 2 * D * int8_kv)  # the int8 scales
+    per_step = (layer * (1 if int8 else es) + head * es + small
+                + n_img * L * 2 * (K_SLOTS + 1) * D * (1 if int8_kv else es))
     caches = sum(rows * L * 2 * (t + 2) * D * es for t in range(steps))  # read t+1, write 1
     nbytes = steps * per_step + caches + rows * T * 4
-    ops = steps * 2 * rows * (weights + L * 2 * (K_SLOTS + 1 + T) * D)
+    ops = steps * 2 * rows * (layer + head + L * 2 * (K_SLOTS + 1 + T) * D)
     return bound(nbytes, ops, dt)
 
 
@@ -1650,7 +1687,7 @@ def phase_tf_served(dev, seed, root):
     ``CaptionService(batch_size=8)``: D or E launches once per dispatch and
     no LSTM kernel launches; the served greedy ids hold against the plain
     teacher-forced logits; then ms per batch and captions/s, kernel path and
-    plain path. -> launch counts {D, E}."""
+    plain path. -> (launch counts {D, E}, the bundle's config)."""
     from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
     from myimagecaptioningmodel_tpu_torch.inference.server import CaptionService
     from myimagecaptioningmodel_tpu_torch.models import captioner as C
@@ -1692,6 +1729,7 @@ def phase_tf_served(dev, seed, root):
         say("tf_served_" + label, load_and_warmup_s=load_s, requests=24, dispatches=d,
             decode_ms_p50=st["decode_ms_p50"], launches=json.dumps(launches).replace(" ", ""),
             kernel_launches_per_decode=counters[kernel].kernel_launches,
+            packed_weights_mib=round(packed_mib(svc.model.decoder_packed), 2),
             distinct_captions=len({tuple(r["ids"]) for r in results}))
         out[kernel] = launches[kernel]
         models[label] = (svc.model, svc.opts)
@@ -1732,6 +1770,410 @@ def phase_tf_served(dev, seed, root):
                 runs_kernel=[round(x, 3) for x in t["kernel"]],
                 runs_repack=[round(x, 3) for x in t["repack"]],
                 runs_plain=[round(x, 3) for x in t["plain"]])
+    return out, cfg
+
+
+# ---- phases 17 and 18: kernel G and the fused eval encoder ---------------------
+
+KERNEL_G_SRC = "myimagecaptioningmodel_tpu_torch/csrc/fused_irb.cu"
+KERNEL_G_TPU = "myimagecaptioningmodel_tpu/ops/pallas/fused_irb.py:187"
+# Limits on kernel G against its plain version (phase 17), the largest
+# |kernel - plain| over max|plain| of a block: float32 sums in other orders;
+# in bfloat16 a sum on the other side of a rounding moves an expanded or
+# depthwise value by one bf16 ulp (2^-8 relative). Set between what the sound
+# kernel and planted faults read on an H100 (``chip_fault_check.py`` part 4).
+G_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# Limits of phase 18, the fused encoder's features against (a) the same
+# forward with every block on G's plain version (the same rounding points)
+# and (b) the plain eval encoder (cuDNN convs, BN after each conv), as the
+# relative L2 error of the [B, 7, 7, 1280] features.
+ENC_TOL = {"g_plain": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
+           "encoder": {torch.float32: 1e-5, torch.bfloat16: 5e-2}}
+ENC_SIZE, BATCHES = 224, (8, 128)  # phases 17-19's image size and batches
+
+
+def irb_blocks(size=224, scale=1.0):
+    """(name, H, W, Cin, Cexp, Cout, stride, shortcut) of the 17 inverted-
+    residual blocks of MobileNetV2 x``scale`` at ``size`` px."""
+    from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import BOTTLENECK_PARAMS
+
+    h, in_c, out = size // 2, int(32 * scale), []
+    for stage, (t, c, n, s) in enumerate(BOTTLENECK_PARAMS, start=2):
+        c = int(c * scale)
+        for i in range(1, n + 1):
+            stride = s if i == 1 else 1
+            out.append((f"conv{stage}_{i}", h, h, in_c, int(round(in_c * t)), c, stride, i > 1))
+            h, in_c = (h - 1) // stride + 1, c
+    return out
+
+
+def bound_g(B, H, W, cin, cexp, cout, stride, dt):
+    """The block's input and output once, its weights once; the expand on
+    every input pixel, the depthwise and the project on every output pixel."""
+    es = torch.tensor([], dtype=dt).element_size()
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    nbytes = (B * H * W * cin + B * ho * wo * cout + cin * cexp + cexp * cout) * es \
+        + (11 * cexp + cout) * 4
+    ops = 2 * B * (H * W * cin * cexp + ho * wo * cexp * (9 + cout))
+    return bound(nbytes, ops, dt)
+
+
+def irb_cudnn(x, fold, stride, shortcut):
+    """The folded block as three cuDNN convolutions in the activation dtype,
+    channels-last (the yardstick beside kernel G; the port never calls it)."""
+    dt = x.dtype
+    cin, cexp = fold.we.shape
+    xn = x.permute(0, 3, 1, 2)
+    e = torch.nn.functional.conv2d(xn, fold.we.t().reshape(cexp, cin, 1, 1).to(dt),
+                                   fold.be[0].to(dt)).clamp_(0, 6)
+    d = torch.nn.functional.conv2d(e, fold.wd.t().reshape(cexp, 1, 3, 3).to(dt),
+                                   fold.bd[0].to(dt), stride, 1, 1, cexp).clamp_(0, 6)
+    o = torch.nn.functional.conv2d(d, fold.wp.t().reshape(-1, cexp, 1, 1).to(dt),
+                                   fold.bp[0].to(dt))
+    return (o + xn if shortcut else o).permute(0, 2, 3, 1)
+
+
+def g_operands(gen, dev, B, H, W, cin, cexp, cout, dt):
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
+
+    x = (torch.randn(B, H, W, cin, generator=gen, device=dev) * 0.5).to(dt)
+    fold = FI.FoldedIRB(
+        torch.randn(cin, cexp, generator=gen, device=dev) / cin ** 0.5,
+        torch.randn(1, cexp, generator=gen, device=dev) * 0.1,
+        torch.randn(9, cexp, generator=gen, device=dev) * 0.3,
+        torch.randn(1, cexp, generator=gen, device=dev) * 0.1,
+        torch.randn(cexp, cout, generator=gen, device=dev) / cexp ** 0.5,
+        torch.randn(1, cout, generator=gen, device=dev) * 0.1)
+    return x.contiguous(memory_format=torch.contiguous_format), fold
+
+
+def rel_max_err(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def phase_kernel_g(dev, seed):
+    """Kernel G against its plain version at the 17 block shapes at 224 px,
+    B in {8, 128}, float32 (TF32 off) and bfloat16, both entries (the NHWC
+    entry with the expanded tensor in float32 and in the activation dtype,
+    and the chain entry, whose pad must be exactly 0): errors to ``G_TOL``;
+    µs per call of the kernel (the encoder's rounding), its plain version and
+    the cuDNN composition, and the bound. -> (worst bf16 |kernel - plain|,
+    {(dt, B): sums over the 17 blocks of (kernel, plain, cudnn, bound ms),
+    and what bounds most of that sum})."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst, sums = 0.0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for B in BATCHES:
+            tot = [0.0, 0.0, 0.0, 0.0]
+            errs, by = [], {"bytes": 0.0, "operations": 0.0}
+            for name, H, W, cin, cexp, cout, stride, sc in irb_blocks(ENC_SIZE):
+                x, fold = g_operands(gen, dev, B, H, W, cin, cexp, cout, dt)
+                err = 0.0
+                for round_e in (False, True):
+                    got = FI.fused_inverted_residual(x, fold, stride, sc, round_expanded=round_e)
+                    torch.cuda.synchronize()
+                    want = FI.fused_inverted_residual_reference(x, fold, stride, sc, round_e)
+                    err = max(err, rel_max_err(got, want))
+                    if dt == torch.bfloat16:
+                        worst = max(worst, float((got.float() - want.float()).abs().max()))
+                xc = FI.pad_activation(x)
+                got = FI.fused_irb_chain(xc, fold, stride, sc, real_w=W)
+                torch.cuda.synchronize()
+                want = FI.fused_irb_chain_reference(xc, fold, stride, sc, real_w=W)
+                ho, wo = FI.out_size(H, stride), FI.out_size(W, stride)
+                pad_zero = bool((got[:, 0] == 0).all() and (got[:, -1] == 0).all()
+                                and (got[:, :, wo:] == 0).all() and (got[..., cout:] == 0).all())
+                err = max(err, rel_max_err(got[:, 1:ho + 1, :wo, :cout],
+                                           want[:, 1:ho + 1, :wo, :cout]))
+                del xc, got, want
+                reps = 10 if B == 128 else 30
+                t_k = time_ms(lambda: FI.fused_inverted_residual(x, fold, stride, sc, True), reps)
+                t_p = time_ms(lambda: FI.fused_inverted_residual_reference(x, fold, stride, sc,
+                                                                           True), reps)
+                t_l = time_ms(lambda: irb_cudnn(x, fold, stride, sc), reps)
+                b_ms, b_by = bound_g(B, H, W, cin, cexp, cout, stride, dt)
+                for i, v in enumerate((t_k, t_p, t_l, b_ms)):
+                    tot[i] += v
+                by[b_by] += b_ms
+                errs.append(err)
+                ok = err <= G_TOL[dt] and pad_zero
+                say("kernel_g", dtype=str(dt).split(".")[-1], B=B, block=name, H=H, cin=cin,
+                    cexp=cexp, cout=cout, stride=stride, max_rel_err=f"{err:.3g}",
+                    chain_pad_zero=pad_zero, kernel_us=round(t_k * 1e3, 1),
+                    plain_us=round(t_p * 1e3, 1), cudnn_us=round(t_l * 1e3, 1),
+                    bound_us=round(b_ms * 1e3, 1), bound_by=b_by)
+                if not ok:
+                    raise AssertionError(f"kernel G disagrees with its plain version ({dt}, "
+                                         f"B={B}, {name}): {err}")
+                del x
+            sums[(dt, B)] = (*tot, max(by, key=by.get))
+            say("kernel_g_sum", dtype=str(dt).split(".")[-1], B=B, blocks=17,
+                max_rel_err=f"{max(errs):.3g}", tol=G_TOL[dt],
+                kernel_ms=round(tot[0], 3), plain_ms=round(tot[1], 3),
+                cudnn_ms=round(tot[2], 3), bound_ms=round(tot[3], 4))
+            torch.cuda.empty_cache()
+    return worst, sums
+
+
+def encoder_tree(gen, dev):
+    """MobileNetV2 x1.0 (params, state) with OIHW convs on ``dev``, random
+    weights and random BN scales, offsets and moving statistics (init's
+    scale 1, offset 0, mean 0, var 1 would hide the fold)."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import conv_hwio_to_oihw
+    from myimagecaptioningmodel_tpu_torch.models import mobilenet_v2 as MV
+
+    params, state = MV.init(gen)
+    for name, p in params.items():
+        c = p["conv"]["w"].shape[-1]
+        p["conv"]["w"] = torch.from_numpy(conv_hwio_to_oihw(p["conv"]["w"].numpy())).to(dev)
+        p["bn"] = {"scale": (torch.rand(c, generator=gen) + 0.5).to(dev),
+                   "offset": (torch.randn(c, generator=gen) * 0.1).to(dev)}
+        state[name]["bn"] = {"mean": (torch.randn(c, generator=gen) * 0.1).to(dev),
+                             "var": (torch.rand(c, generator=gen) + 0.5).to(dev)}
+    return params, state
+
+
+def phase_fused_encoder(dev, seed):
+    """MobileNetV2 x1.0 at 224 px, B in {8, 128}, float32 and bfloat16,
+    random weights and BN statistics: ``apply(train=False,
+    use_fused_irb=True)`` launches kernel G 17 times a forward, and its
+    features hold against the same forward on G's plain version and against
+    the plain eval encoder (``ENC_TOL``); ms per forward of both encoders
+    (plain, kernel, kernel, plain) and a profile of one bf16 B=128 fused
+    forward. -> G's launches in the first forward."""
+    from myimagecaptioningmodel_tpu_torch.models import mobilenet_v2 as MV
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
+
+    gen = torch.Generator().manual_seed(seed)
+    params, state = encoder_tree(gen, dev)
+    kernel = FI.fused_inverted_residual
+    launches = None
+    for dt in (torch.float32, torch.bfloat16):
+        for B in BATCHES:
+            x = torch.rand(B, ENC_SIZE, ENC_SIZE, 3, generator=gen).to(dev)
+
+            def fused():
+                return MV.apply(params, state, x, train=False, compute_dtype=dt,
+                                use_fused_irb=True)[0]
+
+            def plain():
+                return MV.apply(params, state, x, train=False, compute_dtype=dt)[0]
+
+            with torch.no_grad():
+                kernel.launches = 0
+                feat = fused()
+                torch.cuda.synchronize()
+                n = kernel.launches
+                launches = n if launches is None else launches
+                FI.fused_inverted_residual = FI.fused_inverted_residual_reference
+                try:
+                    ref_g = fused()
+                finally:
+                    FI.fused_inverted_residual = kernel
+                ref = plain()
+                e_g, e_p = rel_l2([feat], [ref_g]), rel_l2([feat], [ref])
+                ok = (n == 17 and bool(torch.isfinite(feat).all())
+                      and tuple(feat.shape) == (B, ENC_SIZE // 32, ENC_SIZE // 32, 1280)
+                      and e_g <= ENC_TOL["g_plain"][dt] and e_p <= ENC_TOL["encoder"][dt])
+                t = {}
+                for path in ("plain", "kernel", "kernel", "plain"):
+                    t.setdefault(path, []).append(
+                        time_ms(fused if path == "kernel" else plain, reps=5, warmup=1))
+            k, pl = min(t["kernel"]), min(t["plain"])
+            say("fused_encoder", dtype=str(dt).split(".")[-1], B=B, ok=ok, g_launches=n,
+                rel_l2_vs_g_plain=f"{e_g:.3g}", rel_l2_vs_plain_encoder=f"{e_p:.3g}",
+                max_rel_vs_plain_encoder=f"{rel_max_err(feat, ref):.3g}",
+                tol=json.dumps({k2: v[dt] for k2, v in ENC_TOL.items()}).replace(" ", ""),
+                fused_ms=round(k, 3), plain_encoder_ms=round(pl, 3),
+                runs_fused=[round(v, 3) for v in t["kernel"]],
+                runs_plain=[round(v, 3) for v in t["plain"]])
+            if not ok:
+                raise AssertionError(f"the fused encoder disagrees ({dt}, B={B})")
+            if dt == torch.bfloat16 and B == BATCHES[-1]:
+                with torch.no_grad():
+                    device_profile(f"fused_encoder_B{B}", fused)
+            del x, feat, ref_g, ref
+            torch.cuda.empty_cache()
+    return launches
+
+
+# ---- phase 19: int8 transformer serving ----------------------------------------
+
+
+def packed_mib(ftp):
+    """MiB of the packed decoder weights (every tensor but the memory)."""
+    return sum(t.numel() * t.element_size() for f, t in zip(ftp._fields, ftp)
+               if t is not None and f not in ("mem_kv", "mem_scale")) / 2 ** 20
+
+
+def phase_kernel_de_int8(dev, gen, params):
+    """Kernels D (int8 weight stream; and with int8 memory) and E (int8
+    weight stream) at full width: D at B=8 and B=128 bf16 (and float32 B=8,
+    ids equal), each id the plain teacher-forced argmax under the near-tie
+    rule on the packed tensors seen as the model (the kernels' own
+    dequantized head); E beam 4 at 8 images through ``beam_replay`` under
+    ``E_RESCORE`` and at 128 images with the best beam's re-score. µs per
+    decode, kernel and plain, and the bound. -> (worst D gap, worst E
+    re-score error, {mode: times})."""
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+    from myimagecaptioningmodel_tpu_torch.ops.backtrack import beam_backtrack
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    q = TTF.quantize_transformer_decoder({k: v for k, v in params.items()})
+    worst_d, worst_e, times = 0.0, 0.0, {}
+    for dt, B in ((torch.float32, BATCHES[0]), (torch.bfloat16, BATCHES[0]),
+                  (torch.bfloat16, BATCHES[1])):
+        pre = TTF.precompute(q, torch.rand(B, K_SLOTS, H, generator=gen).to(dev),
+                             torch.rand(B, H, generator=gen).to(dev), TF_HEADS, dt)
+        for mode, kv in (("int8", False), ("int8_kv", True)):
+            ftp = FT.prepare(q, pre, TF_HEADS, dt, quantize_kv=kv)
+            ids = FT.fused_greedy_decode(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt)
+            torch.cuda.synchronize()
+            ref = FT.fused_greedy_decode_reference(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt)
+            mp, _dims, mpre = FT._as_model(ftp, TF_HEADS, torch.arange(B, device=dev))
+            ok, err = greedy_tf_check(mp, mpre, ids, dt, False)
+            same = float((ids == ref).all(dim=1).float().mean())
+            if dt == torch.float32:
+                ok = ok and same == 1.0
+            else:
+                worst_d = max(worst_d, err)
+            t_k = time_ms(lambda: FT.fused_greedy_decode(ftp, TF_STEPS, TF_HEADS,
+                                                         compute_dtype=dt), reps=3, warmup=1)
+            t_p = time_ms(lambda: FT.fused_greedy_decode_reference(
+                ftp, TF_STEPS, TF_HEADS, compute_dtype=dt), reps=1, warmup=0)
+            b = bound_tf(B, B, TF_STEPS, tf_dims(), dt, int8=True, int8_kv=kv)
+            times[(mode, dt, B)] = (t_k, t_p, *b)
+            say("kernel_d_" + mode, dtype=str(dt).split(".")[-1], B=B, ok=ok,
+                near_tie_max_gap=err, rows_equal_to_plain=same,
+                packed_weights_mib=round(packed_mib(ftp), 2),
+                kernel_launches_per_decode=FT.fused_greedy_decode.kernel_launches,
+                kernel_us=round(t_k * 1e3, 1), plain_us=round(t_p * 1e3, 1),
+                bound_us=round(b[0] * 1e3, 1), bound_by=b[1])
+            if dt == torch.bfloat16 and B == BATCHES[0] and not kv:
+                device_profile(f"kernel_d_int8_B{B}", lambda: FT.fused_greedy_decode(
+                    ftp, TF_STEPS, TF_HEADS, compute_dtype=dt))
+            if not ok:
+                raise AssertionError(f"kernel D ({mode}) disagrees with the plain path ({dt}, "
+                                     f"B={B})")
+    dt = torch.bfloat16
+    for n_img in BATCHES:
+        pre = TTF.precompute(q, torch.rand(n_img, K_SLOTS, H, generator=gen).to(dev),
+                             torch.rand(n_img, H, generator=gen).to(dev), TF_HEADS, dt)
+        ftp = FT.prepare(q, pre, TF_HEADS, dt)
+        mp, _dims, mpre = FT._as_model(ftp, TF_HEADS, torch.arange(n_img, device=dev))
+        ref = FT.fused_beam_decode_reference(ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt,
+                                             early_stop=True)
+        if n_img == BATCHES[0]:
+            ok, readings, quad = e_check(mp, mpre, ftp, dt, ref)
+        else:  # the best beam's teacher-forced re-score
+            quad = FT.fused_beam_decode(ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt,
+                                        early_stop=True)
+            torch.cuda.synchronize()
+            bids, score = beam_backtrack(*quad, 0.0)
+            tf_score, tf_steps = beam_rescore(mp, mpre, bids, dt)
+            per = float(((tf_score - score).abs() / tf_steps.clamp(min=1).sqrt()).max())
+            readings = dict(tf_rescore_per_sqrt_step=per,
+                            rescore_max_abs_err=float((tf_score - score).abs().max()))
+            ok = per <= E_RESCORE[dt]
+        worst_e = max(worst_e, readings["rescore_max_abs_err"])
+        steps_run = int((quad[0] != 0).any(dim=2).any(dim=1).sum())
+        t_k = time_ms(lambda: FT.fused_beam_decode(ftp, TF_STEPS, TF_HEADS, BEAM,
+                                                   compute_dtype=dt, early_stop=True),
+                      reps=3, warmup=1)
+        t_p = time_ms(lambda: FT.fused_beam_decode_reference(
+            ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt, early_stop=True), reps=1, warmup=0)
+        b = bound_tf(n_img * BEAM, n_img, steps_run, tf_dims(), dt, int8=True)
+        times[("int8", "beam", n_img)] = (t_k, t_p, *b)
+        say("kernel_e_int8", dtype="bfloat16", images=n_img, beam=BEAM, ok=ok, **readings,
+            steps_run=steps_run, kernel_launches_per_decode=FT.fused_beam_decode.kernel_launches,
+            kernel_us=round(t_k * 1e3, 1), plain_us=round(t_p * 1e3, 1),
+            bound_us=round(b[0] * 1e3, 1), bound_by=b[1])
+        if not ok:
+            raise AssertionError(f"kernel E (int8) disagrees with the plain path ({n_img} "
+                                 f"images)")
+    return worst_d, worst_e, times
+
+
+def phase_tf_served_int8(dev, seed, cfg):
+    """Phase 16's transformer bundle served with ``quantize=True`` greedy and
+    beam 4 by ``CaptionService(batch_size=8)``, then greedy with int8 memory
+    too through ``load_bundle(quantize=True, quantize_kv=True)`` in batches
+    of 8: D or E launches once per dispatch; the packed weights' stored size
+    and the peak device memory; ms per batch and captions/s at B=8 and
+    B=128, kernel and plain path. -> launch counts {"int8": {D, E},
+    "int8_kv": D's}."""
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
+    from myimagecaptioningmodel_tpu_torch.inference.server import CaptionService
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    images = np.random.RandomState(seed).rand(24, *cfg.data.image_shape, 3).astype(np.float32)
+    counters = {"fused_greedy_decode": FT.fused_greedy_decode,
+                "fused_beam_decode": FT.fused_beam_decode}
+    out, models = {}, {}
+    for label, kw, kernel in TF_SERVED:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        svc = CaptionService(cfg, batch_size=8, max_wait_ms=50.0, device=dev, quantize=True,
+                             **kw)
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                results = list(pool.map(svc.caption_array, images))
+            launches = {name: fn.launches for name, fn in counters.items()}
+            st = svc.stats()
+        finally:
+            svc.close()
+        d = st["dispatches"]
+        want = {name: d if name == kernel else 0 for name in counters}
+        if launches != want or st["served"] != 24 or any(
+                len(r["ids"]) != TF_STEPS for r in results):
+            raise AssertionError(f"int8 transformer {label}: launches {launches}, expected "
+                                 f"{want}; {st}")
+        packed = svc.model.decoder_packed
+        say("tf_served_int8_" + label, requests=24, dispatches=d,
+            decode_ms_p50=st["decode_ms_p50"], launches=json.dumps(launches).replace(" ", ""),
+            layer_streams=str(packed.w_qkv.dtype).split(".")[-1],
+            packed_weights_mib=round(packed_mib(packed), 2),
+            peak_mib_above_base=round((torch.cuda.max_memory_allocated() - base) / 2 ** 20, 1),
+            distinct_captions=len({tuple(r["ids"]) for r in results}))
+        out[kernel] = launches[kernel]
+        models[label] = (svc.model, svc.opts)
+
+    model, _bc, opts, decode = load_bundle(cfg, quantize=True, quantize_kv=True, device=dev)
+    FT.fused_greedy_decode.launches = 0
+    ids = [decode(model, torch.as_tensor(images[i:i + 8]).to(dev)) for i in range(0, 24, 8)]
+    torch.cuda.synchronize()
+    out["int8_kv"] = FT.fused_greedy_decode.launches
+    if out["int8_kv"] != 3 or any(tuple(x.shape) != (8, TF_STEPS) for x in ids):
+        raise AssertionError(f"int8 memory: {out['int8_kv']} launches of D for 3 batches")
+    say("tf_served_int8_kv", batches=3, launches=out["int8_kv"], opts_quantize_kv=opts.quantize_kv,
+        distinct_captions=len({tuple(r.tolist()) for x in ids for r in x}))
+    models["greedy_kv"] = (model, opts)
+    rng = np.random.RandomState(seed + 5)
+    for label in ("greedy", "greedy_kv", "beam"):
+        model, opts = models[label]
+        for B in BATCHES:
+            imgs = torch.as_tensor(rng.rand(B, *cfg.data.image_shape, 3).astype(np.float32)).to(dev)
+            t = {}
+            for path in ("plain", "kernel", "kernel", "plain"):
+                o = opts._replace(use_kernels=path == "kernel")
+                if label == "beam":
+                    fn = lambda: beam_decode(model, imgs, o, BEAM, stop_idx=o.stop_idx)  # noqa: E731
+                else:
+                    fn = lambda: C.greedy_decode(model, imgs, o)  # noqa: E731
+                t.setdefault(path, []).append(time_ms(fn, reps=2, warmup=1))
+            k, p = min(t["kernel"]), min(t["plain"])
+            say("tf_timing_int8_" + label, B=B, kernel_ms_per_batch=round(k, 3),
+                plain_ms_per_batch=round(p, 3), kernel_captions_per_s=round(B / k * 1e3, 1),
+                plain_captions_per_s=round(B / p * 1e3, 1),
+                runs_kernel=[round(x, 3) for x in t["kernel"]],
+                runs_plain=[round(x, 3) for x in t["plain"]])
     return out
 
 
@@ -1750,6 +2192,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
+    t_start = time.perf_counter()
 
     phase_card_and_build()
     err_a, t_a = phase_kernel_a(dev, gen)
@@ -1779,8 +2222,14 @@ def main(argv=None) -> int:
         tf_params = tree_to_torch(randomize_affine(TTF.init(gen, tf_dims()), gen), dev)
         err_d, t_d = phase_kernel_d(dev, gen, tf_params)
         err_e, t_e = phase_kernel_e(dev, gen, tf_params)
+        err_d8, err_e8, t_8 = phase_kernel_de_int8(dev, gen, tf_params)
         del tf_params
-        tf_launches = phase_tf_served(dev, args.seed, root)
+        torch.cuda.empty_cache()
+        tf_launches, tf_cfg = phase_tf_served(dev, args.seed, root)
+        int8_launches = phase_tf_served_int8(dev, args.seed, tf_cfg)
+        torch.cuda.empty_cache()
+        err_g, t_g = phase_kernel_g(dev, args.seed)
+        g_launches = phase_fused_encoder(dev, args.seed)
 
     bf16 = torch.bfloat16
     f_key = (bf16, "conv3_1_expand")
@@ -1813,6 +2262,22 @@ def main(argv=None) -> int:
                         "launches": tf_launches[name], "max_abs_err": err, "ms": t_k,
                         "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None})
+    for name, tpu, launches8, err, (t_k, t_p, b_ms, b_by) in (
+            ("fused_greedy_decode[int8]", KERNEL_D_INT8_TPU, int8_launches["fused_greedy_decode"],
+             err_d8, t_8[("int8", bf16, 8)]),
+            ("fused_greedy_decode[int8+int8_kv]", KERNEL_D_INT8KV_TPU, int8_launches["int8_kv"],
+             err_d8, t_8[("int8_kv", bf16, 8)]),
+            ("fused_beam_decode[int8]", KERNEL_E_INT8_TPU, int8_launches["fused_beam_decode"],
+             err_e8, t_8[("int8", "beam", 8)])):
+        kernels.append({"name": name, "route": "cuda", "source": KERNEL_DE_SRC, "replaces": tpu,
+                        "launches": launches8, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    t_k, t_p, t_l, b_ms, b_by = t_g[(bf16, 8)]
+    kernels.append({"name": "fused_inverted_residual", "route": "cuda", "source": KERNEL_G_SRC,
+                    "replaces": KERNEL_G_TPU, "launches": g_launches, "max_abs_err": err_g,
+                    "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": t_l})
+    say("chip_smoke", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@
   layout: dense ``[in, out]`` weights, embedding ``table`` and ``out_bias``
   stay as they are; conv weights go HWIO -> OIHW; BN ``scale``/``offset``
   and moving ``mean``/``var`` go into the encoder module. With ``quantize``
-  it stores the decoder as int8 (``ops/quantization.py``), quantizing the
+  it stores the decoder as int8 (``ops/quantization.py``; the transformer's
+  through ``models.transformer.quantize_transformer_decoder``), quantizing the
   float32 weights before anything is rounded to the compute dtype, as the
   reference quantizes its float32 params at load.
 - ``train_tree`` carries a reference (params, state) across for training:
@@ -143,23 +144,26 @@ def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
                         device=None, quantize: bool = False):
     """Reference-layout (params, state) -> a port ``Captioner`` on ``device``
     (CUDA unless the caller passes another; ``resolve_device``);
-    ``quantize`` stores the decoder's weights as int8. A transformer
-    decoder served through its kernels (``opts.use_kernels``) also keeps its
-    weights packed for them, once."""
+    ``quantize`` stores the decoder's weights as int8, quantized from the
+    float32 tree before the cast to the compute dtype. A transformer decoder
+    served through its kernels (``opts.use_kernels``) also keeps its weights
+    packed for them, once (int8: the layer streams stay int8)."""
     from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner, resolve_device
     from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
-    if quantize and opts.arch == "transformer":
-        from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_transformer import INT8_TODO
-
-        raise NotImplementedError(INT8_TODO)
     device = resolve_device(device)
     encoder = MobileNetV2(opts.encoder_scale).load(
         params["encoder"], state["encoder"]
     ).to(device)
     dense = tree_to_torch({k: params[k] for k in ("img_embed", "img_global", "decoder")},
                           device, torch.float32)
-    if quantize:
+    if quantize and opts.arch == "transformer":
+        from myimagecaptioningmodel_tpu_torch.models.transformer import (
+            quantize_transformer_decoder,
+        )
+
+        dense["decoder"] = quantize_transformer_decoder(dense["decoder"])
+    elif quantize:
         from myimagecaptioningmodel_tpu_torch.ops.quantization import quantize_decoder
 
         dense["decoder"] = quantize_decoder(dense["decoder"])

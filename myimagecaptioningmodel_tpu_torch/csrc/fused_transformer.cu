@@ -2,7 +2,7 @@
 // enqueued on one stream from one C call per decode.
 //
 // Replaces myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py::
-// fused_greedy_decode and ::fused_beam_decode (float weights). The TPU
+// fused_greedy_decode and ::fused_beam_decode. The TPU
 // kernel is one program with a sequential grid over the T steps: it keeps the
 // KV caches (73 MB at full width) in VMEM and streams the 117 MB of layer
 // weights and the image memory through DMA rings every step. An H100 SM has
@@ -51,6 +51,17 @@
 // bias rounded to T; LayerNorm (eps 1e-6, biased variance), softmax, the
 // residual stream, q . k and the logits in float32; softmax weights rounded to
 // T before the weighted sum.
+//
+// int8 (the TPU kernel's int8_stream and int8_kv): the four layer streams
+// (w_qkv, w_o | w_xq | w_xo, w_fc1, w_fc2) may be int8 with a float32 scale
+// per output channel. A product converts each weight to float when it loads
+// it (exact: |w| <= 127; the tensor-core product stages it as bf16, also
+// exact) and its epilogue multiplies the rounded product by the scale rounded
+// to T, in T, before the bias: (x @ w_q) * s + b as layers.dense does. Half the
+// bytes of the float streams are read. The cross-attention memory may be
+// int8 with a float32 scale per (layer, K|V, channel) (greedy only): the
+// attention multiplies the query by K's scale (float, then rounded to T) and
+// the float context by V's before its one rounding.
 //
 // What bounds it on an H100: bytes. Each step reads the layer weights (117 MB
 // in bf16 at D = 1024, F = 4096, L = 4), the table (6.4 MB), the image memory
@@ -102,6 +113,28 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 
 __device__ __forceinline__ bool skipped(const int* skip) { return skip != nullptr && *skip; }
 
+// int8 weights and memory as float: exact. Byte b of a little-endian word,
+// sign-extended.
+__device__ __forceinline__ float ld(const int8_t* p, long i) { return (float)p[i]; }
+__device__ __forceinline__ float i8_at(uint32_t word, int b) {
+  return (float)((int32_t)(word << (24 - 8 * b)) >> 24);
+}
+// A lane's int8 weight vector, as many elements as a 16-byte vector of the
+// compute dtype (8 bytes for bf16, 4 for float32), as float.
+__device__ __forceinline__ void load_i8(const int8_t* p, float (&f)[8]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    f[b] = i8_at(u.x, b);
+    f[4 + b] = i8_at(u.y, b);
+  }
+}
+__device__ __forceinline__ void load_i8(const int8_t* p, float (&f)[4]) {
+  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+#pragma unroll
+  for (int b = 0; b < 4; ++b) f[b] = i8_at(u, b);
+}
+
 // ---- products ------------------------------------------------------------------
 
 enum AMode : int { kARows = 0, kALayerNorm = 1, kAGather = 2 };
@@ -115,7 +148,8 @@ struct TfDense {
   const float* ln_b;
   const int* word;  // kAGather: [M] table rows; `pad` gathers zeros
   int pad;
-  const void* w;      // T [K, N]
+  const void* w;      // WT [K, N]: T, or int8 with w_scale
+  const float* w_scale;  // int8 weights: [N] per output channel, else null
   const float* bias;  // [N]
   int e_mode;
   void* out;  // kEStore, kEGelu: T [M, N]; kEStoreF32: float [M, N];
@@ -170,10 +204,13 @@ __device__ __forceinline__ float a_value(const TfDense& p, int row, int k, int K
   return ld(a, (long)row * K + k);
 }
 
-// The epilogue of one output element from its float32 sum.
+// The epilogue of one output element from its float32 sum (an int8 weight's
+// scale applied in T before the bias).
 template <typename T>
 __device__ __forceinline__ void epilogue(const TfDense& p, float sum, int row, int col, int N) {
-  const float y = to_dt<T>(to_dt<T>(sum) + to_dt<T>(p.bias[col]));
+  float y = to_dt<T>(sum);
+  if (p.w_scale != nullptr) y = to_dt<T>(y * to_dt<T>(p.w_scale[col]));
+  y = to_dt<T>(y + to_dt<T>(p.bias[col]));
   const long o = (long)row * N + col;
   switch (p.e_mode) {
     case kEStore:
@@ -209,7 +246,29 @@ struct TfTile {
   static constexpr int CV = MT <= 8 ? 1 : 4, KS = MT <= 8 ? 8 : 2;
 };
 
-template <typename T, int MT, int CV, int KS>
+// One warp's share of the product with one column vector of the weight (as
+// common.cuh's colvec_product, for T or int8 weights).
+template <typename T, typename WT, int MT, int KS>
+__device__ __forceinline__ void tf_colvec(const T* __restrict__ At, const WT* __restrict__ w,
+                                          long ldw, int K, int split, int lane,
+                                          float (&acc)[MT * Vec<T>::W]) {
+  constexpr int W = Vec<T>::W;
+#pragma unroll 4
+  for (int k = 32 * split + lane; k < K; k += 32 * KS) {
+    float wf[W], a[MT];
+    if constexpr (std::is_same<WT, int8_t>::value)
+      load_i8(w + (long)k * ldw, wf);
+    else
+      load_vec<T>(w + (long)k * ldw, wf);
+    load_row<T, MT>(At + (long)k * MT, a);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < W; ++j) acc[m * W + j] = fmaf(a[m], wf[j], acc[m * W + j]);
+  }
+}
+
+template <typename T, typename WT, int MT, int CV, int KS>
 __global__ void __launch_bounds__(CV * KS * 32) tf_dense(TfDense p, int M, int N, int K) {
   if (skipped(p.skip)) return;
   constexpr int W = Vec<T>::W, NVAL = MT * W, PER = NVAL / 32;
@@ -233,7 +292,7 @@ __global__ void __launch_bounds__(CV * KS * 32) tf_dense(TfDense p, int M, int N
 #pragma unroll
   for (int i = 0; i < NVAL; ++i) acc[i] = 0.f;
   if (col0 < N)
-    colvec_product<T, MT, KS>(At, static_cast<const T*>(p.w) + col0, N, 0, K, s, lane, acc);
+    tf_colvec<T, WT, MT, KS>(At, static_cast<const WT*>(p.w) + col0, N, K, s, lane, acc);
   warp_reduce_scatter<NVAL>(acc, lane);
 #pragma unroll
   for (int i = 0; i < PER; ++i) part[s][v][PER * lane + i] = acc[i];
@@ -337,6 +396,36 @@ __device__ __forceinline__ void tc_stage_rows(const TfDense& p, __nv_bfloat16* A
   }
 }
 
+// A lane's 8 weights of a 16 x 16 tile row: 16 bytes of bf16, or 8 of int8
+// converted to bf16 (exact) when they are stored.
+template <typename WT>
+struct TcRaw;
+template <>
+struct TcRaw<__nv_bfloat16> {
+  using type = uint4;
+  static __device__ __forceinline__ uint4 load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ uint4 to_bf16(const uint4& u) { return u; }
+};
+template <>
+struct TcRaw<int8_t> {
+  using type = uint2;
+  static __device__ __forceinline__ uint2 load(const int8_t* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ uint4 to_bf16(const uint2& u) {
+    float f[8];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      f[b] = i8_at(u.x, b);
+      f[4 + b] = i8_at(u.y, b);
+    }
+    return pack(f);
+  }
+};
+
+template <typename WT>
 __global__ void __launch_bounds__(kTcWarps * 32) tf_dense_tc(TfDense p, int M, int N, int K) {
   if (skipped(p.skip)) return;
   using namespace nvcuda;
@@ -357,18 +446,19 @@ __global__ void __launch_bounds__(kTcWarps * 32) tf_dense_tc(TfDense p, int M, i
   }
   // lane's 16-byte share of a 16 x 16 tile: row lane / 2, columns (lane % 2) * 8
   const int tr = lane / 2, tc = (lane % 2) * 8;
-  const bf* w = static_cast<const bf*>(p.w) + n0 + tc;
+  const WT* w = static_cast<const WT*>(p.w) + n0 + tc;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
   wmma::fill_fragment(acc[0], 0.f);
   wmma::fill_fragment(acc[1], 0.f);
   const int kq = K / kTcWarps, k_hi = (warp + 1) * kq;
   for (int k0 = warp * kq; k0 < k_hi; k0 += 16 * kTcUnroll) {
-    uint4 bv[kTcUnroll], av[kTcUnroll][2];
+    typename TcRaw<WT>::type bv[kTcUnroll];
+    uint4 av[kTcUnroll][2];
 #pragma unroll
     for (int u = 0; u < kTcUnroll; ++u) {  // every load of the kTcUnroll k-steps in flight
       const int k = k0 + 16 * u;
       if (k >= k_hi) continue;
-      bv[u] = __ldg(reinterpret_cast<const uint4*>(w + (long)(k + tr) * N));
+      bv[u] = TcRaw<WT>::load(w + (long)(k + tr) * N);
       if (rows) {
         av[u][0] = __ldg(reinterpret_cast<const uint4*>(A + (long)tr * K + k + tc));
         av[u][1] = __ldg(reinterpret_cast<const uint4*>(A + (long)(tr + 16) * K + k + tc));
@@ -377,7 +467,7 @@ __global__ void __launch_bounds__(kTcWarps * 32) tf_dense_tc(TfDense p, int M, i
 #pragma unroll
     for (int u = 0; u < kTcUnroll; ++u) {
       if (k0 + 16 * u >= k_hi) continue;
-      *reinterpret_cast<uint4*>(&Bw[warp][u][tr * kTcN + tc]) = bv[u];
+      *reinterpret_cast<uint4*>(&Bw[warp][u][tr * kTcN + tc]) = TcRaw<WT>::to_bf16(bv[u]);
       if (rows) {
         *reinterpret_cast<uint4*>(&Aw[warp][u][tr * 16 + tc]) = av[u][0];
         *reinterpret_cast<uint4*>(&Aw[warp][u][(tr + 16) * 16 + tc]) = av[u][1];
@@ -417,38 +507,48 @@ static bool tc_takes(const TfDense& p, int N, int K) {
   return K % (16 * kTcWarps) == 0 && N % 16 == 0 && (p.a_mode != kALayerNorm || K <= kTcMaxLnK);
 }
 
+template <typename WT>
 static bool launch_tf_dense_tc(const TfDense& p, int M, int N, int K, cudaStream_t stream) {
   // the block's static tiles take 32 KB, so its dynamic limit stays below
   // raise_smem_limit's 200 KB (static and dynamic share the 227 KB)
   constexpr size_t kTcMaxDynamic = 160 * 1024;
   static const bool raised =
-      cudaFuncSetAttribute(tf_dense_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(tf_dense_tc<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)kTcMaxDynamic) == cudaSuccess;
   const size_t smem = p.a_mode == kARows ? 0 : (size_t)kTcM * (K + 8) * 2;
   if (!raised || smem > kTcMaxDynamic) return false;
-  tf_dense_tc<<<dim3(N / kTcN, (M + kTcM - 1) / kTcM), kTcWarps * 32, smem, stream>>>(p, M, N, K);
+  tf_dense_tc<WT><<<dim3(N / kTcN, (M + kTcM - 1) / kTcM), kTcWarps * 32, smem, stream>>>(
+      p, M, N, K);
   return true;
 }
 
-template <typename T, int MT>
+template <typename T, typename WT, int MT>
 static bool launch_tf_tile(const TfDense& p, int M, int N, int K, cudaStream_t stream) {
   constexpr int CV = TfTile<MT>::CV, KS = TfTile<MT>::KS;
-  static const bool raised = raise_smem_limit(tf_dense<T, MT, CV, KS>);
+  static const bool raised = raise_smem_limit(tf_dense<T, WT, MT, CV, KS>);
   const size_t smem = (size_t)MT * K * sizeof(T);
   if (!raised || smem > kMaxDynamicSmem || N % Vec<T>::W != 0) return false;
   const int cols = CV * Vec<T>::W;
   dim3 grid((N + cols - 1) / cols, (M + MT - 1) / MT);
-  tf_dense<T, MT, CV, KS><<<grid, CV * KS * 32, smem, stream>>>(p, M, N, K);
+  tf_dense<T, WT, MT, CV, KS><<<grid, CV * KS * 32, smem, stream>>>(p, M, N, K);
   return true;
 }
 
+template <typename T, typename WT>
+static bool launch_tf_dense_w(const TfDense& p, int M, int N, int K, cudaStream_t stream) {
+  if (std::is_same<T, __nv_bfloat16>::value && M >= kTcMinRows && tc_takes(p, N, K))
+    return launch_tf_dense_tc<typename std::conditional<std::is_same<WT, int8_t>::value, int8_t,
+                                                        __nv_bfloat16>::type>(p, M, N, K, stream);
+  if (M > 8 && (size_t)16 * K * sizeof(T) <= kMaxDynamicSmem)
+    return launch_tf_tile<T, WT, 16>(p, M, N, K, stream);
+  return launch_tf_tile<T, WT, 8>(p, M, N, K, stream);
+}
+
+// T weights, or int8 weights when the product has their scales
 template <typename T>
 static bool launch_tf_dense(const TfDense& p, int M, int N, int K, cudaStream_t stream) {
-  if (std::is_same<T, __nv_bfloat16>::value && M >= kTcMinRows && tc_takes(p, N, K))
-    return launch_tf_dense_tc(p, M, N, K, stream);
-  if (M > 8 && (size_t)16 * K * sizeof(T) <= kMaxDynamicSmem)
-    return launch_tf_tile<T, 16>(p, M, N, K, stream);
-  return launch_tf_tile<T, 8>(p, M, N, K, stream);
+  return p.w_scale != nullptr ? launch_tf_dense_w<T, int8_t>(p, M, N, K, stream)
+                              : launch_tf_dense_w<T, T>(p, M, N, K, stream);
 }
 
 // ---- attention -------------------------------------------------------------------
@@ -457,10 +557,13 @@ static bool launch_tf_dense(const TfDense& p, int M, int N, int K, cudaStream_t 
 // one row per group; cross-attention: the W slot-major rows of image g),
 // head h, over n_slots keys at k + g * ld_grp + s * D + h * dh:
 //   out = round(sum_s round(softmax_s(q . k_s / sqrt(dh))) v_s).
-template <typename T>
+// int8 keys and values (KT = int8_t) come with their scales [D]: the query is
+// round(q * k_scale), and out = round(k_scale-free sum * v_scale).
+template <typename T, typename KT>
 __global__ void __launch_bounds__(kAttnThreads)
     tf_attention(const T* __restrict__ q,  // [B, D]
-                 const T* __restrict__ k, const T* __restrict__ v,
+                 const KT* __restrict__ k, const KT* __restrict__ v,
+                 const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                  T* __restrict__ out,  // [B, D]
                  int n_grp, int per_grp, long ld_grp, int n_slots, int D, int dh,
                  const int* __restrict__ skip) {
@@ -475,7 +578,10 @@ __global__ void __launch_bounds__(kAttnThreads)
   for (int j = 0; j < per_grp; ++j) {
     const long row = g + (long)n_grp * j;
     __syncthreads();  // the previous row's readers of qh and w are done
-    for (int d = threadIdx.x; d < dh; d += blockDim.x) qh[d] = ld(q, row * D + h * dh + d);
+    for (int d = threadIdx.x; d < dh; d += blockDim.x) {
+      const float qv = ld(q, row * D + h * dh + d);
+      qh[d] = k_scale != nullptr ? to_dt<T>(qv * k_scale[h * dh + d]) : qv;
+    }
     __syncthreads();
     for (int s = warp; s < n_slots; s += nw) {
       float acc = 0.f;
@@ -494,21 +600,22 @@ __global__ void __launch_bounds__(kAttnThreads)
       float acc = 0.f;
 #pragma unroll 8
       for (int s = 0; s < n_slots; ++s) acc = fmaf(w[s], ld(v, kb + (long)s * D + d), acc);
-      st(out + row * D + h * dh + d, acc);
+      st(out + row * D + h * dh + d, v_scale != nullptr ? acc * v_scale[h * dh + d] : acc);
     }
   }
 }
 
-template <typename T>
+template <typename T, typename KT = T>
 static bool launch_attention(const void* q, const void* k, const void* v, void* out,
                              int n_grp, int per_grp, long ld_grp, int n_slots, int D,
-                             int heads, const int* skip, cudaStream_t stream) {
+                             int heads, const int* skip, cudaStream_t stream,
+                             const float* k_scale = nullptr, const float* v_scale = nullptr) {
   const int dh = D / heads;
   const size_t smem = ((size_t)dh + n_slots) * sizeof(float);
   if (smem > 48 * 1024) return false;
-  tf_attention<T><<<dim3(n_grp, heads), kAttnThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), n_grp, per_grp, ld_grp, n_slots, D, dh, skip);
+  tf_attention<T, KT><<<dim3(n_grp, heads), kAttnThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v), k_scale,
+      v_scale, static_cast<T*>(out), n_grp, per_grp, ld_grp, n_slots, D, dh, skip);
   return true;
 }
 
@@ -648,6 +755,7 @@ struct TfPtrs {
   const float *in_proj_b, *pos, *lnf;
   const void* out_proj_w;
   const float* out_proj_b;
+  const float *s_qkv, *s_misc, *s_fc1, *s_fc2, *mem_scale;  // int8 only, else null
   float* x;
   void *q, *ctx, *hmid;
   float* proj;
@@ -662,12 +770,12 @@ struct TfPtrs {
   float* scores;
   int *lens, *src_rows, *words_tm, *srcs_tm;
 };
-static_assert(sizeof(TfPtrs) == 43 * sizeof(void*), "one pointer per field");
+static_assert(sizeof(TfPtrs) == 48 * sizeof(void*), "one pointer per field");
 
 // fused_transformer.py's ints, in order
 enum TfArg : int {
   kDtype, kLayers, kDim, kFfn, kSlots, kImages, kBeam, kVocab, kEmb, kSteps, kHeads,
-  kStart, kPad, kStop, kEarly, kNumArgs
+  kStart, kPad, kStop, kEarly, kWInt8, kMemInt8, kNumArgs
 };
 
 template <typename T>
@@ -679,13 +787,12 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
   const int B = n_img * (beam ? W : 1), MT = B <= 8 ? 8 : 16;
   const int nblk = (V + kVocabBlock - 1) / kVocabBlock;
   const long cache_layer = (long)B * S * D;
-  const T* w_qkv = static_cast<const T*>(p.w_qkv);
-  const T* w_o = static_cast<const T*>(p.w_o);
-  const T* w_xq = static_cast<const T*>(p.w_xq);
-  const T* w_xo = static_cast<const T*>(p.w_xo);
-  const T* w_fc1 = static_cast<const T*>(p.w_fc1);
-  const T* w_fc2 = static_cast<const T*>(p.w_fc2);
-  const T* mem = static_cast<const T*>(p.mem_kv);
+  const bool w8 = a[kWInt8] != 0, m8 = a[kMemInt8] != 0;
+  // element `off` of a layer stream or of the memory, T or int8
+  auto at = [](const void* base, long off, bool i8) -> const void* {
+    return static_cast<const char*>(base) + off * (i8 ? 1 : (long)sizeof(T));
+  };
+  auto scale = [&](const float* s, long off) -> const float* { return w8 ? s + off : nullptr; };
   T *kc = static_cast<T*>(p.kc0), *vc = static_cast<T*>(p.vc0);
   T *kc_alt = static_cast<T*>(p.kc1), *vc_alt = static_cast<T*>(p.vc1);
   int n = 0;
@@ -697,7 +804,8 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
     ++n;                                                             \
   } while (0)
   auto dense = [&](int a_mode, const void* in, const float* g, const float* b, const void* w,
-                   const float* bias, int e_mode, void* out, int N, int K) {
+                   const float* bias, int e_mode, void* out, int N, int K,
+                   const float* w_scale = nullptr) {
     TfDense d{};
     d.a_mode = a_mode;
     d.a = in;
@@ -706,6 +814,7 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
     d.word = p.word;
     d.pad = pad;
     d.w = w;
+    d.w_scale = w_scale;
     d.bias = bias;
     d.e_mode = e_mode;
     d.out = out;
@@ -724,8 +833,10 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
     for (int l = 0; l < L; ++l) {
       const float* ln = p.ln + (long)l * 6 * D;
       const float* bm = p.b_misc + (long)l * 4 * D;
-      TfDense qkv = dense(kALayerNorm, p.x, ln, ln + D, w_qkv + (long)l * D * 3 * D,
-                          p.b_qkv + (long)l * 3 * D, kEQkv, p.q, 3 * D, D);
+      const float* sm = scale(p.s_misc, (long)l * 3 * D);
+      TfDense qkv = dense(kALayerNorm, p.x, ln, ln + D, at(p.w_qkv, (long)l * D * 3 * D, w8),
+                          p.b_qkv + (long)l * 3 * D, kEQkv, p.q, 3 * D, D,
+                          scale(p.s_qkv, (long)l * 3 * D));
       qkv.kc = kc + l * cache_layer;
       qkv.vc = vc + l * cache_layer;
       qkv.t = t;
@@ -733,26 +844,34 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
       TF_LAUNCH(launch_tf_dense<T>(qkv, B, 3 * D, D, stream));
       TF_LAUNCH(launch_attention<T>(p.q, kc + l * cache_layer, vc + l * cache_layer, p.ctx, B,
                                     1, (long)S * D, t + 1, D, heads, p.flag, stream));
-      TF_LAUNCH(launch_tf_dense<T>(dense(kARows, p.ctx, nullptr, nullptr, w_o + (long)l * D * D,
-                                         bm, kEResidual, p.x, D, D),
+      TF_LAUNCH(launch_tf_dense<T>(dense(kARows, p.ctx, nullptr, nullptr,
+                                         at(p.w_o, (long)l * D * D, w8), bm, kEResidual, p.x, D,
+                                         D, sm),
                                    B, D, D, stream));
       TF_LAUNCH(launch_tf_dense<T>(dense(kALayerNorm, p.x, ln + 2 * D, ln + 3 * D,
-                                         w_xq + (long)l * D * D, bm + D, kEStore, p.q, D, D),
+                                         at(p.w_xq, (long)l * D * D, w8), bm + D, kEStore, p.q,
+                                         D, D, w8 ? sm + D : nullptr),
                                    B, D, D, stream));
-      const T* mk = mem + (long)(2 * l) * n_img * M * D;
-      TF_LAUNCH(launch_attention<T>(p.q, mk, mk + (long)n_img * M * D, p.ctx, n_img,
-                                    beam ? W : 1, (long)M * D, M, D, heads, p.flag, stream));
+      const long mk = (long)(2 * l) * n_img * M * D, mv = mk + (long)n_img * M * D;
+      TF_LAUNCH(m8 ? launch_attention<T, int8_t>(p.q, at(p.mem_kv, mk, true),
+                                                 at(p.mem_kv, mv, true), p.ctx, n_img,
+                                                 beam ? W : 1, (long)M * D, M, D, heads, p.flag,
+                                                 stream, p.mem_scale + (long)(2 * l) * D,
+                                                 p.mem_scale + (long)(2 * l + 1) * D)
+                   : launch_attention<T>(p.q, at(p.mem_kv, mk, false), at(p.mem_kv, mv, false),
+                                         p.ctx, n_img, beam ? W : 1, (long)M * D, M, D, heads,
+                                         p.flag, stream));
       TF_LAUNCH(launch_tf_dense<T>(dense(kARows, p.ctx, nullptr, nullptr,
-                                         w_xo + (long)l * D * D, bm + 2 * D, kEResidual, p.x,
-                                         D, D),
+                                         at(p.w_xo, (long)l * D * D, w8), bm + 2 * D, kEResidual,
+                                         p.x, D, D, w8 ? sm + 2 * D : nullptr),
                                    B, D, D, stream));
       TF_LAUNCH(launch_tf_dense<T>(dense(kALayerNorm, p.x, ln + 4 * D, ln + 5 * D,
-                                         w_fc1 + (long)l * D * F, p.b_fc1 + (long)l * F, kEGelu,
-                                         p.hmid, F, D),
+                                         at(p.w_fc1, (long)l * D * F, w8), p.b_fc1 + (long)l * F,
+                                         kEGelu, p.hmid, F, D, scale(p.s_fc1, (long)l * F)),
                                    B, F, D, stream));
       TF_LAUNCH(launch_tf_dense<T>(dense(kARows, p.hmid, nullptr, nullptr,
-                                         w_fc2 + (long)l * F * D, bm + 3 * D, kEResidual, p.x,
-                                         D, F),
+                                         at(p.w_fc2, (long)l * F * D, w8), bm + 3 * D,
+                                         kEResidual, p.x, D, F, scale(p.s_fc2, (long)l * D)),
                                    B, D, F, stream));
     }
     TF_LAUNCH(launch_tf_dense<T>(dense(kALayerNorm, p.x, p.lnf, p.lnf + D, p.out_proj_w,
@@ -811,6 +930,10 @@ static int decode_entry(const int* a, void* const* ptrs, cudaStream_t stream, in
       (beam ? (W < 1 || W > kMaxBeam || W > a[kVocab]) : W != 0))
     return (int)cudaErrorInvalidValue;
   const TfPtrs& p = *reinterpret_cast<const TfPtrs*>(ptrs);
+  // int8 streams need their scales; int8 memory (greedy only) its scales
+  if ((a[kWInt8] && (!p.s_qkv || !p.s_misc || !p.s_fc1 || !p.s_fc2)) ||
+      (a[kMemInt8] && (beam || !p.mem_scale)))
+    return (int)cudaErrorInvalidValue;
   if (a[kDtype] == kBF16) return decode<__nv_bfloat16>(a, p, stream, launches);
   if (a[kDtype] == kF32) return decode<float>(a, p, stream, launches);
   return (int)cudaErrorInvalidValue;
@@ -822,7 +945,7 @@ extern "C" {
 
 // One greedy decode (kernel D) enqueued on `stream`. args: capk::TfArg's
 // fields (kBeam = 0); ptrs: capk::TfPtrs's fields (the beam-only ones may be
-// null). words_tm [T, B] must hold <pad>, word [B] the start id, done [B] and
+// null, and the scales unless kWInt8 / kMemInt8). words_tm [T, B] must hold <pad>, word [B] the start id, done [B] and
 // flag [1] zeros. *launches gets the number of kernels enqueued. Returns a
 // CUDA error code (cudaErrorInvalidValue for shapes the kernels do not take).
 int capk_fused_greedy_decode(const int* args, void* const* ptrs, cudaStream_t stream,
@@ -831,7 +954,7 @@ int capk_fused_greedy_decode(const int* args, void* const* ptrs, cudaStream_t st
 }
 
 // One beam-search decode (kernel E), 1 <= kBeam <= 8 slot-major rows per
-// image. As capk_fused_greedy_decode, and: srcs_tm [T, B] must hold the
+// image, float memory (kMemInt8 = 0). As capk_fused_greedy_decode, and: srcs_tm [T, B] must hold the
 // identity back-pointers (row r: r / n_img), scores [B] 0 for slot 0 and
 // -1e9 for the others, lens [B] zeros. done [B] holds the finished flags.
 int capk_fused_beam_decode(const int* args, void* const* ptrs, cudaStream_t stream,

@@ -5,7 +5,7 @@
 loads the image (http(s) URL via ``requests``, else a local path),
 preprocesses it, loads the inference bundle, decodes one image (B=1; greedy,
 or beam search with ``beam_size > 1``; int8 decoder weights with
-``quantize``), and prints the raw id list and the detokenized sentence.
+``quantize``, for either decoder family), and prints the raw id list and the detokenized sentence.
 """
 
 from __future__ import annotations

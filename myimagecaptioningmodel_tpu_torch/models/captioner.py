@@ -87,6 +87,8 @@ class ModelOptions(NamedTuple):
     image_norm: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
     arch: str = "lstm"
     tdims: Optional[TransformerDims] = None  # arch == "transformer" only
+    # transformer greedy only: int8 cross-attention memory (load_bundle)
+    quantize_kv: bool = False
     # uniform label smoothing over the real vocab rows; 0 = hard targets
     label_smoothing: float = 0.0
 
@@ -243,6 +245,7 @@ def _decode_features(dec: Params, img_embed, global_feat, opts: ModelOptions,
             dec, tpre, opts.tdims, opts.infer_max_length, opts.start_idx,
             opts.padding_idx, opts.dtype, use_kernels=opts.use_kernels,
             early_stop=opts.early_stop_decode, stop_idx=opts.stop_idx, packed=packed,
+            quantize_kv=opts.quantize_kv,
         )
     pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
     return decoder_mod.greedy_decode_ids(

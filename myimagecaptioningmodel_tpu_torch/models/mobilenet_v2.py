@@ -18,7 +18,10 @@ Two forwards:
   (no gradient) while the moving statistics still update.
   ``fuse_bn_stats`` sends every stride-1 1x1 conv through kernel F
   (``ops/kernels/matmul_bn.conv1x1_bn_train``), under the reference's
-  condition.
+  condition. ``use_fused_irb`` (eval mode only) folds BN into every conv
+  and runs each of the 17 inverted-residual blocks as kernel G
+  (``ops/kernels/fused_irb.fused_inverted_residual``) on NHWC activations;
+  the state comes back unchanged.
 
 ``init`` builds the reference's parameter pytree (HWIO conv weights, BN
 params and state) from a ``torch.Generator``; ``MobileNetV2.load`` takes that
@@ -180,8 +183,11 @@ def _apply_conv_bn(p, s, x, stride: int, padding: int, groups: int, act: bool,
 
 def apply(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,
           train: bool = True, trainable: bool = True, scale: float = 1.0,
-          compute_dtype=torch.bfloat16, fuse_bn_stats: bool = False):
+          compute_dtype=torch.bfloat16, fuse_bn_stats: bool = False,
+          use_fused_irb: bool = False):
     """NHWC [B, H, W, 3] -> (NHWC [B, H/32, W/32, 1280] features, new state)."""
+    if use_fused_irb and not train:
+        return _apply_fused_eval(params, state, x, compute_dtype)
     if not trainable:  # the reference's per-call stop_gradient
         params = {name: {k: {n: t.detach() for n, t in leaf.items()} for k, leaf in p.items()}
                   for name, p in params.items()}
@@ -212,3 +218,32 @@ def apply(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,
             in_c = c
     x = conv_bn("conv9", x, 1, 0)
     return x, new_state
+
+
+def _apply_fused_eval(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,
+                      compute_dtype):
+    """Eval forward with BN folded into every conv and each inverted-residual
+    block as kernel G -> (features, the state unchanged). ``conv1_1`` and
+    ``conv9`` are folded convs with a float32 bias, outside the kernel, as in
+    the reference. Every block keeps its expanded tensor in the compute
+    dtype, the rounding of the reference's chain kernel (which runs 12 of the
+    17 blocks at 224 px); the reference's chain layout and its 8 <= H <= 56
+    gate are TPU workarounds with no counterpart here."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
+
+    dt = compute_dtype
+
+    def conv_bn_eval(name, x, stride, padding):
+        wf, bf = FI.fold_bn(params[name]["conv"]["w"], params[name]["bn"], state[name]["bn"])
+        y = L.conv2d(wf, x.permute(0, 3, 1, 2), stride, padding, 1, dt).permute(0, 2, 3, 1)
+        return L.relu6((y.float() + bf).to(dt))
+
+    x = conv_bn_eval("conv1_1", x.to(dt), 2, 1).contiguous()
+    for stage, (_t, _c, n, s) in enumerate(BOTTLENECK_PARAMS, start=2):
+        for i in range(1, n + 1):
+            name = f"conv{stage}_{i}"
+            folded = FI.fold_irb({k: params[f"{name}_{k}"] for k in ("expand", "dwise", "linear")},
+                                 {k: state[f"{name}_{k}"] for k in ("expand", "dwise", "linear")})
+            x = FI.fused_inverted_residual(x, folded, s if i == 1 else 1, shortcut=i > 1,
+                                           round_expanded=True)
+    return conv_bn_eval("conv9", x, 1, 0), state

@@ -22,16 +22,28 @@ place (the reference's ``dynamic_update_slice``). ``greedy_decode_ids`` and
 ``beam_search_ids`` run kernel D or E when ``use_kernels`` is set, and the
 plain KV-cached loop otherwise.
 
+int8 serving (``quantize_transformer_decoder``): every dense weight gets a
+per-output-channel scale and the tied table a per-row scale
+(``ops/quantization.py``'s scheme); ``layers.dense``/``embed`` and
+``head_logits`` take the int8 leaves, each product scaled after it, in the
+compute dtype, before the bias. ``quantize_kv`` (greedy only) streams the
+cross-attention memory as int8 with a scale per (layer, K|V, channel) in
+kernel D; the plain loop applies the same grid as a quantize-dequantize
+(``quantize_kv_pre``), as the reference's XLA path does. A
+``TransformerPre`` whose memory is already int8 carries its scales
+(``kv_scale``): K's scale then multiplies the query and V's the context,
+where kernel D folds them.
+
 Not ported, and why: the reference's XLA fused-head beam branch (kernel E's
 plain version computes the same per-row top-W and logsumexp), and
 ``TransformerPreMBD``/``precompute_mbd``/``_mbd_to_pre`` (the TPU kernel's
-``[M, B, D]`` DMA layout; the CUDA kernels take ``precompute``'s own). int8
-weights, ``quantize_kv`` and training are later work (ROADMAP.md).
+``[M, B, D]`` DMA layout; the CUDA kernels take ``precompute``'s own).
+Training is later work (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +52,11 @@ from myimagecaptioningmodel_tpu_torch.models.decoder import _xavier, init_dense
 from myimagecaptioningmodel_tpu_torch.ops import layers as L
 from myimagecaptioningmodel_tpu_torch.ops.backtrack import beam_backtrack
 from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import topk_stable
+from myimagecaptioningmodel_tpu_torch.ops.quantization import (
+    dense_in_dim,
+    is_quantized,
+    quantize_weight,
+)
 
 Params = Dict[str, Any]
 
@@ -144,9 +161,10 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
 
 
-def _attend(q, k, v, mask=None):
+def _attend(q, k, v, mask=None, v_scale=None):
     """Scaled dot-product attention: float32 scores and softmax, the weights
-    rounded to the compute dtype, float32 accumulation, the result in it.
+    rounded to the compute dtype, float32 accumulation (times ``v_scale``
+    [h, d], int8 memory's V scale, if given), the result in it.
 
     q: [B, Tq, h, d]   k/v: [B, Tk, h, d]   mask: broadcastable [B?, Tq, Tk]
     """
@@ -156,14 +174,18 @@ def _attend(q, k, v, mask=None):
         scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w.to(q.dtype).float(), v.float())
+    if v_scale is not None:
+        out = out * v_scale
     return out.to(q.dtype)
 
 
 class TransformerPre(NamedTuple):
-    """Step-invariant per-image tensors: each layer's cross-attention K/V."""
+    """Step-invariant per-image tensors: each layer's cross-attention K/V;
+    int8 K/V carry their float32 scales, per layer ``[2, D]`` (K, V)."""
 
     mem_k: List[torch.Tensor]  # per layer: [B, M, heads, d_head]
     mem_v: List[torch.Tensor]  # per layer: [B, M, heads, d_head]
+    kv_scale: Optional[List[torch.Tensor]] = None
 
     @property
     def batch(self) -> int:
@@ -184,28 +206,44 @@ def precompute(params: Params, img_embed: torch.Tensor, global_feat: torch.Tenso
     return TransformerPre(ks, vs)
 
 
+def quantize_kv_pre(pre: TransformerPre) -> TransformerPre:
+    """int8 quantize-dequantize of the cross-attention memory on kernel D's
+    ``quantize_kv`` grid: a symmetric absmax / 127 scale per (layer, K|V,
+    channel) over every (image, slot) position."""
+
+    def qdq(x):  # [B, M, heads, dh]: the channels are heads * dh
+        flat = x.reshape(*x.shape[:2], -1).float()
+        s = torch.clamp(flat.abs().amax(dim=(0, 1), keepdim=True) / 127.0, min=1e-12)
+        return (torch.clamp(torch.round(flat / s), -127, 127) * s).to(x.dtype).reshape(x.shape)
+
+    return TransformerPre([qdq(k) for k in pre.mem_k], [qdq(v) for v in pre.mem_v])
+
+
 def prepare_decode_layers(params: Params) -> List[Params]:
     """Decode-time layer views with the self-attention q/k/v projections
     concatenated into one ``[D, 3D]`` weight (``wqkv``), with a zero bias
-    for the bias-free ``wk``: the same three products."""
+    for the bias-free ``wk``: the same three products. int8 weights
+    concatenate with their per-output-channel scales."""
     out = []
     for layer in params["layers"]:
         a = layer["attn"]
-        D = a["wq"]["w"].shape[0]
-        zeros = torch.zeros(D, device=a["wq"]["w"].device)
-        wqkv = {
-            "w": torch.cat([a["wq"]["w"], a["wk"]["w"], a["wv"]["w"]], dim=1),
-            "b": torch.cat([a["wq"].get("b", zeros), zeros, a["wv"].get("b", zeros)]),
-        }
+        parts, q = [a["wq"], a["wk"], a["wv"]], is_quantized(a["wq"])
+        w = torch.cat([p["w_q" if q else "w"] for p in parts], dim=1)
+        wqkv = {"w_q": w, "scale": torch.cat([p["scale"] for p in parts])} if q else {"w": w}
+        zeros = torch.zeros(dense_in_dim(a["wq"]), device=w.device)
+        wqkv["b"] = torch.cat([a["wq"].get("b", zeros), zeros, a["wv"].get("b", zeros)])
         out.append({**layer, "attn": {**a, "wqkv": wqkv}})
     return out
 
 
 def _block(layer: Params, x: torch.Tensor, mem_k, mem_v, n_heads: int, dt,
-           self_mask=None, cache=None, cache_index=None):
+           self_mask=None, cache=None, cache_index=None, kv_scale=None):
     """One pre-LN block on the float32 residual stream x [B, T, D]. With
     ``cache`` (decode, x [B, 1, D]) the new K/V are written into the caches
-    in place at ``cache_index`` and attention runs over slots <= it."""
+    in place at ``cache_index`` and attention runs over slots <= it. With
+    ``kv_scale`` ([2, D]: int8 memory's K and V scales) K's scale multiplies
+    the query in float32 (then rounded to ``dt``) and V's the float32
+    context, as kernel D folds them."""
     a = layer["attn"]
     h = _layer_norm(layer["ln1"], x)
     if "wqkv" in a:  # decode-prepared fused projection
@@ -230,7 +268,11 @@ def _block(layer: Params, x: torch.Tensor, mem_k, mem_v, n_heads: int, dt,
     xa = layer["xattn"]
     h = _layer_norm(layer["ln2"], x)
     qx = _split_heads(L.dense(xa["wq"], h, dt), n_heads)
-    x = x + L.dense(xa["wo"], _merge_heads(_attend(qx, mem_k, mem_v)), dt).float()
+    v_scale = None
+    if kv_scale is not None:
+        qx = (qx.float() * _split_heads(kv_scale[0], n_heads)).to(dt)
+        v_scale = _split_heads(kv_scale[1], n_heads)
+    x = x + L.dense(xa["wo"], _merge_heads(_attend(qx, mem_k, mem_v, v_scale=v_scale)), dt).float()
 
     h = _layer_norm(layer["ln3"], x)
     h = F.gelu(L.dense(layer["mlp"]["fc1"], h, dt).float(), approximate="tanh").to(dt)
@@ -252,11 +294,16 @@ def head_proj(params: Params, x: torch.Tensor, compute_dtype=torch.bfloat16):
 
 def head_logits(params: Params, x: torch.Tensor, compute_dtype=torch.bfloat16):
     """Final LN -> out_proj -> tied table head -> [..., V] float32 (the
-    product accumulated and kept in float32)."""
+    product accumulated and kept in float32; an int8 table's product rounded
+    to the compute dtype, then times the row scale in float32, as the
+    reference)."""
     dt = compute_dtype
     proj = head_proj(params, x, dt)
-    table = params["embedding"]["table"]
-    return torch.matmul(proj.float(), table.to(dt).float().T) + params["out_bias"]
+    emb = params["embedding"]
+    if is_quantized(emb):
+        logits = torch.matmul(proj.float(), emb["table_q"].to(dt).float().T).to(dt).float()
+        return logits * emb["scale"] + params["out_bias"]
+    return torch.matmul(proj.float(), emb["table"].to(dt).float().T) + params["out_bias"]
 
 
 def teacher_forcing_logits(params: Params, pre: TransformerPre, source: torch.Tensor,
@@ -269,8 +316,9 @@ def teacher_forcing_logits(params: Params, pre: TransformerPre, source: torch.Te
     dev = source.device
     x = _embed_in(params, source, torch.arange(T, device=dev), padding_idx, dt)
     causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
-    for layer, mk, mv in zip(params["layers"], pre.mem_k, pre.mem_v):
-        x = _block(layer, x, mk, mv, dims.num_heads, dt, causal)
+    for l, (layer, mk, mv) in enumerate(zip(params["layers"], pre.mem_k, pre.mem_v)):
+        x = _block(layer, x, mk, mv, dims.num_heads, dt, causal,
+                   kv_scale=None if pre.kv_scale is None else pre.kv_scale[l])
     return head_logits(params, x, dt)
 
 
@@ -287,9 +335,10 @@ def _decode_step(params: Params, pre: TransformerPre, dims: TransformerDims,
     place)."""
     pos = torch.tensor([t], device=word.device)
     x = _embed_in(params, word[:, None], pos, padding_idx, dt)  # [B, 1, D]
-    for layer, mk, mv, cache in zip(params["layers"] if layers is None else layers,
-                                    pre.mem_k, pre.mem_v, caches):
-        x = _block(layer, x, mk, mv, dims.num_heads, dt, None, cache=cache, cache_index=t)
+    for l, (layer, mk, mv, cache) in enumerate(zip(
+            params["layers"] if layers is None else layers, pre.mem_k, pre.mem_v, caches)):
+        x = _block(layer, x, mk, mv, dims.num_heads, dt, None, cache=cache, cache_index=t,
+                   kv_scale=None if pre.kv_scale is None else pre.kv_scale[l])
     return x[:, 0, :]
 
 
@@ -297,20 +346,24 @@ def greedy_decode_ids(params: Params, pre: TransformerPre, dims: TransformerDims
                       max_length: int, start_idx: int = 2, padding_idx: int = 0,
                       compute_dtype=torch.bfloat16, use_kernels: bool = False,
                       early_stop: bool = False, stop_idx: int = 3,
-                      packed=None) -> torch.Tensor:
+                      packed=None, quantize_kv: bool = False) -> torch.Tensor:
     """Greedy decode -> int32 ids [B, max_length]. ``early_stop``: done rows
     emit ``<pad>``, a row is done once it has emitted ``<stop>``, and the
     loop ends when every row is done (later positions stay ``<pad>``).
     ``use_kernels``: the whole decode is kernel D, on the weights
-    ``packed`` once by ``fused_transformer.pack_weights`` if given."""
+    ``packed`` once by ``fused_transformer.pack_weights`` if given.
+    ``quantize_kv``: the cross-attention memory on an int8 grid (kernel D
+    streams it as int8; the plain loop quantizes and dequantizes it)."""
     dt = compute_dtype
     if use_kernels:
         from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
 
-        ftp = FT.prepare(params, pre, dims.num_heads, dt, packed)
+        ftp = FT.prepare(params, pre, dims.num_heads, dt, packed, quantize_kv=quantize_kv)
         return FT.fused_greedy_decode(ftp, max_length, dims.num_heads, start_idx,
                                       padding_idx, dt, early_stop=early_stop,
                                       stop_idx=stop_idx)
+    if quantize_kv:
+        pre = quantize_kv_pre(pre)
     B = pre.batch
     dev = pre.mem_k[0].device
     word = torch.full((B,), start_idx, dtype=torch.long, device=dev)
@@ -355,7 +408,8 @@ def beam_search_ids(params: Params, pre: TransformerPre, dims: TransformerDims,
         return beam_backtrack(words_tm, srcs_tm, scores, lengths, length_norm)
 
     dev = pre.mem_k[0].device
-    V = params["embedding"]["table"].shape[0]
+    emb = params["embedding"]
+    V = (emb["table_q"] if is_quantized(emb) else emb["table"]).shape[0]
     pre_t = TransformerPre([k.repeat_interleave(W, dim=0) for k in pre.mem_k],
                            [v.repeat_interleave(W, dim=0) for v in pre.mem_v])
     word = torch.full((B * W,), start_idx, dtype=torch.long, device=dev)
@@ -389,3 +443,29 @@ def beam_search_ids(params: Params, pre: TransformerPre, dims: TransformerDims,
         words[t], srcs[t] = new_word, src_beam
     return beam_backtrack(words, srcs, scores, lengths, length_norm)
 
+
+
+# ---- int8 serving ----------------------------------------------------------------
+
+
+def quantize_transformer_decoder(decoder_params: Params) -> Params:
+    """int8 weight storage for serving, the reference's scheme: every dense
+    ``[I, O]`` weight (``in_proj``, ``out_proj``, each layer's attention,
+    cross-attention and MLP) gets a per-output-channel scale, the tied table
+    a per-row scale; biases, LayerNorms, positions and ``out_bias`` stay."""
+
+    def q_dense(p):
+        p = dict(p)
+        p["w_q"], p["scale"] = quantize_weight(p.pop("w"), axis=0)
+        return p
+
+    q = dict(decoder_params)
+    q["in_proj"] = q_dense(q["in_proj"])
+    q["out_proj"] = q_dense(q["out_proj"])
+    q["layers"] = [{name: (sub if name.startswith("ln") else
+                           {k: (q_dense(v) if "w" in v else v) for k, v in sub.items()})
+                    for name, sub in layer.items()} for layer in q["layers"]]
+    emb = dict(q["embedding"])
+    emb["table_q"], emb["scale"] = quantize_weight(emb.pop("table"), axis=1)  # per row
+    q["embedding"] = emb
+    return q

@@ -28,7 +28,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# dtype codes of csrc/common.cuh (int8 only for vocab tables)
+# dtype codes of csrc/common.cuh (int8: vocab tables; kernels D and E take
+# int8 layer weights and memory through their own flags)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "capk_matmul_stats": [_I] * 4 + [_VP] * 5 + [_I] + [_VP] * 3,
     "capk_fused_greedy_decode": [_PI, _PVP, _VP, _PI],
     "capk_fused_beam_decode": [_PI, _PVP, _VP, _PI],
+    "capk_fused_irb_splits": [_PI],
+    "capk_fused_irb": [_PI, _PVP, _VP],
 }
 
 

@@ -2,8 +2,8 @@
 (kernel E).
 
 Port of ``myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py``
-(``prepare`` :149, float path; ``fused_greedy_decode`` :1061;
-``fused_beam_decode`` :1198). One call decodes all ``T`` steps: every layer
+(``prepare`` :149; ``fused_greedy_decode`` :1061; ``fused_beam_decode``
+:1198). One call decodes all ``T`` steps: every layer
 (LayerNorm, the fused ``wqkv`` product writing k/v into the KV cache,
 self-attention over slots <= t, ``wo``, cross-attention over the image
 memory, ``fc1`` + GELU, ``fc2``), then the tied head, the next word and its
@@ -36,6 +36,19 @@ never repeated. The outputs are the quadruple ``ops.backtrack.
 beam_backtrack`` takes: words and source beams ``[T, n_img, W]``, scores and
 lengths ``[n_img, W]``.
 
+int8 serving, as the TPU kernel's ``prepare``: from a decoder whose every
+layer weight is int8 (``models.transformer.quantize_transformer_decoder``)
+``pack_weights`` keeps the four layer streams (``w_qkv``, ``w_o | w_xq |
+w_xo``, ``w_fc1``, ``w_fc2``) int8 with their per-output-channel float32
+scales, and each product is ``(x @ w_q) * scale`` in the compute dtype,
+before the bias (the int8 -> compute-dtype convert is exact); ``in_proj``,
+``out_proj`` and the tied table are dequantized at pack (so the head and
+the embedding differ from the plain int8 path, which scales after each
+product). ``prepare(quantize_kv=True)`` (greedy only) stores the
+cross-attention memory as int8 with a scale per (layer, K|V, channel) over
+the batch's positions: K's scale multiplies the query (float32, then
+rounded), V's the float32 context.
+
 The TPU kernel's VMEM-budget gates (``fused_dims_ok``,
 ``fused_beam_dims_ok``) and its pad-to-8 rows have no counterpart: the
 kernels take any batch >= 1 and beam widths 1 to 8.
@@ -54,17 +67,21 @@ from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
     topk_stable,
     topk_vocab_head_reference,
 )
+from myimagecaptioningmodel_tpu_torch.ops.quantization import (
+    dense_weight,
+    embedding_table,
+    is_quantized,
+)
 
 NEG_INF = TM.NEG_INF  # beam score floor
 BEAM_MAX = 8  # csrc/fused_transformer.cu's kMaxBeam
-INT8_TODO = ("int8 transformer weights and quantize_kv are not ported yet "
-             "(ROADMAP.md, 'Left, in order' item 1)")
 
 
 class FusedTransformerDecode(NamedTuple):
     """Decode-invariant tensors: the weights (``pack_weights``) and one
     batch's image memory (``prepare``). Dense weights ``[in, out]``
-    row-major in the compute dtype; biases, norms and positions float32."""
+    row-major in the compute dtype, or the layer streams int8 with their
+    scales; biases, norms, positions and scales float32."""
 
     w_qkv: torch.Tensor  # [L, D, 3D] self-attention q | k | v
     w_o: torch.Tensor  # [L, D, D]
@@ -72,11 +89,16 @@ class FusedTransformerDecode(NamedTuple):
     w_xo: torch.Tensor  # [L, D, D]
     w_fc1: torch.Tensor  # [L, D, F]
     w_fc2: torch.Tensor  # [L, F, D]
+    s_qkv: Optional[torch.Tensor]  # int8 streams' per-output-channel scales: [L, 3D]
+    s_misc: Optional[torch.Tensor]  # [L, 3, D]: w_o, w_xq, w_xo
+    s_fc1: Optional[torch.Tensor]  # [L, F]
+    s_fc2: Optional[torch.Tensor]  # [L, D]
     b_qkv: torch.Tensor  # [L, 3D]: q_b | 0 (wk has no bias) | v_b
     b_misc: torch.Tensor  # [L, 4, D]: wo_b, xq_b, xo_b, fc2_b
     b_fc1: torch.Tensor  # [L, F]
     ln: torch.Tensor  # [L, 6, D]: ln1 g, b, ln2 g, b, ln3 g, b
     mem_kv: Optional[torch.Tensor]  # [L, 2, n_img, M, D] cross-attention K | V
+    mem_scale: Optional[torch.Tensor]  # int8 memory's [L, 2, D] scales, else None
     table: torch.Tensor  # [V, E] tied embedding / head table
     out_bias: torch.Tensor  # [V]
     in_proj_w: torch.Tensor  # [E, D]
@@ -94,32 +116,43 @@ class FusedTransformerDecode(NamedTuple):
         V, E = self.table.shape
         return L, D, F_, M, n_img, V, E
 
+    @property
+    def int8_stream(self) -> bool:
+        return self.s_qkv is not None
+
 
 def pack_weights(params, compute_dtype=torch.bfloat16) -> FusedTransformerDecode:
     """Pack the decoder params into the kernels' layout, all but the image
     memory (``mem_kv`` is None). A loaded bundle packs once and hands the
-    result to ``prepare`` on every decode."""
+    result to ``prepare`` on every decode. If every layer weight is int8 the
+    four layer streams stay int8 with their scales; other int8 leaves are
+    dequantized."""
     dt = compute_dtype
-    leaves = [params["embedding"], params["in_proj"], params["out_proj"]] + [
-        p for layer in params["layers"]
-        for sub in (layer["attn"], layer["xattn"], layer["mlp"]) for p in sub.values()]
-    if any("w_q" in p or "table_q" in p for p in leaves):
-        raise NotImplementedError(INT8_TODO)
+    layers = params["layers"]
+    int8 = all(is_quantized(p) for layer in layers
+               for sub in (layer["attn"], layer["xattn"], layer["mlp"]) for p in sub.values())
     f32 = torch.float32
+    dev = params["pos"].device
 
-    def w(p):
-        return p["w"].to(dt)
+    def w(p):  # a layer stream's weight: int8 as stored, else in dt
+        return p["w_q"] if int8 else dense_weight(p).to(dt)
+
+    def sc(p):
+        return p["scale"].float()
 
     def b(p, n):
-        return p["b"].float() if "b" in p else torch.zeros(n, dtype=f32, device=p["w"].device)
+        return p["b"].float() if "b" in p else torch.zeros(n, dtype=f32, device=dev)
 
-    layers = params["layers"]
-    D = layers[0]["attn"]["wq"]["w"].shape[0]
-    F_ = layers[0]["mlp"]["fc1"]["w"].shape[1]
+    D = params["pos"].shape[1]
+    F_ = w(layers[0]["mlp"]["fc1"]).shape[1]
 
     def stack(fn):
         return torch.stack([fn(layer) for layer in layers]).contiguous()
 
+    def scales(fn):
+        return stack(fn) if int8 else None
+
+    out_proj_w = dense_weight(params["out_proj"]).to(dt).contiguous()
     return FusedTransformerDecode(
         w_qkv=stack(lambda ly: torch.cat([w(ly["attn"][k]) for k in ("wq", "wk", "wv")], 1)),
         w_o=stack(lambda ly: w(ly["attn"]["wo"])),
@@ -127,6 +160,11 @@ def pack_weights(params, compute_dtype=torch.bfloat16) -> FusedTransformerDecode
         w_xo=stack(lambda ly: w(ly["xattn"]["wo"])),
         w_fc1=stack(lambda ly: w(ly["mlp"]["fc1"])),
         w_fc2=stack(lambda ly: w(ly["mlp"]["fc2"])),
+        s_qkv=scales(lambda ly: torch.cat([sc(ly["attn"][k]) for k in ("wq", "wk", "wv")])),
+        s_misc=scales(lambda ly: torch.stack([sc(ly["attn"]["wo"]), sc(ly["xattn"]["wq"]),
+                                              sc(ly["xattn"]["wo"])])),
+        s_fc1=scales(lambda ly: sc(ly["mlp"]["fc1"])),
+        s_fc2=scales(lambda ly: sc(ly["mlp"]["fc2"])),
         b_qkv=stack(lambda ly: torch.cat([b(ly["attn"][k], D) for k in ("wq", "wk", "wv")])),
         b_misc=stack(lambda ly: torch.stack([b(ly["attn"]["wo"], D), b(ly["xattn"]["wq"], D),
                                             b(ly["xattn"]["wo"], D), b(ly["mlp"]["fc2"], D)])),
@@ -134,29 +172,39 @@ def pack_weights(params, compute_dtype=torch.bfloat16) -> FusedTransformerDecode
         ln=stack(lambda ly: torch.stack([ly[n][k].float() for n in ("ln1", "ln2", "ln3")
                                         for k in ("g", "b")])),
         mem_kv=None,
-        table=params["embedding"]["table"].to(dt).contiguous(),
+        mem_scale=None,
+        table=embedding_table(params["embedding"]).to(dt).contiguous(),
         out_bias=params["out_bias"].float().contiguous(),
-        in_proj_w=w(params["in_proj"]).contiguous(),
+        in_proj_w=dense_weight(params["in_proj"]).to(dt).contiguous(),
         in_proj_b=b(params["in_proj"], D).contiguous(),
         pos=params["pos"].float().contiguous(),
         lnf=torch.stack([params["ln_f"]["g"], params["ln_f"]["b"]]).float().contiguous(),
-        out_proj_w=w(params["out_proj"]).contiguous(),
-        out_proj_b=b(params["out_proj"], params["out_proj"]["w"].shape[1]).contiguous(),
+        out_proj_w=out_proj_w,
+        out_proj_b=b(params["out_proj"], out_proj_w.shape[1]).contiguous(),
     )
 
 
 def prepare(params, pre, n_heads: int, compute_dtype=torch.bfloat16,
-            packed=None) -> FusedTransformerDecode:
+            packed=None, quantize_kv: bool = False) -> FusedTransformerDecode:
     """The decoder params and ``models.transformer.precompute``'s per-layer
     memory K/V ([B, M, heads, dh]) in the kernels' layout; ``packed``, if
-    given, is ``pack_weights(params, compute_dtype)`` made earlier."""
+    given, is ``pack_weights(params, compute_dtype)`` made earlier.
+    ``quantize_kv``: the memory as int8, a symmetric absmax / 127 scale per
+    (layer, K|V, channel) over the batch's (image, slot) positions."""
     packed = pack_weights(params, compute_dtype) if packed is None else packed
 
     def mem(x):  # [B, M, heads, dh] -> [B, M, D]
         return x.reshape(*x.shape[:2], -1).to(compute_dtype)
 
-    return packed._replace(mem_kv=torch.stack([torch.stack([mem(k), mem(v)])
-                                               for k, v in zip(pre.mem_k, pre.mem_v)]).contiguous())
+    mem_kv = torch.stack([torch.stack([mem(k), mem(v)])
+                          for k, v in zip(pre.mem_k, pre.mem_v)]).contiguous()
+    mem_scale = None
+    if quantize_kv:
+        m32 = mem_kv.float()
+        s = torch.clamp(m32.abs().amax(dim=(2, 3), keepdim=True) / 127.0, min=1e-12)
+        mem_kv = torch.clamp(torch.round(m32 / s), -127, 127).to(torch.int8).contiguous()
+        mem_scale = s[:, :, 0, 0, :].contiguous()  # [L, 2, D]
+    return packed._replace(mem_kv=mem_kv, mem_scale=mem_scale)
 
 
 # ---- plain versions -----------------------------------------------------------
@@ -164,35 +212,45 @@ def prepare(params, pre, n_heads: int, compute_dtype=torch.bfloat16,
 
 def _as_model(ftp: FusedTransformerDecode, n_heads: int, img: torch.Tensor):
     """The packed tensors seen as ``models.transformer`` params (slices, no
-    copies), its dims, and the memory of each row's image ``img`` -> (params,
-    dims, pre)."""
+    copies; int8 streams as int8 leaves with their scales), its dims, and
+    the memory of each row's image ``img`` (int8 with its scales) ->
+    (params, dims, pre)."""
     L, D, F_, M, n_img, V, E = ftp.dims
+    q = ftp.int8_stream
 
-    def dense(w, b=None):
-        return {"w": w} if b is None else {"w": w, "b": b}
+    def dense(w, b=None, s=None):
+        p = {"w_q": w, "scale": s} if q else {"w": w}
+        return p if b is None else {**p, "b": b}
+
+    def sq(t, l, *ix):  # a stream's scale slice, None for float weights
+        return t[l][ix] if q else None
 
     def norm(l, i):
         return {"g": ftp.ln[l, 2 * i], "b": ftp.ln[l, 2 * i + 1]}
 
     layers = [{
         "ln1": norm(l, 0), "ln2": norm(l, 1), "ln3": norm(l, 2),
-        "attn": {"wq": dense(ftp.w_qkv[l, :, :D], ftp.b_qkv[l, :D]),
-                 "wk": dense(ftp.w_qkv[l, :, D:2 * D]),  # no bias, as the model
-                 "wv": dense(ftp.w_qkv[l, :, 2 * D:], ftp.b_qkv[l, 2 * D:]),
-                 "wo": dense(ftp.w_o[l], ftp.b_misc[l, 0])},
-        "xattn": {"wq": dense(ftp.w_xq[l], ftp.b_misc[l, 1]),
-                  "wo": dense(ftp.w_xo[l], ftp.b_misc[l, 2])},
-        "mlp": {"fc1": dense(ftp.w_fc1[l], ftp.b_fc1[l]),
-                "fc2": dense(ftp.w_fc2[l], ftp.b_misc[l, 3])},
+        "attn": {"wq": dense(ftp.w_qkv[l, :, :D], ftp.b_qkv[l, :D], sq(ftp.s_qkv, l, slice(0, D))),
+                 "wk": dense(ftp.w_qkv[l, :, D:2 * D], None,  # no bias, as the model
+                             sq(ftp.s_qkv, l, slice(D, 2 * D))),
+                 "wv": dense(ftp.w_qkv[l, :, 2 * D:], ftp.b_qkv[l, 2 * D:],
+                             sq(ftp.s_qkv, l, slice(2 * D, 3 * D))),
+                 "wo": dense(ftp.w_o[l], ftp.b_misc[l, 0], sq(ftp.s_misc, l, 0))},
+        "xattn": {"wq": dense(ftp.w_xq[l], ftp.b_misc[l, 1], sq(ftp.s_misc, l, 1)),
+                  "wo": dense(ftp.w_xo[l], ftp.b_misc[l, 2], sq(ftp.s_misc, l, 2))},
+        "mlp": {"fc1": dense(ftp.w_fc1[l], ftp.b_fc1[l], sq(ftp.s_fc1, l, slice(None))),
+                "fc2": dense(ftp.w_fc2[l], ftp.b_misc[l, 3], sq(ftp.s_fc2, l, slice(None)))},
     } for l in range(L)]
-    params = {"embedding": {"table": ftp.table}, "in_proj": dense(ftp.in_proj_w, ftp.in_proj_b),
+    params = {"embedding": {"table": ftp.table},
+              "in_proj": {"w": ftp.in_proj_w, "b": ftp.in_proj_b},
               "pos": ftp.pos, "layers": layers, "ln_f": {"g": ftp.lnf[0], "b": ftp.lnf[1]},
-              "out_proj": dense(ftp.out_proj_w, ftp.out_proj_b), "out_bias": ftp.out_bias}
+              "out_proj": {"w": ftp.out_proj_w, "b": ftp.out_proj_b}, "out_bias": ftp.out_bias}
     dims = TM.TransformerDims(vocab_size=V, embedding_size=E, model_dim=D, num_layers=L,
                               num_heads=n_heads, mlp_ratio=F_ // D,
                               max_positions=ftp.pos.shape[0])
     pre = TM.TransformerPre(*([TM._split_heads(ftp.mem_kv[l, i][img], n_heads)
-                               for l in range(L)] for i in (0, 1)))
+                               for l in range(L)] for i in (0, 1)),
+                            kv_scale=None if ftp.mem_scale is None else list(ftp.mem_scale))
     return params, dims, pre
 
 
@@ -272,15 +330,23 @@ def _check(ftp: FusedTransformerDecode, max_length: int, n_heads: int, dt, rows:
     L, D, F_, M, n_img, V, E = ftp.dims
     P = ftp.pos.shape[0]
     dev, f32 = ftp.table.device, torch.float32
-    for name, shape, dtype in (
-        ("w_qkv", (L, D, 3 * D), dt), ("w_o", (L, D, D), dt), ("w_xq", (L, D, D), dt),
-        ("w_xo", (L, D, D), dt), ("w_fc1", (L, D, F_), dt), ("w_fc2", (L, F_, D), dt),
+    wt = torch.int8 if ftp.int8_stream else dt
+    mt = dt if ftp.mem_scale is None else torch.int8
+    operands = [
+        ("w_qkv", (L, D, 3 * D), wt), ("w_o", (L, D, D), wt), ("w_xq", (L, D, D), wt),
+        ("w_xo", (L, D, D), wt), ("w_fc1", (L, D, F_), wt), ("w_fc2", (L, F_, D), wt),
         ("b_qkv", (L, 3 * D), f32), ("b_misc", (L, 4, D), f32), ("b_fc1", (L, F_), f32),
-        ("ln", (L, 6, D), f32), ("mem_kv", (L, 2, n_img, M, D), dt), ("table", (V, E), dt),
+        ("ln", (L, 6, D), f32), ("mem_kv", (L, 2, n_img, M, D), mt), ("table", (V, E), dt),
         ("out_bias", (V,), f32), ("in_proj_w", (E, D), dt), ("in_proj_b", (D,), f32),
         ("pos", (P, D), f32), ("lnf", (2, D), f32), ("out_proj_w", (D, E), dt),
         ("out_proj_b", (E,), f32),
-    ):
+    ]
+    if ftp.int8_stream:
+        operands += [("s_qkv", (L, 3 * D), f32), ("s_misc", (L, 3, D), f32),
+                     ("s_fc1", (L, F_), f32), ("s_fc2", (L, D), f32)]
+    if ftp.mem_scale is not None:
+        operands.append(("mem_scale", (L, 2, D), f32))
+    for name, shape, dtype in operands:
         _build.require(getattr(ftp, name), name, dev, dtype, shape)
     if D % 8 or E % 8 or F_ % 8 or D % n_heads:
         raise ValueError(f"kernels D and E take D, E, F in multiples of 8 and D a multiple "
@@ -292,10 +358,12 @@ def _check(ftp: FusedTransformerDecode, max_length: int, n_heads: int, dt, rows:
     return L, D, F_, M, n_img, V, E, P
 
 
-# pointer order of csrc/fused_transformer.cu's TfPtrs
+# pointer order of csrc/fused_transformer.cu's TfPtrs (the scales null for
+# float weights and memory)
 _PTR_FIELDS = ("w_qkv", "w_o", "w_xq", "w_xo", "w_fc1", "w_fc2", "b_qkv", "b_misc",
                "b_fc1", "ln", "mem_kv", "table", "out_bias", "in_proj_w", "in_proj_b",
-               "pos", "lnf", "out_proj_w", "out_proj_b")
+               "pos", "lnf", "out_proj_w", "out_proj_b", "s_qkv", "s_misc", "s_fc1", "s_fc2",
+               "mem_scale")
 _WORK_FIELDS = ("x", "q", "ctx", "hmid", "proj", "word", "kc0", "vc0", "kc1", "vc1",
                 "part_v", "part_i", "part_m", "part_s", "vals", "ids_k", "lse", "done",
                 "flag", "scores", "lens", "src_rows", "words_tm", "srcs_tm")
@@ -304,7 +372,8 @@ _WORK_FIELDS = ("x", "q", "ctx", "hmid", "proj", "word", "kc0", "vc0", "kc1", "v
 def _launch(entry: str, ftp, work: dict, ints, dev) -> int:
     """One C call -> the number of kernels it enqueued."""
     lib = _build.load_library()
-    ptrs = [getattr(ftp, f).data_ptr() for f in _PTR_FIELDS] + [
+    ptrs = [0 if getattr(ftp, f) is None else getattr(ftp, f).data_ptr()
+            for f in _PTR_FIELDS] + [
         0 if work.get(f) is None else work[f].data_ptr() for f in _WORK_FIELDS]
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -362,7 +431,8 @@ def fused_greedy_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: i
     work["word"].fill_(start_idx)
     work["words_tm"] = torch.full((T, B), padding_idx, dtype=torch.int32, device=dev)
     ints = [_build.dtype_code(dt), L, D, F_, M, B, 0, V, E, T, n_heads, start_idx,
-            padding_idx, stop_idx, int(early_stop)]
+            padding_idx, stop_idx, int(early_stop), int(ftp.int8_stream),
+            int(ftp.mem_scale is not None)]
     fused_greedy_decode.kernel_launches = _launch("capk_fused_greedy_decode", ftp, work,
                                                   ints, dev)
     fused_greedy_decode.launches += 1
@@ -380,10 +450,12 @@ def fused_beam_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: int
     """Whole beam search -> (words [T, n_img, W], srcs [T, n_img, W] int32,
     scores [n_img, W] float32, lengths [n_img, W] int32) for
     ``ops.backtrack.beam_backtrack``. Launches kernel E for CUDA
-    tensors. ``1 <= beam_size <= 8`` on every device."""
+    tensors. ``1 <= beam_size <= 8`` and float memory on every device."""
     W = beam_size
     if not 1 <= W <= min(BEAM_MAX, ftp.table.shape[0]):
         raise ValueError(f"kernel E takes beam sizes 1 to {BEAM_MAX}, got {W}")
+    if ftp.mem_scale is not None:
+        raise ValueError("int8 cross-attention memory (quantize_kv) covers greedy decode only")
     dev = ftp.table.device
     if dev.type == "cpu":
         return fused_beam_decode_reference(ftp, max_length, n_heads, W, start_idx, padding_idx,
@@ -401,7 +473,7 @@ def fused_beam_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: int
     work["words_tm"] = torch.full((T, B), padding_idx, dtype=torch.int32, device=dev)
     work["srcs_tm"] = (rows // n_img).to(torch.int32).expand(T, B).contiguous()
     ints = [_build.dtype_code(dt), L, D, F_, M, n_img, W, V, E, T, n_heads, start_idx,
-            padding_idx, stop_idx, int(early_stop)]
+            padding_idx, stop_idx, int(early_stop), int(ftp.int8_stream), 0]
     fused_beam_decode.kernel_launches = _launch("capk_fused_beam_decode", ftp, work, ints, dev)
     fused_beam_decode.launches += 1
 

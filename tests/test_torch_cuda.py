@@ -28,6 +28,14 @@ beam scores to 1e-4; in bfloat16 each greedy id the plain teacher-forced
 argmax on the kernel's own ids under the near-tie rule (<pad> after <stop>),
 and each best beam's teacher-forced score its returned score within 2e-2
 per step (the two round their bf16 activations after sums in other orders).
+The same for D and E on int8 weights (``quantize_transformer_decoder``) and
+for D on int8 weights and int8 memory (``quantize_kv``), the teacher forcing
+on the packed tensors seen as the model (the kernels' own dequantized head
+and embedding). Kernel G (the fused inverted-residual block, both entries):
+to 1e-5 x max|out| in float32 (float sums in other orders) and 1e-2 x
+max|out| in bfloat16 (a sum that lands on the other side of a bf16 rounding
+moves the expanded or depthwise value by one bf16 ulp, 2^-8 relative); the
+chain's zero rows, W tail and channel pad exactly 0.
 """
 
 import pytest
@@ -38,6 +46,7 @@ from myimagecaptioningmodel_tpu_torch.models import decoder as TD
 from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
 from myimagecaptioningmodel_tpu_torch.ops import layers as TL
 from myimagecaptioningmodel_tpu_torch.ops.backtrack import beam_backtrack
+from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as TFI
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as TFS
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as TFT
 from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as TMB
@@ -367,3 +376,127 @@ def test_cuda_kernels_d_e_refuse_what_they_cannot_take(cuda):
     with pytest.raises(TypeError):
         TFT.fused_greedy_decode(ftp._replace(table=ftp.table.half()), 5, 2,
                                 compute_dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize_kv", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8, 256])  # 256 rows: the tensor-core product (bf16)
+def test_cuda_kernel_d_int8_matches_plain(cuda, B, dt, quantize_kv):
+    params, _ = _tf_case(cuda, B, dt, 2.5)
+    q = TTF.quantize_transformer_decoder(params)
+    gen = torch.Generator().manual_seed(5)
+    img = torch.rand(B, 5, 256, generator=gen).to(cuda)
+    pre = TTF.precompute(q, img, torch.rand(B, 256, generator=gen).to(cuda), 2, dt)
+    ftp = TFT.prepare(q, pre, 2, dt, quantize_kv=quantize_kv)
+    assert ftp.w_fc2.dtype == torch.int8 and (ftp.mem_kv.dtype == torch.int8) == quantize_kv
+    ids = TFT.fused_greedy_decode(ftp, 5, 2, compute_dtype=dt, early_stop=True)
+    torch.cuda.synchronize()
+    ref = TFT.fused_greedy_decode_reference(ftp, 5, 2, compute_dtype=dt, early_stop=True)
+    if dt == torch.float32:
+        assert torch.equal(ids, ref)
+    mp, _dims, mpre = TFT._as_model(ftp, 2, torch.arange(B, device=cuda))
+    logits, live = _tf_logits(mp, mpre, ids, dt)
+    assert _near_tie_ok(ids[live], logits[live], dt)
+    assert (ids[~live] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_img", [1, 8, 32])
+def test_cuda_kernel_e_int8_matches_plain(cuda, n_img, dt):
+    params, _ = _tf_case(cuda, n_img, dt, 2.5, seed=1)
+    q = TTF.quantize_transformer_decoder(params)
+    gen = torch.Generator().manual_seed(6)
+    img = torch.rand(n_img, 5, 256, generator=gen).to(cuda)
+    pre = TTF.precompute(q, img, torch.rand(n_img, 256, generator=gen).to(cuda), 2, dt)
+    ftp = TFT.prepare(q, pre, 2, dt)
+    quad = TFT.fused_beam_decode(ftp, 5, 2, 4, compute_dtype=dt, early_stop=True)
+    torch.cuda.synchronize()
+    ref = TFT.fused_beam_decode_reference(ftp, 5, 2, 4, compute_dtype=dt, early_stop=True)
+    if dt == torch.float32:
+        for i, (got, want) in enumerate(zip(quad, ref)):
+            if i == 2:
+                assert (got - want).abs().max() <= 1e-4
+            else:
+                assert torch.equal(got, want), i
+    ids, score = beam_backtrack(*quad, 0.0)
+    mp, _dims, mpre = TFT._as_model(ftp, 2, torch.arange(n_img, device=cuda))
+    logits, live = _tf_logits(mp, mpre, ids, dt)
+    tok = torch.log_softmax(logits, dim=-1).gather(-1, ids.long()[..., None])[..., 0]
+    rescore, steps = (tok * live).sum(dim=1), live.sum(dim=1)
+    tol = (1e-4 if dt == torch.float32 else 2.5e-2) * steps.float().sqrt()
+    assert ((rescore - score).abs() <= tol).all()
+
+
+# ---- kernel G: the fused inverted-residual block ------------------------------------
+
+G_SHAPES = [  # (B, H, W, Cin, Cexp, Cout, stride, shortcut)
+    (2, 112, 112, 32, 32, 16, 1, False),  # conv2_1: row tiles of 112-wide rows
+    (2, 112, 112, 16, 96, 24, 2, False),  # conv3_1
+    (3, 14, 14, 96, 576, 96, 1, True),
+    (8, 7, 7, 160, 960, 320, 1, False),  # few tiles: the Cexp split and its reduce
+    (2, 9, 13, 24, 144, 24, 1, True),  # odd H and W, a ragged Cexp chunk
+    (2, 9, 13, 24, 40, 32, 2, False),  # odd H and W at stride 2
+    (1, 5, 300, 8, 48, 8, 1, True),  # wider than a tile: column tiles
+]
+
+
+def _g_case(cuda, B, H, W, cin, cexp, cout, dt, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(B, H, W, cin, generator=g) * 0.5).to(cuda, dt)
+    fold = TFI.FoldedIRB(*(t.to(cuda) for t in (
+        torch.randn(cin, cexp, generator=g) / cin ** 0.5, torch.randn(1, cexp, generator=g) * 0.1,
+        torch.randn(9, cexp, generator=g) * 0.3, torch.randn(1, cexp, generator=g) * 0.1,
+        torch.randn(cexp, cout, generator=g) / cexp ** 0.5, torch.randn(1, cout, generator=g) * 0.1)))
+    return x, fold
+
+
+def _g_close(got, want, dt):
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    err = (got.float() - want.float()).abs().max()
+    assert err <= tol * want.float().abs().max(), (float(err), float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,cin,cexp,cout,stride,shortcut", G_SHAPES)
+def test_cuda_fused_irb_matches_plain(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut):
+    x, fold = _g_case(cuda, B, H, W, cin, cexp, cout, dt, H * W + cexp)
+    for round_e in (False, True):
+        n = TFI.fused_inverted_residual.launches
+        got = TFI.fused_inverted_residual(x, fold, stride, shortcut, round_expanded=round_e)
+        torch.cuda.synchronize()
+        assert TFI.fused_inverted_residual.launches == n + 1 and got.dtype == dt
+        want = TFI.fused_inverted_residual_reference(x, fold, stride, shortcut, round_e)
+        assert got.shape == want.shape
+        _g_close(got, want, dt)
+    xc = TFI.pad_activation(x)
+    got = TFI.fused_irb_chain(xc, fold, stride, shortcut, real_w=W)
+    torch.cuda.synchronize()
+    want = TFI.fused_irb_chain_reference(xc, fold, stride, shortcut, real_w=W)
+    assert got.shape == want.shape
+    ho, wo = TFI.out_size(H, stride), TFI.out_size(W, stride)
+    real = torch.zeros(got.shape, dtype=torch.bool, device=cuda)
+    real[:, 1:ho + 1, :wo, :cout] = True
+    assert (got[~real] == 0).all()
+    _g_close(got[real], want[real], dt)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_irb_refuses_what_it_cannot_take(cuda):
+    x, fold = _g_case(cuda, 1, 8, 8, 16, 32, 16, torch.float32, 0)
+    with pytest.raises(ValueError, match="stride"):
+        TFI.fused_inverted_residual(x, fold, 3, False)
+    with pytest.raises(ValueError, match="residual"):
+        TFI.fused_inverted_residual(x, fold, 2, True)
+    with pytest.raises(TypeError):
+        TFI.fused_inverted_residual(x.half(), fold, 1, True)
+    x12, fold12 = _g_case(cuda, 1, 8, 8, 12, 32, 16, torch.float32, 0)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        TFI.fused_inverted_residual(x12, fold12, 1, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        TFI.fused_inverted_residual(x.transpose(1, 2), fold, 1, True)
+    n = TFI.fused_inverted_residual.launches
+    TFI.fused_inverted_residual(x.cpu(), TFI.FoldedIRB(*(t.cpu() for t in fold)), 1, True)
+    assert TFI.fused_inverted_residual.launches == n  # the plain version

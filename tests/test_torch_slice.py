@@ -126,16 +126,20 @@ def test_greedy_ids_equal_jax(setup, parity_mode):
 
 
 def test_transformer_arch_not_ported_yet(tmp_path):
-    """The transformer family serves; its int8 weights are not ported yet:
-    ``quantize=True`` on a transformer bundle raises, naming ROADMAP.md."""
+    """The transformer family serves, with int8 weights too:
+    ``quantize=True`` on a transformer bundle quantizes its decoder and
+    decodes (the int8 decodes are held against the JAX package in
+    ``tests/test_torch_transformer_int8.py``)."""
     cfg = config_mod.replace_nested(small_cfg(str(tmp_path)), "model.decoder.arch", "transformer")
     opts = tcap.ModelOptions.from_config(cfg)
     assert opts.arch == "transformer" and opts.tdims.model_dim == 256
     params, state = tcap.init(torch.Generator().manual_seed(0), opts)
     tckpt.export_inference_bundle(os.path.join(cfg.train.checkpoint_path, "infer"), params,
                                   state, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tload_bundle(cfg, quantize=True, device="cpu")
+    model, _bc, _opts, decode = tload_bundle(cfg, quantize=True, device="cpu")
+    assert model.params["decoder"]["layers"][0]["mlp"]["fc1"]["w_q"].dtype == torch.int8
+    ids = decode(model, np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32))
+    assert ids.shape == (2, cfg.model.decoder.infer_max_length) and ids.dtype == torch.int32
 
 
 def jpeg_bytes(seed, size=40):

@@ -12,7 +12,8 @@ JAX bundle and converted to a port bundle:
 - ``CaptionService`` (beam 4) answers concurrent requests with the JAX ids,
   and its HTTP ``/healthz`` reports them;
 - what stays unported raises ``NotImplementedError`` naming ROADMAP.md:
-  int8 weights (``quantize=True``) and training (``loss_terms``).
+  training (``loss_terms``); int8 weights (``quantize=True``) load (their
+  decodes are held in ``tests/test_torch_transformer_int8.py``).
 """
 
 import json
@@ -136,8 +137,8 @@ def test_service_and_http(bundles):
 
 def test_unported_raises(bundles):
     _jcfg, tcfg, images = bundles
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teval.load_bundle(tcfg, quantize=True, device="cpu")
+    model, _bc, _opts, _decode = teval.load_bundle(tcfg, quantize=True, device="cpu")
+    assert model.params["decoder"]["layers"][0]["attn"]["wq"]["w_q"].dtype == torch.int8
     opts = tcap.ModelOptions.from_config(tcfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcap.loss_terms(None, None, images, np.zeros((5, 6), np.int32), opts)
