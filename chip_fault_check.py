@@ -12,13 +12,14 @@ only; nothing on disk changes. Four parts:
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
    sumsq replaced by those of a faulty kernel: taken over the float32
    accumulator instead of the stored, rounded y; missing the last row;
-   missing the rows past the last whole 128-row tile.
+   missing the rows past the last whole row tile of the kernel
+   (``matmul_bn.row_tile()``, 128 rows).
 2. Phase 12 (a)'s check (``chip_smoke.fused_failures`` against
    ``TRAIN_LIMITS``): one float32 B=32 train step at full width with
    ``fuse_bn_stats`` on, its errors against a float64 step beside the
    unfused float32 step's, with the fused conv + BN replaced by a faulty
    one: the unbiased variance; the mean over M-1 rows; the statistics
-   missing the rows past the last whole 128-row tile; the backward missing
+   missing the rows past the last whole row tile; the backward missing
    the ``xhat * dscale`` term of dx.
 3. Phase 15's check (``chip_smoke.e_check`` against ``E_RESCORE`` and the
    near-tie gaps): kernel E in bfloat16 at 8 and 128 images x beam 4, with
@@ -58,7 +59,11 @@ import torch
 
 import chip_smoke as S
 
-TILE_ROWS = 128  # kernel F's row tile
+def tile_rows() -> int:
+    """Kernel F's row tile, as the built library reports it."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn
+
+    return matmul_bn.row_tile()
 
 
 def stats_fault_readings(dev, seed):
@@ -76,7 +81,7 @@ def stats_fault_readings(dev, seed):
         y, s, q = kernel(x, w)
         ry, rs, rq = plain(x, w)
         yf, acc = y.float(), torch.matmul(x.float(), w.float())
-        full = M - M % TILE_ROWS
+        full = M - M % tile_rows()
         cases = {"sound": (s, q),
                  "unrounded_y": (acc.sum(0), (acc * acc).sum(0)),
                  "last_row_dropped": (s - yf[-1], q - yf[-1] ** 2)}
@@ -141,7 +146,7 @@ def _unbiased(y, s, q, n):
 
 
 def _ragged_dropped(y, s, q, n):
-    tail = y[n - n % TILE_ROWS:].float()
+    tail = y[n - n % tile_rows():].float()
     return _moments(s - tail.sum(0), q - (tail * tail).sum(0), n)
 
 

@@ -35,7 +35,10 @@ Phases (each prints one line; any failure exits non-zero with no result):
    1e-4 for every table dtype (the plain version rounds as the kernel does;
    on an H100 the errors read 9.5e-7 for lse and 2.1e-6 for the values),
    ids under the near-tie rule at every rank; a forced tie across blocks
-   must come out in ascending index order;
+   must come out in ascending index order; µs per call (wall, CUDA events)
+   and device µs per call (``device_us``: the call's kernels in
+   torch.profiler) for the kernel and ``logits_addmm``, the bound
+   (``bound_c``) and the share of it the kernel's device time reaches;
 8. the served beam: ``CaptionService(batch_size=8, beam_size=4)`` on phase
    4's bundle, 24 requests from 8 threads: kernels B and C launch 35 x
    dispatches times, A none; the same with ``quantize=True``; then a greedy
@@ -55,7 +58,9 @@ Phases (each prints one line; any failure exits non-zero with no result):
    unaligned K, N, in float32 (TF32 off) and bfloat16: y, and sum / sumsq
    against float64 sums of the kernel's own y and against the plain
    version's sums (limits at ``F_STATS_TOL``); us per call for the
-   kernel, its plain version and ``torch.mm`` alone, and each shape's bound;
+   kernel, its plain version and ``torch.mm`` alone, device µs per call
+   (``device_us``) for the kernel and ``torch.mm``, and each shape's bound
+   and the share of it the kernel's device time reaches;
 12. the training slice at full width (MobileNetV2 x1.0 at 224 px, H=1024,
    E=256, vocab 12295 padded to 12416, sentence length 35), random weights
    from ``--seed`` through ``compat/from_jax.train_tree``: (a) one B=32
@@ -232,6 +237,19 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(fn, reps: int = 10) -> float:
+    """Device µs per call: the summed device time of the kernels ``reps``
+    calls launch, read by torch.profiler, over ``reps`` (after one warm-up
+    call). ``time_ms`` of a µs-scale call reads the host's enqueue rate."""
+    fn()
+    for _attempt in range(3):  # a profile now and then comes back empty
+        _wall, events = profile_events(lambda: [fn() for _ in range(reps)])
+        total = sum(dev_us(e) for e in events)
+        if total > 0:
+            return total / reps
+    raise AssertionError("torch.profiler saw no device time in three profiles")
 
 
 def logits_addmm(proj, table, bias):
@@ -413,11 +431,19 @@ def phase_kernel_c(dev, gen):
                 t_p = time_ms(lambda: plain(proj, table, bias, k, scale))
                 t_l = (time_ms(lambda: logits_addmm(proj, table, bias))
                        if dt != torch.int8 else None)
-                times[(dt, M, k)] = (t_k, t_p, t_l)
+                d_k = device_us(lambda: kernel(proj, table, bias, k, scale))
+                d_l = (device_us(lambda: logits_addmm(proj, table, bias))
+                       if dt != torch.int8 else None)
+                b_ms, b_by = bound_c(M, k, dt)
+                times[(dt, M, k)] = (t_k, t_p, t_l, d_k, d_l)
                 say("kernel_c", dtype=str(dt).split(".")[-1], M=M, k=k, tol=tol,
                     err_lse=err_lse, err_vals=err_v, ids_near_tie_ok=ids_ok,
-                    kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2),
-                    addmm_logits_us=None if t_l is None else round(t_l * 1e3, 2))
+                    kernel_us=round(t_k * 1e3, 2), kernel_device_us=round(d_k, 2),
+                    plain_us=round(t_p * 1e3, 2),
+                    addmm_logits_us=None if t_l is None else round(t_l * 1e3, 2),
+                    addmm_logits_device_us=None if d_l is None else round(d_l, 2),
+                    bound_us=round(b_ms * 1e3, 2), bound_by=b_by,
+                    bound_share=round(b_ms * 1e3 / d_k, 4))
                 if not ok:
                     raise AssertionError(
                         f"kernel C disagrees with its plain version ({dt}, M={M}, k={k})")
@@ -973,14 +999,18 @@ def phase_kernel_f(dev, seed):
             t_k = time_ms(lambda: kernel(x, w), reps=10)
             t_p = time_ms(lambda: plain(x, w), reps=10)
             t_l = time_ms(lambda: torch.mm(x, w), reps=10)
+            d_k = device_us(lambda: kernel(x, w), reps=5)
+            d_l = device_us(lambda: torch.mm(x, w), reps=5)
             b_ms, b_by = bound_f(M, K, N, dt)
-            times[(dt, name)] = (t_k, t_p, t_l, b_ms, b_by)
+            times[(dt, name)] = (t_k, t_p, t_l, b_ms, b_by, d_k, d_l)
             say("kernel_f", dtype=str(dt).split(".")[-1], conv=name, M=M, K=K, N=N,
                 err_y=err_y, y_ok=ok_y, beyond_one_ulp=beyond_one_ulp,
                 **{f"err_{k}": v for k, v in errs.items()},
                 stats_tol=json.dumps(F_STATS_TOL).replace(" ", ""),
-                kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2),
-                mm_us=round(t_l * 1e3, 2), bound_us=round(b_ms * 1e3, 2), bound_by=b_by)
+                kernel_us=round(t_k * 1e3, 2), kernel_device_us=round(d_k, 2),
+                plain_us=round(t_p * 1e3, 2), mm_us=round(t_l * 1e3, 2),
+                mm_device_us=round(d_l, 2), bound_us=round(b_ms * 1e3, 2), bound_by=b_by,
+                bound_share=round(b_ms * 1e3 / d_k, 4))
             if not ok:
                 raise AssertionError(f"kernel F disagrees with its plain version ({dt}, {name})")
             del x, w, y, ry, yf, ryf, diff

@@ -1,5 +1,6 @@
 // The tied-vocab product of one block, shared by the greedy head
-// (vocab_head.cu) and the top-k head (topk_head.cu):
+// (vocab_head.cu) and the heads of the whole-decode kernels D and E
+// (fused_transformer.cu):
 //
 //   lg[r][m] = (proj[m0 + m] . table[v0 + r]) (* scale[v0 + r]) + bias[v0 + r]
 //
@@ -166,11 +167,11 @@ __device__ __forceinline__ void vocab_block_logits(
   __syncthreads();
 }
 
-// ---- the heads' kernels: kernel A's argmax and kernel C's top-k, each a
-// per-block partial and a per-row combine (design in vocab_head.cu and
-// topk_head.cu). Each returns at once when *skip is set: the whole-decode
-// kernels (fused_transformer.cu) pass their early-stop flag, the heads'
-// own entries null.
+// ---- the heads' kernels: kernel A's argmax and kernel E's top-k, each a
+// per-block partial and a per-row combine (design in vocab_head.cu; the
+// top-k keeps kernel C's order, topk_head.cu). Each returns at once when
+// *skip is set: the whole-decode kernels (fused_transformer.cu) pass their
+// early-stop flag, kernel A's entry null.
 template <typename T, int MT>
 __global__ void __launch_bounds__(kHeadWarps * 32)
     vocab_argmax_partial(const float* __restrict__ proj,   // [M, E] f32

@@ -33,7 +33,7 @@
 extern "C" {
 
 // Number of vocab blocks, i.e. the width of the wrappers' partial buffers
-// (the greedy and the top-k head share the block size).
+// (kernel E's top-k partials share the block size).
 int capk_vocab_argmax_nblocks(int V) {
   return (V + capk::kVocabBlock - 1) / capk::kVocabBlock;
 }

@@ -161,6 +161,13 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Attention logits ``q . k`` -> [B, h, Tq, Tk], accumulated and kept in
+    float32, as kernels D and E keep them (the reference rounds them to the
+    compute dtype; ``tests/test_torch_bf16_parity.py`` pins the difference)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+
+
 def _attend(q, k, v, mask=None, v_scale=None):
     """Scaled dot-product attention: float32 scores and softmax, the weights
     rounded to the compute dtype, float32 accumulation (times ``v_scale``
@@ -169,7 +176,7 @@ def _attend(q, k, v, mask=None, v_scale=None):
     q: [B, Tq, h, d]   k/v: [B, Tk, h, d]   mask: broadcastable [B?, Tq, Tk]
     """
     d = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (d ** 0.5)
+    scores = _scores(q, k) / (d ** 0.5)
     if mask is not None:
         scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)

@@ -42,9 +42,11 @@ _PI, _PVP = ctypes.POINTER(_I), ctypes.POINTER(_VP)
 _SIGNATURES = {
     "capk_vocab_argmax_nblocks": [_I],
     "capk_vocab_argmax": [_I, _I, _I, _I] + [_VP] * 8,
+    "capk_topk_head_vocab_tile": [],
     "capk_topk_head": [_I] * 5 + [_VP] * 12,
     "capk_fused_step": [_I] * 5 + [_VP] * 22,
-    "capk_matmul_stats_partial_rows": [_I] * 3,
+    "capk_matmul_stats_row_tile": [],
+    "capk_matmul_stats_partial_rows": [_I] * 4,
     "capk_matmul_stats": [_I] * 4 + [_VP] * 5 + [_I] + [_VP] * 3,
     "capk_fused_greedy_decode": [_PI, _PVP, _VP, _PI],
     "capk_fused_beam_decode": [_PI, _PVP, _VP, _PI],

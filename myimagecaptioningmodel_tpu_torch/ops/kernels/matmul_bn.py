@@ -56,9 +56,9 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.
     if min(M, K, N) < 1:
         raise ValueError(f"kernel F takes M, K, N >= 1, got {M, K, N}")
     lib = _build.load_library()
-    rows = lib.capk_matmul_stats_partial_rows(code, M, N)
+    rows = lib.capk_matmul_stats_partial_rows(code, M, K, N)
     if rows < 1:
-        raise RuntimeError(f"capk_matmul_stats_partial_rows failed for {M, N}")
+        raise RuntimeError(f"capk_matmul_stats_partial_rows failed for {M, K, N}")
     y = torch.empty((M, N), dtype=dt, device=dev)
     # [sum, sumsq] then the partial rows of each, in one float32 buffer
     buf = torch.empty(2 * (rows + 1) * N, dtype=torch.float32, device=dev)
@@ -72,6 +72,11 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.
 
 
 matmul_stats.launches = 0
+
+
+def row_tile() -> int:
+    """Rows of one tile of kernel F, as the built library reports them."""
+    return _build.load_library().capk_matmul_stats_row_tile()
 
 
 class _Conv1x1BN(torch.autograd.Function):

@@ -21,13 +21,14 @@ Ties go to the lowest index, as ``jnp.argmax`` and ``jax.lax.top_k`` do:
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
 
-TOPK_MAX_K = 32  # csrc/topk_head.cu's kMaxK: one 32-row vocab block per warp
+TOPK_MAX_K = 32  # csrc/vocab_block.cuh's kMaxK
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -80,6 +81,12 @@ def _check_operands(proj, table, bias, scale):
     if E % 8:
         raise ValueError(f"the kernels take E in multiples of 8, got {E}")
     return proj, code
+
+
+@functools.lru_cache(maxsize=None)
+def _topk_vocab_tile(lib) -> int:
+    """Vocab rows of one tile of kernel C, read once from the library."""
+    return lib.capk_topk_head_vocab_tile()
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -137,15 +144,12 @@ def topk_vocab_head(
     proj, code = _check_operands(proj, table, bias, scale)
     (B, E), dev = proj.shape, proj.device
     lib = _build.load_library()
-    nblk = lib.capk_vocab_argmax_nblocks(V)
-    f32 = torch.float32
-    part_v = torch.empty((B, nblk, k), dtype=f32, device=dev)
-    part_i = torch.empty((B, nblk, k), dtype=torch.int32, device=dev)
-    part_m = torch.empty((B, nblk), dtype=f32, device=dev)
-    part_s = torch.empty((B, nblk), dtype=f32, device=dev)
-    vals = torch.empty((B, k), dtype=f32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    lse = torch.empty((B,), dtype=f32, device=dev)
+    nvt = -(-V // _topk_vocab_tile(lib))
+    # one int32 buffer: part_v, part_i [B, nvt, k], part_m, part_s [B, nvt],
+    # then vals, ids [B, k] and lse [B]; the floats are its bits
+    sizes = [B * nvt * k] * 2 + [B * nvt] * 2 + [B * k] * 2 + [B]
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    part_v, part_i, part_m, part_s, vals, ids, lse = torch.split(buf, sizes)
     err = lib.capk_topk_head(
         code, B, V, E, k, proj.data_ptr(), table.data_ptr(), bias.data_ptr(), _ptr(scale),
         part_v.data_ptr(), part_i.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
@@ -153,7 +157,8 @@ def topk_vocab_head(
     )
     _build.check(err, "capk_topk_head")
     topk_vocab_head.launches += 1
-    return vals, ids, lse
+    f32 = torch.float32
+    return vals.view(f32).view(B, k), ids.view(B, k), lse.view(f32)
 
 
 topk_vocab_head.launches = 0

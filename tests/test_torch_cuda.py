@@ -13,14 +13,20 @@ picked ids' logits (re-read from the plain float32 logits) to 1e-4 for every
 table dtype, since the plain version rounds as the kernel does (on an H100
 the errors read 9.5e-7 for lse and 2.1e-6 for the values); ids equal at
 every rank whose plain sorted value is clear of both neighbours by the
-near-tie gap. Kernel F: y to 1e-4 x max|y| in float32; in bfloat16 to one
-bf16 ulp of the larger magnitude plus the float32 accumulation-order bound
-2 K 2^-24 sum_k |x w| (the two sums add in other orders, so a value may
-round to the neighbouring bf16 number, or further where y cancels to near
-zero); sum and sumsq to 5e-5 of sum|y| and of sumsq against float64 sums of
-the kernel's own y (float32 adds up to ~800 terms in order per thread), the
-same bits from run to run; the fused 1x1 conv + BN against the unfused conv
-and BN in float32 to 1e-4 of each output's largest magnitude. Kernels D and E
+near-tie gap; the same at the edges of C's tiling (512 rows, k up to 32,
+vocabularies that are not whole 128-row tiles) and ties inside one vocab
+tile and across tile edges in ascending index order. Kernel F: y to 1e-4 x
+max|y| in float32; in bfloat16 to one bf16 ulp of the larger magnitude plus
+the float32 accumulation-order bound 2 K 2^-24 sum_k |x w| (the two sums
+add in other orders, so a value may round to the neighbouring bf16 number,
+or further where y cancels to near zero); sum and sumsq to 5e-5 of sum|y|
+and of sumsq against float64 sums of the kernel's own y (float32 sums of up
+to ~16 rows a tile, then ~100 tile sums per thread, in a fixed order), the
+same bits from run to run; at the training path's shapes and at the edges
+of the tiling (K one 16-deep chunk, odd, over one chunk; N in one column
+tile and over it; M one row, one past a tile); the fused 1x1 conv + BN
+against the unfused conv and BN in float32 to 1e-4 of each output's largest
+magnitude. Kernels D and E
 (whole transformer decodes, small dims: D=256, E=128, 2 layers, 2 heads,
 V=2050, M=6, T=5) at B and n_img in {1, 8}, fixed length and early stop: in
 float32 ids (words, back-pointers, lengths) equal to the plain versions' and
@@ -125,23 +131,61 @@ def test_cuda_vocab_argmax_int8_matches_plain(cuda, B):
     assert _near_tie_ok(out, logits, torch.bfloat16)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("M,k", [(1, 1), (32, 4), (37, 8), (512, 4), (128, 32)])
-def test_cuda_topk_head_matches_plain(cuda, dt, M, k):
-    g = torch.Generator(device="cpu").manual_seed(M + k)
-    V, E = 12416, 256
+def _check_topk_head(cuda, dt, M, V, k, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    E, real = 256, min(V, 12295)
     proj = torch.randn(M, E, generator=g).to(cuda)
     table, scale = _table(g, V, E, dt, cuda)
     bias = torch.randn(V, generator=g).to(cuda)
-    bias[12295:] = -1e9
+    bias[real:] = -1e9
     vals, ids, lse = TVH.topk_vocab_head(proj, table, bias, k, scale)
     rv, ri, rlse = TVH.topk_vocab_head_reference(proj, table, bias, k, scale)
     logits = TVH.head_logits_reference(proj, table, bias, scale)
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
     torch.testing.assert_close(vals, logits.gather(1, ids.long()), rtol=0, atol=1e-4)
     assert bool(((ids == ri) | ~_ranks_clear(logits, k, dt)).all())
-    assert int(ids.max()) < 12295
+    assert int(ids.max()) < real
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("M,k", [(1, 1), (32, 4), (37, 8), (512, 4), (128, 32)])
+def test_cuda_topk_head_matches_plain(cuda, dt, M, k):
+    _check_topk_head(cuda, dt, M, 12416, k, M + k)
+
+
+# kernel C's tiling edges: 512 rows (four 128-row batch chunks) at k = 1, 8
+# and 32; batch rows past a chunk and a 64-row sub-tile; vocabularies that are
+# not whole 128-row tiles, down to one partial tile
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("M,V,k", [(512, 12416, 1), (512, 12416, 8), (512, 12416, 32),
+                                   (130, 12300, 16), (300, 1000, 4), (65, 100, 32)])
+def test_cuda_topk_head_tile_edges(cuda, dt, M, V, k):
+    _check_topk_head(cuda, dt, M, V, k, M + V + k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int8])
+def test_cuda_topk_head_ties_across_tiles(cuda, dt):
+    """Equal logits inside one 128-row vocab tile and on both sides of tile
+    edges, for 130 rows (two batch chunks): ascending index order."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    V, E, M = 12416, 256, 130
+    proj = torch.rand(M, E, generator=g).to(cuda)
+    t = torch.rand(V, E, generator=g) / 64
+    winners = [12415, 256, 255, 129, 128, 127, 6, 5]
+    t[winners] = 0.25
+    if dt == torch.int8:
+        s = t.abs().amax(dim=1) / 127
+        table, scale = torch.round(t / s[:, None]).to(cuda, torch.int8), s.to(cuda)
+    else:
+        table, scale = t.to(cuda, dt), None
+    bias = torch.full((V,), -5.0, device=cuda)
+    bias[winners] = 0.0
+    vals, ids, _l = TVH.topk_vocab_head(proj, table, bias, 8, scale)
+    assert ids.tolist() == [sorted(winners)] * M
+    assert bool((vals == vals[:, :1]).all())
 
 
 @pytest.mark.cuda
@@ -237,6 +281,11 @@ def test_cuda_launch_counters(cuda):
     TVH.topk_vocab_head(proj, table, bias, 4)
     TVH.topk_vocab_head(proj.cpu(), table.cpu(), bias.cpu(), 4)  # plain version
     assert TVH.topk_vocab_head.launches == before + 1
+    x, w = torch.randn(300, 16, device=cuda), torch.randn(16, 96, device=cuda)
+    before = TMB.matmul_stats.launches
+    TMB.matmul_stats(x, w)
+    TMB.matmul_stats(x.cpu(), w.cpu())  # plain version
+    assert TMB.matmul_stats.launches == before + 1
 
 
 # kernel F's (M, K, N) on the training path at B=128, 224 px, a ragged M, and
@@ -245,10 +294,7 @@ F_SHAPES = [(1605632, 32, 32), (1605632, 16, 96), (401408, 24, 144), (25088, 576
             (6272, 320, 1280), (1000, 24, 144), (1000, 11, 37)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N", F_SHAPES)
-def test_cuda_matmul_stats_matches_plain(cuda, dt, M, K, N):
+def _check_matmul_stats(cuda, dt, M, K, N):
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn(M, K, device=cuda, generator=g).to(dt)
     w = (torch.randn(K, N, device=cuda, generator=g) / K ** 0.5).to(dt)
@@ -268,6 +314,28 @@ def test_cuda_matmul_stats_matches_plain(cuda, dt, M, K, N):
     assert ((q.double() - q64).abs() <= 5e-5 * q64).all()
     _y2, s2, q2 = TMB.matmul_stats(x, w)
     assert torch.equal(s, s2) and torch.equal(q, q2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", F_SHAPES)
+def test_cuda_matmul_stats_matches_plain(cuda, dt, M, K, N):
+    _check_matmul_stats(cuda, dt, M, K, N)
+
+
+# kernel F's tiling edges: K one 16-deep chunk, an odd K, K over one 32-deep
+# chunk and ragged in it; N = 96 and 144 in one column tile, N over it (bf16
+# tiles up to 256 columns, float32 up to 128) and a ragged last tile; M one
+# row, one past a 128-row tile, and under one wave of tiles
+F_EDGES = [(1, 16, 96), (129, 16, 96), (4097, 13, 144), (3000, 48, 600), (1000, 100, 1280),
+           (257, 7, 3), (640, 40, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", F_EDGES)
+def test_cuda_matmul_stats_tile_edges(cuda, dt, M, K, N):
+    _check_matmul_stats(cuda, dt, M, K, N)
 
 
 @pytest.mark.cuda

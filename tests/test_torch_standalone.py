@@ -37,7 +37,7 @@ import myimagecaptioningmodel_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke, chip_fault_check
+import chip_smoke, chip_fault_check, chip_probe
 print(" ".join(names))
 """
 
@@ -59,7 +59,8 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     scripts that drive it on the card."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
                          r"myimagecaptioningmodel_tpu)(\.|\s|$)")
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_fault_check.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / name for name in (
+        "chip_smoke.py", "chip_fault_check.py", "chip_probe.py")]
     bad = [f"{f}:{i}" for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
     assert not bad, bad
