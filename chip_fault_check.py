@@ -1,12 +1,12 @@
 """Plant faults in kernel F's statistics, in the fused train step, in
-kernel E's inputs, and in kernel G and the int8 modes of kernels D and E,
-and read what each scores against ``chip_smoke.py``'s limits, beside the
-sound path.
+kernel E's inputs, in kernel G and the int8 modes of kernels D and E, and in
+kernel A, and read what each scores against ``chip_smoke.py``'s limits,
+beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
-only; nothing on disk changes. Four parts:
+only; nothing on disk changes. Five parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -39,12 +39,26 @@ only; nothing on disk changes. Four parts:
    stream (``e_check``) at 8 images, bfloat16: each int8 product's scale
    applied after its bias (the kernels run on biases multiplied by their
    scales, which ``(y + b) s`` is); V's memory scale dropped (int8 memory).
+   The stand-in takes ``prepare_irb``'s weights, as the fused encoder
+   passes them.
+5. Phases 2's and 6's checks of kernel A (``chip_smoke.a_checks``: the
+   near-tie rule on random operands, the last vocab row forced to win, equal
+   best rows in several tiles to the lowest index) in float32, bfloat16 and
+   int8 at B=8 and 128, with the kernel replaced by a faulty one: the last
+   vocab tile missing (the kernel on the table without its last tile of
+   ``vocab_head.argmax_vocab_tile(B)`` rows); the tie rule inverted (the
+   kernel on the table in reverse order, its ids mapped back, so the higher
+   index wins a tie); the int8 scale applied after the bias (the kernel on
+   ``bias * scale``, which ``(x . t + b) s`` is; int8 only); batch row 8, the
+   second n-tile, reading row 0's proj (B=128 only). Each fault must be
+   caught in every table dtype; the float32 near-tie gap is 1e-3 of the
+   largest |logit| over the real vocabulary.
 
     python3 chip_fault_check.py --parts 3   # part 3 only
 
 Each fault prints one ``[fault]`` line with its readings and whether the
 limits catch it; the script exits non-zero if the sound path fails its
-limits or a fault of parts 2-4 goes uncaught (but for the LayerNorm
+limits or a fault of parts 2-5 goes uncaught (but for the LayerNorm
 gain, which part 3 reads for the limit's resolution).
 """
 
@@ -261,7 +275,9 @@ def _halo_at_relu6_be(x, fold, stride, shortcut, round_expanded=False):
     import torch.nn.functional as F
 
     from myimagecaptioningmodel_tpu_torch.ops import layers as L
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_irb import as_folded
 
+    fold = as_folded(fold)
     dt = x.dtype
     xp = F.pad(x, (0, 0, 1, 1, 1, 1)).float()
     e = L.relu6(torch.matmul(xp, fold.we.to(dt).float()) + fold.be[0].float())
@@ -401,11 +417,73 @@ def de_int8_fault_readings(dev, seed):
     return caught
 
 
+def _a_last_tile_missing(kernel):
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import argmax_vocab_tile
+
+    def fn(proj, table, bias, scale=None):
+        V, vt = table.shape[0], argmax_vocab_tile(proj.shape[0])
+        cut = V - (V % vt or vt)
+        return kernel(proj, table[:cut], bias[:cut], None if scale is None else scale[:cut])
+    return fn
+
+
+def _a_ties_to_higher_index(kernel):
+    def fn(proj, table, bias, scale=None):
+        def rev(t):
+            return None if t is None else t.flip(0).contiguous()
+        return (table.shape[0] - 1 - kernel(proj, rev(table), rev(bias), rev(scale))).int()
+    return fn
+
+
+def _a_scale_after_bias(kernel):
+    def fn(proj, table, bias, scale=None):
+        return kernel(proj, table, bias if scale is None else bias * scale, scale)
+    return fn
+
+
+def _a_row8_reads_row0(kernel):
+    def fn(proj, table, bias, scale=None):
+        if proj.shape[0] > 8:
+            proj = proj.clone()
+            proj[8] = proj[0]
+        return kernel(proj, table, bias, scale)
+    return fn
+
+
+A_FAULTS = {"sound": lambda k: k, "last_tile_missing": _a_last_tile_missing,
+            "ties_to_higher_index": _a_ties_to_higher_index,
+            "int8_scale_after_bias": _a_scale_after_bias,
+            "row8_reads_row0": _a_row8_reads_row0}
+
+
+def a_fault_readings(dev, seed):
+    """Part 5, kernel A -> {"sound": failed in some case, "fault/dtype":
+    caught at B=8 or 128}: every fault must be caught in every table dtype."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import greedy_vocab_argmax
+
+    caught = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        name = str(dt).split(".")[-1]
+        for B in (8, 128):
+            for fault, plant in A_FAULTS.items():
+                if fault == "int8_scale_after_bias" and dt != torch.int8:
+                    continue  # a float table has no scale
+                ok, err, _ = S.a_checks(plant(greedy_vocab_argmax), dev, dt, B, seed)
+                hit = not all(ok.values())
+                key = fault if fault == "sound" else f"{fault}/{name}"
+                caught[key] = caught.get(key, False) or hit
+                S.say("fault", check="phase6" if dt == torch.int8 else "phase2",
+                      dtype=name, B=B, fault=fault,
+                      **{k + "_ok": v for k, v in ok.items()},
+                      max_abs_err_of_picked_logit=err, caught=hit)
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", default="1,2,3,4", help="comma-separated parts to run")
+    ap.add_argument("--parts", default="1,2,3,4,5", help="comma-separated parts to run")
     args = ap.parse_args(argv)
     parts = {int(x) for x in args.parts.split(",")}
     if not torch.cuda.is_available():
@@ -430,6 +508,8 @@ def main(argv=None) -> int:
     if 4 in parts:
         summary["phase17_18_caught"] = g_fault_readings(dev, args.seed)
         summary["phase19_caught"] = de_int8_fault_readings(dev, args.seed)
+    if 5 in parts:
+        summary["phase2_6_caught"] = a_fault_readings(dev, args.seed)
     print(json.dumps(summary))
     if any(bool(v.get(f)) for v in summary.values()
            for f in ("sound", "encoder_sound", "e_sound")):

@@ -1,8 +1,8 @@
-"""Probe kernels F and C on one CUDA card, beyond ``chip_smoke.py``'s checks:
-each call's device time split by kernel, and the phases of kernel C's tile
-kernel in SM cycles.
+"""Probe kernels F, C, A and G on one CUDA card, beyond ``chip_smoke.py``'s
+checks: each call's device time split by kernel, and the phases of
+C's, A's and G's tile kernels in SM cycles.
 
-    python3 chip_probe.py [--trace-only]
+    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc] [--package-root DIR]
 
 1. Kernel F (``matmul_stats``) at every ``chip_smoke.F_SHAPES`` shape and
    kernel C (``topk_vocab_head``) at M in {32, 512}, k in {1, 4, 8, 32},
@@ -17,6 +17,35 @@ kernel in SM cycles.
    offers), built into the package's ``build/`` directory and run at
    M in {32, 512}, k=4, bf16: per-phase cycles (median, max), the blocks'
    start times (waves) and blocks per SM.
+3. (part ``ag``) Kernel A (``greedy_vocab_argmax``) at B in {8, 128},
+   bfloat16, int8 and float32 tables, and kernel G (``fused_inverted_
+   residual``, the encoder's rounding, prepared weights) at the 17 blocks'
+   shapes, bfloat16, B in {8, 128}: device µs per call and per kernel
+   beside ``logits_addmm`` / ``chip_smoke.irb_cudnn``; the registers and
+   spills of their instances.
+4. (part ``ag``) Copies of ``csrc/vocab_head.cu`` and ``csrc/fused_irb.cu``
+   with clock reads (thread 0 of each block), run through the port's
+   wrappers: A's tile kernel, bf16 and int8 at B in {8, 128} (the first E
+   chunk staged, every chunk multiplied, the epilogue, the partials
+   written); G's bf16 tile kernel ``irb_tc`` at five
+   block shapes at B=128, summed over the block's Cexp chunks (waiting for
+   the chunk's weights, prefetched during the previous chunk; the first
+   also waits for the input window; expand, depthwise, project, the
+   epilogue): per-phase cycles a block (median), block µs, waves and blocks
+   per SM.
+
+5. (part ``ab``) ``probe_ab``: A's and G's device times alone, for this
+   checkout's package or, with ``--package-root DIR``, another's (the
+   parent commit's, unpacked under ``workdir/``), so that a call can hold
+   the two side by side.
+6. (part ``enc``) ``probe_encoder``: the fused and plain eval encoders'
+   ms a forward, and where the fused forward's host time goes (enqueue,
+   BN folding, weight casts, G's wrapper calls), for this checkout's or
+   ``--package-root``'s package.
+
+Each traced copy is built by ``traced_library`` (every anchor must occur
+once in the source, or the probe stops) and run through the port's own
+wrapper by ``trace_words``.
 
 Needs one card; imports nothing of JAX.
 """
@@ -28,6 +57,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -70,17 +100,6 @@ TRACE_POINTS = [
     ("    s = group_sum<QT>(s);\n", "    TRQ(2)\n    s = group_sum<QT>(s);\n"),
     (_TILE_END, "      part_s[base] = s;\n    }\n    TRP(2)\n    ++si;\n  }\n  TREND\n}\n"),
 ]
-
-
-def traced_source(src: str) -> str:
-    """topk_head.cu with clock reads at topk_tile's phase edges and an entry
-    that sets the trace buffer."""
-    for anchor, replacement in TRACE_POINTS:
-        if src.count(anchor) != 1:
-            raise AssertionError(f"trace anchor not found once in topk_head.cu: {anchor!r}")
-        src = src.replace(anchor, replacement)
-    return src + ('\nextern "C" int capk_set_trace(long long* p) {\n'
-                  "  return (int)cudaMemcpyToSymbol(g_trace, &p, sizeof(p));\n}\n")
 
 
 def device_split(fn, reps=10):
@@ -147,56 +166,82 @@ def probe_kernels(dev):
             print(f"  {name[:90]} {ln.split('info    :')[-1].strip()}", flush=True)
 
 
-def trace_c(dev):
+def traced_library(name: str, points, out_name: str):
+    """Build a copy of csrc/``name`` with each anchor of ``points`` (found
+    once) replaced and an entry ``capk_set_trace``, into ``build/trace/`` ->
+    the loaded library, with the package's C signatures."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
 
+    src = (_build.CSRC_DIR / name).read_text()
+    for anchor, replacement in points:
+        if src.count(anchor) != 1:
+            raise AssertionError(f"trace anchor not found once in {name}: {anchor!r}")
+        src = src.replace(anchor, replacement)
+    src += ('\nextern "C" int capk_set_trace(long long* p) {\n'
+            "  return (int)cudaMemcpyToSymbol(g_trace, &p, sizeof(p));\n}\n")
     out = _build.BUILD_DIR / "trace"
     out.mkdir(parents=True, exist_ok=True)
-    src = out / "topk_trace.cu"
-    src.write_text(traced_source((_build.CSRC_DIR / "topk_head.cu").read_text()))
-    lib_path = out / "libtopk_trace.so"
+    (out / f"{out_name}.cu").write_text(src)
+    lib_path = out / f"lib{out_name}.so"
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-                        str(_build.CSRC_DIR), "-o", str(lib_path), str(src)],
+                        str(_build.CSRC_DIR), "-o", str(lib_path), str(out / f"{out_name}.cu")],
                        capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc failed on the traced copy:\n{r.stderr[-4000:]}")
     lib = ctypes.CDLL(str(lib_path))
-    lib.capk_topk_head.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 12
     lib.capk_set_trace.argtypes = [ctypes.c_void_p]
-    gen = torch.Generator().manual_seed(0)
-    k, dt = 4, torch.bfloat16
-    for M in (32, 512):
-        proj, table, bias, _scale = S.head_operands(gen, dev, M, dt)
-        V, E = table.shape
-        nvt, nb = -(-V // 128), -(-V // 128) * -(-M // 128)
-        trace = torch.zeros(nb * 16, dtype=torch.int64, device=dev)
-        f32, i32 = torch.float32, torch.int32
-        bufs = [torch.empty(n, dtype=t, device=dev) for n, t in (
-            (M * nvt * k, f32), (M * nvt * k, i32), (M * nvt, f32), (M * nvt, f32),
-            (M * k, f32), (M * k, i32), (M, f32))]
+    for fn, argtypes in _build._SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
-        def call():
-            err = lib.capk_topk_head(_build.dtype_code(dt), M, V, E, k, proj.data_ptr(),
-                                     table.data_ptr(), bias.data_ptr(), None,
-                                     *[b.data_ptr() for b in bufs],
-                                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"traced capk_topk_head: CUDA error {err}")
 
+def trace_words(dev, lib, call, warm: int = 3, words: int = 1 << 20):
+    """``call()`` run through the port's wrapper with ``lib`` in place of
+    the package's library: ``warm`` calls untraced, then one traced -> the
+    trace words [blocks that ran, 16] (word 0 the start ns, 1 the SM, 15 the
+    end ns)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
+
+    sound = _build.load_library()
+    trace = torch.zeros(words, dtype=torch.int64, device=dev)
+    _build._lib = lib  # the wrapper's next calls go through the traced copy
+    try:
         lib.capk_set_trace(None)
-        for _ in range(3):
+        for _ in range(warm):
             call()
         torch.cuda.synchronize()
         lib.capk_set_trace(trace.data_ptr())
         call()
         torch.cuda.synchronize()
         lib.capk_set_trace(None)
-        t = trace.view(nb, 16).cpu().numpy()
-        start, end = (t[:, 0] - t[:, 0].min()) / 1e3, (t[:, 15] - t[:, 0].min()) / 1e3
-        S.say("trace_c", M=M, k=k, blocks=nb, span_us=round(float(end.max()), 2),
-              block_us_p50=round(float(np.median(end - start)), 2),
-              blocks_after_1us=int((start > 1.0).sum()),
-              blocks_per_sm_max=int(np.bincount(t[:, 1].astype(int)).max()))
+    finally:
+        _build._lib = sound
+    t = trace.view(-1, 16).cpu().numpy()
+    return t[t[:, 0] > 0]
+
+
+def block_summary(t):
+    """The traced blocks' span, median block µs, last start and most blocks
+    on one SM."""
+    start, end = (t[:, 0] - t[:, 0].min()) / 1e3, (t[:, 15] - t[:, 0].min()) / 1e3
+    return dict(blocks=len(t), span_us=round(float(end.max()), 3),
+                block_us_p50=round(float(np.median(end - start)), 3),
+                last_start_us=round(float(start.max()), 3),
+                blocks_per_sm_max=int(np.bincount(t[:, 1].astype(int)).max()))
+
+
+def trace_c(dev):
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
+
+    lib = traced_library("topk_head.cu", TRACE_POINTS, "topk_trace")
+    gen = torch.Generator().manual_seed(0)
+    k, dt = 4, torch.bfloat16
+    for M in (32, 512):
+        proj, table, bias, _scale = S.head_operands(gen, dev, M, dt)
+        t = trace_words(dev, lib, lambda: VH.topk_vocab_head(proj, table, bias, k))
+        S.say("trace_c", M=M, k=k, **block_summary(t))
         prev = t[:, 2]
         for i, phase in enumerate(("stage0", "product0", "select0",
                                    "stage1", "product1", "select1")):
@@ -212,22 +257,285 @@ def trace_c(dev):
                   f"{np.median(t[:, col] - t[:, 3]):.0f} after staging", flush=True)
 
 
+G_TRACE_HEAD = r"""
+__device__ long long* g_trace;
+#define TRBASE (g_trace + ((long)blockIdx.y * gridDim.x + blockIdx.x) * 16)
+#define TR0 long long tr_prev = 0; if (threadIdx.x == 0 && g_trace) { long long t; \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); unsigned sm; \
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm)); TRBASE[0] = t; TRBASE[1] = sm; \
+  tr_prev = clock64(); }
+#define TRP(n) if (threadIdx.x == 0 && g_trace) { long long t_ = clock64(); \
+  TRBASE[n] += t_ - tr_prev; tr_prev = t_; }
+#define TREND if (threadIdx.x == 0 && g_trace) { long long t; \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); TRBASE[15] = t; TRP(7) }
+"""
+# (anchor in fused_irb.cu, its replacement in the traced copy); trace words:
+# 0 start ns, 1 SM, 3 weights, 4 expand, 5 depthwise, 6 project, 7 epilogue,
+# 15 end ns
+G_TRACE_POINTS = [
+    ('#include "mma.cuh"\n', '#include "mma.cuh"\n' + G_TRACE_HEAD),
+    ("  // 1. the input window, bf16", "  TR0\n  // 1. the input window, bf16"),
+    ("    const int buf = (ch - ch0) & 1;\n",
+     "    const int buf = (ch - ch0) & 1;\n    TRP(6)\n"),
+    ("    // expand: e[w][c]", "    TRP(3)\n    // expand: e[w][c]"),
+    ("    // depthwise: d[px][c]", "    TRP(4)\n    // depthwise: d[px][c]"),
+    ("    // project: acc += d", "    TRP(5)\n    // project: acc += d"),
+    ("  // 3. the epilogue, or this split's", "  TRP(6)\n  // 3. the epilogue, or this split's"),
+    ("    return;\n  }\n  bf16* os", "    TREND\n    return;\n  }\n  bf16* os"),
+    ("        *reinterpret_cast<const uint4*>(os + px * pl.ldo + n);\n  }\n}\n",
+     "        *reinterpret_cast<const uint4*>(os + px * pl.ldo + n);\n  }\n  TREND\n}\n"),
+]
+G_TRACE_BLOCKS = ("conv2_1", "conv3_1", "conv6_2", "conv7_2", "conv8_1")
+
+
+A_TRACE_HEAD = r"""
+__device__ long long* g_trace;
+#define TRBASE (g_trace + ((long)blockIdx.y * gridDim.x + blockIdx.x) * 16)
+#define TRA0 if (threadIdx.x == 0 && g_trace) { long long t; \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); unsigned sm; \
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm)); TRBASE[0] = t; TRBASE[1] = sm; \
+  TRBASE[2] = clock64(); }
+#define TRA(n) if (threadIdx.x == 0 && g_trace) TRBASE[n] = clock64();
+#define TRAEND if (threadIdx.x == 0 && g_trace) { long long t; \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); TRBASE[15] = t; TRBASE[7] = clock64(); }
+"""
+# kernel A's tile kernel (bf16 and int8 tables): clock stamps 2 start, 3 the
+# first E chunk staged, 4 every chunk multiplied, 5 the bests in shared
+# memory, 7 the partials written
+A_TRACE_POINTS = [
+    ('#include "mma.cuh"\n', '#include "mma.cuh"\n' + A_TRACE_HEAD),
+    ("  if (skip != nullptr && *skip) return;\n  // the vocab groups that meet",
+     "  if (skip != nullptr && *skip) return;\n  TRA0\n  // the vocab groups that meet"),
+    ("    __syncthreads();  // chunk c's table (and float32 proj) copies are in\n",
+     "    __syncthreads();  // chunk c's table (and float32 proj) copies are in\n"
+     "    if (c == 0) TRA(3)\n"),
+    ("  float bv[NTW][2];\n", "  TRA(4)\n  float bv[NTW][2];\n"),
+    ("  __syncthreads();\n  for (int t = threadIdx.x; t < Sh::MB && m0 + t < M;",
+     "  TRA(5)\n  __syncthreads();\n  for (int t = threadIdx.x; t < Sh::MB && m0 + t < M;"),
+    ("    part_i[(long)(m0 + t) * pstride + blockIdx.x] = bi;\n  }\n}\n",
+     "    part_i[(long)(m0 + t) * pstride + blockIdx.x] = bi;\n  }\n  TRAEND\n}\n"),
+]
+
+
+def trace_a(dev):
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
+
+    lib = traced_library("vocab_head.cu", A_TRACE_POINTS, "argmax_trace")
+    for dt in (torch.bfloat16, torch.int8):
+        for B in (8, 128):
+            proj, table, bias, scale = S.head_operands(torch.Generator().manual_seed(B), dev, B, dt)
+            t = trace_words(dev, lib, lambda: VH.greedy_vocab_argmax(proj, table, bias, scale))
+            S.say("trace_a", dtype=str(dt).split(".")[-1], B=B, **block_summary(t),
+                  **{f"{ph}_cycles_p50": int(np.median(t[:, j] - t[:, i])) for i, j, ph in
+                     ((2, 3, "first_chunk_staged"), (3, 4, "chunks"), (4, 5, "epilogue"),
+                      (5, 7, "written"))})
+
+
+def probe_a_g(dev):
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
+
+    for dt in (torch.bfloat16, torch.int8, torch.float32):
+        for B in (8, 128):
+            ok, err, (proj, table, bias, scale) = S.a_checks(VH.greedy_vocab_argmax, dev, dt, B, 0)
+            d_k, parts = device_split(lambda: VH.greedy_vocab_argmax(proj, table, bias, scale))
+            d_l, lparts = ((None, None) if dt == torch.int8 else
+                           device_split(lambda: S.logits_addmm(proj, table, bias)))
+            S.say("probe_a", dtype=str(dt).split(".")[-1], B=B, checks_ok=all(ok.values()),
+                  kernel_device_us=round(d_k, 2), kernels=parts,
+                  addmm_device_us=None if d_l is None else round(d_l, 2), addmm_kernels=lparts,
+                  bound_us=round(S.bound_a(B, dt)[0] * 1e3, 2))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dt = torch.bfloat16
+    for B in (8, 128):
+        for name, H, W, cin, cexp, cout, stride, sc in S.irb_blocks(S.ENC_SIZE):
+            x, fold = S.g_operands(gen, dev, B, H, W, cin, cexp, cout, dt)
+            prep = FI.prepare_irb(fold, dt)
+            d_k, parts = device_split(lambda: FI.fused_inverted_residual(x, prep, stride, sc, True),
+                                      reps=3)
+            d_l, _ = device_split(lambda: S.irb_cudnn(x, fold, stride, sc), reps=3)
+            S.say("probe_g", B=B, block=name, kernel_device_us=round(d_k, 1), kernels=parts,
+                  cudnn_device_us=round(d_l, 1),
+                  bound_us=round(S.bound_g(B, H, W, cin, cexp, cout, stride, dt)[0] * 1e3, 1))
+    name = ""
+    for ln in _build.ptxas_log.splitlines():  # registers and spills of A's and G's instances
+        if "Compiling entry" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif ("Used" in ln or "spill" in ln) and ("argmax" in name or "irb" in name):
+            print(f"  {name[:90]} {ln.split('info    :')[-1].strip()}", flush=True)
+
+
+def trace_g(dev):
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
+
+    lib = traced_library("fused_irb.cu", G_TRACE_POINTS, "irb_trace")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dt, B = torch.bfloat16, 128
+    blocks = {b[0]: b for b in S.irb_blocks(S.ENC_SIZE)}
+    for name in G_TRACE_BLOCKS:
+        _n, H, W, cin, cexp, cout, stride, sc = blocks[name]
+        x, fold = S.g_operands(gen, dev, B, H, W, cin, cexp, cout, dt)
+        prep = FI.prepare_irb(fold, dt)
+        t = trace_words(dev, lib, lambda: FI.fused_inverted_residual(x, prep, stride, sc, True),
+                        warm=2)
+        S.say("trace_g", block=name, B=B, **block_summary(t),
+              waves=round(len(t) / max(1, len(np.unique(t[:, 1]))), 2),
+              **{f"{ph}_cycles_p50": int(np.median(t[:, i])) for i, ph in
+                 ((3, "weights"), (4, "expand"), (5, "depthwise"), (6, "project"),
+                  (7, "epilogue"))})
+
+
+def probe_ab(dev):
+    """Kernel A's and G's device times for the ``myimagecaptioningmodel_
+    tpu_torch`` first on sys.path (``--package-root`` puts another
+    checkout's there, e.g. the parent commit's, so that both run in one
+    call): A at B in {8, 128} with bf16, int8 and float32 tables beside
+    ``logits_addmm`` (device µs a call); G summed over the 17 blocks at
+    B in {8, 128}, bf16 and float32, beside ``irb_cudnn`` (device ms), on
+    weights already in the activation dtype, so that no cast runs in the
+    call. The operands come from fixed seeds: both packages see the same."""
+    import myimagecaptioningmodel_tpu_torch as pkg
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
+
+    S.say("ab_package", root=os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__))))
+    for dt in (torch.bfloat16, torch.int8, torch.float32):
+        for B in (8, 128):
+            proj, table, bias, scale = S.head_operands(torch.Generator().manual_seed(B), dev, B, dt)
+            ids = VH.greedy_vocab_argmax(proj, table, bias, scale)
+            ok = S.near_tie_ok(ids, VH.head_logits_reference(proj, table, bias, scale), dt)
+            d_k = S.device_us(lambda: VH.greedy_vocab_argmax(proj, table, bias, scale))
+            d_l = (None if dt == torch.int8 else
+                   S.device_us(lambda: S.logits_addmm(proj, table, bias)))
+            S.say("ab_a", dtype=str(dt).split(".")[-1], B=B, near_tie_ok=ok,
+                  kernel_device_us=round(d_k, 2),
+                  addmm_logits_device_us=None if d_l is None else round(d_l, 2))
+    for dt in (torch.bfloat16, torch.float32):
+        for B in (8, 128):
+            gen = torch.Generator(device=dev).manual_seed(B)
+            worst, kernels, cudnn = 0.0, [], []
+            for _name, H, W, cin, cexp, cout, stride, sc in S.irb_blocks(S.ENC_SIZE):
+                x, fold = S.g_operands(gen, dev, B, H, W, cin, cexp, cout, dt)
+                w = fold._replace(we=fold.we.to(dt), wp=fold.wp.to(dt))
+                w = FI.prepare_irb(w, dt) if hasattr(FI, "prepare_irb") else w
+                want = FI.fused_inverted_residual_reference(x, fold, stride, sc, True)
+                worst = max(worst, S.rel_max_err(FI.fused_inverted_residual(x, w, stride, sc, True),
+                                                 want))
+                kernels.append(lambda x=x, w=w, s=stride, c=sc:
+                               FI.fused_inverted_residual(x, w, s, c, True))
+                cudnn.append(lambda x=x, f=fold, s=stride, c=sc: S.irb_cudnn(x, f, s, c))
+            d_k, d_l = S.device_us_each(kernels), S.device_us_each(cudnn)
+            S.say("ab_g_sum", dtype=str(dt).split(".")[-1], B=B, blocks=17,
+                  max_rel_err=f"{worst:.3g}", kernel_device_ms=round(sum(d_k) / 1e3, 4),
+                  cudnn_device_ms=round(sum(d_l) / 1e3, 4),
+                  blocks_device_us=[round(v, 1) for v in d_k])
+            del kernels, cudnn
+            torch.cuda.empty_cache()
+
+
+def probe_encoder(dev, reps: int = 20, batches=(8, 128)):
+    """(part ``enc``) The fused eval encoder (``apply(use_fused_irb=True)``)
+    and the plain one, MobileNetV2 x1.0 at 224 px, random weights and BN
+    statistics (``chip_smoke.encoder_tree``), B in {8, 128}, bfloat16 and
+    float32, for the package first on sys.path: ms a forward (CUDA events
+    over ``reps`` forwards after 3), the host's ms to enqueue one forward
+    (no synchronize inside the loop: near the first where the host sets the
+    pace), and the host's ms a forward to fold the 17 blocks' BN
+    (``fold_irb``), to cast the folded weights (``prepare_irb``, where the
+    package has it) and to make the 17 calls of kernel G's wrapper on
+    operands already on the card (folded weights for a package without
+    ``prepare_irb``, which casts them in the call)."""
+    from myimagecaptioningmodel_tpu_torch.models import mobilenet_v2 as MV
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
+
+    params, state = S.encoder_tree(torch.Generator().manual_seed(0), dev)
+    names = [f"conv{stage}_{i}" for stage, (_t, _c, n, _s) in
+             enumerate(MV.BOTTLENECK_PARAMS, start=2) for i in range(1, n + 1)]
+    prepare = getattr(FI, "prepare_irb", None)
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return t
+
+    def fold_all():
+        return [FI.fold_irb({k: params[f"{n}_{k}"] for k in ("expand", "dwise", "linear")},
+                            {k: state[f"{n}_{k}"] for k in ("expand", "dwise", "linear")})
+                for n in names]
+
+    folds = fold_all()
+    for dt in (torch.bfloat16, torch.float32):
+        for B in batches:
+            x = torch.rand(B, S.ENC_SIZE, S.ENC_SIZE, 3, generator=torch.Generator().manual_seed(B))
+            x = x.to(dev)
+            ops = []
+            for (_n, H, W, cin, _e, _o, stride, sc), f in zip(S.irb_blocks(S.ENC_SIZE), folds):
+                xb = torch.rand(B, H, W, cin, device=dev).to(dt)
+                ops.append((xb, prepare(f, dt) if prepare else f, stride, sc))
+
+            def g_calls():
+                for xb, w, stride, sc in ops:
+                    FI.fused_inverted_residual(xb, w, stride, sc, True)
+
+            with torch.no_grad():
+                fused = lambda: MV.apply(params, state, x, train=False, compute_dtype=dt,
+                                         use_fused_irb=True)[0]
+                plain = lambda: MV.apply(params, state, x, train=False, compute_dtype=dt)[0]
+                t = {"plain": [], "fused": []}
+                for path in ("plain", "fused", "fused", "plain"):
+                    t[path].append(S.time_ms(fused if path == "fused" else plain, reps=reps))
+                S.say("enc", dtype=str(dt).split(".")[-1], B=B,
+                      fused_ms=[round(v, 3) for v in t["fused"]],
+                      plain_ms=[round(v, 3) for v in t["plain"]],
+                      fused_host_ms=round(host_ms(fused), 3),
+                      fold_host_ms=round(host_ms(fold_all), 3),
+                      prepare_host_ms=(None if prepare is None else round(
+                          host_ms(lambda: [prepare(f, dt) for f in folds]), 3)),
+                      g_calls_host_ms=round(host_ms(g_calls), 3))
+            del ops, x
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Probe kernels F and C on one CUDA card.")
+    ap = argparse.ArgumentParser(description="Probe kernels F, C, A and G on one CUDA card.")
     ap.add_argument("--trace-only", action="store_true")
+    ap.add_argument("--parts", default="fc,ag",
+                    help="fc: kernels F and C; ag: A and G; ab: A's and G's device times only; "
+                         "enc: the fused and plain eval encoders' forward times")
+    ap.add_argument("--package-root", default=None,
+                    help="(parts ab, enc) measure the package of this checkout instead")
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    if not args.trace_only:
-        probe_kernels(dev)
-    trace_c(dev)
+    if "fc" in parts:
+        if not args.trace_only:
+            probe_kernels(dev)
+        trace_c(dev)
+    if "ag" in parts:
+        if not args.trace_only:
+            probe_a_g(dev)
+        trace_a(dev)
+        trace_g(dev)
+    if "ab" in parts:
+        probe_ab(dev)
+    if "enc" in parts:
+        probe_encoder(dev)
     return 0
 
 

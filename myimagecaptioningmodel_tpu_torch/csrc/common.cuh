@@ -15,6 +15,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace capk {
 
 // dtype codes shared with the Python wrappers
@@ -170,5 +172,51 @@ inline bool raise_smem_limit(Kernel* kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)kMaxDynamicSmem) == cudaSuccess;
 }
+
+// ---- the vocab heads' shared rules (kernels A, C, D, E) ----
+
+// (v, i) ranks above (bv, bi): larger, or equal with a lower index. Every
+// reduction of the heads uses it, so any order gives the lowest index on ties.
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// Element j of a lane's table load, as float; with j known at compile time
+// it is a move, a shift, or a shift and a convert, so the raw load stays in
+// 2-4 registers instead of W floats. Every int8 value is exact in float and
+// in bfloat16.
+__device__ __forceinline__ float table_elem(const float*, const uint4& u, int j) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  return __uint_as_float(w[j]);
+}
+// bf16 is the high half of a float32: element 2i is the low 16 bits of word i
+__device__ __forceinline__ float table_elem(const __nv_bfloat16*, const uint4& u, int j) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  return __uint_as_float((j & 1) ? (w[j >> 1] & 0xffff0000u) : (w[j >> 1] << 16));
+}
+// int8, little-endian: element 4i + b is byte b of word i, sign-extended
+__device__ __forceinline__ float table_elem(const int8_t*, const uint2& u, int j) {
+  const uint32_t w[2] = {u.x, u.y};
+  return (float)((int32_t)(w[j >> 2] << (24 - 8 * (j & 3))) >> 24);
+}
+
+// Calls launch((T*)nullptr) with the table's element type T for a dtype
+// code (a generic lambda reads T back with TableT), false for an unknown code.
+template <class Launch>
+inline bool dispatch_table_dtype(int table_dtype, Launch&& launch) {
+  switch (table_dtype) {
+    case kF32:
+      return launch(static_cast<float*>(nullptr));
+    case kBF16:
+      return launch(static_cast<__nv_bfloat16*>(nullptr));
+    case kI8:
+      return launch(static_cast<int8_t*>(nullptr));
+    default:
+      return false;
+  }
+}
+
+template <class Tag>
+using TableT = typename std::remove_pointer<Tag>::type;
 
 }  // namespace capk

@@ -11,53 +11,79 @@
 // fused_inverted_residual and :355 fused_irb_chain. The TPU kernel takes one
 // (image, row tile) per grid step with the expanded tensor [rows + 2, W + 2,
 // Cexp] in VMEM (up to ~10 MB). An SM has 227 KB of shared memory, so here a
-// block takes one (image, tile of th output rows x tw output columns, slice
-// of Cexp) and walks its Cexp slice in chunks of 32 channels, one channel per
-// lane:
-//
-//   1. stage the tile's input window, its output pixels' rows and columns
-//      plus the 3x3 halo, as float in shared memory, once;
-//   2. per chunk: stage the chunk's weights; for each output row, expand the
-//      window rows it needs that are not yet expanded (a ring of 3 expanded
-//      rows [3][window columns][32]), then its depthwise outputs into
-//      ds [pixels][32]; then add ds @ wp[chunk] into a float accumulator
-//      [pixels][Cout] in shared memory (a thread owns 16 pixels x 4
-//      columns of each 64-column pass, in registers over the chunk);
-//   3. the epilogue adds the bias and the residual, rounds once and stores;
-//      when the Cexp slices are split over several blocks (splits > 1, to
-//      fill the card when the batch gives few tiles), each stores its float
-//      partial and irb_reduce adds them in a fixed order, then finishes as
-//      the epilogue does.
-//
-// So the expanded tensor never reaches device memory: a block reads its input
-// window (with a 1-row and 1-column halo) once, the weights once per block,
-// and writes its output once. The tile is the largest (up to 256 output
-// pixels) whose buffers fit the dynamic shared-memory limit, balanced over
-// the image; the chain layout differs only in the input row offset and
-// strides, and irb_chain_border writes its zero border rows, W tail and
-// channel-pad lanes.
+// block takes a tile of output pixels and walks Cexp in chunks; the expanded
+// tensor never reaches device memory: a block reads its input window (with a
+// 1-row and 1-column halo) once, each weight chunk once, and writes its
+// output once.
 //
 // What bounds it on an H100: at 224 px the blocks do 60-1,700 operations per
 // byte they must move (input, output and weights once), so at the bf16
 // tensor-core peak a block is bound by bytes at B=8 and by operations only in
-// the 6x-expanded middle of the network; this first kernel multiplies on FMA
-// units (a float32 peak 15x below bf16 tensor cores), so its products bound
-// it. Expanded rows of a tile's halo are expanded again by the neighbouring
-// tile (up to 2x at 112 px, none for whole-image tiles). Tensor-core
-// products (wmma / wgmma) and overlapping the staging with the products are
-// later work.
+// the 6x-expanded middle of the network.
+//
+// bfloat16 (irb_tc): both products on tensor cores (mma.sync m16n8k16, bf16
+// in, float32 accumulators), 16 warps a block: an H100 trace of 8-warp
+// blocks (chip_probe.py) found every phase below waiting on latency, and 16
+// took the 17 blocks' sum at B=128 from 2.97 to 2.34 ms. A block takes ni
+// whole images (7x7: two, so that the products' pixel side is 98 rows, where
+// the project's registers allow) or th full-width output rows of one image
+// (14x14: the whole image), chosen as the most pixels whose buffers fit
+// 200 KB of shared memory and whose project accumulators fit the warps'
+// registers:
+//
+//   1. tables of the block's pixels, once: each window pixel's input offset
+//      (-1 outside the image) and each output pixel's first tap, so that no
+//      later phase divides; then the input window (the tile's rows and
+//      columns plus the 3x3 halo, zero outside the image) in bf16 with
+//      cp.async; at 112 px a tile is up to 6 output rows (8 window rows),
+//      so the halo rows expanded twice are a quarter of conv2_1's, not half;
+//   2. per chunk of ce = 32 (or 16) expanded channels, whose weights (we
+//      [Cin, ce] and wp [ce, Cout], each row 16 bytes wider than its data so
+//      that ldmatrix reads 8 rows on distinct banks; B fragments by
+//      ldmatrix.trans; be, bd, wd) were copied with cp.async into one of two
+//      buffers while the previous chunk computed:
+//      expand: [window pixels, Cin] x [Cin, ce] on tensor cores, a warp
+//        taking two (16-pixel m-tile, n-tile pair) units at a time; bias,
+//        ReLU6, 0 outside the image, rounded to bf16 when round_e, into e
+//        [window pixels, ce] (float32 without round_e);
+//      depthwise: 9 taps a pixel on CUDA cores, a thread per (pixel, 4
+//        channels) with the taps' weights in registers, float; bias, ReLU6,
+//        rounded to bf16 into d [pixels, ce];
+//      project: [pixels, ce] x [ce, Cout] on tensor cores into float32
+//        accumulators held in registers across all of the block's chunks:
+//        warp (wm, wn) of a wgm x wgn grid takes PM m-tiles x PN n-tiles
+//        (Narrow, Cout <= 32: 3 x 2; Wide: 2 x 6);
+//   3. the epilogue adds bp and the residual (from the staged window) in
+//      float, rounds once, and stores through shared memory with 16-byte
+//      stores. When the tiles would leave over half the SMs idle, Cexp is
+//      split over up to a wave of blocks: each split stores its float
+//      partial and irb_reduce adds them in a fixed order, then finishes as
+//      the epilogue does.
+//
+// float32 (irb_fma, the FMA path kept exact): a block takes one (image, tile
+// of th x tw output pixels, up to 256) and walks Cexp in chunks of 32
+// channels, one channel per lane: the window staged as float, the window
+// rows it needs expanded into a ring of 3 rows, the depthwise outputs of
+// each row into ds [pixels][32], then ds @ wp[chunk] added into a float
+// accumulator [pixels][Cout] in shared memory.
+//
+// The chain layout differs only in the input row offset and strides, and
+// irb_chain_border writes its zero border rows, W tail and channel-pad
+// lanes. Cexp need not be a multiple of the chunk: the last chunk's missing
+// channels are zero-filled (weights and biases 0 give e = d = 0).
 #include <algorithm>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace capk {
 
 constexpr int kIrbThreads = 256;
-constexpr int kIrbCE = 32;       // expanded channels per chunk, one per lane
-constexpr int kIrbMaxPix = 256;  // output pixels of a tile
-constexpr int kIrbNT = 64;       // project columns per pass: 16 threads x 4
+constexpr int kIrbCE = 32;       // float32: expanded channels per chunk, one per lane
+constexpr int kIrbMaxPix = 256;  // float32: output pixels of a tile
+constexpr int kIrbNT = 64;       // float32: project columns per pass, 16 threads x 4
 constexpr int kIrbDLd = kIrbCE + 1;
-constexpr int kIrbPJ = 4;  // expand positions per warp pass
+constexpr int kIrbPJ = 4;  // float32: expand positions per warp pass
 
 // capk_fused_irb's ints, in order (fused_irb.py's _ARG_FIELDS)
 enum IrbArg : int {
@@ -67,8 +93,18 @@ enum IrbArg : int {
 };
 
 struct IrbPlan {
-  int ho, wo, th, tw, row_tiles, col_tiles, splits, cps;
+  int ho, wo, splits, cps, blocks;  // blocks: the grid's x (tiles), y = splits
   size_t smem;
+  // float32: (image, row tile, column tile) of th x tw output pixels
+  int th, tw, row_tiles, col_tiles;
+  // bf16: ni images x th rows (full width) a block; windows of wr x wc pixels
+  // an image; shared-memory row strides (elements) and byte offsets
+  int ni, groups, wr, wc, nw16, p, p16, ce, cin16, cout16, wgm, wgn, wide;
+  int ldx, lde, ldd, ldo, ldwe, ldwp;
+  // sections: x window, e (then o), d, the window pixels' input offsets, the
+  // output pixels' window offsets, two weight buffers of wsz bytes (we, then
+  // wp, be, bd, wd at the r* offsets)
+  int ox, oe, od, oxo, opw, ow, wsz, rwp, rbe, rbd, rwd;
 };
 
 struct IrbParams {
@@ -94,7 +130,7 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __flo
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Shared-memory floats of a (th x tw) tile, section by section.
+// Shared-memory floats of a float32 (th x tw) tile, section by section.
 struct IrbSmem {
   int xs, es, ds, acc, we, wp, be, bd, wd, total;
   __host__ __device__ IrbSmem(int th, int tw, int s, int cin, int cout) {
@@ -114,8 +150,9 @@ struct IrbSmem {
   }
 };
 
+// float32: FMA products, float arithmetic throughout.
 template <typename T>
-__global__ void __launch_bounds__(kIrbThreads) irb_fused(IrbParams p, IrbPlan pl) {
+__global__ void __launch_bounds__(kIrbThreads) irb_fma(IrbParams p, IrbPlan pl) {
   extern __shared__ __align__(16) float sm[];
   const IrbSmem lay(pl.th, pl.tw, p.stride, p.cin, p.cout);
   float *xs = sm + lay.xs, *es = sm + lay.es, *ds = sm + lay.ds, *acc = sm + lay.acc;
@@ -266,6 +303,428 @@ __global__ void __launch_bounds__(kIrbThreads) irb_fused(IrbParams p, IrbPlan pl
   }
 }
 
+
+// ---- bfloat16: tensor-core products ----
+
+namespace irbtc {
+
+// 16 warps a block: every phase of a chunk has twice the warps of an 8-warp
+// block, within the same shared memory (one block an SM either way)
+constexpr int kThreads = 512, kWarps = kThreads / 32;
+
+// The project's accumulators a warp: PM m-tiles x PN n-tiles.
+template <int PM_, int PN_>
+struct Cfg {
+  static constexpr int PM = PM_, PN = PN_;
+  static_assert(PN % 2 == 0, "n-tiles load in pairs");
+};
+using Narrow = Cfg<3, 2>;  // Cout <= 32
+using Wide = Cfg<2, 6>;    // Cout <= 768
+
+typedef __nv_bfloat16 bf16;
+
+// Window pixel w of the tile -> (image, row, column) in the window.
+struct WinPix {
+  int im, wr, wc;
+  __device__ __forceinline__ WinPix(int w, const IrbPlan& pl) {
+    im = w / (pl.wr * pl.wc);
+    const int rest = w - im * pl.wr * pl.wc;
+    wr = rest / pl.wc;
+    wc = rest - wr * pl.wc;
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(kThreads) irb_tc(IrbParams p, IrbPlan pl) {
+  constexpr int PM = C::PM, PN = C::PN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem + pl.ox);
+  unsigned char* es = smem + pl.oe;  // e: bf16 (round_e) or float; after the last chunk, o
+  bf16* ds = reinterpret_cast<bf16*>(smem + pl.od);
+  int* xo_s = reinterpret_cast<int*>(smem + pl.oxo);  // window pixel -> input offset, -1 outside
+  int* pw_s = reinterpret_cast<int*>(smem + pl.opw);  // output pixel -> its first tap's window pixel
+  const int s = p.stride, cin = p.cin, cout = p.cout, cexp = p.cexp, ce = pl.ce;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32, g = lane >> 2, c4 = lane & 3;
+
+  const int rt = blockIdx.x % pl.row_tiles, grp = blockIdx.x / pl.row_tiles;
+  const int b0 = grp * pl.ni, r0 = rt * pl.th;
+  const int ni = min(pl.ni, p.B - b0), th = min(pl.th, pl.ho - r0);
+  const int per_img = pl.th * pl.wo;
+  const bf16* x = static_cast<const bf16*>(p.x) + (long)b0 * p.x_batch;
+  const bf16* we = static_cast<const bf16*>(p.we);
+  const bf16* wp = static_cast<const bf16*>(p.wp);
+
+  // chunk ch's weights into buffer buf: we [Cin16][ce], wp [ce][Cout16], be,
+  // bd [ce], wd [9][ce], with cp.async, zero past Cin, Cexp and Cout
+  auto weights = [&](int buf) { return smem + pl.ow + buf * pl.wsz; };
+  auto stage_weights = [&](int ch, int buf) {
+    unsigned char* wb = weights(buf);
+    bf16* we_s = reinterpret_cast<bf16*>(wb);
+    bf16* wp_s = reinterpret_cast<bf16*>(wb + pl.rwp);
+    const int c0 = ch * ce;
+    const int sh = ce == 32 ? 2 : 1;  // log2 of the 16-byte vectors a we row: ce / 8
+    for (int i = tid; i < pl.cin16 << sh; i += kThreads) {
+      const int k = i >> sh, cc = (i & ((1 << sh) - 1)) * 8;
+      const bool in = k < cin && c0 + cc < cexp;
+      cp_async16(we_s + k * pl.ldwe + cc, in ? we + (long)k * cexp + c0 + cc : we, in ? 16 : 0);
+    }
+    for (int cc = warp; cc < ce; cc += kWarps) {  // a warp a wp row
+      for (int n = lane * 8; n < pl.cout16; n += 256) {
+        const bool in = c0 + cc < cexp && n < cout;
+        cp_async16(wp_s + cc * pl.ldwp + n, in ? wp + (long)(c0 + cc) * cout + n : wp, in ? 16 : 0);
+      }
+    }
+    // be, bd and the 9 rows of wd: 11 rows of ce floats, 4 a copy
+    for (int i = tid; i < 11 << (sh + 1); i += kThreads) {
+      const int r = i >> (sh + 1), cc = (i & ((2 << sh) - 1)) * 4;
+      const bool in = c0 + cc < cexp;
+      const float* src = r == 0 ? p.be : r == 1 ? p.bd : p.wd + (long)(r - 2) * cexp;
+      float* dst = reinterpret_cast<float*>(wb + (r == 0 ? pl.rbe : r == 1 ? pl.rbd : pl.rwd)) +
+                   (r >= 2 ? (r - 2) * ce : 0);
+      cp_async16(dst + cc, in ? src + c0 + cc : p.be, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // the block's pixel tables, once: window pixel (im, wr, wc) is input
+  // (b0 + im, r0 s - 1 + wr, wc - 1); output pixel px = (im, i, j) reads the
+  // window from (im, i s, j s)
+  for (int w = tid; w < pl.nw16; w += kThreads) {
+    int off = -1;
+    if (w < pl.wr * pl.wc * pl.ni) {
+      const WinPix wpx(w, pl);
+      const int ir = r0 * s - 1 + wpx.wr, ic = wpx.wc - 1;
+      if (wpx.im < ni && ir >= 0 && ir < p.H && ic >= 0 && ic < p.W)
+        off = (int)(wpx.im * p.x_batch + (ir + p.x_row0) * p.x_row_stride + ic * p.x_col_stride);
+    }
+    xo_s[w] = off;
+  }
+  for (int px = tid; px < pl.p; px += kThreads) {
+    const int im = px / per_img, rest = px - im * per_img, i = rest / pl.wo, j = rest - i * pl.wo;
+    pw_s[px] = (im * pl.wr + i * s) * pl.wc + j * s;
+  }
+  const int nchunks = ceil_div(cexp, ce), split = blockIdx.y;
+  const int ch0 = split * pl.cps, ch_end = min(nchunks, ch0 + pl.cps);
+  stage_weights(ch0, 0);
+  __syncthreads();  // the tables
+
+  // 1. the input window, bf16, zeros outside the image and past Cin
+  {
+    const int cpr = pl.cin16 / 8;
+    for (int i = tid; i < pl.nw16 * cpr; i += kThreads) {
+      const int w = i / cpr, k = (i - w * cpr) * 8, off = xo_s[w];
+      const bool in = off >= 0 && k < cin;
+      cp_async16(xs + w * pl.ldx + k, in ? x + off + k : x, in ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+
+  // the project's accumulators, in registers across every chunk
+  const int wm = warp % pl.wgm, wn = warp / pl.wgm;
+  const int mtp = pl.p16 / 16, ntp = cout / 8;
+  float acc[PM][PN][4];
+#pragma unroll
+  for (int i = 0; i < PM; ++i)
+#pragma unroll
+    for (int j = 0; j < PN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int ch = ch0; ch < ch_end; ++ch) {
+    const int buf = (ch - ch0) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ch's weights (and the window) are in; chunk ch - 1 is done
+    // 2. the next chunk's weights load while this one computes
+    if (ch + 1 < ch_end) stage_weights(ch + 1, buf ^ 1);
+    unsigned char* wb = weights(buf);
+    const bf16* we_s = reinterpret_cast<const bf16*>(wb);
+    const bf16* wp_s = reinterpret_cast<const bf16*>(wb + pl.rwp);
+    const float* be_s = reinterpret_cast<const float*>(wb + pl.rbe);
+    const float* bd_s = reinterpret_cast<const float*>(wb + pl.rbd);
+    const float* wd_s = reinterpret_cast<const float*>(wb + pl.rwd);
+
+    // expand: e[w][c] = relu6(x[w] . we[:, c] + be[c]), 0 outside the image;
+    // a unit is a (16-pixel m-tile, pair of n-tiles), and a warp takes two
+    // units at a time, their products interleaved
+    {
+      const int sp = ce == 32 ? 1 : 0;  // log2 of the n-tile pairs: ce / 16
+      const int units = pl.nw16 / 16 << sp;
+      for (int u0 = warp; u0 < units; u0 += 2 * kWarps) {
+        const int nu = u0 + kWarps < units ? 2 : 1;  // warp-uniform
+        float ea[2][2][4];
+        const bf16* a_row[2];
+        const bf16* b_row[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int u = q < nu ? u0 + q * kWarps : u0, mt = u >> sp, jj = u & sp;
+          a_row[q] = xs + (mt * 16 + (lane & 15)) * pl.ldx + (lane >> 4) * 8;
+          b_row[q] = we_s + (((lane >> 3) & 1) * 8 + (lane & 7)) * pl.ldwe + jj * 16 + (lane >> 4) * 8;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ea[q][j][e] = 0.f;
+        }
+#pragma unroll 2
+        for (int kk = 0; kk < pl.cin16; kk += 16) {
+          uint32_t a[2][4], b[2][4];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (q < nu) {
+              ldmatrix_x4(a[q], a_row[q] + kk);
+              ldmatrix_x4_trans(b[q], b_row[q] + kk * pl.ldwe);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (q < nu) {
+              mma_bf16(ea[q][0], a[q], b[q][0], b[q][1]);
+              mma_bf16(ea[q][1], a[q], b[q][2], b[q][3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q >= nu) continue;
+          const int u = u0 + q * kWarps, mt = u >> sp, jj = u & sp;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int w = mt * 16 + g + 8 * h;
+            const bool in = xo_s[w] >= 0;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int cc = jj * 16 + 8 * j + 2 * c4;
+              const float v0 = in ? relu6f(ea[q][j][2 * h] + be_s[cc]) : 0.f;
+              const float v1 = in ? relu6f(ea[q][j][2 * h + 1] + be_s[cc + 1]) : 0.f;
+              if (p.round_e)
+                *reinterpret_cast<uint32_t*>(es + ((long)w * pl.lde + cc) * 2) = pack_bf16x2(v0, v1);
+              else
+                *reinterpret_cast<float2*>(es + ((long)w * pl.lde + cc) * 4) = make_float2(v0, v1);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // depthwise: d[px][c] = round(relu6(sum_taps e * wd + bd)), a thread per
+    // (pixel, 4 channels), the taps' weights in registers
+    {
+      const int G = ce / 4, c = (tid % G) * 4, nslot = kThreads / G;
+      float w9[9][4], bd4[4];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const float4 v = *reinterpret_cast<const float4*>(wd_s + t * ce + c);
+        w9[t][0] = v.x;
+        w9[t][1] = v.y;
+        w9[t][2] = v.z;
+        w9[t][3] = v.w;
+      }
+      {
+        const float4 v = *reinterpret_cast<const float4*>(bd_s + c);
+        bd4[0] = v.x;
+        bd4[1] = v.y;
+        bd4[2] = v.z;
+        bd4[3] = v.w;
+      }
+      for (int px = tid / G; px < pl.p; px += nslot) {
+        const long w0 = pw_s[px];
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+        if (p.round_e) {
+          const bf16* e = reinterpret_cast<const bf16*>(es) + w0 * pl.lde + c;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const uint2 u = *reinterpret_cast<const uint2*>(e + (dy * pl.wc + dx) * pl.lde);
+              const float f[4] = {__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                                  __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u)};
+#pragma unroll
+              for (int k = 0; k < 4; ++k) a[k] = fmaf(f[k], w9[dy * 3 + dx][k], a[k]);
+            }
+        } else {
+          const float* e = reinterpret_cast<const float*>(es) + w0 * pl.lde + c;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const float4 v = *reinterpret_cast<const float4*>(e + (dy * pl.wc + dx) * pl.lde);
+              const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int k = 0; k < 4; ++k) a[k] = fmaf(f[k], w9[dy * 3 + dx][k], a[k]);
+            }
+        }
+        *reinterpret_cast<uint2*>(ds + px * pl.ldd + c) =
+            make_uint2(pack_bf16x2(relu6f(a[0] + bd4[0]), relu6f(a[1] + bd4[1])),
+                       pack_bf16x2(relu6f(a[2] + bd4[2]), relu6f(a[3] + bd4[3])));
+      }
+    }
+    __syncthreads();
+
+    // project: acc += d [pixels, ce] . wp [ce, Cout]
+    for (int kk = 0; kk < ce; kk += 16) {
+      uint32_t a[PM][4];
+#pragma unroll
+      for (int i = 0; i < PM; ++i) {
+        const int mt = wm * PM + i;
+        if (mt < mtp) ldmatrix_x4(a[i], ds + (mt * 16 + (lane & 15)) * pl.ldd + kk + (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int jj = 0; jj < PN / 2; ++jj) {
+        const int nt = wn * PN + 2 * jj;
+        if (nt >= ntp) continue;
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, wp_s + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * pl.ldwp + nt * 8 +
+                                 (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < PM; ++i) {
+          if (wm * PM + i >= mtp) continue;
+          mma_bf16(acc[i][2 * jj], a[i], b[0], b[1]);
+          if (nt + 1 < ntp) mma_bf16(acc[i][2 * jj + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // 3. the epilogue, or this split's float partial. Output pixel px of the
+  // tile is (image b0 + px / (th wo), row r0 + (px / wo) % th, column px % wo).
+  auto pixel = [&](int px, int& im, int& i, int& j) {
+    im = px / per_img;
+    const int rest = px - im * per_img;
+    i = rest / pl.wo;
+    j = rest - i * pl.wo;
+    return px < pl.p && im < ni && i < th;
+  };
+  if (p.part != nullptr) {
+#pragma unroll
+    for (int ii = 0; ii < PM; ++ii)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int im, i, j;
+        if (!pixel((wm * PM + ii) * 16 + g + 8 * h, im, i, j)) continue;
+        float* dst = p.part + (((long)split * p.B + b0 + im) * pl.ho + r0 + i) * pl.wo * cout +
+                     (long)j * cout;
+#pragma unroll
+        for (int jj = 0; jj < PN; ++jj) {
+          const int n = (wn * PN + jj) * 8 + 2 * c4;
+          if (n < cout)
+            *reinterpret_cast<float2*>(dst + n) = make_float2(acc[ii][jj][2 * h], acc[ii][jj][2 * h + 1]);
+        }
+      }
+    return;
+  }
+  bf16* os = reinterpret_cast<bf16*>(es);  // e is done: the last chunk's depthwise has synchronized
+#pragma unroll
+  for (int ii = 0; ii < PM; ++ii)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int px = (wm * PM + ii) * 16 + g + 8 * h;
+      int im, i, j;
+      if (!pixel(px, im, i, j)) continue;
+      // the residual from the staged window: output (i, j) is window (i + 1, j + 1) at stride 1
+      const bf16* xr = xs + ((im * pl.wr + i + 1) * pl.wc + j + 1) * pl.ldx;
+#pragma unroll
+      for (int jj = 0; jj < PN; ++jj) {
+        const int n = (wn * PN + jj) * 8 + 2 * c4;
+        if (n >= cout) continue;
+        float v0 = acc[ii][jj][2 * h] + p.bp[n], v1 = acc[ii][jj][2 * h + 1] + p.bp[n + 1];
+        if (p.shortcut) {
+          v0 += __bfloat162float(xr[n]);
+          v1 += __bfloat162float(xr[n + 1]);
+        }
+        *reinterpret_cast<uint32_t*>(os + px * pl.ldo + n) = pack_bf16x2(v0, v1);
+      }
+    }
+  __syncthreads();
+  bf16* out = static_cast<bf16*>(p.out);
+  const int vpr = cout / 8;
+  for (int t = tid; t < pl.p * vpr; t += kThreads) {
+    const int px = t / vpr, n = (t - px * vpr) * 8;
+    int im, i, j;
+    if (!pixel(px, im, i, j)) continue;
+    *reinterpret_cast<uint4*>(out + (long)(b0 + im) * p.out_batch +
+                              (r0 + i + p.out_row0) * p.out_row_stride + j * p.out_col_stride + n) =
+        *reinterpret_cast<const uint4*>(os + px * pl.ldo + n);
+  }
+}
+
+// The tile of the most output pixels that fits: ni images (th = ho) or th
+// rows of one image, the project's m-tiles within the warp grid's, shared
+// memory within kMaxDynamicSmem; ce 32 unless 16 gives a larger tile.
+static bool plan(const int* a, int sms, IrbPlan* pl) {
+  const int B = a[kIBatch], H = a[kIHeight], W = a[kIWidth], s = a[kIStride];
+  const int cin = a[kICin], cexp = a[kICexp], cout = a[kICout];
+  const int ntp = cout / 8;
+  const bool wide = cout > 32;
+  const int PM = wide ? Wide::PM : Narrow::PM, PN = wide ? Wide::PN : Narrow::PN;
+  int wgn = 1;
+  while (wgn * PN < ntp) wgn *= 2;
+  if (wgn > kWarps) return false;
+  const int wgm = kWarps / wgn, cap = wgm * PM * 16;
+  const int ho = (H - 1) / s + 1, wo = (W - 1) / s + 1;
+  const int cin16 = ceil_div(cin, 16) * 16, cout16 = ceil_div(cout, 16) * 16;
+  const int ebytes = a[kIRoundE] ? 2 : 4;
+  IrbPlan best{};
+  best.p = 0;
+  auto lay = [&](IrbPlan& t, int ni, int th, int ce) {
+    t.ho = ho; t.wo = wo; t.ni = ni; t.th = th; t.ce = ce;
+    t.wr = (th - 1) * s + 3; t.wc = (wo - 1) * s + 3;
+    t.nw16 = ceil_div(ni * t.wr * t.wc, 16) * 16;
+    t.p = ni * th * wo; t.p16 = ceil_div(t.p, 16) * 16;
+    t.cin16 = cin16; t.cout16 = cout16; t.wgm = wgm; t.wgn = wgn; t.wide = wide;
+    t.ldx = cin16 + 8; t.lde = ce + 8; t.ldd = ce + 8; t.ldo = cout + 8;
+    t.ldwe = ce + 8; t.ldwp = cout16 + 8;
+    size_t o = 0;
+    auto take = [&](size_t bytes) { const size_t at = o; o += (bytes + 15) / 16 * 16; return (int)at; };
+    t.ox = take((size_t)t.nw16 * t.ldx * 2);
+    t.oe = take(std::max((size_t)t.nw16 * t.lde * ebytes, (size_t)t.p16 * t.ldo * 2));
+    t.od = take((size_t)t.p16 * t.ldd * 2);
+    t.oxo = take((size_t)t.nw16 * 4);
+    t.opw = take((size_t)t.p16 * 4);
+    size_t w = 0;
+    auto wtake = [&](size_t bytes) { const size_t at = w; w += (bytes + 15) / 16 * 16; return (int)at; };
+    wtake((size_t)cin16 * t.ldwe * 2);
+    t.rwp = wtake((size_t)ce * t.ldwp * 2);
+    t.rbe = wtake(ce * 4);
+    t.rbd = wtake(ce * 4);
+    t.rwd = wtake(9 * ce * 4);
+    t.wsz = (int)w;
+    t.ow = take(2 * w);
+    t.smem = o;
+    return t.p16 <= cap && o <= kMaxDynamicSmem;
+  };
+  for (int ce : {32, 16}) {
+    auto consider = [&](int ni, int th) {
+      IrbPlan t{};
+      if (lay(t, ni, th, ce) && t.p > best.p) best = t;
+    };
+    for (int ni = std::min(B, 8); ni >= 2; --ni) consider(ni, ho);
+    for (int th = ho; th >= 1; --th) consider(1, th);
+  }
+  if (best.p == 0) return false;
+  // balanced: the last row tile or image group is not a sliver
+  if (best.ni == 1) {
+    lay(best, 1, ceil_div(ho, ceil_div(ho, best.th)), best.ce);
+  } else {
+    lay(best, ceil_div(B, ceil_div(B, best.ni)), ho, best.ce);
+  }
+  best.row_tiles = ceil_div(ho, best.th);
+  best.groups = ceil_div(B, best.ni);
+  // the window pixels' input offsets are ints from image b0's first element
+  if ((long)best.ni * (H + 2 * a[kIXRow0]) * a[kIXRowStride] > INT_MAX) return false;
+  if ((long)best.groups * best.row_tiles > INT_MAX) return false;
+  best.blocks = best.groups * best.row_tiles;
+  // Cexp splits over blocks only when the tiles leave over half the SMs idle,
+  // and then up to one wave: every split adds a pass over float partials
+  const int nchunks = ceil_div(cexp, best.ce);
+  const int want = 2 * best.blocks >= sms ? 1 : sms / best.blocks;
+  best.cps = ceil_div(nchunks, std::min(nchunks, want));
+  best.splits = ceil_div(nchunks, best.cps);
+  *pl = best;
+  return true;
+}
+
+}  // namespace irbtc
+
 // out = round(sum of the splits' partials in order + bp [+ x]).
 template <typename T>
 __global__ void __launch_bounds__(256) irb_reduce(IrbParams p, int splits, int ho, int wo) {
@@ -311,15 +770,12 @@ static int sm_count() {
   return cached[dev];
 }
 
-// The tile, the grid and the Cexp split for these shapes; false if none fits.
-static bool irb_plan(const int* a, IrbPlan* pl) {
+
+// float32: the tile (up to kIrbMaxPix output pixels whose buffers fit), the
+// grid and the Cexp split.
+static bool fma_plan(const int* a, int sms, IrbPlan* pl) {
   const int B = a[kIBatch], H = a[kIHeight], W = a[kIWidth], s = a[kIStride];
   const int cin = a[kICin], cexp = a[kICexp], cout = a[kICout];
-  if (B < 1 || H < 1 || W < 1 || (s != 1 && s != 2) || cin < 8 || cin % 8 || cexp < 8 ||
-      cexp % 8 || cout < 8 || cout % 8 || (a[kIShortcut] && (s != 1 || cin != cout)))
-    return false;
-  const int sms = sm_count();
-  if (sms == 0) return false;
   pl->ho = (H - 1) / s + 1;
   pl->wo = (W - 1) / s + 1;
   pl->th = 0;
@@ -338,6 +794,7 @@ static bool irb_plan(const int* a, IrbPlan* pl) {
   pl->smem = (size_t)IrbSmem(pl->th, pl->tw, s, cin, cout).total * 4;
   const long base = (long)B * pl->row_tiles * pl->col_tiles;
   if (base > INT_MAX) return false;
+  pl->blocks = (int)base;
   const int nchunks = ceil_div(cexp, kIrbCE);
   const int want = ceil_div(2 * sms, (int)std::min(base, (long)2 * sms));  // two waves of blocks
   const int splits = std::min(nchunks, want);
@@ -346,14 +803,38 @@ static bool irb_plan(const int* a, IrbPlan* pl) {
   return true;
 }
 
+// The tile, the grid and the Cexp split for these shapes; false if none fits.
+static bool irb_plan(const int* a, IrbPlan* pl) {
+  const int B = a[kIBatch], H = a[kIHeight], W = a[kIWidth], s = a[kIStride];
+  const int cin = a[kICin], cexp = a[kICexp], cout = a[kICout];
+  if (B < 1 || H < 1 || W < 1 || (s != 1 && s != 2) || cin < 8 || cin % 8 || cexp < 8 ||
+      cexp % 8 || cout < 8 || cout % 8 || (a[kIShortcut] && (s != 1 || cin != cout)))
+    return false;
+  const int sms = sm_count();
+  if (sms == 0) return false;
+  if (a[kIDtype] == kBF16) return irbtc::plan(a, sms, pl);
+  if (a[kIDtype] == kF32) return fma_plan(a, sms, pl);
+  return false;
+}
+
 static int grid_for(long total) { return (int)std::min((total + 255) / 256, 4096L); }
 
 template <typename T>
 static int irb_launch(const int* a, const IrbParams& p, const IrbPlan& pl, cudaStream_t stream) {
-  static const bool raised = raise_smem_limit(irb_fused<T>);
-  if (!raised) return (int)cudaErrorInvalidValue;
-  irb_fused<T><<<dim3(p.B * pl.row_tiles * pl.col_tiles, pl.splits), kIrbThreads, pl.smem,
-                 stream>>>(p, pl);
+  // bf16: the tensor-core tile of the plan's warp grid; float32: the FMA tile
+  void (*tile)(IrbParams, IrbPlan);
+  if constexpr (sizeof(T) == 2) {
+    static const bool raised = raise_smem_limit(irbtc::irb_tc<irbtc::Wide>) &&
+                               raise_smem_limit(irbtc::irb_tc<irbtc::Narrow>);
+    if (!raised) return (int)cudaErrorInvalidValue;
+    tile = pl.wide ? irbtc::irb_tc<irbtc::Wide> : irbtc::irb_tc<irbtc::Narrow>;
+  } else {
+    static const bool raised = raise_smem_limit(irb_fma<T>);
+    if (!raised) return (int)cudaErrorInvalidValue;
+    tile = irb_fma<T>;
+  }
+  tile<<<dim3(pl.blocks, pl.splits), sizeof(T) == 2 ? irbtc::kThreads : kIrbThreads, pl.smem,
+         stream>>>(p, pl);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (pl.splits > 1) {

@@ -25,8 +25,9 @@
 //   fc2     hmid @ w_fc2 + b, added to x.
 //
 // Then the head: LayerNorm(x) @ out_proj + b into proj [B, E] (float32
-// holding compute-dtype values), the vocab partial and combine kernels of
-// kernel A (greedy) or C (beam, k = W) from vocab_block.cuh, and
+// holding compute-dtype values), kernel A's tile and merge kernels
+// (vocab_head.cu, greedy) or the top-k partial and combine kernels of
+// vocab_block.cuh (beam, k = W), and
 //   greedy_finish  early-stop bookkeeping and row t of the ids, or
 //   beam_select    per image the top W of the W * W candidates (ties to the
 //                  lowest flat index w * W + k), finished/length bookkeeping,
@@ -79,6 +80,7 @@
 #include <mma.h>
 
 #include "vocab_block.cuh"
+#include "vocab_head.cuh"
 
 namespace capk {
 
@@ -878,11 +880,9 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
                                        p.out_proj_b, kEStoreF32, p.proj, E, D),
                                  B, E, D, stream));
     if (!beam) {
-      TF_LAUNCH(MT == 8 ? launch_partial<T, 8>(p.proj, p.table, p.out_bias, nullptr, p.part_v,
-                                               p.part_i, B, V, E, p.flag, stream)
-                        : launch_partial<T, 16>(p.proj, p.table, p.out_bias, nullptr, p.part_v,
-                                                p.part_i, B, V, E, p.flag, stream));
-      vocab_argmax_combine<<<B, 32, 0, stream>>>(p.part_v, p.part_i, nblk, p.word, p.flag);
+      // kernel A's tile kernel and merge (vocab_head.cu): two launches
+      TF_LAUNCH(vocab_argmax_launch(a[kDtype], B, V, E, p.proj, p.table, p.out_bias, nullptr,
+                                    p.part_v, p.part_i, nblk, p.word, p.flag, stream));
       TF_LAUNCH(true);
       greedy_finish<<<1, kTailThreads, 0, stream>>>(p.word, p.done, p.flag,
                                                     p.words_tm + (long)t * B, B, pad, stop,

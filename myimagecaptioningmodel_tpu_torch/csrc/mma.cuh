@@ -1,9 +1,9 @@
-// Hopper building blocks of the redesigned kernels F (matmul_bn.cu) and C
-// (topk_head.cu): asynchronous global -> shared copies (cp.async, 16 bytes,
-// zero-filled past the source's end), shared -> register fragment loads
-// (ldmatrix) and the bf16 tensor-core product m16n8k16 with float32
-// accumulators (mma.sync). Fragment layouts, for lane l, g = l / 4,
-// c = l % 4:
+// Hopper building blocks of the redesigned kernels F (matmul_bn.cu), C
+// (topk_head.cu), A (vocab_head.cu) and G (fused_irb.cu): asynchronous
+// global -> shared copies (cp.async, 16 or 8 bytes, zero-filled past the
+// source's end), shared -> register fragment loads (ldmatrix) and the bf16
+// tensor-core product m16n8k16 with float32 accumulators (mma.sync).
+// Fragment layouts, for lane l, g = l / 4, c = l % 4:
 //   A (16 x 16, row-major): a0 (row g, k 2c, 2c+1), a1 (row g+8, the same k),
 //     a2 (row g, k 2c+8, 2c+9), a3 (row g+8, k 2c+8, 2c+9);
 //   B (16 x 8, k x n):      b0 (k 2c, 2c+1, column g), b1 (k 2c+8, 2c+9);
@@ -26,6 +26,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                "l"(src), "r"(src_bytes)
                : "memory");
 }
+// 8 bytes, as cp_async16 (cp.async.ca: 4- and 8-byte copies go through L1).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -40,6 +46,12 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// Two 8 x 8 bf16 matrices; lanes 0-7 and 8-15 give the rows of matrix 0 and 1.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
 }
 // The same, each matrix transposed: from a [k][n] tile, B fragments.

@@ -1,12 +1,13 @@
-// The tied-vocab product of one block, shared by the greedy head
-// (vocab_head.cu) and the heads of the whole-decode kernels D and E
-// (fused_transformer.cu):
+// Kernel E's tied-vocab head (fused_transformer.cu, beam search): the
+// block product and the top-k partial and combine kernels that E launches
+// each step. Nothing else uses this file: kernel C (topk_head.cu) and kernel
+// A with D's greedy head (vocab_head.cu) have their own tensor-core tiles.
 //
 //   lg[r][m] = (proj[m0 + m] . table[v0 + r]) (* scale[v0 + r]) + bias[v0 + r]
 //
 // for the block's 32 vocab rows r and MT batch rows m; rows >= V are -inf.
-// The [B, V] logits never reach device memory: each head reduces lg in its
-// own epilogue.
+// The [B, V] logits never reach device memory: the top-k partial reduces lg
+// in its own epilogue.
 //
 // Numerics of the TPU kernels' _block_logits
 // (myimagecaptioningmodel_tpu/ops/pallas/vocab_head.py): proj is rounded to
@@ -20,8 +21,6 @@
 // warp reduce-scatter.
 #pragma once
 
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace capk {
@@ -29,12 +28,6 @@ namespace capk {
 constexpr int kHeadWarps = 8;
 constexpr int kRowsPerWarp = 4;
 constexpr int kVocabBlock = kHeadWarps * kRowsPerWarp;  // table rows per block
-
-// (v, i) ranks above (bv, bi): larger, or equal with a lower index. Every
-// reduction of the heads uses it, so any order gives the lowest index on ties.
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
 
 // dtype the batch rows are staged in: the table's, bfloat16 for int8
 template <typename T>
@@ -59,25 +52,6 @@ struct TableVec<int8_t> {
   using raw = uint2;
   static constexpr int W = 8;
 };
-
-// Element j of a lane's table load, as float; with j known at compile time
-// it is a move, a shift, or a shift and a convert, so the raw load stays in
-// 2-4 registers instead of W floats. Every int8 value is exact in float and
-// in bfloat16.
-__device__ __forceinline__ float table_elem(const float*, const uint4& u, int j) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  return __uint_as_float(w[j]);
-}
-// bf16 is the high half of a float32: element 2i is the low 16 bits of word i
-__device__ __forceinline__ float table_elem(const __nv_bfloat16*, const uint4& u, int j) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  return __uint_as_float((j & 1) ? (w[j >> 1] & 0xffff0000u) : (w[j >> 1] << 16));
-}
-// int8, little-endian: element 4i + b is byte b of word i, sign-extended
-__device__ __forceinline__ float table_elem(const int8_t*, const uint2& u, int j) {
-  const uint32_t w[2] = {u.x, u.y};
-  return (float)((int32_t)(w[j >> 2] << (24 - 8 * (j & 3))) >> 24);
-}
 
 template <typename T, int MT>
 constexpr size_t staged_bytes(int E) {
@@ -167,82 +141,10 @@ __device__ __forceinline__ void vocab_block_logits(
   __syncthreads();
 }
 
-// ---- the heads' kernels: kernel A's argmax and kernel E's top-k, each a
-// per-block partial and a per-row combine (design in vocab_head.cu; the
+// ---- kernel E's top-k head: a per-block partial and a per-row combine (the
 // top-k keeps kernel C's order, topk_head.cu). Each returns at once when
-// *skip is set: the whole-decode kernels (fused_transformer.cu) pass their
-// early-stop flag, kernel A's entry null.
-template <typename T, int MT>
-__global__ void __launch_bounds__(kHeadWarps * 32)
-    vocab_argmax_partial(const float* __restrict__ proj,   // [M, E] f32
-                         const T* __restrict__ table,      // [V, E]
-                         const float* __restrict__ bias,   // [V]
-                         const float* __restrict__ scale,  // [V] or null
-                         float* __restrict__ part_v,       // [M, nblk]
-                         int* __restrict__ part_i,         // [M, nblk]
-                         int M, int V, int E, const int* __restrict__ skip) {
-  if (skip != nullptr && *skip) return;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float lg[kVocabBlock][MT + 1];
-  const int nblk = gridDim.x, m0 = blockIdx.y * MT, v0 = blockIdx.x * kVocabBlock;
-  vocab_block_logits<T, MT>(proj, table, bias, scale, M, V, E, m0, v0, smem, lg);
-  for (int m = threadIdx.x; m < MT; m += blockDim.x) {
-    const int row = m0 + m;
-    if (row >= M) continue;
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int r = 0; r < kVocabBlock; ++r) {
-      if (better(lg[r][m], v0 + r, bv, bi)) {
-        bv = lg[r][m];
-        bi = v0 + r;
-      }
-    }
-    part_v[(long)row * nblk + blockIdx.x] = bv;
-    part_i[(long)row * nblk + blockIdx.x] = bi;
-  }
-}
-
-static __global__ void __launch_bounds__(32)
-    vocab_argmax_combine(const float* __restrict__ part_v,
-                         const int* __restrict__ part_i, int nblk,
-                         int* __restrict__ out, const int* __restrict__ skip) {
-  if (skip != nullptr && *skip) return;
-  const int row = blockIdx.x, lane = threadIdx.x;
-  float bv = -INFINITY;
-  int bi = INT_MAX;
-  for (int b = lane; b < nblk; b += 32) {
-    const float v = part_v[(long)row * nblk + b];
-    const int i = part_i[(long)row * nblk + b];
-    if (better(v, i, bv, bi)) {
-      bv = v;
-      bi = i;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    if (better(ov, oi, bv, bi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
-  if (lane == 0) out[row] = bi;
-}
-
-template <typename T, int MT>
-static bool launch_partial(const float* proj, const void* table, const float* bias,
-                           const float* scale, float* part_v, int* part_i, int M, int V,
-                           int E, const int* skip, cudaStream_t stream) {
-  static const bool raised = raise_smem_limit(vocab_argmax_partial<T, MT>);
-  const size_t smem = staged_bytes<T, MT>(E);
-  if (!raised || smem > kMaxDynamicSmem) return false;
-  dim3 grid((V + kVocabBlock - 1) / kVocabBlock, (M + MT - 1) / MT);
-  vocab_argmax_partial<T, MT><<<grid, kHeadWarps * 32, smem, stream>>>(
-      proj, static_cast<const T*>(table), bias, scale, part_v, part_i, M, V, E, skip);
-  return true;
-}
-
+// *skip is set: the whole-decode kernel E (fused_transformer.cu) passes its
+// early-stop flag.
 constexpr int kMaxK = 32;  // vocab_head.py's TOPK_MAX_K
 constexpr int kCombineThreads = 256;
 
@@ -411,24 +313,5 @@ static bool launch_topk_partial(const float* proj, const void* table, const floa
       M, V, E, skip);
   return true;
 }
-
-// Calls launch((T*)nullptr) with the table's element type T for a dtype
-// code (a generic lambda reads T back with TableT), false for an unknown code.
-template <class Launch>
-inline bool dispatch_table_dtype(int table_dtype, Launch&& launch) {
-  switch (table_dtype) {
-    case kF32:
-      return launch(static_cast<float*>(nullptr));
-    case kBF16:
-      return launch(static_cast<__nv_bfloat16*>(nullptr));
-    case kI8:
-      return launch(static_cast<int8_t*>(nullptr));
-    default:
-      return false;
-  }
-}
-
-template <class Tag>
-using TableT = typename std::remove_pointer<Tag>::type;
 
 }  // namespace capk

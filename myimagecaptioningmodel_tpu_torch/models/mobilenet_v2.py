@@ -228,7 +228,9 @@ def _apply_fused_eval(params: Dict[str, Any], state: Dict[str, Any], x: torch.Te
     the reference. Every block keeps its expanded tensor in the compute
     dtype, the rounding of the reference's chain kernel (which runs 12 of the
     17 blocks at 224 px); the reference's chain layout and its 8 <= H <= 56
-    gate are TPU workarounds with no counterpart here."""
+    gate are TPU workarounds with no counterpart here. Each block's weights
+    are folded and cast once (``prepare_irb``), and the blocks share one
+    scratch for kernel G's Cexp-split partials."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
 
     dt = compute_dtype
@@ -239,11 +241,13 @@ def _apply_fused_eval(params: Dict[str, Any], state: Dict[str, Any], x: torch.Te
         return L.relu6((y.float() + bf).to(dt))
 
     x = conv_bn_eval("conv1_1", x.to(dt), 2, 1).contiguous()
+    scratch = FI.SplitScratch()  # the Cexp-split partials of every block
     for stage, (_t, _c, n, s) in enumerate(BOTTLENECK_PARAMS, start=2):
         for i in range(1, n + 1):
             name = f"conv{stage}_{i}"
             folded = FI.fold_irb({k: params[f"{name}_{k}"] for k in ("expand", "dwise", "linear")},
                                  {k: state[f"{name}_{k}"] for k in ("expand", "dwise", "linear")})
-            x = FI.fused_inverted_residual(x, folded, s if i == 1 else 1, shortcut=i > 1,
+            x = FI.fused_inverted_residual(x, FI.prepare_irb(folded, dt, scratch),
+                                           s if i == 1 else 1, shortcut=i > 1,
                                            round_expanded=True)
     return conv_bn_eval("conv9", x, 1, 0), state

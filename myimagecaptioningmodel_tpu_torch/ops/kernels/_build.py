@@ -41,6 +41,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _PI, _PVP = ctypes.POINTER(_I), ctypes.POINTER(_VP)
 _SIGNATURES = {
     "capk_vocab_argmax_nblocks": [_I],
+    "capk_vocab_argmax_vocab_tile": [_I],
     "capk_vocab_argmax": [_I, _I, _I, _I] + [_VP] * 8,
     "capk_topk_head_vocab_tile": [],
     "capk_topk_head": [_I] * 5 + [_VP] * 12,

@@ -11,6 +11,12 @@ tensor (6x the block's input channels) never reaches device memory.
   ``fold_irb`` maps the expand and project weights ``[O, I, 1, 1]`` to
   ``[I, O]`` and the depthwise ``[Cexp, 1, 3, 3]`` to ``wd[dy * 3 + dx, c]``,
   the layout of the JAX package's ``FoldedIRB``.
+- ``prepare_irb`` casts a block's weights once into the kernel's operands
+  (``PreparedIRB``: ``FoldedIRB``'s layout, the products' weights in the
+  activation dtype, the biases flat float32), with an optional
+  ``SplitScratch`` that every block of one forward shares for the Cexp-split
+  partials. The wrappers take a ``PreparedIRB`` or a ``FoldedIRB`` (prepared
+  on every call).
 - ``fused_inverted_residual`` takes NHWC activations; ``fused_irb_chain``
   takes and gives the JAX package's chain layout ``[B, H + 2, W_pad,
   C_pad128]`` (one zero row above and below, zero W tail and channel pad).
@@ -38,7 +44,7 @@ padding inside the plain entry have no counterpart.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +62,55 @@ class FoldedIRB(NamedTuple):
     bd: torch.Tensor  # [1, Cexp]
     wp: torch.Tensor  # [Cexp, Cout] project 1x1
     bp: torch.Tensor  # [1, Cout]
+
+
+class SplitScratch:
+    """The float32 scratch of kernel G's Cexp-split partials, shared by the
+    calls of one call site (every block of one encoder forward): allocated
+    on first need and grown, never per block."""
+
+    def __init__(self):
+        self.buf: Optional[torch.Tensor] = None
+
+    def get(self, numel: int, device) -> torch.Tensor:
+        if self.buf is None or self.buf.numel() < numel or self.buf.device != device:
+            self.buf = torch.empty(numel, dtype=torch.float32, device=device)
+        return self.buf[:numel]
+
+
+class PreparedIRB(NamedTuple):
+    """One block's weights as kernel G takes them (``prepare_irb``):
+    ``FoldedIRB``'s layout, the products' weights in the activation dtype,
+    the biases flat."""
+
+    we: torch.Tensor  # [Cin, Cexp] in the activation dtype
+    be: torch.Tensor  # [Cexp] float32 (float64 for float64 activations)
+    wd: torch.Tensor  # [9, Cexp] float32
+    bd: torch.Tensor  # [Cexp]
+    wp: torch.Tensor  # [Cexp, Cout] in the activation dtype
+    bp: torch.Tensor  # [Cout]
+    scratch: Optional[SplitScratch] = None
+
+
+def prepare_irb(folded: FoldedIRB, dtype: torch.dtype,
+                scratch: Optional[SplitScratch] = None) -> PreparedIRB:
+    """Cast ``folded`` once for activations of ``dtype``: the products'
+    weights rounded to it (as the plain versions round them), the biases and
+    the depthwise in float32 (float64 for float64), all contiguous."""
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    def flat(b):
+        return b.reshape(-1).to(acc).contiguous()
+
+    return PreparedIRB(folded.we.to(dtype).contiguous(), flat(folded.be),
+                       folded.wd.to(acc).contiguous(), flat(folded.bd),
+                       folded.wp.to(dtype).contiguous(), flat(folded.bp), scratch)
+
+
+def as_folded(w: Union[FoldedIRB, PreparedIRB]) -> FoldedIRB:
+    """``FoldedIRB``'s view of prepared weights (the biases [1, C] again)."""
+    if isinstance(w, PreparedIRB):
+        return FoldedIRB(w.we, w.be[None], w.wd, w.bd[None], w.wp, w.bp[None])
+    return w
 
 
 def fold_bn(w: torch.Tensor, bn_params, bn_state) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -114,7 +169,8 @@ def reference_irb(x: torch.Tensor, folded: FoldedIRB, stride: int, shortcut: boo
 def fused_inverted_residual_reference(x: torch.Tensor, folded: FoldedIRB, stride: int,
                                       shortcut: bool, round_expanded: bool = False):
     """Plain version of kernel G on NHWC ``x``, with the kernel's rounding
-    points (float64 inputs compute in float64)."""
+    points (float64 inputs compute in float64). ``folded`` may be prepared."""
+    folded = as_folded(folded)
     dt = x.dtype
     acc = L.stat_dtype(x)
     e = L.relu6(torch.matmul(x.to(acc), folded.we.to(dt).to(acc)) + folded.be[0].to(acc))
@@ -131,7 +187,8 @@ def fused_inverted_residual_reference(x: torch.Tensor, folded: FoldedIRB, stride
 
 def fused_irb_chain_reference(x: torch.Tensor, folded: FoldedIRB, stride: int,
                               shortcut: bool, real_w: int):
-    """Plain version of the chain entry: chain layout in and out."""
+    """Plain version of the chain entry: chain layout in and out (``folded``
+    may be prepared)."""
     cin, cout = folded.we.shape[0], folded.wp.shape[1]
     y = fused_inverted_residual_reference(strip_activation(x, cin, real_w), folded, stride,
                                           shortcut, round_expanded=True)
@@ -151,15 +208,15 @@ _ARG_FIELDS = ("dtype", "batch", "height", "width", "cin", "cexp", "cout", "stri
 _PTR_FIELDS = ("x", "we", "be", "wd", "bd", "wp", "bp", "out", "part")
 
 
-def _launch(x: torch.Tensor, folded: FoldedIRB, stride: int, shortcut: bool, out: torch.Tensor,
-            **geometry) -> None:
+def _launch(x: torch.Tensor, w: Union[FoldedIRB, PreparedIRB], stride: int, shortcut: bool,
+            out: torch.Tensor, **geometry) -> None:
     """Validate the operands and make one C call (plan, scratch, launch)."""
     dev, dt = x.device, x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel G takes float32 or bfloat16 activations, got {dt}")
     B, H, W = geometry["batch"], geometry["height"], geometry["width"]
-    cin, cexp = folded.we.shape
-    cout = folded.wp.shape[1]
+    cin, cexp = w.we.shape
+    cout = w.wp.shape[1]
     if stride not in (1, 2):
         raise ValueError(f"kernel G takes stride 1 or 2, got {stride}")
     if min(B, H, W) < 1 or cin % 8 or cexp % 8 or cout % 8 or min(cin, cexp, cout) < 8:
@@ -167,16 +224,20 @@ def _launch(x: torch.Tensor, folded: FoldedIRB, stride: int, shortcut: bool, out
                          f"got B={B}, H={H}, W={W}, Cin={cin}, Cexp={cexp}, Cout={cout}")
     if shortcut and (stride != 1 or cin != cout):
         raise ValueError("the residual needs stride 1 and Cin == Cout")
+    if not isinstance(w, PreparedIRB):
+        w = prepare_irb(w, dt)
     f32 = torch.float32
-    w = dict(we=folded.we.to(dt).contiguous(), be=folded.be.reshape(-1).float().contiguous(),
-             wd=folded.wd.float().contiguous(), bd=folded.bd.reshape(-1).float().contiguous(),
-             wp=folded.wp.to(dt).contiguous(), bp=folded.bp.reshape(-1).float().contiguous())
     for name, shape, dtype in (("we", (cin, cexp), dt), ("be", (cexp,), f32),
                                ("wd", (9, cexp), f32), ("bd", (cexp,), f32),
                                ("wp", (cexp, cout), dt), ("bp", (cout,), f32)):
-        _build.require(w[name], name, dev, dtype, shape)
+        _build.require(getattr(w, name), name, dev, dtype, shape)
     if not x.is_contiguous():
         raise ValueError("x: must be contiguous")
+    if dt == torch.bfloat16:  # the tensor-core kernel copies 16 bytes at a time
+        for name, t in (("x", x), ("out", out), *((f, getattr(w, f)) for f in
+                                                   ("we", "be", "wd", "bd", "wp"))):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: must be 16-byte aligned")
     args = dict(geometry, dtype=_build.dtype_code(dt), cin=cin, cexp=cexp, cout=cout,
                 stride=stride, shortcut=int(shortcut))
     ints = (ctypes.c_int * len(_ARG_FIELDS))(*[args[f] for f in _ARG_FIELDS])
@@ -184,21 +245,24 @@ def _launch(x: torch.Tensor, folded: FoldedIRB, stride: int, shortcut: bool, out
     splits = lib.capk_fused_irb_splits(ints)
     if splits < 1:
         raise RuntimeError(f"kernel G has no plan for {args}")
-    Ho, Wo = out_size(H, stride), out_size(W, stride)
-    part = (torch.empty(splits * B * Ho * Wo * cout, dtype=f32, device=dev)
-            if splits > 1 else None)
-    ptrs = dict(w, x=x, out=out, part=part)
+    part = None
+    if splits > 1:
+        numel = splits * B * out_size(H, stride) * out_size(W, stride) * cout
+        part = (w.scratch.get(numel, dev) if w.scratch is not None
+                else torch.empty(numel, dtype=f32, device=dev))
+    ptrs = dict(w._asdict(), x=x, out=out, part=part)
     c_ptrs = (ctypes.c_void_p * len(_PTR_FIELDS))(
         *[0 if ptrs[f] is None else ptrs[f].data_ptr() for f in _PTR_FIELDS])
     _build.check(lib.capk_fused_irb(ints, c_ptrs, _build.stream_ptr(dev)), "capk_fused_irb")
 
 
-def fused_inverted_residual(x: torch.Tensor, folded: FoldedIRB, stride: int, shortcut: bool,
-                            round_expanded: bool = False) -> torch.Tensor:
+def fused_inverted_residual(x: torch.Tensor, folded: Union[FoldedIRB, PreparedIRB], stride: int,
+                            shortcut: bool, round_expanded: bool = False) -> torch.Tensor:
     """One BN-folded block on NHWC ``x`` [B, H, W, Cin] -> [B, Hout, Wout,
     Cout] in x's dtype. ``round_expanded`` keeps the expanded tensor in the
     activation dtype (the chain kernel's rounding) instead of float32.
-    Launches kernel G for CUDA tensors."""
+    ``folded`` may be ``prepare_irb``'s weights. Launches kernel G for CUDA
+    tensors."""
     if x.device.type == "cpu":
         return fused_inverted_residual_reference(x, folded, stride, shortcut, round_expanded)
     if x.device.type != "cuda":
@@ -220,11 +284,12 @@ def fused_inverted_residual(x: torch.Tensor, folded: FoldedIRB, stride: int, sho
 fused_inverted_residual.launches = 0
 
 
-def fused_irb_chain(x: torch.Tensor, folded: FoldedIRB, stride: int, shortcut: bool,
-                    real_w: int) -> torch.Tensor:
+def fused_irb_chain(x: torch.Tensor, folded: Union[FoldedIRB, PreparedIRB], stride: int,
+                    shortcut: bool, real_w: int) -> torch.Tensor:
     """One block in the chain layout: ``x`` [B, H + 2, W_pad, Cin_pad] ->
     [B, Hout + 2, Wout_pad8, Cout_pad128], zero border rows, W tail and
-    channel pad. Launches kernel G for CUDA tensors."""
+    channel pad. ``folded`` may be ``prepare_irb``'s weights. Launches kernel
+    G for CUDA tensors."""
     if x.device.type == "cpu":
         return fused_irb_chain_reference(x, folded, stride, shortcut, real_w)
     if x.device.type != "cuda":

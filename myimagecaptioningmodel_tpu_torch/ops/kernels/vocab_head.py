@@ -4,10 +4,10 @@
 Port of ``myimagecaptioningmodel_tpu/ops/pallas/vocab_head.py``. On a CUDA
 tensor each wrapper launches its hand-written kernel: ``greedy_vocab_argmax``
 the one of ``csrc/vocab_head.cu`` (kernel A), ``topk_vocab_head`` the one of
-``csrc/topk_head.cu`` (kernel C). Both share the block product of
-``csrc/vocab_block.cuh`` and keep the ``[B, V]`` logits out of device memory
-(design and bounds in the files' notes). On a CPU tensor a wrapper runs its
-plain version (``*_reference``).
+``csrc/topk_head.cu`` (kernel C). Both multiply on tensor cores (bf16 and
+int8 tables) and keep the ``[B, V]`` logits out of device memory (design and
+bounds in the files' notes). On a CPU tensor a wrapper runs its plain
+version (``*_reference``).
 
 Tables are float32, bfloat16, or int8 with a float32 per-row ``scale``
 (``ops/quantization.py``). As in the TPU kernels, ``proj`` is rounded to the
@@ -87,6 +87,12 @@ def _check_operands(proj, table, bias, scale):
 def _topk_vocab_tile(lib) -> int:
     """Vocab rows of one tile of kernel C, read once from the library."""
     return lib.capk_topk_head_vocab_tile()
+
+
+def argmax_vocab_tile(rows: int) -> int:
+    """Vocab rows of one tile of kernel A for ``rows`` batch rows, read from
+    the library."""
+    return _build.load_library().capk_vocab_argmax_vocab_tile(rows)
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -41,7 +41,14 @@ and embedding). Kernel G (the fused inverted-residual block, both entries):
 to 1e-5 x max|out| in float32 (float sums in other orders) and 1e-2 x
 max|out| in bfloat16 (a sum that lands on the other side of a bf16 rounding
 moves the expanded or depthwise value by one bf16 ulp, 2^-8 relative); the
-chain's zero rows, W tail and channel pad exactly 0.
+chain's zero rows, W tail and channel pad exactly 0; the same at the edges
+of the tensor-core tiling (several 7x7 or 14x14 images a block with B not a
+multiple of them, Cexp 40 and 72, odd H and W at stride 2, the Cexp split
+at B=1), and prepared weights with a shared split scratch give the same
+bits as a FoldedIRB. Kernel A at the edges of its tiling (B across the
+8-, 16- and 128-row batch tiles, vocabularies that are not whole tiles, E
+8, 24 and 256, every table dtype) under the near-tie rule, and ties inside
+one mma fragment, across lanes, warps and tiles to the lowest index.
 """
 
 import pytest
@@ -129,6 +136,58 @@ def test_cuda_vocab_argmax_int8_matches_plain(cuda, B):
     out = TVH.greedy_vocab_argmax(proj, table, bias, scale)
     logits = TVH.head_logits_reference(proj, table, bias, scale)
     assert _near_tie_ok(out, logits, torch.bfloat16)
+
+
+# kernel A's tilings: 32-row vocab tiles for B <= 16 (8- and 16-row batch
+# tiles), 96-row tiles with 128-row batch chunks beyond; B across each edge,
+# vocabularies that are not whole tiles, E one 16-deep step, not a whole step,
+# and the served 256
+A_EDGES = ([(B, 12300, 256) for B in (1, 7, 8, 9, 16, 17, 128, 129, 300)]
+           + [(B, V, E) for B in (8, 17, 129) for V, E in ((1000, 8), (100, 24))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("B,V,E", A_EDGES)
+def test_cuda_vocab_argmax_tile_edges(cuda, dt, B, V, E):
+    g = torch.Generator(device="cpu").manual_seed(B + V + E)
+    proj = torch.randn(B, E, generator=g).to(cuda)
+    table, scale = _table(g, V, E, dt, cuda)
+    bias = torch.randn(V, generator=g).to(cuda)
+    n = TVH.greedy_vocab_argmax.launches
+    out = TVH.greedy_vocab_argmax(proj, table, bias, scale)
+    assert TVH.greedy_vocab_argmax.launches == n + 1
+    logits = TVH.head_logits_reference(proj, table, bias, scale)
+    assert out.shape == (B,) and int(out.max()) < V
+    assert _near_tie_ok(out, logits, dt)
+
+
+# equal best rows: two rows of one thread's mma fragment (g and g + 8), rows of
+# other lanes, of both warp rows of a tile, and of other tiles
+A_TIES = {"fragment": [11, 3], "lanes": [14, 9, 6], "warps": [60, 50, 30, 20],
+          "tiles": [12000, 9000, 4097, 4096, 96, 95, 33, 32]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("B", [8, 16, 128])
+@pytest.mark.parametrize("where", list(A_TIES))
+def test_cuda_vocab_argmax_ties_lowest_index(cuda, dt, B, where):
+    winners = A_TIES[where]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    V, E = 12416, 256
+    proj = torch.rand(B, E, generator=g).to(cuda)
+    t = torch.rand(V, E, generator=g) / 64
+    t[winners] = 0.25
+    if dt == torch.int8:
+        s = t.abs().amax(dim=1) / 127
+        table, scale = torch.round(t / s[:, None]).to(cuda, torch.int8), s.to(cuda)
+    else:
+        table, scale = t.to(cuda, dt), None
+    bias = torch.full((V,), -5.0, device=cuda)
+    bias[winners] = 0.0
+    out = TVH.greedy_vocab_argmax(proj, table, bias, scale)
+    assert out.tolist() == [min(winners)] * B
 
 
 def _check_topk_head(cuda, dt, M, V, k, seed):
@@ -526,10 +585,7 @@ def _g_close(got, want, dt):
     assert err <= tol * want.float().abs().max(), (float(err), float(want.float().abs().max()))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,W,cin,cexp,cout,stride,shortcut", G_SHAPES)
-def test_cuda_fused_irb_matches_plain(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut):
+def _check_fused_irb(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut):
     x, fold = _g_case(cuda, B, H, W, cin, cexp, cout, dt, H * W + cexp)
     for round_e in (False, True):
         n = TFI.fused_inverted_residual.launches
@@ -549,6 +605,48 @@ def test_cuda_fused_irb_matches_plain(cuda, dt, B, H, W, cin, cexp, cout, stride
     real[:, 1:ho + 1, :wo, :cout] = True
     assert (got[~real] == 0).all()
     _g_close(got[real], want[real], dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,cin,cexp,cout,stride,shortcut", G_SHAPES)
+def test_cuda_fused_irb_matches_plain(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut):
+    _check_fused_irb(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut)
+
+
+G_TILINGS = [  # (B, H, W, Cin, Cexp, Cout, stride, shortcut): the tensor-core tiles' edges
+    (3, 7, 7, 160, 960, 160, 1, True),  # two 7x7 images a block, B not a multiple of two
+    (5, 7, 7, 160, 960, 160, 1, True),
+    (5, 14, 14, 16, 48, 16, 1, True),  # three 14x14 images a block, B = 3 + 2
+    (3, 14, 14, 32, 72, 32, 2, False),  # Cexp 72: a chunk of 8 channels last
+    (2, 28, 28, 32, 40, 32, 1, True),  # Cexp 40, row tiles
+    (2, 15, 17, 24, 72, 24, 2, False),  # odd H and W at stride 2
+    (1, 7, 7, 160, 960, 320, 1, False),  # B = 1: Cexp split over 30 blocks, the reduce
+    (1, 112, 112, 32, 32, 16, 1, False),  # conv2_1 at B = 1: Cexp split in two
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,cin,cexp,cout,stride,shortcut", G_TILINGS)
+def test_cuda_fused_irb_tilings(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut):
+    _check_fused_irb(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_fused_irb_prepared_equals_folded(cuda, dt):
+    """prepare_irb's weights and a shared split scratch give the kernel's
+    output bit for bit as the FoldedIRB does."""
+    x, fold = _g_case(cuda, 1, 7, 7, 160, 960, 320, dt, 11)
+    want = TFI.fused_inverted_residual(x, fold, 1, False, round_expanded=True)
+    scratch = TFI.SplitScratch()
+    prep = TFI.prepare_irb(fold, dt, scratch)
+    got = TFI.fused_inverted_residual(x, prep, 1, False, round_expanded=True)
+    assert torch.equal(got, want) and scratch.buf is not None
+    with pytest.raises(TypeError):  # prepared for another dtype
+        TFI.fused_inverted_residual(x.float() if dt == torch.bfloat16 else x.bfloat16(), prep, 1,
+                                    False)
 
 
 @pytest.mark.cuda

@@ -18,6 +18,12 @@ on the CPU.
   matmul and convolution); the chain's zero rows, W tail and channel pad
   exactly 0, as the JAX kernel's;
 - ``reference_irb`` against the JAX package's;
+- ``prepare_irb``'s weights (``FoldedIRB``'s layout, cast once) through both
+  entries give the same tensors, bit for bit, as the ``FoldedIRB`` they come
+  from, and both hold to the JAX kernels (interpret mode) at the 112 px and
+  7x7 block shapes of MobileNetV2 x0.25 (channels rounded up to multiples
+  of 8, as kernel G takes them), to 1e-5; ``SplitScratch`` hands out one
+  buffer that grows and is reused;
 - the whole encoder at 32 and 64 px (at 64 px the JAX package chains the
   blocks at h = 32, 16 and 8, stride-2 blocks among them) against the JAX
   fused eval encoder, to 1e-4 of the features' largest magnitude (17 blocks
@@ -171,3 +177,66 @@ def test_fused_eval_encoder_matches_jax(size):
     _close(got.numpy(), want, 1e-4)
     plain, _ = TM.apply(tp, ts, torch.from_numpy(x), train=False, compute_dtype=torch.float32)
     _close(got.numpy(), plain.numpy(), 2e-3)
+
+
+# (h, w, cin, cexp, cout, stride, shortcut): MobileNetV2 x0.25's blocks at 112
+# px and 7x7 (conv2_1, conv3_1, conv7_2, conv8_1), channels rounded up to 8
+NARROW = [
+    (112, 112, 8, 8, 8, 1, False),
+    (112, 112, 8, 48, 8, 2, False),
+    (7, 7, 40, 240, 40, 1, True),
+    (7, 7, 40, 240, 80, 1, False),
+]
+
+
+@pytest.mark.parametrize("h,w,cin,cexp,cout,stride,shortcut", NARROW)
+def test_prepared_weights_equal_folded_and_jax(h, w, cin, cexp, cout, stride, shortcut):
+    rng = np.random.RandomState(h + cexp + cout)
+    x = (rng.randn(1, h, w, cin) * 0.5).astype(np.float32)
+    jfold, tfold = _folded(rng, cin, cexp, cout)
+    prep = TF.prepare_irb(tfold, torch.float32, TF.SplitScratch())
+    tx = torch.from_numpy(x)
+    n = TF.fused_inverted_residual.launches
+    got_f = TF.fused_inverted_residual(tx, tfold, stride, shortcut)
+    got_p = TF.fused_inverted_residual(tx, prep, stride, shortcut)
+    assert TF.fused_inverted_residual.launches == n  # the plain version, no kernel
+    assert torch.equal(got_p, got_f)
+    jx = JF.pad_activation(jnp.asarray(x))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(JF.fused_inverted_residual(jnp.asarray(x), jfold, stride, shortcut))
+        want_c = np.asarray(JF.fused_irb_chain(jx, jfold, stride, shortcut, real_w=w))
+    _close(got_p.numpy(), want, 1e-5)
+    tx_c = TF.pad_activation(tx)
+    chain_p = TF.fused_irb_chain(tx_c, prep, stride, shortcut, real_w=w)
+    assert torch.equal(chain_p, TF.fused_irb_chain(tx_c, tfold, stride, shortcut, real_w=w))
+    assert chain_p.shape == want_c.shape
+    _close(chain_p.numpy(), want_c, 1e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float64])
+def test_prepare_irb_keeps_folded_layout(dt):
+    """The products' weights rounded to the activation dtype, the biases flat
+    in the accumulation dtype, FoldedIRB's shapes again through as_folded."""
+    _jfold, fold = _folded(np.random.RandomState(3), 16, 40, 24)
+    prep = TF.prepare_irb(fold, dt)
+    acc = torch.float64 if dt == torch.float64 else torch.float32
+    assert prep.we.dtype == prep.wp.dtype == dt and prep.scratch is None
+    assert torch.equal(prep.we, fold.we.to(dt)) and torch.equal(prep.wp, fold.wp.to(dt))
+    for name in ("be", "bd", "bp"):
+        assert getattr(prep, name).shape == (getattr(fold, name).shape[1],)
+        assert torch.equal(getattr(prep, name), getattr(fold, name)[0].to(acc))
+    assert prep.wd.dtype == acc and torch.equal(prep.wd, fold.wd.to(acc))
+    assert all(t.is_contiguous() for t in prep[:6])
+    back = TF.as_folded(prep)
+    assert isinstance(back, TF.FoldedIRB) and TF.as_folded(fold) is fold
+    assert [tuple(t.shape) for t in back] == [tuple(t.shape) for t in fold]
+
+
+def test_split_scratch_grows_and_is_reused():
+    scratch = TF.SplitScratch()
+    a = scratch.get(100, torch.device("cpu"))
+    assert a.numel() == 100 and a.dtype == torch.float32
+    b = scratch.get(40, torch.device("cpu"))
+    assert b.numel() == 40 and b.data_ptr() == a.data_ptr()
+    c = scratch.get(300, torch.device("cpu"))
+    assert c.numel() == 300 and scratch.get(300, torch.device("cpu")).data_ptr() == c.data_ptr()
