@@ -3,10 +3,10 @@ kernel E's inputs, in kernel G and the int8 modes of kernels D and E, and in
 kernel A, and read what each scores against ``chip_smoke.py``'s limits,
 beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
-only; nothing on disk changes. Five parts:
+only; nothing on disk changes. Six parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -53,12 +53,20 @@ only; nothing on disk changes. Five parts:
    second n-tile, reading row 0's proj (B=128 only). Each fault must be
    caught in every table dtype; the float32 near-tie gap is 1e-3 of the
    largest |logit| over the real vocabulary.
+6. Phases 14's and 15's checks (``greedy_tf_check``'s near-tie rule at
+   B=8 and 128, ``e_check`` at 8 images x beam 4), bfloat16, with faults
+   the weight-streaming product and the decode graphs could make: the last
+   K split of ``w_fc2`` dropped (its rows zeroed, the split as
+   ``fused_transformer.stream_splits`` plans it); the last 64-column tile of
+   ``w_qkv``'s v block dropped; a decode replayed on the previous batch's
+   memory (the graph's copy of the memory left out). Each must be caught
+   in every case.
 
     python3 chip_fault_check.py --parts 3   # part 3 only
 
 Each fault prints one ``[fault]`` line with its readings and whether the
 limits catch it; the script exits non-zero if the sound path fails its
-limits or a fault of parts 2-5 goes uncaught (but for the LayerNorm
+limits or a fault of parts 2-6 goes uncaught (but for the LayerNorm
 gain, which part 3 reads for the limit's resolution).
 """
 
@@ -479,11 +487,82 @@ def a_fault_readings(dev, seed):
     return caught
 
 
+def _fc2_last_split_dropped(rows):
+    """w_fc2's rows of the last K split of the product of ``rows`` rows zeroed."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    def plant(f):
+        _L, F_, D = f.w_fc2.shape
+        splits, chunks = FT.stream_splits(rows, D, F_), F_ // 32
+        w = f.w_fc2.clone()
+        w[:, (splits - 1) * chunks // splits * 32:] = 0
+        return f._replace(w_fc2=w)
+    return plant
+
+
+def _v_tile_dropped(f):
+    w = f.w_qkv.clone()
+    w[:, :, -64:] = 0  # the v block's last 64-column tile
+    return f._replace(w_qkv=w)
+
+
+def stream_fault_readings(dev, seed):
+    """Part 6 -> {fault: caught in every case}."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import tree_to_torch
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    gen = torch.Generator().manual_seed(seed)
+    params = tree_to_torch(S.randomize_affine(TTF.init(gen, S.tf_dims()), gen), dev)
+    dt, caught = torch.bfloat16, {}
+    packed = FT.pack_weights(params, dt)
+    for kind, n in (("greedy", 8), ("greedy", 128), ("beam", 8)):
+        pre_prev, pre = (S.tf_pre(gen, dev, params, n, dt) for _ in range(2))
+        ftp_prev, ftp = (FT.prepare(params, x, S.TF_HEADS, dt, packed=packed)
+                         for x in (pre_prev, pre))
+        rows = n * (S.BEAM if kind == "beam" else 1)
+        ref = (FT.fused_beam_decode_reference(ftp, S.TF_STEPS, S.TF_HEADS, S.BEAM,
+                                              compute_dtype=dt, early_stop=True)
+               if kind == "beam" else None)
+
+        def check(kernel_ftp):
+            if kind == "beam":
+                ok, readings, _ = S.e_check(params, pre, ftp, dt, ref, kernel_ftp=kernel_ftp)
+                return ok, readings
+            ids = FT.fused_greedy_decode(kernel_ftp, S.TF_STEPS, S.TF_HEADS, compute_dtype=dt)
+            torch.cuda.synchronize()
+            ok, err = S.greedy_tf_check(params, pre, ids, dt, False)
+            return ok, dict(near_tie_max_gap=err)
+
+        def stale():  # the previous batch decoded, then this one without its memory
+            check(ftp_prev)
+            load = FT.GRAPHS.load
+            FT.GRAPHS.load = lambda work, inputs: None
+            try:
+                return check(ftp)
+            finally:
+                FT.GRAPHS.load = load
+
+        faults = {"sound": lambda: check(ftp),
+                  "fc2_last_split_dropped": lambda: check(_fc2_last_split_dropped(rows)(ftp)),
+                  "v_last_tile_dropped": lambda: check(_v_tile_dropped(ftp)),
+                  "previous_batch_memory": stale}
+        for fault, run in faults.items():
+            ok, readings = run()
+            if fault == "sound":  # failed in some case
+                caught[fault] = caught.get(fault, False) or not ok
+            else:  # caught in every case
+                caught[fault] = caught.get(fault, True) and not ok
+            S.say("fault", check="phase15" if kind == "beam" else "phase14", dtype="bfloat16",
+                  rows=rows, fault=fault, caught=not ok, **readings)
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", default="1,2,3,4,5", help="comma-separated parts to run")
+    ap.add_argument("--parts", default="1,2,3,4,5,6", help="comma-separated parts to run")
     args = ap.parse_args(argv)
     parts = {int(x) for x in args.parts.split(",")}
     if not torch.cuda.is_available():
@@ -510,6 +589,8 @@ def main(argv=None) -> int:
         summary["phase19_caught"] = de_int8_fault_readings(dev, args.seed)
     if 5 in parts:
         summary["phase2_6_caught"] = a_fault_readings(dev, args.seed)
+    if 6 in parts:
+        summary["phase14_15_caught"] = stream_fault_readings(dev, args.seed)
     print(json.dumps(summary))
     if any(bool(v.get(f)) for v in summary.values()
            for f in ("sound", "encoder_sound", "e_sound")):

@@ -1,8 +1,9 @@
-"""Probe kernels F, C, A and G on one CUDA card, beyond ``chip_smoke.py``'s
-checks: each call's device time split by kernel, and the phases of
-C's, A's and G's tile kernels in SM cycles.
+"""Probe kernels F, C, A, G, D and E on one CUDA card, beyond
+``chip_smoke.py``'s checks: each call's device time split by kernel, the
+phases of C's, A's and G's tile kernels in SM cycles, and D's and E's
+decodes.
 
-    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc] [--package-root DIR]
+    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de] [--package-root DIR]
 
 1. Kernel F (``matmul_stats``) at every ``chip_smoke.F_SHAPES`` shape and
    kernel C (``topk_vocab_head``) at M in {32, 512}, k in {1, 4, 8, 32},
@@ -42,6 +43,13 @@ C's, A's and G's tile kernels in SM cycles.
    ms a forward, and where the fused forward's host time goes (enqueue,
    BN folding, weight casts, G's wrapper calls), for this checkout's or
    ``--package-root``'s package.
+7. (part ``de``) ``probe_de``: kernels D's and E's device busy ms and host
+   enqueue µs per decode (B=8 / 128, 8 / 128 images x beam 4, bf16 and int8
+   weights) for this checkout's or ``--package-root``'s package; for this
+   checkout's also where the critical path of a bf16 decode goes, by the
+   kernel's role in the step, and the per-product table
+   (``probe_products``). It reads the profiler's timeline only: no traced
+   copy of a source.
 
 Each traced copy is built by ``traced_library`` (every anchor must occur
 once in the source, or the probe stops) and run through the port's own
@@ -84,7 +92,7 @@ _PROD_END = ("  __syncthreads();  // every warp is done with proj, which lg over
              "#pragma unroll\n  for (int i = 0; i < 2; ++i)")
 _TILE_END = "      part_s[base] = s;\n    }\n  }\n}\n"
 TRACE_POINTS = [
-    ('#include "vocab_block.cuh"\n', '#include "vocab_block.cuh"\n' + TRACE_HEAD),
+    ('#include "mma.cuh"\n', '#include "mma.cuh"\n' + TRACE_HEAD),
     ("  const int b = threadIdx.x / QT, q = threadIdx.x % QT;\n",
      "  const int b = threadIdx.x / QT, q = threadIdx.x % QT;\n  TR0\n"),
     ("    cp_async_wait<0>();\n    __syncthreads();\n",
@@ -304,8 +312,8 @@ __device__ long long* g_trace;
 # memory, 7 the partials written
 A_TRACE_POINTS = [
     ('#include "mma.cuh"\n', '#include "mma.cuh"\n' + A_TRACE_HEAD),
-    ("  if (skip != nullptr && *skip) return;\n  // the vocab groups that meet",
-     "  if (skip != nullptr && *skip) return;\n  TRA0\n  // the vocab groups that meet"),
+    ("  if (pdl_enter(skip)) return;\n  // the vocab groups that meet",
+     "  if (pdl_enter(skip)) return;\n  TRA0\n  // the vocab groups that meet"),
     ("    __syncthreads();  // chunk c's table (and float32 proj) copies are in\n",
      "    __syncthreads();  // chunk c's table (and float32 proj) copies are in\n"
      "    if (c == 0) TRA(3)\n"),
@@ -502,14 +510,211 @@ def probe_encoder(dev, reps: int = 20, batches=(8, 128)):
             torch.cuda.empty_cache()
 
 
+# the kernels of a greedy step at 4 layers, in launch order (embed: the next
+# word's, launched last in a step)
+D_STEP = (["qkv", "attn", "wo", "xq", "xattn", "xo", "fc1", "fc2"] * 4
+          + ["out_proj", "head_tile", "head_merge", "finish", "embed"])
+E_STEP = D_STEP[:-2] + ["select", "reorder", "embed"]
+# beyond 16 rows each LayerNorm product's rows come from tf_layernorm first
+LN_BEFORE = {"qkv": "ln1", "xq": "ln2", "fc1": "ln3", "out_proj": "lnf"}
+
+
+def with_ln(step):
+    return [r for role in step for r in ([LN_BEFORE[role]] if role in LN_BEFORE else []) + [role]]
+STREAM_BYTES = {"rows": 2, "layernorm": 4, "gather": 2}  # A's bytes an element
+OUT_BYTES = {"store": 2, "gelu": 2, "qkv": 2, "store_f32": 4, "residual": 8, "embed": 4}
+
+
+def de_decodes(dev):
+    """The decodes part ``de`` times: (label, rows, decode function) for
+    kernel D at B in {8, 128} and E on 8 and 128 images x beam 4, bf16, float
+    and int8 weight streams, and D at B=8 and E on 8 images in float32, full
+    width, early stop off (all 35 steps)."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import tree_to_torch
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    gen = torch.Generator().manual_seed(0)
+    params = tree_to_torch(S.randomize_affine(TTF.init(gen, S.tf_dims()), gen), dev)
+    bf = torch.bfloat16
+    for mode, p in (("bf16", params), ("int8", TTF.quantize_transformer_decoder(params))):
+        packed = FT.pack_weights(p, bf)
+        for kind, n in (("greedy", 8), ("greedy", 128), ("beam", 8), ("beam", 128)):
+            pre = S.tf_pre(torch.Generator().manual_seed(n), dev, p, n, bf)
+            ftp = FT.prepare(p, pre, S.TF_HEADS, bf, packed=packed)
+            if kind == "greedy":
+                fn = lambda ftp=ftp: FT.fused_greedy_decode(ftp, S.TF_STEPS, S.TF_HEADS,
+                                                            compute_dtype=bf)
+            else:
+                fn = lambda ftp=ftp: FT.fused_beam_decode(ftp, S.TF_STEPS, S.TF_HEADS, S.BEAM,
+                                                          compute_dtype=bf)
+            yield f"{kind}_{mode}", n * (S.BEAM if kind == "beam" else 1), fn
+        del packed
+    f32 = torch.float32
+    packed = FT.pack_weights(params, f32)
+    for kind in ("greedy", "beam"):
+        pre = S.tf_pre(torch.Generator().manual_seed(8), dev, params, 8, f32)
+        ftp = FT.prepare(params, pre, S.TF_HEADS, f32, packed=packed)
+        if kind == "greedy":
+            fn = lambda ftp=ftp: FT.fused_greedy_decode(ftp, S.TF_STEPS, S.TF_HEADS,
+                                                        compute_dtype=f32)
+        else:
+            fn = lambda ftp=ftp: FT.fused_beam_decode(ftp, S.TF_STEPS, S.TF_HEADS, S.BEAM,
+                                                      compute_dtype=f32)
+        yield f"{kind}_f32", 8 * (S.BEAM if kind == "beam" else 1), fn
+
+
+def decode_spans(fn):
+    """One profiled decode -> (wall ms, its capk kernels' (name, start, end)
+    in launch order, the busy µs of all its device activities)."""
+    from torch.autograd import DeviceType
+
+    wall, _events, prof = S.profile_events(fn, keep=True)
+    acts = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in acts)
+    return (wall, [(n, a, b) for a, b, n in spans if "capk::" in n],
+            S.busy_us([(a, b) for a, b, _n in spans]))
+
+
+def probe_de(dev, reps: int = 3):
+    """(part ``de``) Kernels D and E for the package first on sys.path (this
+    checkout's, or ``--package-root``'s): per decode of ``de_decodes``, the
+    device busy ms (the union of its device activities' intervals, ``reps``
+    profiled decodes), the kernels it launched and the host's µs to enqueue
+    it (the median of 5, each after a synchronize). For this checkout's
+    package also: where the bf16 decodes' critical path goes (each kernel's
+    end minus the end of the kernel before it, by its role in the step,
+    summed over the steps: with programmatic dependent launch a kernel's own
+    device time overlaps its neighbours'), and the per-product table
+    (``probe_products``)."""
+    import myimagecaptioningmodel_tpu_torch as pkg
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+    S.say("de_package", root=root)
+    for label, rows, fn in de_decodes(dev):
+        fn()
+        torch.cuda.synchronize()
+        busy, n_kernels, path = [], 0, None
+        for _ in range(reps):
+            _wall, spans, b = decode_spans(fn)
+            busy.append(round(b / 1e3, 3))
+            n_kernels, path = len(spans), spans
+        S.say("de", decode=label, rows=rows, device_busy_ms=busy,
+              host_enqueue_us=round(S.enqueue_us(fn), 1), capk_kernels=n_kernels)
+        roles = D_STEP if label.startswith("greedy") else E_STEP
+        if any("tf_layernorm" in name for name, _a, _b in path):
+            roles = with_ln(roles)
+        if os.path.abspath(root) == os.path.dirname(os.path.abspath(__file__)) and \
+                label.endswith("bf16"):
+            inc, dur, prev_end = {}, {}, path[0][1]
+            for i, (name, a, b) in enumerate(path):
+                role = "embed0" if i == 0 else roles[(i - 1) % len(roles)]
+                inc[role] = inc.get(role, 0.0) + max(0.0, b - prev_end)
+                dur[role] = dur.get(role, 0.0) + (b - a)
+                prev_end = max(prev_end, b)
+            S.say("de_path", decode=label, rows=rows,
+                  span_ms=round((prev_end - path[0][1]) / 1e3, 3),
+                  critical_ms_by_role={k: round(v / 1e3, 3) for k, v in inc.items()},
+                  kernel_ms_by_role={k: round(v / 1e3, 3) for k, v in dur.items()})
+    if os.path.abspath(root) == os.path.dirname(os.path.abspath(__file__)):
+        probe_products(dev)
+
+
+def chained_us(fn, n: int = 20) -> float:
+    """Device µs a call of ``fn`` takes in a row of ``n``, queued behind a
+    spin kernel so that the card runs them back to back (CUDA events from
+    the end of one call before the row to the end of the row)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(5_000_000)  # the host queues the row meanwhile
+    fn()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / n
+
+
+def probe_products(dev):
+    """The bf16 decode's products one at a time (``stream_product``, no
+    programmatic dependent launch), each (N, K) of a full-width step with its
+    A operand and epilogue (``tests/test_torch_cuda.py``'s STREAM_SHAPES), at
+    8, 32, 128 and 512 rows, bf16 and int8 weights: the product kernel's
+    device µs (its LayerNorm statistics kernel left out), the device µs a
+    product of 20 in a row takes when each is launched as a decode launches
+    it (``chained_us``; programmatic dependent launch: the next one's
+    weights stream in under this one; a LayerNorm product up to 16 rows
+    also runs ``capk_tile_stats``, launched plainly, before each call),
+    ``torch.mm``'s on bf16 operands of the same shapes, and the byte bound
+    (the weight, A and the output once, at 3.35 TB/s) with its share of the
+    chained time."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    shapes = [(3072, 1024, "layernorm", "qkv"), (1024, 1024, "rows", "residual"),
+              (1024, 1024, "layernorm", "store"), (4096, 1024, "layernorm", "gelu"),
+              (1024, 4096, "rows", "residual"), (256, 1024, "layernorm", "store_f32"),
+              (1024, 256, "gather", "embed")]
+    bf = torch.bfloat16
+    for N, K, a_mode, mode in shapes:
+        for int8 in (False, True):
+            for rows in (8, 32, 128, 512):
+                g = torch.Generator(device=dev).manual_seed(rows)
+                w = torch.randn(K, N, device=dev, generator=g) / K ** 0.5
+                scale = None
+                if int8:
+                    scale = w.abs().amax(dim=0) / 127
+                    w = torch.round(w / scale).to(torch.int8)
+                else:
+                    w = w.to(bf)
+                bias = torch.zeros(N, device=dev)
+                kw = dict(w_scale=scale)
+                if a_mode == "gather":
+                    a = torch.randn(1000, K, device=dev, generator=g).to(bf)
+                    kw.update(word=torch.randint(0, 1000, (rows,), device=dev, generator=g,
+                                                 dtype=torch.int32), pad=0)
+                elif a_mode == "layernorm":
+                    a = torch.randn(rows, K, device=dev, generator=g)
+                    kw.update(ln_g=torch.ones(K, device=dev), ln_b=torch.zeros(K, device=dev))
+                else:
+                    a = torch.randn(rows, K, device=dev, generator=g).to(bf)
+                if mode == "residual":
+                    kw["out"] = torch.zeros(rows, N, device=dev)
+                elif mode == "embed":
+                    kw["pos"] = torch.zeros(N, device=dev)
+                elif mode == "qkv":
+                    kw.update(out=torch.empty(rows, N // 3, dtype=bf, device=dev),
+                              kc=torch.empty(rows, 2, N // 3, dtype=bf, device=dev),
+                              vc=torch.empty(rows, 2, N // 3, dtype=bf, device=dev))
+                _total, parts = device_split(lambda: FT.stream_product(a, w, bias, mode, a_mode,
+                                                                       **kw), reps=10)
+                k_us = sum(v for n, v in parts.items() if "tf_stream" in n)
+                chain_us = chained_us(lambda: FT.stream_product(a, w, bias, mode, a_mode,
+                                                                pdl=True, **kw))
+                x = torch.randn(rows, K, device=dev).to(bf)
+                wb = torch.randn(K, N, device=dev).to(bf)
+                mm_us = S.device_us(lambda: torch.mm(x, wb))
+                nbytes = K * N * (1 if int8 else 2) + rows * K * STREAM_BYTES[a_mode] + rows * N * \
+                    OUT_BYTES[mode]
+                b_us = nbytes / S.HBM_BYTES_PER_S * 1e6
+                S.say("de_product", N=N, K=K, a=a_mode, epilogue=mode, rows=rows,
+                      weights="int8" if int8 else "bf16", kernel_device_us=round(k_us, 2),
+                      chained_device_us=round(chain_us, 2),
+                      mm_device_us=round(mm_us, 2), bound_us=round(b_us, 2),
+                      bound_share=round(b_us / chain_us, 3))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Probe kernels F, C, A and G on one CUDA card.")
     ap.add_argument("--trace-only", action="store_true")
     ap.add_argument("--parts", default="fc,ag",
                     help="fc: kernels F and C; ag: A and G; ab: A's and G's device times only; "
-                         "enc: the fused and plain eval encoders' forward times")
+                         "enc: the fused and plain eval encoders' forward times; de: kernels "
+                         "D's and E's decodes and products")
     ap.add_argument("--package-root", default=None,
-                    help="(parts ab, enc) measure the package of this checkout instead")
+                    help="(parts ab, enc, de) measure the package of this checkout instead")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -536,6 +741,8 @@ def main(argv=None) -> int:
         probe_ab(dev)
     if "enc" in parts:
         probe_encoder(dev)
+    if "de" in parts:
+        probe_de(dev)
     return 0
 
 

@@ -90,7 +90,12 @@ Phases (each prints one line; any failure exits non-zero with no result;
    the plain argmax of ``teacher_forcing_logits`` on the kernel's own ids
    under the near-tie rule, with <pad> after <stop>; µs per decode for the
    kernel and the plain version, the kernel launches per decode, the bound,
-   and a profile of one bf16 decode at each B;
+   the first call's CUDA-graph capture ms, and for one bf16 decode at each
+   B the host µs to enqueue it and a profile (``decode_readings``: device
+   busy, the union of its device activities, and idle share). Then
+   ``graph_replay_check``: one cached graph decodes two batches of other
+   images at B=8, each held against its own plain decode, and a replay on
+   the previous batch's memory must fail that check;
 15. kernel E (``fused_beam_decode``, beam 4, early stop on) at 8 and 128
    images (32 and 512 rows; 128 images give each warp of ``beam_select``
    16 images), float32 and bfloat16, with no <stop> bias (beams run 35
@@ -105,12 +110,15 @@ Phases (each prints one line; any failure exits non-zero with no result;
    near tie at any step has words, back-pointers and lengths equal to the
    plain version's (float32: and scores to 1e-4). The transformer weights
    get random biases and LayerNorm parameters (``randomize_affine``).
-   Times, bound and profile;
+   Times, bound, capture ms, host enqueue µs and profile; then
+   ``graph_replay_check`` on 8 images x beam 4;
 16. a full-width random transformer bundle from ``--seed`` served greedy and
    beam 4 by ``CaptionService(batch_size=8)`` to 24 requests from 8 threads:
    D (greedy) or E (beam) launches once per dispatch and no LSTM kernel
-   launches; the served model's greedy ids held against the plain
-   teacher-forced logits; ms per batch and captions/s at B=8 and B=128,
+   launches, and the service captures one CUDA graph (its warm-up batch's;
+   every dispatch replays it); the served model's greedy ids held against
+   the plain teacher-forced logits; ``decode_readings`` of the service's
+   own decode (replaying its graph); ms per batch and captions/s at B=8 and B=128,
    kernel path (weights packed once at load, and, beside it, packed on
    every batch) and plain path (the plain KV-cached loop of
    ``models/transformer.py``);
@@ -140,9 +148,11 @@ Phases (each prints one line; any failure exits non-zero with no result;
    re-score, under ``E_RESCORE``; then phase 16's bundle served with
    ``CaptionService(quantize=True)`` greedy and beam 4 (D or E launches
    once per dispatch) and through ``load_bundle(quantize=True,
-   quantize_kv=True)``: the packed weights' size (the layer streams int8),
-   the peak device memory, ms per batch and captions/s, kernel and plain
-   path.
+   quantize_kv=True)`` (one graph capture each): the packed weights' size
+   (the layer streams int8), the peak device memory, ``decode_readings``
+   of each service's decode, ms per batch and captions/s, kernel and plain
+   path. Phase 19's kernel part profiles D int8, D int8 + kv and E int8 at
+   B=8 / 8 images as phase 14 does.
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -155,7 +165,10 @@ The line before the last is one JSON object describing each kernel (the
 launches of A and B are phase 4's, those of C phase 8's beam service, those
 of F phase 12 (c)'s, those of D and E phase 16's services, one per decode,
 those of D's and E's int8 modes phase 19's services, and G's phase 18's
-first forward, 17; ``bound_ms`` from the inputs' bytes at 3.35 TB/s and
+first forward, 17; B's, D's and E's entries (and D's and E's int8 modes')
+carry ``device_ms``: B's from ``device_us``, D's and E's the device busy ms
+of one decode at B=8 / 8 images, and under ``b128`` at B=128 / 128 images;
+``bound_ms`` from the inputs' bytes at 3.35 TB/s and
 their operations at the peak rate of their type, whichever is longer (for D
 and E the bytes each step must read again, ``bound_tf``); G's numbers are
 sums over the 17 blocks of one bf16 B=8 forward; A's and G's entries also
@@ -563,11 +576,16 @@ def phase_kernel_b(dev, gen, params32):
                 worst = max(worst, *errs)
             t_k = time_ms(lambda: FS.fused_decode_step(*args, with_head=head, compute_dtype=dt))
             t_p = time_ms(lambda: FS.reference_step(*args, with_head=head, compute_dtype=dt))
-            times[(dt, B, head)] = (t_k, t_p)
+            d_k = None  # device µs of the main path's call (bf16, B=8, with the head)
+            if (dt, B, head) == (torch.bfloat16, 8, True):
+                d_k = device_us(lambda: FS.fused_decode_step(*args, with_head=head,
+                                                             compute_dtype=dt))
+            times[(dt, B, head)] = (t_k, t_p, d_k)
             say("kernel_b", dtype=str(dt).split(".")[-1], rows=B, with_head=head, atol=tol,
                 tf32=torch.backends.cuda.matmul.allow_tf32,
                 err_h=errs[0], err_c=errs[1], err_proj=errs[2], ok=ok,
-                kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2))
+                kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2),
+                device_us=None if d_k is None else round(d_k, 2))
             if not ok:
                 raise AssertionError(
                     f"kernel B disagrees with reference_step ({dt}, rows={B}, head={head})")
@@ -1544,27 +1562,138 @@ def bound_tf(rows, n_img, steps, dims, dt, T=TF_STEPS, int8=False, int8_kv=False
     return bound(nbytes, ops, dt)
 
 
-def device_profile(label, fn, top=6):
-    """One profiled call of ``fn``: wall ms, device busy ms (the sum of its
-    kernels' device time), kernel launches, and the kernels that took the
-    most device time."""
-    wall_ms, events = profile_events(fn)
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+def busy_us(intervals):
+    """µs covered by the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def device_profile(label, fn, top=6, **extra):
+    """One profiled call of ``fn``: wall ms, device busy ms (the union of its
+    device activities' intervals: with programmatic dependent launch a
+    kernel starts before the one ahead of it ends, so their device times
+    overlap), the sum of the kernels' device times, the device's idle
+    share, kernel launches, and the kernels that took the most device time.
+    -> (wall ms, device busy ms)."""
+    from torch.autograd import DeviceType
+
+    wall_ms, events, prof = profile_events(fn, keep=True)
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+    busy_ms = busy_us(spans) / 1e3
     say(label + "_profile", wall_ms=round(wall_ms, 3), device_busy_ms=round(busy_ms, 3),
+        kernel_sum_ms=round(sum(dev_us(e) for e in events) / 1e3, 3),
         device_idle_share=round(max(0.0, 1 - busy_ms / wall_ms), 4),
-        kernel_launches=sum(e.count for e in events))
+        kernel_launches=sum(e.count for e in events), **extra)
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:110]}", flush=True)
+    return wall_ms, busy_ms
+
+
+def enqueue_us(fn, reps=5):
+    """Median host µs to enqueue one call of ``fn`` (a replayed decode
+    graph), each call after a synchronize."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+
+
+def decode_readings(label, fn, capture_ms):
+    """A decode's host enqueue µs, the first call's capture ms and one
+    profiled decode (``device_profile``) -> device busy ms."""
+    return device_profile(label, fn, host_enqueue_us=round(enqueue_us(fn), 1),
+                          first_call_capture_ms=None if capture_ms is None
+                          else round(capture_ms, 1))[1]
+
+
+def served_decode_readings(label, model, opts, beam, seed):
+    """``decode_readings`` of the decode a service of ``model`` / ``opts``
+    runs on one batch of 8 random images (the encoder outside it), through
+    the same call, so the service's own graph replays: the ``[label]`` line
+    says whether it did (no capture)."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    imgs = torch.as_tensor(np.random.RandomState(seed).rand(
+        8, 224, 224, 3).astype(np.float32)).to(model.device)
+    dec = model.params["decoder"]
+    with torch.no_grad():
+        img_embed, _f, gf = C.img2feature(model, imgs, opts)
+        pre = TTF.precompute(dec, img_embed, gf, opts.tdims.num_heads, opts.dtype)
+    kw = dict(use_kernels=True, early_stop=opts.early_stop_decode, packed=model.decoder_packed)
+    if beam:
+        fn = lambda: TTF.beam_search_ids(  # noqa: E731
+            dec, pre, opts.tdims, opts.infer_max_length, BEAM, opts.start_idx, opts.stop_idx,
+            opts.padding_idx, 0.0, opts.dtype, **kw)
+    else:
+        fn = lambda: TTF.greedy_decode_ids(  # noqa: E731
+            dec, pre, opts.tdims, opts.infer_max_length, opts.start_idx, opts.padding_idx,
+            opts.dtype, stop_idx=opts.stop_idx, quantize_kv=opts.quantize_kv, **kw)
+    captures = FT.GRAPHS.captures
+    busy = decode_readings(label, fn, None)
+    say(label, replayed_service_graph=FT.GRAPHS.captures == captures)
+    return busy
+
+
+def graph_replay_check(dev, gen, params, beam):
+    """One cached graph decodes two batches of other images (bf16, B=8 or 8
+    images x beam 4), each held against its own plain decode; then the first
+    batch again with the copy of its memory into the graph left out, which
+    must fail the same check (the graph replays the previous batch's memory).
+    -> (second batch replayed without a capture, sound checks, stale check)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+
+    dt, n = torch.bfloat16, BATCHES[0]
+    pk = FT.pack_weights(params, dt)
+    pres = [tf_pre(gen, dev, params, n, dt) for _ in range(2)]
+    ftps = [FT.prepare(params, pre, TF_HEADS, dt, packed=pk) for pre in pres]
+
+    def check(ftp, pre):
+        if beam:
+            ref = FT.fused_beam_decode_reference(ftp, TF_STEPS, TF_HEADS, BEAM,
+                                                 compute_dtype=dt, early_stop=True)
+            return e_check(params, pre, ftp, dt, ref)[0]
+        ids = FT.fused_greedy_decode(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt)
+        torch.cuda.synchronize()
+        return greedy_tf_check(params, pre, ids, dt, False)[0]
+
+    captures = FT.GRAPHS.captures
+    sound = [check(ftp, pre) for ftp, pre in zip(ftps, pres)]
+    replayed = FT.GRAPHS.captures <= captures + 1
+    load = FT.GRAPHS.load
+    # the first batch again, its memory not copied in: the graph replays the
+    # second batch's
+    FT.GRAPHS.load = lambda work, inputs: None
+    try:
+        stale = check(ftps[0], pres[0])
+    finally:
+        FT.GRAPHS.load = load
+    say("kernel_e_replay" if beam else "kernel_d_replay", dtype="bfloat16", rows=n * (
+        BEAM if beam else 1), second_batch_replayed=replayed, batches_ok=sound,
+        stale_memory_check_ok=stale)
+    return replayed, all(sound), stale
 
 
 def phase_kernel_d(dev, gen, params):
     """Kernel D against its plain version at full width: bf16 at B=8 and
     B=128, fixed length and early stop (a <stop> bias that stops rows at
     different steps, and one that stops every row at step 0); float32 at
-    B=8, ids equal."""
+    B=8, ids equal; each decode's first call captures its CUDA graph, later
+    ones replay it; then ``graph_replay_check``. -> (worst bf16 gap, times,
+    {B: bf16 device busy ms per decode})."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
 
-    worst, times = 0.0, {}
+    worst, times, dev_ms = 0.0, {}, {}
     for dt, B in ((torch.float32, 8), (torch.bfloat16, 8), (torch.bfloat16, 128)):
         pre = tf_pre(gen, dev, params, B, dt)
         biases = stop_biases(params, pre, dt)
@@ -1575,6 +1704,7 @@ def phase_kernel_d(dev, gen, params):
             ids = FT.fused_greedy_decode(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt,
                                          early_stop=early)
             torch.cuda.synchronize()
+            capture_ms = FT.fused_greedy_decode.capture_ms
             ref = FT.fused_greedy_decode_reference(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt,
                                                    early_stop=early)
             ok, err = greedy_tf_check(p, pre, ids, dt, early)
@@ -1586,7 +1716,8 @@ def phase_kernel_d(dev, gen, params):
             steps = int((ids != 0).any(dim=0).sum()) if early else TF_STEPS
             line = dict(dtype=str(dt).split(".")[-1], B=B, stop=label, ok=ok,
                         near_tie_max_gap=err, rows_equal_to_plain=same, steps_run=steps,
-                        kernel_launches_per_decode=FT.fused_greedy_decode.kernel_launches)
+                        kernel_launches_per_decode=FT.fused_greedy_decode.kernel_launches,
+                        capture_ms=None if capture_ms is None else round(capture_ms, 1))
             if label != "mixed":
                 t_k = time_ms(lambda: FT.fused_greedy_decode(
                     ftp, TF_STEPS, TF_HEADS, compute_dtype=dt, early_stop=early), reps=3, warmup=1)
@@ -1599,12 +1730,16 @@ def phase_kernel_d(dev, gen, params):
                             bound_us=round(b[0] * 1e3, 1), bound_by=b[1])
             say("kernel_d", **line)
             if dt == torch.bfloat16 and label == "fixed":
-                device_profile(f"kernel_d_B{B}", lambda: FT.fused_greedy_decode(
-                    ftp, TF_STEPS, TF_HEADS, compute_dtype=dt))
+                dev_ms[B] = decode_readings(f"kernel_d_B{B}", lambda: FT.fused_greedy_decode(
+                    ftp, TF_STEPS, TF_HEADS, compute_dtype=dt), capture_ms)
             if not ok:
                 raise AssertionError(f"kernel D disagrees with the plain path ({dt}, B={B}, "
                                      f"{label})")
-    return worst, times
+    replayed, sound, stale = graph_replay_check(dev, gen, params, beam=False)
+    if not (replayed and sound) or stale:
+        raise AssertionError(f"kernel D's graph replay: replayed {replayed}, batches ok {sound}, "
+                             f"stale memory passed {stale}")
+    return worst, times, dev_ms
 
 
 # Limits of phase 15 (kernel E against the plain path along E's own beams,
@@ -1737,10 +1872,11 @@ def phase_kernel_e(dev, gen, params):
     """Kernel E against its plain path at full width, beam 4, early stop on,
     float32 and bf16 at 8 and 128 images (``e_check``), with no bias on
     <stop> (beams run all 35 steps) and with the "mixed" one (beams finish at
-    different steps)."""
+    different steps); then ``graph_replay_check``. -> (worst bf16 re-score
+    error, times, {images: bf16 device busy ms per decode})."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
 
-    worst, times = 0.0, {}
+    worst, times, dev_ms = 0.0, {}, {}
     for dt in (torch.float32, torch.bfloat16):
         for n_img in (8, 128):
             pre = tf_pre(gen, dev, params, n_img, dt)
@@ -1751,12 +1887,14 @@ def phase_kernel_e(dev, gen, params):
                 ref = FT.fused_beam_decode_reference(ftp, TF_STEPS, TF_HEADS, BEAM,
                                                      compute_dtype=dt, early_stop=True)
                 ok, readings, quad = e_check(p, pre, ftp, dt, ref)
+                capture_ms = FT.fused_beam_decode.capture_ms
                 if dt == torch.bfloat16:
                     worst = max(worst, readings["rescore_max_abs_err"])
                 steps_run = int((quad[0] != 0).any(dim=2).any(dim=1).sum())
                 line = dict(dtype=str(dt).split(".")[-1], images=n_img, beam=BEAM, stop=label,
                             ok=ok, **readings, steps_run=steps_run,
-                            kernel_launches_per_decode=FT.fused_beam_decode.kernel_launches)
+                            kernel_launches_per_decode=FT.fused_beam_decode.kernel_launches,
+                            capture_ms=None if capture_ms is None else round(capture_ms, 1))
                 if label == "none":
                     t_k = time_ms(lambda: FT.fused_beam_decode(
                         ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt, early_stop=True),
@@ -1770,12 +1908,18 @@ def phase_kernel_e(dev, gen, params):
                                 bound_us=round(b[0] * 1e3, 1), bound_by=b[1])
                 say("kernel_e", **line)
                 if dt == torch.bfloat16 and label == "none":
-                    device_profile(f"kernel_e_{n_img}x{BEAM}", lambda: FT.fused_beam_decode(
-                        ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt, early_stop=True))
+                    dev_ms[n_img] = decode_readings(
+                        f"kernel_e_{n_img}x{BEAM}", lambda: FT.fused_beam_decode(
+                            ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt, early_stop=True),
+                        capture_ms)
                 if not ok:
                     raise AssertionError(f"kernel E disagrees with the plain path ({dt}, "
                                          f"{n_img} images, {label})")
-    return worst, times
+    replayed, sound, stale = graph_replay_check(dev, gen, params, beam=True)
+    if not (replayed and sound) or stale:
+        raise AssertionError(f"kernel E's graph replay: replayed {replayed}, batches ok {sound}, "
+                             f"stale memory passed {stale}")
+    return worst, times, dev_ms
 
 
 TF_SERVED = (("greedy", dict(), "fused_greedy_decode"),
@@ -1807,8 +1951,10 @@ def phase_tf_served(dev, seed, root):
     out, models = {}, {}
     for label, kw, kernel in TF_SERVED:
         t0 = time.perf_counter()
+        captures = FT.GRAPHS.captures
         svc = CaptionService(cfg, batch_size=8, max_wait_ms=50.0, device=dev, **kw)
         load_s = round(time.perf_counter() - t0, 2)
+        capture_ms = counters[kernel].capture_ms  # the warm-up batch's
         try:
             for fn in counters.values():
                 fn.launches = 0
@@ -1826,7 +1972,12 @@ def phase_tf_served(dev, seed, root):
         want = {name: d if name == kernel else 0 for name in counters}
         if launches != want:
             raise AssertionError(f"transformer {label}: launches {launches}, expected {want}")
+        captured = FT.GRAPHS.captures - captures
+        if captured != 1:  # the warm-up batch's; every dispatch replays it
+            raise AssertionError(f"transformer {label}: {captured} graph captures for one "
+                                 f"batch shape")
         say("tf_served_" + label, load_and_warmup_s=load_s, requests=24, dispatches=d,
+            graph_captures=captured, warmup_capture_ms=round(capture_ms, 1),
             decode_ms_p50=st["decode_ms_p50"], launches=json.dumps(launches).replace(" ", ""),
             kernel_launches_per_decode=counters[kernel].kernel_launches,
             packed_weights_mib=round(packed_mib(svc.model.decoder_packed), 2),
@@ -1846,6 +1997,9 @@ def phase_tf_served(dev, seed, root):
     say("tf_served_vs_plain", B=8, near_tie_ok=ok, near_tie_max_gap=err)
     if not ok:
         raise AssertionError("the served transformer disagrees with the plain path")
+    for label, _kw, _kernel in TF_SERVED:
+        served_decode_readings("tf_served_decode_" + label, *models[label], label == "beam",
+                               seed + 6)
 
     rng = np.random.RandomState(seed + 4)
     for label, kw, _kernel in TF_SERVED:
@@ -2134,14 +2288,15 @@ def phase_kernel_de_int8(dev, gen, params):
     rule on the packed tensors seen as the model (the kernels' own
     dequantized head); E beam 4 at 8 images through ``beam_replay`` under
     ``E_RESCORE`` and at 128 images with the best beam's re-score. µs per
-    decode, kernel and plain, and the bound. -> (worst D gap, worst E
-    re-score error, {mode: times})."""
+    decode, kernel and plain, and the bound; bf16 B=8 / 8 images profiled
+    (``decode_readings``). -> (worst D gap, worst E re-score error, {mode:
+    times}, {mode: device busy ms per decode})."""
     from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
     from myimagecaptioningmodel_tpu_torch.ops.backtrack import beam_backtrack
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
 
     q = TTF.quantize_transformer_decoder({k: v for k, v in params.items()})
-    worst_d, worst_e, times = 0.0, 0.0, {}
+    worst_d, worst_e, times, dev_ms = 0.0, 0.0, {}, {}
     for dt, B in ((torch.float32, BATCHES[0]), (torch.bfloat16, BATCHES[0]),
                   (torch.bfloat16, BATCHES[1])):
         pre = TTF.precompute(q, torch.rand(B, K_SLOTS, H, generator=gen).to(dev),
@@ -2150,6 +2305,7 @@ def phase_kernel_de_int8(dev, gen, params):
             ftp = FT.prepare(q, pre, TF_HEADS, dt, quantize_kv=kv)
             ids = FT.fused_greedy_decode(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt)
             torch.cuda.synchronize()
+            capture_ms = FT.fused_greedy_decode.capture_ms
             ref = FT.fused_greedy_decode_reference(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt)
             mp, _dims, mpre = FT._as_model(ftp, TF_HEADS, torch.arange(B, device=dev))
             ok, err = greedy_tf_check(mp, mpre, ids, dt, False)
@@ -2170,9 +2326,11 @@ def phase_kernel_de_int8(dev, gen, params):
                 kernel_launches_per_decode=FT.fused_greedy_decode.kernel_launches,
                 kernel_us=round(t_k * 1e3, 1), plain_us=round(t_p * 1e3, 1),
                 bound_us=round(b[0] * 1e3, 1), bound_by=b[1])
-            if dt == torch.bfloat16 and B == BATCHES[0] and not kv:
-                device_profile(f"kernel_d_int8_B{B}", lambda: FT.fused_greedy_decode(
-                    ftp, TF_STEPS, TF_HEADS, compute_dtype=dt))
+            if dt == torch.bfloat16 and B == BATCHES[0]:
+                dev_ms[mode] = decode_readings(
+                    f"kernel_d_{mode}_B{B}",
+                    lambda: FT.fused_greedy_decode(ftp, TF_STEPS, TF_HEADS, compute_dtype=dt),
+                    capture_ms)
             if not ok:
                 raise AssertionError(f"kernel D ({mode}) disagrees with the plain path ({dt}, "
                                      f"B={B})")
@@ -2186,6 +2344,10 @@ def phase_kernel_de_int8(dev, gen, params):
                                              early_stop=True)
         if n_img == BATCHES[0]:
             ok, readings, quad = e_check(mp, mpre, ftp, dt, ref)
+            dev_ms["beam"] = decode_readings(
+                f"kernel_e_int8_{n_img}x{BEAM}", lambda: FT.fused_beam_decode(
+                    ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt, early_stop=True),
+                FT.fused_beam_decode.capture_ms)
         else:  # the best beam's teacher-forced re-score
             quad = FT.fused_beam_decode(ftp, TF_STEPS, TF_HEADS, BEAM, compute_dtype=dt,
                                         early_stop=True)
@@ -2212,7 +2374,7 @@ def phase_kernel_de_int8(dev, gen, params):
         if not ok:
             raise AssertionError(f"kernel E (int8) disagrees with the plain path ({n_img} "
                                  f"images)")
-    return worst_d, worst_e, times
+    return worst_d, worst_e, times, dev_ms
 
 
 def phase_tf_served_int8(dev, seed, cfg):
@@ -2237,8 +2399,10 @@ def phase_tf_served_int8(dev, seed, cfg):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        captures = FT.GRAPHS.captures
         svc = CaptionService(cfg, batch_size=8, max_wait_ms=50.0, device=dev, quantize=True,
                              **kw)
+        capture_ms = counters[kernel].capture_ms  # the warm-up batch's
         try:
             for fn in counters.values():
                 fn.launches = 0
@@ -2250,12 +2414,14 @@ def phase_tf_served_int8(dev, seed, cfg):
             svc.close()
         d = st["dispatches"]
         want = {name: d if name == kernel else 0 for name in counters}
+        captured = FT.GRAPHS.captures - captures
         if launches != want or st["served"] != 24 or any(
-                len(r["ids"]) != TF_STEPS for r in results):
+                len(r["ids"]) != TF_STEPS for r in results) or captured != 1:
             raise AssertionError(f"int8 transformer {label}: launches {launches}, expected "
-                                 f"{want}; {st}")
+                                 f"{want}; {captured} graph captures; {st}")
         packed = svc.model.decoder_packed
-        say("tf_served_int8_" + label, requests=24, dispatches=d,
+        say("tf_served_int8_" + label, requests=24, dispatches=d, graph_captures=captured,
+            warmup_capture_ms=round(capture_ms, 1),
             decode_ms_p50=st["decode_ms_p50"], launches=json.dumps(launches).replace(" ", ""),
             layer_streams=str(packed.w_qkv.dtype).split(".")[-1],
             packed_weights_mib=round(packed_mib(packed), 2),
@@ -2266,14 +2432,21 @@ def phase_tf_served_int8(dev, seed, cfg):
 
     model, _bc, opts, decode = load_bundle(cfg, quantize=True, quantize_kv=True, device=dev)
     FT.fused_greedy_decode.launches = 0
+    captures = FT.GRAPHS.captures
     ids = [decode(model, torch.as_tensor(images[i:i + 8]).to(dev)) for i in range(0, 24, 8)]
     torch.cuda.synchronize()
     out["int8_kv"] = FT.fused_greedy_decode.launches
-    if out["int8_kv"] != 3 or any(tuple(x.shape) != (8, TF_STEPS) for x in ids):
-        raise AssertionError(f"int8 memory: {out['int8_kv']} launches of D for 3 batches")
+    captured = FT.GRAPHS.captures - captures
+    if out["int8_kv"] != 3 or any(tuple(x.shape) != (8, TF_STEPS) for x in ids) or captured != 1:
+        raise AssertionError(f"int8 memory: {out['int8_kv']} launches of D for 3 batches, "
+                             f"{captured} graph captures")
     say("tf_served_int8_kv", batches=3, launches=out["int8_kv"], opts_quantize_kv=opts.quantize_kv,
+        graph_captures=captured,
         distinct_captions=len({tuple(r.tolist()) for x in ids for r in x}))
     models["greedy_kv"] = (model, opts)
+    for label in ("greedy", "greedy_kv", "beam"):
+        served_decode_readings("tf_served_int8_decode_" + label, *models[label], label == "beam",
+                               seed + 7)
     rng = np.random.RandomState(seed + 5)
     for label in ("greedy", "greedy_kv", "beam"):
         model, opts = models[label]
@@ -2344,9 +2517,9 @@ def main(argv=None) -> int:
         from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
 
         tf_params = tree_to_torch(randomize_affine(TTF.init(gen, tf_dims()), gen), dev)
-        err_d, t_d = phase_kernel_d(dev, gen, tf_params)
-        err_e, t_e = phase_kernel_e(dev, gen, tf_params)
-        err_d8, err_e8, t_8 = phase_kernel_de_int8(dev, gen, tf_params)
+        err_d, t_d, dev_d = phase_kernel_d(dev, gen, tf_params)
+        err_e, t_e, dev_e = phase_kernel_e(dev, gen, tf_params)
+        err_d8, err_e8, t_8, dev_8 = phase_kernel_de_int8(dev, gen, tf_params)
         del tf_params
         torch.cuda.empty_cache()
         tf_launches, tf_cfg = phase_tf_served(dev, args.seed, root)
@@ -2378,7 +2551,7 @@ def main(argv=None) -> int:
          "replaces": KERNEL_B_TPU, "launches": launches["fused_decode_step"],
          "max_abs_err": err_b, "ms": t_b[(bf16, 8, True)][0],
          "plain_ms": t_b[(bf16, 8, True)][1], "bound_ms": b_b[0], "bound_by": b_b[1],
-         "library_ms": None},
+         "library_ms": None, "device_ms": t_b[(bf16, 8, True)][2] / 1e3},
         {"name": "topk_vocab_head", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": KERNEL_C_TPU, "launches": beam_launches["topk_vocab_head"],
          "max_abs_err": err_c, "ms": t_c[(bf16, 8 * BEAM, BEAM)][0],
@@ -2389,23 +2562,28 @@ def main(argv=None) -> int:
          "max_abs_err": err_f, "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
          "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2]},
     ]
-    for name, tpu, err, (t_k, t_p, b_ms, b_by) in (
-            ("fused_greedy_decode", KERNEL_D_TPU, err_d, t_d[(bf16, 8, "fixed")]),
-            ("fused_beam_decode", KERNEL_E_TPU, err_e, t_e[(bf16, 8)])):
+    def de_at(t, busy_ms):
+        """D's or E's numbers at one batch, the device busy ms per decode beside."""
+        t_k, t_p, b_ms, b_by = t
+        return {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "device_ms": busy_ms}
+
+    for name, tpu, err, t, busy in (
+            ("fused_greedy_decode", KERNEL_D_TPU, err_d, t_d, dev_d),
+            ("fused_beam_decode", KERNEL_E_TPU, err_e, t_e, dev_e)):
+        key = (lambda B: (bf16, B, "fixed")) if t is t_d else (lambda B: (bf16, B))
         kernels.append({"name": name, "route": "cuda", "source": KERNEL_DE_SRC, "replaces": tpu,
-                        "launches": tf_launches[name], "max_abs_err": err, "ms": t_k,
-                        "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
-    for name, tpu, launches8, err, (t_k, t_p, b_ms, b_by) in (
+                        "launches": tf_launches[name], "max_abs_err": err,
+                        **de_at(t[key(8)], busy[8]), "b128": de_at(t[key(128)], busy[128])})
+    for name, tpu, launches8, err, t, busy in (
             ("fused_greedy_decode[int8]", KERNEL_D_INT8_TPU, int8_launches["fused_greedy_decode"],
-             err_d8, t_8[("int8", bf16, 8)]),
+             err_d8, t_8[("int8", bf16, 8)], dev_8["int8"]),
             ("fused_greedy_decode[int8+int8_kv]", KERNEL_D_INT8KV_TPU, int8_launches["int8_kv"],
-             err_d8, t_8[("int8_kv", bf16, 8)]),
+             err_d8, t_8[("int8_kv", bf16, 8)], dev_8["int8_kv"]),
             ("fused_beam_decode[int8]", KERNEL_E_INT8_TPU, int8_launches["fused_beam_decode"],
-             err_e8, t_8[("int8", "beam", 8)])):
+             err_e8, t_8[("int8", "beam", 8)], dev_8["beam"])):
         kernels.append({"name": name, "route": "cuda", "source": KERNEL_DE_SRC, "replaces": tpu,
-                        "launches": launches8, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                        "launches": launches8, "max_abs_err": err, **de_at(t, busy)})
     kernels.append({"name": "fused_inverted_residual", "route": "cuda", "source": KERNEL_G_SRC,
                     "replaces": KERNEL_G_TPU, "launches": g_launches, "max_abs_err": err_g,
                     **g_at(8), "b128": g_at(128)})

@@ -1,7 +1,8 @@
 // Shared device helpers for the decode-path kernels (vocab_head.cu,
-// topk_head.cu, fused_step.cu): 16-byte vector loads unpacked to float, rounding to the
-// compute dtype, the warp product that every [M, K] x [K, N] product of those
-// kernels runs through, and a warp reduce-scatter.
+// topk_head.cu, fused_step.cu, fused_transformer.cu): 16-byte vector loads
+// unpacked to float, rounding to the compute dtype, the warp product that the
+// FMA [M, K] x [K, N] products run through, a warp reduce-scatter, the heads'
+// tie rule, and programmatic dependent launch.
 //
 // The JAX reference computes every product as `dot(a.astype(dt), b)` with a
 // float32 accumulator (preferred_element_type=float32). The helpers do the
@@ -171,6 +172,57 @@ template <class Kernel>
 inline bool raise_smem_limit(Kernel* kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)kMaxDynamicSmem) == cudaSuccess;
+}
+
+// ---- programmatic dependent launch (kernels D and E, and A's and C's kernels
+// as their heads) ----
+//
+// A kernel launched with `pdl` may start while the kernel before it on the
+// stream still runs, once every block of that kernel has called
+// griddep_launch_dependents() or exited. griddep_wait() returns when the
+// kernels before it have completed and their writes are visible. Both are
+// no-ops for a kernel launched without the attribute.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// The early-stop flag of kernels D and E, read past every cache: it goes
+// from 0 to 1 only, so a 1 read before griddep_wait() is final.
+__device__ __forceinline__ bool flag_set(const int* skip) {
+  return skip != nullptr && *reinterpret_cast<const volatile int*>(skip) != 0;
+}
+
+// The prologue of a kernel that reads nothing before its predecessors end:
+// true if it is to return (the flag is set), else it has waited and let its
+// dependents launch.
+__device__ __forceinline__ bool pdl_enter(const int* skip) {
+  if (flag_set(skip)) return true;
+  griddep_wait();
+  if (flag_set(skip)) return true;
+  griddep_launch_dependents();
+  return false;
+}
+
+// Launches kernel<<<grid, block, smem, stream>>>(args...), with the
+// programmatic-stream-serialization attribute when `pdl`. Returns the launch
+// error.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_k(bool pdl, void (*kernel)(Params...), dim3 grid, dim3 block,
+                            size_t smem, cudaStream_t stream, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 // ---- the vocab heads' shared rules (kernels A, C, D, E) ----

@@ -1,19 +1,20 @@
 // The whole transformer decode, greedy (kernel D) and beam search (kernel E),
-// enqueued on one stream from one C call per decode.
+// enqueued on one stream from one C call per decode; the wrapper captures
+// that call once per decode shape in a CUDA graph and replays it
+// (ops/kernels/fused_transformer.py).
 //
 // Replaces myimagecaptioningmodel_tpu/ops/pallas/fused_transformer.py::
-// fused_greedy_decode and ::fused_beam_decode. The TPU
-// kernel is one program with a sequential grid over the T steps: it keeps the
-// KV caches (73 MB at full width) in VMEM and streams the 117 MB of layer
-// weights and the image memory through DMA rings every step. An H100 SM has
-// 227 KB of shared memory and the L2 50 MB, so here caches, weights and
-// memory all live in device memory, and a step is a sequence of kernels,
-// split where a product's output feeds the next product's whole contraction.
-// Per layer and step:
+// fused_greedy_decode (:1061) and ::fused_beam_decode (:1198), with their
+// int8_stream and int8_kv modes. The TPU kernel is one program with a
+// sequential grid over the T steps: it keeps the KV caches in VMEM and
+// streams the layer weights and the image memory through DMA rings every
+// step. An H100 SM has 227 KB of shared memory and the L2 50 MB, so here
+// caches, weights and memory live in device memory, and a step is a chain of
+// kernels, split where a product's output feeds the next product's whole
+// contraction. Per layer and step:
 //
-//   qkv     LayerNorm(x) @ w_qkv + b: the LayerNorm is applied while the
-//           block stages its rows; the epilogue writes q and appends k, v to
-//           the cache at step t (before attention reads it);
+//   qkv     LayerNorm(x) @ w_qkv + b; the epilogue writes q and appends k, v
+//           to the cache at step t (before attention reads it);
 //   attn    self-attention, one block per (row, head) over slots <= t;
 //   wo      ctx @ w_o + b, added to the float32 residual x;
 //   xq      LayerNorm(x) @ w_xq + b;
@@ -26,8 +27,7 @@
 //
 // Then the head: LayerNorm(x) @ out_proj + b into proj [B, E] (float32
 // holding compute-dtype values), kernel A's tile and merge kernels
-// (vocab_head.cu, greedy) or the top-k partial and combine kernels of
-// vocab_block.cuh (beam, k = W), and
+// (vocab_head.cu; greedy) or kernel C's (topk_head.cu; beam, k = W), and
 //   greedy_finish  early-stop bookkeeping and row t of the ids, or
 //   beam_select    per image the top W of the W * W candidates (ties to the
 //                  lowest flat index w * W + k), finished/length bookkeeping,
@@ -36,11 +36,83 @@
 //                  second cache buffer (the host swaps the two each step);
 // and the next word's embedding: its table row (<pad> -> 0) @ in_proj + b +
 // pos[t + 1] into x (none after the last step: pos has max_positions rows).
+// 37 kernels a greedy step at 4 layers (38 beam; 13 more beyond 16 rows,
+// tf_layernorm's, design step 2). Early stop: greedy_finish
+// / beam_select set a device flag once every row (beam) is done, and every
+// later kernel reads it and returns at once.
 //
-// Early stop: greedy_finish / beam_select set a device flag once every row
-// (beam) is done; every kernel reads it first and returns at once, the TPU
-// kernel's skipped grid steps without a host round trip. 37 kernels a greedy
-// step at 4 layers (38 beam), all enqueued before the first runs.
+// What bounds it on an H100: bytes (chip_smoke.bound_tf). Each step reads
+// the layer weights (117 MB in bf16 at D = 1024, F = 4096, L = 4; 59 MB as
+// int8), the table (6.4 MB), the image memory and the caches: 1.4 ms for a
+// 35-step greedy decode at B = 8, ~40 us a step. The products have 8-512
+// rows, below the card's ~295 bf16 operations per byte. Per step that is 29
+// products of 2-8 MB each, 0.6-2.5 us of bytes apiece: less than one
+// kernel's ramp-up and tail. So the design attacks the gaps between kernels
+// as much as the bytes inside them:
+//
+// 1. One CUDA graph per decode shape. The kernel sequence of a decode is
+//    fixed by its shape (early stop is the device flag; the cache swap is
+//    fixed per step), so the wrapper captures this file's C call once and
+//    replays it; the host's ~1,300 enqueues become one graph launch.
+// 2. One weight-streaming product (tf_stream) for bf16 activations with bf16
+//    or int8 weights, at every row count (1-512). The weight is the 16-row
+//    side of mma.sync m16n8k16 (output columns x K, fragments by
+//    ldmatrix.trans from the row-major [K, N] slab) and the batch rows its
+//    8-wide side, so 8 rows need no padding and a block takes up to 128
+//    rows against one weight slab (512 rows read each slab 4 times, from L2
+//    after the first). A block owns 64 output columns and a K range; slabs
+//    of [32 k, 64 columns] (128-byte row segments in bf16, 64 in int8) and
+//    the matching activation rows arrive by 16-byte cp.async through a ring
+//    of 16 stages (up to 16 rows), 6 or 4; when the ring holds the block's
+//    whole K range (every product up to 16 rows) the block waits once and
+//    multiplies without a barrier a stage. int8 slabs are copied raw and
+//    each fragment is widened to bf16 (exact) as it is formed. K is split across blocks until a product has
+//    >= 128 of them (so the N = 1024 and N = 256 products fill the 132 SMs
+//    too). The splits of a column tile are one thread block cluster (at most
+//    8 blocks): each split stores its float32 partial sums straight into the
+//    shared memory of the block that finalizes their row, one slot per
+//    (split, warp group); after one cluster barrier that block sums its
+//    rows' slots in split order and runs the epilogue: one rounding of the
+//    float32 sum to T, the rounded int8 scale, the rounded bias, then the
+//    mode (q|k|v into q and the caches, residual add, GELU, store, float32
+//    store, embedding + position). No workspace, no counter, no atomic: a
+//    decode is deterministic.
+//    LayerNorm, up to 16 rows: the per-row statistics pass, fused into the
+//    epilogue of the product that last wrote x. Every writer of x (the
+//    residual products and the embedding) also writes, per row and 64-column
+//    tile, the tile's mean and sum of squared deviations; a LayerNorm
+//    product merges a row's D / 64 pairs (a warp per row: the mean of the
+//    means, then the squared deviations plus 64 (mean_t - mean)^2), stages
+//    the raw float32 x slices through its ring and normalizes them to bf16
+//    as each fragment is formed. No extra kernel at the serving batch.
+//    Beyond 16 rows, a normalized bf16 copy of x, written once a sublayer by
+//    tf_layernorm (a warp per row, two passes), and a plain-rows product: at
+//    32-512 rows every one of a product's 128+ blocks normalizing its rows
+//    again cost more (measured: at 128 rows the qkv product took 27-36 us
+//    that way, 14 with the copy) than the 13 extra kernels a step.
+//    float32 keeps the FMA product of fused_step.cu's kind (tf_dense: a
+//    warp owns a 16-byte column vector, 2-8 warps split K, the batch rows
+//    staged once per block, LayerNorm statistics from x in the block): a
+//    dispatch by compute dtype, since the tensor cores take no float32.
+// 3. Programmatic dependent launch on every kernel of the step up to 16
+//    rows (launch_k, common.cuh; beyond, it measured slower: decode()). A
+//    product issues its weight slabs (and its epilogue's bias, scale and
+//    position) before griddep_wait(): the weights do not depend on the
+//    kernel before it, so they stream in under that kernel.
+//    Nothing is read from a predecessor's outputs or written before the
+//    wait; each kernel lets its dependents launch once its inputs are in
+//    (the products: once their activation rows are requested). The
+//    early-stop flag is read before the wait (a 1 is final: it only goes
+//    0 -> 1 in a decode) and again after it. The products' blocks take
+//    45-100 KB of shared memory, so that the next kernel's fit beside them.
+// 4. E's head is kernel C's tile and merge kernels, as D's is kernel A's.
+// The attentions, greedy_finish, beam_select and beam_reorder are as
+// before, each launched with programmatic dependent launch.
+//
+// What is left (PERF.md): at 8 rows a product takes ~5.5 us on the
+// decode's critical path against 0.6-2.5 us of bytes (the wait's release,
+// the activation rows' L2 round trip, the cluster barrier, the epilogue);
+// the attentions take a third of a B = 8 decode.
 //
 // Layout, for Hopper: caches [L, B, T, D], so one row's history is
 // contiguous (attention reads slot s of head h as 128 adjacent values; the
@@ -55,31 +127,24 @@
 //
 // int8 (the TPU kernel's int8_stream and int8_kv): the four layer streams
 // (w_qkv, w_o | w_xq | w_xo, w_fc1, w_fc2) may be int8 with a float32 scale
-// per output channel. A product converts each weight to float when it loads
-// it (exact: |w| <= 127; the tensor-core product stages it as bf16, also
-// exact) and its epilogue multiplies the rounded product by the scale rounded
-// to T, in T, before the bias: (x @ w_q) * s + b as layers.dense does. Half the
-// bytes of the float streams are read. The cross-attention memory may be
-// int8 with a float32 scale per (layer, K|V, channel) (greedy only): the
-// attention multiplies the query by K's scale (float, then rounded to T) and
-// the float context by V's before its one rounding.
+// per output channel; the epilogue multiplies the rounded product by the
+// scale rounded to T, in T, before the bias: (x @ w_q) * s + b as
+// layers.dense does. Half the bytes of the bf16 streams are read. The
+// cross-attention memory may be int8 with a float32 scale per (layer, K|V,
+// channel) (greedy only): the attention multiplies the query by K's scale
+// (float, then rounded to T) and the float context by V's before its one
+// rounding.
 //
-// What bounds it on an H100: bytes. Each step reads the layer weights (117 MB
-// in bf16 at D = 1024, F = 4096, L = 4), the table (6.4 MB), the image memory
-// (0.82 MB an image) and the caches; the products have 8-512 rows, below the
-// card's ~295 bf16 operations per byte. Below 32 rows, and in float32, the
-// products are the split-K FMA products of fused_step.cu (a warp owns a
-// 16-byte column vector, 2-8 warps split K, the batch rows staged once per
-// block in shared memory), every weight byte read once per 8- or 16-row
-// tile; from 32 rows on (B >= 32 greedy, beam search on 8+ images) bf16
-// products run on tensor cores (tf_dense_tc, with the measurements behind
-// the threshold). At 8 rows a decode is bound by its ~1,300 short kernels'
-// latencies, not by bytes: a CUDA graph or programmatic dependent launch
-// over them, a pipelined (TMA / wgmma) product and a persistent schedule
-// are later work.
-#include <mma.h>
+// Shapes: the bf16 path takes D, F and E in multiples of 64 (whole column
+// tiles and K ranges) and D <= 1024 beyond 16 rows (tf_layernorm); others
+// return cudaErrorInvalidValue.
+#include <cooperative_groups.h>
 
-#include "vocab_block.cuh"
+#include <algorithm>
+
+#include "common.cuh"
+#include "mma.cuh"
+#include "topk_head.cuh"
 #include "vocab_head.cuh"
 
 namespace capk {
@@ -89,6 +154,8 @@ constexpr float kNegInf = -1e9f;
 constexpr float kLnEps = 1e-6f;
 constexpr int kAttnThreads = 128;
 constexpr int kTailThreads = 256;
+using bf = __nv_bfloat16;
+namespace cg = cooperative_groups;
 
 template <typename T>
 __device__ __forceinline__ float to_dt(float v);
@@ -112,8 +179,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float gelu_tanh(float x) {
   return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * (x * x * x)))));
 }
-
-__device__ __forceinline__ bool skipped(const int* skip) { return skip != nullptr && *skip; }
 
 // int8 weights and memory as float: exact. Byte b of a little-endian word,
 // sign-extended.
@@ -161,6 +226,9 @@ struct TfDense {
   int t, n_steps;
   const float* pos;  // kEEmbed: [N]
   const int* skip;
+  // tf_stream only: x's statistics [N / 64][M] (written by kEResidual and
+  // kEEmbed, read by kALayerNorm)
+  float2* stats;
 };
 
 // Per-row mean and 1 / std of the block's rows [m0, m0 + rows) of the float32
@@ -206,39 +274,49 @@ __device__ __forceinline__ float a_value(const TfDense& p, int row, int k, int K
   return ld(a, (long)row * K + k);
 }
 
-// The epilogue of one output element from its float32 sum (an int8 weight's
-// scale applied in T before the bias).
+// The epilogue of one output element from its float32 sum, the column's
+// bias, int8 scale (ignored for float weights) and position (kEEmbed):
+// the scale applied in T before the bias -> the value written (x's new
+// value for kEResidual and kEEmbed).
 template <typename T>
-__device__ __forceinline__ void epilogue(const TfDense& p, float sum, int row, int col, int N) {
+__device__ __forceinline__ float epilogue(const TfDense& p, float sum, int row, int col, int N,
+                                          float bias, float scale, float pos, float x_old) {
   float y = to_dt<T>(sum);
-  if (p.w_scale != nullptr) y = to_dt<T>(y * to_dt<T>(p.w_scale[col]));
-  y = to_dt<T>(y + to_dt<T>(p.bias[col]));
+  if (p.w_scale != nullptr) y = to_dt<T>(y * to_dt<T>(scale));
+  y = to_dt<T>(y + to_dt<T>(bias));
   const long o = (long)row * N + col;
   switch (p.e_mode) {
     case kEStore:
       st(static_cast<T*>(p.out) + o, y);
-      break;
+      return y;
     case kEStoreF32:
       static_cast<float*>(p.out)[o] = y;
-      break;
-    case kEResidual:
-      static_cast<float*>(p.out)[o] += y;
-      break;
+      return y;
+    case kEResidual: {  // x_old: x[row, col] as the kernel found it
+      const float v = x_old + y;
+      static_cast<float*>(p.out)[o] = v;
+      return v;
+    }
     case kEGelu:
       st(static_cast<T*>(p.out) + o, gelu_tanh(y));
-      break;
-    case kEEmbed:
-      static_cast<float*>(p.out)[o] = y + p.pos[col];
-      break;
+      return y;
+    case kEEmbed: {
+      const float v = y + pos;
+      static_cast<float*>(p.out)[o] = v;
+      return v;
+    }
     default: {  // kEQkv
       const int D = N / 3, which = col / D, c = col % D;
       T* dst = which == 0 ? static_cast<T*>(p.out) + (long)row * D + c
                           : static_cast<T*>(which == 1 ? p.kc : p.vc) +
                                 ((long)row * p.n_steps + p.t) * D + c;
       st(dst, y);
+      return y;
     }
   }
 }
+
+// ---- float32: the FMA product ----
 
 // MT batch rows per block; CV column vectors with K split over KS warps each
 // (as fused_step.cu's dense: at MT = 8 one vector and 8 splits, at MT = 16
@@ -272,7 +350,7 @@ __device__ __forceinline__ void tf_colvec(const T* __restrict__ At, const WT* __
 
 template <typename T, typename WT, int MT, int CV, int KS>
 __global__ void __launch_bounds__(CV * KS * 32) tf_dense(TfDense p, int M, int N, int K) {
-  if (skipped(p.skip)) return;
+  if (pdl_enter(p.skip)) return;
   constexpr int W = Vec<T>::W, NVAL = MT * W, PER = NVAL / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   T* At = reinterpret_cast<T*>(smem);  // [K][MT]
@@ -307,250 +385,496 @@ __global__ void __launch_bounds__(CV * KS * 32) tf_dense(TfDense p, int M, int N
     float sum = 0.f;
 #pragma unroll
     for (int x = 0; x < KS; ++x) sum += part[x][ev][et];
-    epilogue<T>(p, sum, row, col, N);
+    epilogue<T>(p, sum, row, col, N, p.bias[col], p.w_scale ? p.w_scale[col] : 1.f,
+                p.e_mode == kEEmbed ? p.pos[col] : 0.f,
+                p.e_mode == kEResidual ? static_cast<const float*>(p.out)[(long)row * N + col]
+                                       : 0.f);
   }
 }
 
-// bf16 products on tensor cores (nvcuda::wmma 16x16x16, float accumulators).
-// A block takes a [32, 16] output tile and its 4 warps split K in quarters:
-// each warp loads kTcUnroll k-steps of its tiles at a time, a 16-byte vector
-// per lane and all in flight together, into its own shared-memory tiles and
-// takes its fragments from there (B: the row-major [K, N] weight; A: the
-// activation rows [M, K], which the wrapper pads to whole 32-row tiles with
-// zeros, or for a LayerNorm or gather prologue the block's 32 rows prepared
-// once in shared memory, a warp per row with the row in registers); the four
-// partial tiles meet in shared memory for the epilogue, added in a fixed
-// order. Takes K a multiple of 64 (and at most 1024 under a LayerNorm) and N
-// a multiple of 16; other shapes take the FMA product. Every weight byte is
-// read from device memory once per product, and once per 32-row tile from
-// L2. Used from kTcMinRows rows: in a full-width bf16 decode on an H100 its
-// products took 13.1 ms against the FMA products' 11.3 at 8 rows, 17.5
-// against 22.5 at 32 and 35.6 against 52 at 128. Fragments loaded straight
-// from device memory (4-byte loads) had taken 17.8, 24.5 and 37.5; a
-// [32, 64] tile staged per 32-deep chunk without the K split 101 ms for the
-// whole decode at 32 rows and 97 at 128. At 512 rows each block re-reads
-// (and re-normalizes) its 32 rows once per 16 columns; a wider tile there is
-// later work.
-constexpr int kTcM = 32, kTcN = 16, kTcWarps = 4, kTcUnroll = 4, kTcMaxLnK = 1024;
-constexpr int kTcMinRows = 32;
-
-__device__ __forceinline__ uint2 pack4(float a, float b, float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                    *reinterpret_cast<const uint32_t*>(&hi));
+template <typename WT, int MT>
+static bool launch_fma_tile(const TfDense& p, int M, int N, int K, bool pdl,
+                            cudaStream_t stream) {
+  constexpr int CV = TfTile<MT>::CV, KS = TfTile<MT>::KS;
+  static const bool raised = raise_smem_limit(tf_dense<float, WT, MT, CV, KS>);
+  const size_t smem = (size_t)MT * K * sizeof(float);
+  if (!raised || smem > kMaxDynamicSmem || N % Vec<float>::W != 0) return false;
+  const int cols = CV * Vec<float>::W;
+  return launch_k(pdl, tf_dense<float, WT, MT, CV, KS>,
+                  dim3((N + cols - 1) / cols, (M + MT - 1) / MT), CV * KS * 32, smem, stream, p,
+                  M, N, K) == cudaSuccess;
 }
-
-// The block's rows [m0, m0 + kTcM) of a LayerNorm or gather A operand into
-// As [kTcM][lda] as bf16; rows >= M are zero.
-__device__ __forceinline__ void tc_stage_rows(const TfDense& p, __nv_bfloat16* As, int lda,
-                                              int m0, int M, int K) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  constexpr int kChunks = kTcMaxLnK / 128;  // float4 chunks per lane
-  for (int r = warp; r < kTcM; r += kTcWarps) {
-    const int row = m0 + r;
-    __nv_bfloat16* dst = As + (long)r * lda;
-    if (row >= M) {
-      for (int k = 8 * lane; k < K; k += 256)
-        *reinterpret_cast<uint4*>(dst + k) = make_uint4(0u, 0u, 0u, 0u);
-      continue;
-    }
-    if (p.a_mode == kAGather) {
-      const int wd = p.word[row];
-      const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(p.a) + (long)wd * K;
-      for (int k = 8 * lane; k < K; k += 256)
-        *reinterpret_cast<uint4*>(dst + k) =
-            wd == p.pad ? make_uint4(0u, 0u, 0u, 0u)
-                        : __ldg(reinterpret_cast<const uint4*>(src + k));
-      continue;
-    }
-    const float* x = static_cast<const float*>(p.a) + (long)row * K;  // kALayerNorm
-    float4 v[kChunks];
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int k = 4 * (32 * c + lane);
-      v[c] = k < K ? __ldg(reinterpret_cast<const float4*>(x + k))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-      s += (v[c].x + v[c].y) + (v[c].z + v[c].w);
-    }
-    const float mean = warp_sum(s) / K;
-    float q = 0.f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      if (4 * (32 * c + lane) >= K) continue;
-      const float d0 = v[c].x - mean, d1 = v[c].y - mean, d2 = v[c].z - mean, d3 = v[c].w - mean;
-      q = fmaf(d0, d0, q);
-      q = fmaf(d1, d1, q);
-      q = fmaf(d2, d2, q);
-      q = fmaf(d3, d3, q);
-    }
-    const float rstd = rsqrtf(warp_sum(q) / K + kLnEps);
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int k = 4 * (32 * c + lane);
-      if (k >= K) continue;
-      const float* g = p.ln_g + k;
-      const float* b = p.ln_b + k;
-      *reinterpret_cast<uint2*>(dst + k) =
-          pack4((v[c].x - mean) * rstd * g[0] + b[0], (v[c].y - mean) * rstd * g[1] + b[1],
-                (v[c].z - mean) * rstd * g[2] + b[2], (v[c].w - mean) * rstd * g[3] + b[3]);
-    }
-  }
-}
-
-// A lane's 8 weights of a 16 x 16 tile row: 16 bytes of bf16, or 8 of int8
-// converted to bf16 (exact) when they are stored.
-template <typename WT>
-struct TcRaw;
-template <>
-struct TcRaw<__nv_bfloat16> {
-  using type = uint4;
-  static __device__ __forceinline__ uint4 load(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  static __device__ __forceinline__ uint4 to_bf16(const uint4& u) { return u; }
-};
-template <>
-struct TcRaw<int8_t> {
-  using type = uint2;
-  static __device__ __forceinline__ uint2 load(const int8_t* p) {
-    return __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  static __device__ __forceinline__ uint4 to_bf16(const uint2& u) {
-    float f[8];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      f[b] = i8_at(u.x, b);
-      f[4 + b] = i8_at(u.y, b);
-    }
-    return pack(f);
-  }
-};
 
 template <typename WT>
-__global__ void __launch_bounds__(kTcWarps * 32) tf_dense_tc(TfDense p, int M, int N, int K) {
-  if (skipped(p.skip)) return;
-  using namespace nvcuda;
-  using bf = __nv_bfloat16;
-  extern __shared__ __align__(32) unsigned char tc_smem[];  // As [kTcM][K + 8] (prologue modes)
-  __shared__ __align__(32) bf Bw[kTcWarps][kTcUnroll][16 * kTcN];  // a warp's weight tiles
-  __shared__ __align__(32) bf Aw[kTcWarps][kTcUnroll][kTcM * 16];  // its row tiles (kARows)
-  __shared__ __align__(32) float Cs[kTcWarps][kTcM * kTcN];
-  const int m0 = blockIdx.y * kTcM, n0 = blockIdx.x * kTcN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const bool rows = p.a_mode == kARows;
-  const bf* A = static_cast<const bf*>(p.a) + (long)m0 * K;
-  const bf* As = reinterpret_cast<const bf*>(tc_smem);
-  const int lda = K + 8;
-  if (!rows) {
-    tc_stage_rows(p, reinterpret_cast<bf*>(tc_smem), lda, m0, M, K);
+static bool launch_fma(const TfDense& p, int M, int N, int K, bool pdl, cudaStream_t stream) {
+  if (M > 8 && (size_t)16 * K * sizeof(float) <= kMaxDynamicSmem)
+    return launch_fma_tile<WT, 16>(p, M, N, K, pdl, stream);
+  return launch_fma_tile<WT, 8>(p, M, N, K, pdl, stream);
+}
+
+// ---- bf16 and int8 weight streams: the weight-streaming product ----
+
+namespace wsp {
+
+constexpr int kThreads = 256;  // 8 warps: 4 column strips x 2 (row halves or k halves)
+constexpr int kNT = 64;        // output columns of a block
+constexpr int kKC = 32;        // k rows of a ring stage
+constexpr int kLdW = kNT + 8;  // bf16 weight slab row: 144 B, ldmatrix rows on distinct banks
+constexpr int kLdW8 = kNT + 16;  // int8 weight slab row: 80 B, byte loads on distinct banks
+constexpr int kLdA = kKC + 8;  // bf16 activation row: 80 B
+constexpr int kLdX = kKC + 4;  // float32 activation row (LayerNorm input): 144 B
+constexpr int kLdC = kNT + 4;  // float32 row of the block's output tile
+constexpr int kMinBlocks = 128;
+constexpr int kMaxSplits = 8;  // a cluster's blocks (the portable cluster size)
+
+// MT row tiles of 8 per warp; KG = 2: the warp pairs split each stage's two
+// 16-deep steps (8 rows), KG = 1: they split the rows.
+template <int MT, int KG>
+struct Shape {
+  static constexpr int RB = 8 * MT * (2 / KG);  // rows of a block
+  static constexpr int STAGES = RB <= 16 ? 16 : RB <= 32 ? 6 : 4;
+};
+// Rows up to which a product normalizes its LayerNorm rows itself, as its
+// fragments are formed; beyond, tf_layernorm writes them once in bf16.
+constexpr int kLnRows = 16;
+
+// A ring stage: the weight slab [kKC][64] (bf16, or int8 copied raw), then
+// the stage's LayerNorm gain and offset [2][kKC]; the activation rows
+// [RB][kKC], float32 under a LayerNorm, else bf16 (room for the larger).
+template <typename WT>
+__host__ __device__ constexpr int w_slab_bytes() {
+  return std::is_same<WT, int8_t>::value ? kKC * kLdW8 : kKC * kLdW * 2;
+}
+template <typename WT>
+__host__ __device__ constexpr int w_stage_bytes() {
+  return w_slab_bytes<WT>() + 2 * kKC * 4;
+}
+__host__ __device__ constexpr int a_stage_bytes(int RB) { return RB * kLdX * 4; }
+
+template <typename WT, int MT, int KG>
+__host__ __device__ constexpr size_t ring_bytes() {
+  using S = Shape<MT, KG>;
+  // a LayerNorm product's rows are float32 (<= kLnRows rows), else bf16
+  const int a_bytes = S::RB <= kLnRows ? a_stage_bytes(S::RB) : S::RB * kLdA * 2;
+  return (size_t)S::STAGES * (w_stage_bytes<WT>() + a_bytes);
+}
+// The ring, then the partial sums a block receives: a slot per (split, warp
+// group) of the rows it finalizes, [splits KG][ceil(RB / splits)][kLdC].
+template <typename WT, int MT, int KG>
+__host__ __device__ constexpr size_t smem_bytes(int splits) {
+  using S = Shape<MT, KG>;
+  return ring_bytes<WT, MT, KG>() +
+         (size_t)splits * KG * ((S::RB + splits - 1) / splits) * kLdC * 4;
+}
+
+// Rows of a block, blocks and K splits (a cluster's blocks) of one product.
+struct Plan {
+  int rb, chunks, tiles, splits;
+};
+static Plan plan(int M, int N, int K) {
+  Plan s;
+  s.rb = M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : M <= 64 ? 64 : 128;
+  s.chunks = (M + s.rb - 1) / s.rb;
+  s.tiles = N / kNT;
+  const int nst = K / kKC;
+  s.splits = 1;
+  while (s.splits * 2 <= nst && s.splits < kMaxSplits &&
+         s.tiles * s.chunks * s.splits < kMinBlocks)
+    s.splits *= 2;
+  return s;
+}
+
+// Mean and sum of squared deviations of x's row over one 64-column tile, from
+// a warp whose lane holds columns 2 lane and 2 lane + 1; lane 0 writes them.
+__device__ __forceinline__ void tile_row_stats(float x0, float x1, float2* dst, int lane) {
+  const float mean = warp_sum(x0 + x1) / kNT;
+  const float d0 = x0 - mean, d1 = x1 - mean;
+  const float m2 = warp_sum(d0 * d0 + d1 * d1);
+  if (lane == 0) *dst = make_float2(mean, m2);
+}
+
+// Two int8 weights (rows k and k + 1 of column n of a raw slab) as a bf16
+// pair: exact.
+__device__ __forceinline__ uint32_t i8_pair(const int8_t* slab, int k, int n) {
+  return pack_bf16x2((float)slab[k * kLdW8 + n], (float)slab[(k + 1) * kLdW8 + n]);
+}
+
+template <typename WT, int MT, int KG>
+__global__ void __launch_bounds__(kThreads, 2) tf_stream(TfDense p, int M, int N, int K) {
+  using Sh = Shape<MT, KG>;
+  constexpr int RB = Sh::RB, ST = Sh::STAGES;
+  constexpr bool kI8 = std::is_same<WT, int8_t>::value;
+  constexpr int WSB = w_stage_bytes<WT>();
+  constexpr int ASB = RB <= kLnRows ? a_stage_bytes(RB) : RB * kLdA * 2;
+  extern __shared__ __align__(128) unsigned char ws_smem[];
+  unsigned char* wring = ws_smem;
+  unsigned char* aring = ws_smem + ST * WSB;
+  float* Rb = reinterpret_cast<float*>(ws_smem + ring_bytes<WT, MT, KG>());  // partials received
+  __shared__ float mu[RB], rstd[RB];
+  __shared__ int gword[RB];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tile = blockIdx.x, chunk = blockIdx.z;
+  const int splits = gridDim.y, split = (int)cluster.block_rank();  // the cluster spans y
+  const int n0 = tile * kNT, m0 = chunk * RB;
+  const int nst = K / kKC;
+  const int s_beg = (int)((long)split * nst / splits);
+  const int n = (int)((long)(split + 1) * nst / splits) - s_beg;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const bool ln = RB <= kLnRows && p.a_mode == kALayerNorm;
+
+  if (flag_set(p.skip)) return;
+  const WT* W = static_cast<const WT*>(p.w);
+  auto load_w = [&](int j) {  // the block's stage j into slot j % ST
+    unsigned char* dst = wring + (j % ST) * WSB;
+    const int k0 = (s_beg + j) * kKC;
+    constexpr int CPR = kNT * (int)sizeof(WT) / 16;  // 16-byte chunks of a slab row
+    for (int i = tid; i < kKC * CPR; i += kThreads) {
+      const int r = i / CPR, c = i % CPR;
+      cp_async16(dst + r * (kI8 ? kLdW8 : kLdW * 2) + c * 16,
+                 W + (long)(k0 + r) * N + n0 + c * (16 / (int)sizeof(WT)), 16);
+    }
+    if (ln && tid < 2 * kKC / 4) {  // the gain and offset of the stage's k
+      const float* src = (tid < kKC / 4 ? p.ln_g : p.ln_b) + k0 + (tid % (kKC / 4)) * 4;
+      cp_async16(dst + w_slab_bytes<WT>() + tid * 16, src, 16);
+    }
+  };
+  // the weights first: they do not depend on the kernel before this one
+  for (int j = 0; j < ST; ++j) {
+    if (j < n) load_w(j);
+    cp_async_commit();
+  }
+  // the epilogue's operands of this lane's two columns (weights too)
+  const int c0 = 2 * lane;
+  const float2 bias2 = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + c0));
+  const float2 scale2 = p.w_scale != nullptr
+                            ? __ldg(reinterpret_cast<const float2*>(p.w_scale + n0 + c0))
+                            : make_float2(1.f, 1.f);
+  const float2 pos2 = p.e_mode == kEEmbed
+                          ? __ldg(reinterpret_cast<const float2*>(p.pos + n0 + c0))
+                          : make_float2(0.f, 0.f);
+  griddep_wait();
+  if (flag_set(p.skip)) {
+    cp_async_wait<0>();
+    return;
+  }
+
+  if (p.a_mode == kAGather) {
+    for (int r = tid; r < RB; r += kThreads)
+      gword[r] = m0 + r < M ? __ldcg(p.word + m0 + r) : p.pad;
     __syncthreads();
   }
-  // lane's 16-byte share of a 16 x 16 tile: row lane / 2, columns (lane % 2) * 8
-  const int tr = lane / 2, tc = (lane % 2) * 8;
-  const WT* w = static_cast<const WT*>(p.w) + n0 + tc;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  const int kq = K / kTcWarps, k_hi = (warp + 1) * kq;
-  for (int k0 = warp * kq; k0 < k_hi; k0 += 16 * kTcUnroll) {
-    typename TcRaw<WT>::type bv[kTcUnroll];
-    uint4 av[kTcUnroll][2];
+  // LayerNorm: a warp per row, lane t holding x's tile t (mean, squared
+  // deviations), loaded before the rows (which queue behind them)
+  constexpr int kRowsPerWarp = RB <= kLnRows ? RB / 8 : 1;
+  const int nt = K / kNT;
+  float2 st[kRowsPerWarp];
+  if (ln) {
 #pragma unroll
-    for (int u = 0; u < kTcUnroll; ++u) {  // every load of the kTcUnroll k-steps in flight
-      const int k = k0 + 16 * u;
-      if (k >= k_hi) continue;
-      bv[u] = TcRaw<WT>::load(w + (long)(k + tr) * N);
-      if (rows) {
-        av[u][0] = __ldg(reinterpret_cast<const uint4*>(A + (long)tr * K + k + tc));
-        av[u][1] = __ldg(reinterpret_cast<const uint4*>(A + (long)(tr + 16) * K + k + tc));
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int row = m0 + warp + 8 * i;
+      st[i] = lane < nt && row < M ? __ldcg(p.stats + (long)lane * M + row)
+                                   : make_float2(0.f, 0.f);
+    }
+  }
+  auto load_a = [&](int j) {
+    unsigned char* dst = aring + (j % ST) * ASB;
+    const int k0 = (s_beg + j) * kKC;
+    if (ln) {  // float32 x rows: 8 chunks a row
+      const float* x = static_cast<const float*>(p.a);
+      for (int i = tid; i < RB * 8; i += kThreads) {
+        const int r = i / 8, c = i % 8, row = m0 + r;
+        const bool in = row < M;
+        cp_async16(dst + (r * kLdX + c * 4) * 4, in ? x + (long)row * K + k0 + c * 4 : x,
+                   in ? 16 : 0);
+      }
+    } else {  // bf16 rows: the activation, or the word's table row (<pad>: zeros)
+      const bf* a = static_cast<const bf*>(p.a);
+      for (int i = tid; i < RB * 4; i += kThreads) {
+        const int r = i / 4, c = i % 4, row = m0 + r;
+        long src = row < M ? row : -1;
+        if (p.a_mode == kAGather) src = gword[r] == p.pad ? -1 : gword[r];
+        cp_async16(dst + (r * kLdA + c * 8) * 2, src >= 0 ? a + src * K + k0 + c * 8 : a,
+                   src >= 0 ? 16 : 0);
       }
     }
+  };
+  for (int j = 0; j < ST && j < n; ++j) load_a(j);
+  cp_async_commit();
+  griddep_launch_dependents();
+  if (ln) {
 #pragma unroll
-    for (int u = 0; u < kTcUnroll; ++u) {
-      if (k0 + 16 * u >= k_hi) continue;
-      *reinterpret_cast<uint4*>(&Bw[warp][u][tr * kTcN + tc]) = TcRaw<WT>::to_bf16(bv[u]);
-      if (rows) {
-        *reinterpret_cast<uint4*>(&Aw[warp][u][tr * 16 + tc]) = av[u][0];
-        *reinterpret_cast<uint4*>(&Aw[warp][u][(tr + 16) * 16 + tc]) = av[u][1];
+    for (int i = 0; i < kRowsPerWarp; ++i) {  // equal tiles: the mean of the means, then
+      const float mean = warp_sum(st[i].x) / nt;  // M2 = sum M2_t + 64 (mean_t - mean)^2
+      const float d = st[i].x - mean;
+      const float m2 = warp_sum(lane < nt ? st[i].y + kNT * d * d : 0.f);
+      if (lane == 0) {
+        mu[warp + 8 * i] = mean;
+        rstd[warp + 8 * i] = m0 + warp + 8 * i < M ? rsqrtf(m2 / K + kLnEps) : 0.f;
       }
     }
-    __syncwarp();
+    __syncthreads();
+  }
+
+  const int strip = warp & 3, grp = warp >> 2;
+  const int r_base = KG == 1 ? grp * 8 * MT : 0;
+  const int g = lane >> 2, c = lane & 3;
+  float mu_t[MT], rs_t[MT];  // rows r_base + 8 t + g
 #pragma unroll
-    for (int u = 0; u < kTcUnroll; ++u) {
-      const int k = k0 + 16 * u;
-      if (k >= k_hi) continue;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, wmma::row_major> a0, a1;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, wmma::row_major> b;
-      wmma::load_matrix_sync(b, Bw[warp][u], kTcN);
-      if (rows) {
-        wmma::load_matrix_sync(a0, Aw[warp][u], 16);
-        wmma::load_matrix_sync(a1, Aw[warp][u] + 16 * 16, 16);
+  for (int t = 0; t < MT; ++t) {
+    mu_t[t] = ln ? mu[r_base + 8 * t + g] : 0.f;
+    rs_t[t] = ln ? rstd[r_base + 8 * t + g] : 0.f;
+  }
+  float acc[MT][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  // stage j's products: its weight slab's fragments (int8 widened, as
+  // formed) against the block's rows (normalized as formed, under a
+  // LayerNorm up to kLnRows rows)
+  auto stage = [&](int j) {
+    const unsigned char* ws = wring + (j % ST) * WSB;
+    const unsigned char* as = aring + (j % ST) * ASB;
+#pragma unroll
+    for (int ks = 0; ks < kKC / 16; ++ks) {
+      if (KG == 2 && ks != grp) continue;
+      uint32_t a[4];  // the weight's 16 columns x 16 k of this warp's strip
+      if constexpr (kI8) {  // widened to bf16 as the fragment is formed
+        const int8_t* slab = reinterpret_cast<const int8_t*>(ws);
+        const int k = ks * 16 + 2 * c, col = strip * 16 + g;
+        a[0] = i8_pair(slab, k, col);
+        a[1] = i8_pair(slab, k, col + 8);
+        a[2] = i8_pair(slab, k + 8, col);
+        a[3] = i8_pair(slab, k + 8, col + 8);
       } else {
-        wmma::load_matrix_sync(a0, As + k, lda);
-        wmma::load_matrix_sync(a1, As + 16L * lda + k, lda);
+        ldmatrix_x4_trans(a, reinterpret_cast<const bf*>(ws) +
+                                 (ks * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdW +
+                                 strip * 16 + (((lane >> 3) & 1) << 3));
       }
-      wmma::mma_sync(acc[0], a0, b, acc[0]);
-      wmma::mma_sync(acc[1], a1, b, acc[1]);
+      if (ln) {  // the batch rows normalized to bf16 as the fragment is formed
+        const float* X = reinterpret_cast<const float*>(as);
+        const float* gb = reinterpret_cast<const float*>(ws + w_slab_bytes<WT>());
+        const int k = ks * 16 + 2 * c;
+        const float2 g0 = *reinterpret_cast<const float2*>(gb + k);
+        const float2 g1 = *reinterpret_cast<const float2*>(gb + k + 8);
+        const float2 b0 = *reinterpret_cast<const float2*>(gb + kKC + k);
+        const float2 b1 = *reinterpret_cast<const float2*>(gb + kKC + k + 8);
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          const float* xr = X + (r_base + 8 * t + g) * kLdX + k;
+          const float2 x0 = *reinterpret_cast<const float2*>(xr);
+          const float2 x1 = *reinterpret_cast<const float2*>(xr + 8);
+          const float m = mu_t[t], rs = rs_t[t];
+          mma_bf16(acc[t], a,
+                   pack_bf16x2((x0.x - m) * rs * g0.x + b0.x, (x0.y - m) * rs * g0.y + b0.y),
+                   pack_bf16x2((x1.x - m) * rs * g1.x + b1.x, (x1.y - m) * rs * g1.y + b1.y));
+        }
+      } else {
+        const bf* A = reinterpret_cast<const bf*>(as);
+#pragma unroll
+        for (int t = 0; t < MT; t += 2) {
+          const bf* arow = A + (r_base + t * 8 + (lane & 7)) * kLdA + ks * 16 +
+                           (((lane >> 3) & 1) << 3);
+          if (t + 1 < MT) {
+            uint32_t b[4];
+            ldmatrix_x4(b, arow + ((lane >> 4) << 3) * kLdA);
+            mma_bf16(acc[t], a, b[0], b[1]);
+            mma_bf16(acc[t + 1], a, b[2], b[3]);
+          } else {
+            uint32_t b[2];
+            ldmatrix_x2(b, arow);
+            mma_bf16(acc[t], a, b[0], b[1]);
+          }
+        }
+      }
     }
-    __syncwarp();  // the tiles are read before the next k-steps overwrite them
+  };
+  if (n <= ST) {  // the whole K range is in the ring: one wait, no more syncs
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int j = 0; j < n; ++j) stage(j);
+  } else {
+    for (int j = 0; j < n; ++j) {
+      if (j == 0)
+        cp_async_wait<0>();
+      else
+        cp_async_wait<ST - 2>();
+      __syncthreads();  // stage j is in; every warp is done with stage j - 1's slot
+      if (j >= 1 && j - 1 + ST < n) {
+        load_w(j - 1 + ST);
+        load_a(j - 1 + ST);
+      }
+      cp_async_commit();
+      stage(j);
+    }
   }
-  wmma::store_matrix_sync(Cs[warp], acc[0], kTcN, wmma::mem_row_major);
-  wmma::store_matrix_sync(Cs[warp] + 16 * kTcN, acc[1], kTcN, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kTcM * kTcN; e += blockDim.x) {
-    const int row = m0 + e / kTcN, col = n0 + e % kTcN;
-    if (row < M && col < N)
-      epilogue<bf>(p, ((Cs[0][e] + Cs[1][e]) + Cs[2][e]) + Cs[3][e], row, col, N);
+  cp_async_wait<0>();
+
+  // Each split's partial sums go straight into the shared memory of the
+  // block that finalizes their row (row r: the cluster's block r % splits),
+  // one slot per (split, warp group); one cluster barrier; then each block
+  // sums its rows' slots in order and runs their epilogue.
+  // acc[t]: output columns strip * 16 + g (+ 8), rows r_base + 8 t + 2 c (+ 1)
+  const int rpo = (RB + splits - 1) / splits;  // rows a block finalizes, at most
+  const int slot = split * KG + (KG == 2 ? grp : 0), slots = splits * KG;
+
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r_base + 8 * t + 2 * c + (e & 1), col = strip * 16 + g + (e & 2 ? 8 : 0);
+      if (m0 + r >= M) continue;
+      float* dst = splits == 1 ? Rb : cluster.map_shared_rank(Rb, r % splits);
+      dst[(slot * rpo + r / splits) * kLdC + col] = acc[t][e];
+    }
+  }
+  cluster.sync();  // every partial is in place
+
+  const bool stats = p.e_mode == kEResidual || p.e_mode == kEEmbed;
+  for (int li = warp; li < rpo; li += kThreads / 32) {
+    const int r = split + li * splits, row = m0 + r;
+    if (r >= RB || row >= M) break;
+    float s0 = 0.f, s1 = 0.f;  // the slots in order
+    for (int q = 0; q < slots; ++q) {
+      const float2 v = *reinterpret_cast<const float2*>(Rb + (q * rpo + li) * kLdC + c0);
+      s0 += v.x;
+      s1 += v.y;
+    }
+    const float2 xo = p.e_mode == kEResidual  // x as the kernel found it
+                          ? *reinterpret_cast<const float2*>(static_cast<const float*>(p.out) +
+                                                             (long)row * N + n0 + c0)
+                          : make_float2(0.f, 0.f);
+    const float x0 = epilogue<bf>(p, s0, row, n0 + c0, N, bias2.x, scale2.x, pos2.x, xo.x);
+    const float x1 = epilogue<bf>(p, s1, row, n0 + c0 + 1, N, bias2.y, scale2.y, pos2.y, xo.y);
+    if (stats) tile_row_stats(x0, x1, p.stats + (long)tile * M + row, lane);
   }
 }
 
-static bool tc_takes(const TfDense& p, int N, int K) {
-  return K % (16 * kTcWarps) == 0 && N % 16 == 0 && (p.a_mode != kALayerNorm || K <= kTcMaxLnK);
+// x's tile statistics, as the x-writing epilogues leave them, for a product
+// called on its own (capk_stream_product): a warp per (row, 64-column tile).
+__global__ void __launch_bounds__(256) tile_stats(const float* __restrict__ x, int M, int D,
+                                                  float2* __restrict__ stats) {
+  const int row = blockIdx.y * 8 + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const float2 v = *reinterpret_cast<const float2*>(x + (long)row * D + blockIdx.x * kNT +
+                                                    2 * lane);
+  tile_row_stats(v.x, v.y, stats + (long)blockIdx.x * M + row, lane);
 }
 
-template <typename WT>
-static bool launch_tf_dense_tc(const TfDense& p, int M, int N, int K, cudaStream_t stream) {
-  // the block's static tiles take 32 KB, so its dynamic limit stays below
-  // raise_smem_limit's 200 KB (static and dynamic share the 227 KB)
-  constexpr size_t kTcMaxDynamic = 160 * 1024;
+// The LayerNorm rows of the products with more than kLnRows rows: x [M, D]
+// float32 -> xn bf16, a warp per row (mean, then the squared deviations,
+// float32), the row's loads in flight together.
+constexpr int kLnMaxChunks = 8;  // float4 chunks a lane: D <= 1024
+__global__ void __launch_bounds__(256)
+    tf_layernorm(const float* __restrict__ x, const float* __restrict__ g,
+                 const float* __restrict__ b, bf* __restrict__ xn, int M, int D,
+                 const int* __restrict__ skip) {
+  if (pdl_enter(skip)) return;
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const float* xr = x + (long)row * D;
+  float4 v[kLnMaxChunks];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kLnMaxChunks; ++i) {
+    const int k = 4 * (lane + 32 * i);
+    v[i] = k < D ? *reinterpret_cast<const float4*>(xr + k) : make_float4(0.f, 0.f, 0.f, 0.f);
+    s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+  }
+  const float mean = warp_sum(s) / D;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < kLnMaxChunks; ++i) {
+    if (4 * (lane + 32 * i) >= D) continue;
+    const float d0 = v[i].x - mean, d1 = v[i].y - mean, d2 = v[i].z - mean, d3 = v[i].w - mean;
+    q = fmaf(d0, d0, fmaf(d1, d1, fmaf(d2, d2, fmaf(d3, d3, q))));
+  }
+  const float rs = rsqrtf(warp_sum(q) / D + kLnEps);
+#pragma unroll
+  for (int i = 0; i < kLnMaxChunks; ++i) {
+    const int k = 4 * (lane + 32 * i);
+    if (k >= D) continue;
+    const float4 gg = __ldg(reinterpret_cast<const float4*>(g + k));
+    const float4 bb = __ldg(reinterpret_cast<const float4*>(b + k));
+    *reinterpret_cast<uint2*>(xn + (long)row * D + k) =
+        make_uint2(pack_bf16x2((v[i].x - mean) * rs * gg.x + bb.x,
+                               (v[i].y - mean) * rs * gg.y + bb.y),
+                   pack_bf16x2((v[i].z - mean) * rs * gg.z + bb.z,
+                               (v[i].w - mean) * rs * gg.w + bb.w));
+  }
+}
+
+static bool launch_layernorm(const float* x, const float* g, const float* b, bf* xn, int M,
+                             int D, const int* skip, bool pdl, cudaStream_t stream) {
+  if (D % 4 || D > 128 * kLnMaxChunks) return false;
+  return launch_k(pdl, tf_layernorm, (M + 7) / 8, 256, 0, stream, x, g, b, xn, M, D, skip) ==
+         cudaSuccess;
+}
+
+template <typename WT, int MT, int KG>
+static bool launch_shape(const TfDense& p, int M, int N, int K, const Plan& s, bool pdl,
+                         cudaStream_t stream) {
+  size_t most = 0;
+  for (int sp = 1; sp <= kMaxSplits; sp *= 2) most = std::max(most, smem_bytes<WT, MT, KG>(sp));
   static const bool raised =
-      cudaFuncSetAttribute(tf_dense_tc<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kTcMaxDynamic) == cudaSuccess;
-  const size_t smem = p.a_mode == kARows ? 0 : (size_t)kTcM * (K + 8) * 2;
-  if (!raised || smem > kTcMaxDynamic) return false;
-  tf_dense_tc<WT><<<dim3(N / kTcN, (M + kTcM - 1) / kTcM), kTcWarps * 32, smem, stream>>>(
-      p, M, N, K);
-  return true;
+      cudaFuncSetAttribute(tf_stream<WT, MT, KG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)most) == cudaSuccess;
+  if (!raised) return false;
+  const size_t smem = smem_bytes<WT, MT, KG>(s.splits);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s.tiles, s.splits, s.chunks);
+  cfg.blockDim = kThreads;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;  // a cluster: the K splits of a tile
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = s.splits;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 2 : 1;
+  return cudaLaunchKernelEx(&cfg, tf_stream<WT, MT, KG>, p, M, N, K) == cudaSuccess;
 }
 
-template <typename T, typename WT, int MT>
-static bool launch_tf_tile(const TfDense& p, int M, int N, int K, cudaStream_t stream) {
-  constexpr int CV = TfTile<MT>::CV, KS = TfTile<MT>::KS;
-  static const bool raised = raise_smem_limit(tf_dense<T, WT, MT, CV, KS>);
-  const size_t smem = (size_t)MT * K * sizeof(T);
-  if (!raised || smem > kMaxDynamicSmem || N % Vec<T>::W != 0) return false;
-  const int cols = CV * Vec<T>::W;
-  dim3 grid((N + cols - 1) / cols, (M + MT - 1) / MT);
-  tf_dense<T, WT, MT, CV, KS><<<grid, CV * KS * 32, smem, stream>>>(p, M, N, K);
-  return true;
+// false for shapes it does not take: N a multiple of 64, K of 32 (of 64 under
+// a LayerNorm, whose row statistics tiles must also fit the activation ring).
+template <typename WT>
+static bool launch(const TfDense& p, int M, int N, int K, bool pdl, cudaStream_t stream) {
+  if (M < 1 || N < kNT || N % kNT || K < kKC || K % kKC ||
+      (p.a_mode == kALayerNorm && (M > kLnRows || K % kNT || K / kNT > 32)))
+    return false;  // (a LayerNorm row's statistics tiles: one a lane)
+  if ((p.a_mode == kALayerNorm || p.e_mode == kEResidual || p.e_mode == kEEmbed) &&
+      p.stats == nullptr)
+    return false;
+  const Plan s = plan(M, N, K);
+  switch (s.rb) {
+    case 8:
+      return launch_shape<WT, 1, 2>(p, M, N, K, s, pdl, stream);
+    case 16:
+      return launch_shape<WT, 1, 1>(p, M, N, K, s, pdl, stream);
+    case 32:
+      return launch_shape<WT, 2, 1>(p, M, N, K, s, pdl, stream);
+    case 64:
+      return launch_shape<WT, 4, 1>(p, M, N, K, s, pdl, stream);
+    default:
+      return launch_shape<WT, 8, 1>(p, M, N, K, s, pdl, stream);
+  }
 }
 
-template <typename T, typename WT>
-static bool launch_tf_dense_w(const TfDense& p, int M, int N, int K, cudaStream_t stream) {
-  if (std::is_same<T, __nv_bfloat16>::value && M >= kTcMinRows && tc_takes(p, N, K))
-    return launch_tf_dense_tc<typename std::conditional<std::is_same<WT, int8_t>::value, int8_t,
-                                                        __nv_bfloat16>::type>(p, M, N, K, stream);
-  if (M > 8 && (size_t)16 * K * sizeof(T) <= kMaxDynamicSmem)
-    return launch_tf_tile<T, WT, 16>(p, M, N, K, stream);
-  return launch_tf_tile<T, WT, 8>(p, M, N, K, stream);
-}
+}  // namespace wsp
 
-// T weights, or int8 weights when the product has their scales
+// A product of the decode: T weights, or int8 weights when the product has
+// their scales; float32 on the FMA product, bf16 on the weight-streaming one.
 template <typename T>
-static bool launch_tf_dense(const TfDense& p, int M, int N, int K, cudaStream_t stream) {
-  return p.w_scale != nullptr ? launch_tf_dense_w<T, int8_t>(p, M, N, K, stream)
-                              : launch_tf_dense_w<T, T>(p, M, N, K, stream);
+static bool launch_tf_dense(const TfDense& p, int M, int N, int K, bool pdl,
+                            cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return p.w_scale != nullptr ? launch_fma<int8_t>(p, M, N, K, pdl, stream)
+                                : launch_fma<float>(p, M, N, K, pdl, stream);
+  else
+    return p.w_scale != nullptr ? wsp::launch<int8_t>(p, M, N, K, pdl, stream)
+                                : wsp::launch<bf>(p, M, N, K, pdl, stream);
 }
 
 // ---- attention -------------------------------------------------------------------
@@ -569,7 +893,7 @@ __global__ void __launch_bounds__(kAttnThreads)
                  T* __restrict__ out,  // [B, D]
                  int n_grp, int per_grp, long ld_grp, int n_slots, int D, int dh,
                  const int* __restrict__ skip) {
-  if (skipped(skip)) return;
+  if (pdl_enter(skip)) return;
   extern __shared__ float sm[];
   float* qh = sm;      // [dh]
   float* w = sm + dh;  // [n_slots]
@@ -610,15 +934,15 @@ __global__ void __launch_bounds__(kAttnThreads)
 template <typename T, typename KT = T>
 static bool launch_attention(const void* q, const void* k, const void* v, void* out,
                              int n_grp, int per_grp, long ld_grp, int n_slots, int D,
-                             int heads, const int* skip, cudaStream_t stream,
+                             int heads, const int* skip, bool pdl, cudaStream_t stream,
                              const float* k_scale = nullptr, const float* v_scale = nullptr) {
   const int dh = D / heads;
   const size_t smem = ((size_t)dh + n_slots) * sizeof(float);
   if (smem > 48 * 1024) return false;
-  tf_attention<T, KT><<<dim3(n_grp, heads), kAttnThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v), k_scale,
-      v_scale, static_cast<T*>(out), n_grp, per_grp, ld_grp, n_slots, D, dh, skip);
-  return true;
+  return launch_k(pdl, tf_attention<T, KT>, dim3(n_grp, heads), kAttnThreads, smem, stream,
+                  static_cast<const T*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
+                  k_scale, v_scale, static_cast<T*>(out), n_grp, per_grp, ld_grp, n_slots, D,
+                  dh, skip) == cudaSuccess;
 }
 
 // ---- the step's tail -------------------------------------------------------------
@@ -628,7 +952,7 @@ static bool launch_attention(const void* q, const void* k, const void* v, void* 
 __global__ void __launch_bounds__(kTailThreads)
     greedy_finish(int* __restrict__ word, int* __restrict__ done, int* __restrict__ flag,
                   int* __restrict__ ids_t, int B, int pad, int stop, int early) {
-  if (*flag) return;
+  if (pdl_enter(flag)) return;
   int live = 0;
   for (int r = threadIdx.x; r < B; r += blockDim.x) {
     int wd = word[r];
@@ -656,7 +980,7 @@ __global__ void __launch_bounds__(kTailThreads)
                 int* __restrict__ word, int* __restrict__ src_rows,
                 int* __restrict__ words_t, int* __restrict__ srcs_t,  // step t's [B]
                 int* __restrict__ flag, int n_img, int W, int pad, int stop, int early) {
-  if (*flag) return;
+  if (pdl_enter(flag)) return;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int nc = W * W;
   for (int i = warp; i < n_img; i += blockDim.x / 32) {
@@ -735,7 +1059,7 @@ __global__ void __launch_bounds__(kTailThreads)
     beam_reorder(const T* __restrict__ kc, const T* __restrict__ vc, T* __restrict__ kc_out,
                  T* __restrict__ vc_out, const int* __restrict__ src_rows, int B, int n_steps,
                  int D, int n_pos, const int* __restrict__ skip) {
-  if (skipped(skip)) return;
+  if (pdl_enter(skip)) return;
   const int r = blockIdx.x, l = blockIdx.y;
   const long row_len = (long)n_steps * D;
   const T* src = (blockIdx.z ? vc : kc) + ((long)l * B + src_rows[r]) * row_len;
@@ -771,8 +1095,10 @@ struct TfPtrs {
   int *done, *flag;
   float* scores;
   int *lens, *src_rows, *words_tm, *srcs_tm;
+  float* stats;  // x's row statistics for the bf16 products, [D / 64][B] float2
+  void* xn;      // LayerNorm rows, bf16 [B, D], beyond wsp::kLnRows rows
 };
-static_assert(sizeof(TfPtrs) == 48 * sizeof(void*), "one pointer per field");
+static_assert(sizeof(TfPtrs) == 50 * sizeof(void*), "one pointer per field");
 
 // fused_transformer.py's ints, in order
 enum TfArg : int {
@@ -786,10 +1112,15 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
   const int W = a[kBeam], V = a[kVocab], E = a[kEmb], S = a[kSteps], heads = a[kHeads];
   const int pad = a[kPad], stop = a[kStop], early = a[kEarly];
   const bool beam = W > 0;
-  const int B = n_img * (beam ? W : 1), MT = B <= 8 ? 8 : 16;
-  const int nblk = (V + kVocabBlock - 1) / kVocabBlock;
+  const int B = n_img * (beam ? W : 1);
   const long cache_layer = (long)B * S * D;
   const bool w8 = a[kWInt8] != 0, m8 = a[kMemInt8] != 0;
+  // Programmatic dependent launch on every kernel up to 16 rows: there it
+  // hides the kernels' ramps and streams each product's weights in under the
+  // kernel before it; beyond, the dependents' early blocks and prefetches
+  // slowed the decodes (measured on an H100: bf16 32 rows +2%, 512 rows
+  // +11%, float32 32 rows +7%; PERF.md §6)
+  const bool pdl = B <= wsp::kLnRows;
   // element `off` of a layer stream or of the memory, T or int8
   auto at = [](const void* base, long off, bool i8) -> const void* {
     return static_cast<const char*>(base) + off * (i8 ? 1 : (long)sizeof(T));
@@ -821,13 +1152,22 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
     d.e_mode = e_mode;
     d.out = out;
     d.skip = p.flag;
+    d.stats = reinterpret_cast<float2*>(p.stats);
     return d;
+  };
+  // A LayerNorm product's rows: normalized by the product itself, or beyond
+  // wsp::kLnRows rows (bf16) by tf_layernorm into xn first (one more kernel)
+  const bool xn_rows = std::is_same<T, __nv_bfloat16>::value && B > wsp::kLnRows;
+  const int ln_mode = xn_rows ? kARows : kALayerNorm;
+  const void* ln_in = xn_rows ? p.xn : p.x;
+  auto norm = [&](const float* g, const float* b) {
+    return wsp::launch_layernorm(p.x, g, b, static_cast<bf*>(p.xn), B, D, p.flag, pdl, stream);
   };
   auto embed = [&](int t) {  // x = table[word] @ in_proj + b + pos[t]
     TfDense d = dense(kAGather, p.table, nullptr, nullptr, p.in_proj_w, p.in_proj_b, kEEmbed,
                       p.x, D, E);
     d.pos = p.pos + (long)t * D;
-    return launch_tf_dense<T>(d, B, D, E, stream);
+    return launch_tf_dense<T>(d, B, D, E, pdl, stream);
   };
 
   TF_LAUNCH(embed(0));
@@ -836,76 +1176,74 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
       const float* ln = p.ln + (long)l * 6 * D;
       const float* bm = p.b_misc + (long)l * 4 * D;
       const float* sm = scale(p.s_misc, (long)l * 3 * D);
-      TfDense qkv = dense(kALayerNorm, p.x, ln, ln + D, at(p.w_qkv, (long)l * D * 3 * D, w8),
+      if (xn_rows) TF_LAUNCH(norm(ln, ln + D));
+      TfDense qkv = dense(ln_mode, ln_in, ln, ln + D, at(p.w_qkv, (long)l * D * 3 * D, w8),
                           p.b_qkv + (long)l * 3 * D, kEQkv, p.q, 3 * D, D,
                           scale(p.s_qkv, (long)l * 3 * D));
       qkv.kc = kc + l * cache_layer;
       qkv.vc = vc + l * cache_layer;
       qkv.t = t;
       qkv.n_steps = S;
-      TF_LAUNCH(launch_tf_dense<T>(qkv, B, 3 * D, D, stream));
+      TF_LAUNCH(launch_tf_dense<T>(qkv, B, 3 * D, D, pdl, stream));
       TF_LAUNCH(launch_attention<T>(p.q, kc + l * cache_layer, vc + l * cache_layer, p.ctx, B,
-                                    1, (long)S * D, t + 1, D, heads, p.flag, stream));
+                                    1, (long)S * D, t + 1, D, heads, p.flag, pdl, stream));
       TF_LAUNCH(launch_tf_dense<T>(dense(kARows, p.ctx, nullptr, nullptr,
                                          at(p.w_o, (long)l * D * D, w8), bm, kEResidual, p.x, D,
                                          D, sm),
-                                   B, D, D, stream));
-      TF_LAUNCH(launch_tf_dense<T>(dense(kALayerNorm, p.x, ln + 2 * D, ln + 3 * D,
+                                   B, D, D, pdl, stream));
+      if (xn_rows) TF_LAUNCH(norm(ln + 2 * D, ln + 3 * D));
+      TF_LAUNCH(launch_tf_dense<T>(dense(ln_mode, ln_in, ln + 2 * D, ln + 3 * D,
                                          at(p.w_xq, (long)l * D * D, w8), bm + D, kEStore, p.q,
                                          D, D, w8 ? sm + D : nullptr),
-                                   B, D, D, stream));
+                                   B, D, D, pdl, stream));
       const long mk = (long)(2 * l) * n_img * M * D, mv = mk + (long)n_img * M * D;
       TF_LAUNCH(m8 ? launch_attention<T, int8_t>(p.q, at(p.mem_kv, mk, true),
                                                  at(p.mem_kv, mv, true), p.ctx, n_img,
                                                  beam ? W : 1, (long)M * D, M, D, heads, p.flag,
-                                                 stream, p.mem_scale + (long)(2 * l) * D,
+                                                 pdl, stream, p.mem_scale + (long)(2 * l) * D,
                                                  p.mem_scale + (long)(2 * l + 1) * D)
                    : launch_attention<T>(p.q, at(p.mem_kv, mk, false), at(p.mem_kv, mv, false),
                                          p.ctx, n_img, beam ? W : 1, (long)M * D, M, D, heads,
-                                         p.flag, stream));
+                                         p.flag, pdl, stream));
       TF_LAUNCH(launch_tf_dense<T>(dense(kARows, p.ctx, nullptr, nullptr,
                                          at(p.w_xo, (long)l * D * D, w8), bm + 2 * D, kEResidual,
                                          p.x, D, D, w8 ? sm + 2 * D : nullptr),
-                                   B, D, D, stream));
-      TF_LAUNCH(launch_tf_dense<T>(dense(kALayerNorm, p.x, ln + 4 * D, ln + 5 * D,
+                                   B, D, D, pdl, stream));
+      if (xn_rows) TF_LAUNCH(norm(ln + 4 * D, ln + 5 * D));
+      TF_LAUNCH(launch_tf_dense<T>(dense(ln_mode, ln_in, ln + 4 * D, ln + 5 * D,
                                          at(p.w_fc1, (long)l * D * F, w8), p.b_fc1 + (long)l * F,
                                          kEGelu, p.hmid, F, D, scale(p.s_fc1, (long)l * F)),
-                                   B, F, D, stream));
+                                   B, F, D, pdl, stream));
       TF_LAUNCH(launch_tf_dense<T>(dense(kARows, p.hmid, nullptr, nullptr,
                                          at(p.w_fc2, (long)l * F * D, w8), bm + 3 * D,
                                          kEResidual, p.x, D, F, scale(p.s_fc2, (long)l * D)),
-                                   B, D, F, stream));
+                                   B, D, F, pdl, stream));
     }
-    TF_LAUNCH(launch_tf_dense<T>(dense(kALayerNorm, p.x, p.lnf, p.lnf + D, p.out_proj_w,
+    if (xn_rows) TF_LAUNCH(norm(p.lnf, p.lnf + D));
+    TF_LAUNCH(launch_tf_dense<T>(dense(ln_mode, ln_in, p.lnf, p.lnf + D, p.out_proj_w,
                                        p.out_proj_b, kEStoreF32, p.proj, E, D),
-                                 B, E, D, stream));
+                                 B, E, D, pdl, stream));
     if (!beam) {
       // kernel A's tile kernel and merge (vocab_head.cu): two launches
       TF_LAUNCH(vocab_argmax_launch(a[kDtype], B, V, E, p.proj, p.table, p.out_bias, nullptr,
-                                    p.part_v, p.part_i, nblk, p.word, p.flag, stream));
+                                    p.part_v, p.part_i, vocab_argmax_width(V), p.word, p.flag,
+                                    pdl, stream));
       TF_LAUNCH(true);
-      greedy_finish<<<1, kTailThreads, 0, stream>>>(p.word, p.done, p.flag,
-                                                    p.words_tm + (long)t * B, B, pad, stop,
-                                                    early);
-      TF_LAUNCH(true);
+      TF_LAUNCH(launch_k(pdl, greedy_finish, 1, kTailThreads, 0, stream, p.word, p.done, p.flag,
+                         p.words_tm + (long)t * B, B, pad, stop, early) == cudaSuccess);
     } else {
-      TF_LAUNCH(MT == 8 ? launch_topk_partial<T, 8>(p.proj, p.table, p.out_bias, nullptr, W,
-                                                    p.part_v, p.part_i, p.part_m, p.part_s, B,
-                                                    V, E, p.flag, stream)
-                        : launch_topk_partial<T, 16>(p.proj, p.table, p.out_bias, nullptr, W,
-                                                     p.part_v, p.part_i, p.part_m, p.part_s, B,
-                                                     V, E, p.flag, stream));
-      topk_combine<<<B, kCombineThreads, 0, stream>>>(p.part_v, p.part_i, p.part_m, p.part_s,
-                                                      nblk, W, p.vals, p.ids_k, p.lse, p.flag);
+      // kernel C's tile kernel and merge (topk_head.cu): two launches
+      TF_LAUNCH(topk_head_launch(a[kDtype], B, V, E, W, p.proj, p.table, p.out_bias, nullptr,
+                                 p.part_v, p.part_i, p.part_m, p.part_s, p.vals, p.ids_k, p.lse,
+                                 p.flag, pdl, stream));
       TF_LAUNCH(true);
-      beam_select<<<1, kTailThreads, 0, stream>>>(
-          p.vals, p.ids_k, p.lse, p.scores, p.done, p.lens, p.word, p.src_rows,
-          p.words_tm + (long)t * B, p.srcs_tm + (long)t * B, p.flag, n_img, W, pad, stop, early);
-      TF_LAUNCH(true);
+      TF_LAUNCH(launch_k(pdl, beam_select, 1, kTailThreads, 0, stream, p.vals, p.ids_k, p.lse,
+                         p.scores, p.done, p.lens, p.word, p.src_rows, p.words_tm + (long)t * B,
+                         p.srcs_tm + (long)t * B, p.flag, n_img, W, pad, stop,
+                         early) == cudaSuccess);
       if (t + 1 < S) {
-        beam_reorder<T><<<dim3(B, L, 2), kTailThreads, 0, stream>>>(
-            kc, vc, kc_alt, vc_alt, p.src_rows, B, S, D, t + 1, p.flag);
-        TF_LAUNCH(true);
+        TF_LAUNCH(launch_k(pdl, beam_reorder<T>, dim3(B, L, 2), kTailThreads, 0, stream, kc, vc,
+                           kc_alt, vc_alt, p.src_rows, B, S, D, t + 1, p.flag) == cudaSuccess);
         T* tmp = kc;
         kc = kc_alt;
         kc_alt = tmp;
@@ -929,6 +1267,9 @@ static int decode_entry(const int* a, void* const* ptrs, cudaStream_t stream, in
       D % heads || a[kSlots] < 1 || a[kImages] < 1 || a[kSteps] < 1 || a[kVocab] < 1 ||
       (beam ? (W < 1 || W > kMaxBeam || W > a[kVocab]) : W != 0))
     return (int)cudaErrorInvalidValue;
+  // the weight-streaming products take whole 64-column tiles
+  if (a[kDtype] == kBF16 && (D % wsp::kNT || a[kFfn] % wsp::kNT || a[kEmb] % wsp::kNT))
+    return (int)cudaErrorInvalidValue;
   const TfPtrs& p = *reinterpret_cast<const TfPtrs*>(ptrs);
   // int8 streams need their scales; int8 memory (greedy only) its scales
   if ((a[kWInt8] && (!p.s_qkv || !p.s_misc || !p.s_fc1 || !p.s_fc2)) ||
@@ -945,21 +1286,87 @@ extern "C" {
 
 // One greedy decode (kernel D) enqueued on `stream`. args: capk::TfArg's
 // fields (kBeam = 0); ptrs: capk::TfPtrs's fields (the beam-only ones may be
-// null, and the scales unless kWInt8 / kMemInt8). words_tm [T, B] must hold <pad>, word [B] the start id, done [B] and
-// flag [1] zeros. *launches gets the number of kernels enqueued. Returns a
-// CUDA error code (cudaErrorInvalidValue for shapes the kernels do not take).
+// null, and the scales unless kWInt8 / kMemInt8; stats holds 2 (D / 64) B
+// floats, for bf16). words_tm [T, B] must hold <pad>,
+// word [B] the start id, done [B] and flag [1] zeros. *launches gets the
+// number of kernels enqueued. Returns a CUDA error code
+// (cudaErrorInvalidValue for shapes the kernels do not take).
 int capk_fused_greedy_decode(const int* args, void* const* ptrs, cudaStream_t stream,
                              int* launches) {
   return capk::decode_entry(args, ptrs, stream, launches, false);
 }
 
 // One beam-search decode (kernel E), 1 <= kBeam <= 8 slot-major rows per
-// image, float memory (kMemInt8 = 0). As capk_fused_greedy_decode, and: srcs_tm [T, B] must hold the
-// identity back-pointers (row r: r / n_img), scores [B] 0 for slot 0 and
-// -1e9 for the others, lens [B] zeros. done [B] holds the finished flags.
+// image, float memory (kMemInt8 = 0). As capk_fused_greedy_decode, and:
+// srcs_tm [T, B] must hold the identity back-pointers (row r: r / n_img),
+// scores [B] 0 for slot 0 and -1e9 for the others, lens [B] zeros. done [B]
+// holds the finished flags.
 int capk_fused_beam_decode(const int* args, void* const* ptrs, cudaStream_t stream,
                            int* launches) {
   return capk::decode_entry(args, ptrs, stream, launches, true);
+}
+
+// One weight-streaming product on its own (bf16 activations, bf16 or int8
+// weights), as a decode runs it. args: M, N, K, a_mode, e_mode, w_int8, pad,
+// t, n_steps, pdl (launched with programmatic dependent launch, as in a
+// decode: calls in a row overlap as a decode's products do); ptrs: a, ln_g,
+// ln_b, word, w, w_scale, bias, out, kc, vc, pos, stats, xn (capk::TfDense's
+// fields; a LayerNorm product reads x's statistics [K / 64][M] from stats,
+// as capk_tile_stats leaves them, and beyond wsp::kLnRows rows normalizes x
+// into xn [M, K] bf16 first, as a decode does; kEResidual and kEEmbed write
+// the statistics, [N / 64][M]). Returns a CUDA error code.
+int capk_stream_product(const int* args, void* const* ptrs, cudaStream_t stream) {
+  capk::TfDense d{};
+  d.a_mode = args[3];
+  d.e_mode = args[4];
+  d.pad = args[6];
+  d.t = args[7];
+  d.n_steps = args[8];
+  d.a = ptrs[0];
+  d.ln_g = static_cast<const float*>(ptrs[1]);
+  d.ln_b = static_cast<const float*>(ptrs[2]);
+  d.word = static_cast<const int*>(ptrs[3]);
+  d.w = ptrs[4];
+  d.w_scale = static_cast<const float*>(ptrs[5]);
+  d.bias = static_cast<const float*>(ptrs[6]);
+  d.out = ptrs[7];
+  d.kc = ptrs[8];
+  d.vc = ptrs[9];
+  d.pos = static_cast<const float*>(ptrs[10]);
+  d.stats = static_cast<float2*>(ptrs[11]);
+  if ((args[5] != 0) != (d.w_scale != nullptr) || d.a_mode < capk::kARows ||
+      d.a_mode > capk::kAGather || d.e_mode < capk::kEStore || d.e_mode > capk::kEEmbed)
+    return (int)cudaErrorInvalidValue;
+  if (d.a_mode == capk::kALayerNorm && args[0] > capk::wsp::kLnRows) {
+    __nv_bfloat16* xn = static_cast<__nv_bfloat16*>(ptrs[12]);
+    if (xn == nullptr || !capk::wsp::launch_layernorm(static_cast<const float*>(d.a), d.ln_g,
+                                                      d.ln_b, xn, args[0], args[2], nullptr,
+                                                      args[9] != 0, stream))
+      return (int)cudaErrorInvalidValue;
+    d.a_mode = capk::kARows;
+    d.a = xn;
+  }
+  const bool pdl = args[9] != 0;
+  const bool ok = args[5] ? capk::wsp::launch<int8_t>(d, args[0], args[1], args[2], pdl, stream)
+                          : capk::wsp::launch<__nv_bfloat16>(d, args[0], args[1], args[2], pdl,
+                                                             stream);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The K splits (a cluster's blocks) of a weight-streaming product of M rows,
+// [K, N] weights: split s takes the 32-row K chunks [s c / S, (s + 1) c / S),
+// c = K / 32.
+int capk_stream_product_splits(int M, int N, int K) { return capk::wsp::plan(M, N, K).splits; }
+
+// x [M, D]'s per-row statistics of each 64-column tile into stats [D / 64][M]
+// (mean, sum of squared deviations), as a decode's x-writing products leave
+// them. Returns a CUDA error code.
+int capk_tile_stats(const float* x, int M, int D, float* stats, cudaStream_t stream) {
+  if (M < 1 || D < capk::wsp::kNT || D % capk::wsp::kNT) return (int)cudaErrorInvalidValue;
+  capk::wsp::tile_stats<<<dim3(D / capk::wsp::kNT, (M + 7) / 8), 256, 0, stream>>>(
+      x, M, D, reinterpret_cast<float2*>(stats));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

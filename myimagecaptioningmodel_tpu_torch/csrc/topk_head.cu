@@ -9,7 +9,7 @@
 // from one grid step to the next. Blocks of a CUDA grid run in parallel and
 // in no order, so the running state becomes per-tile partials and a combine.
 //
-// Numerics (vocab_block.cuh's, the TPU kernel's): proj is rounded to the
+// Numerics (the TPU kernel's _block_logits): proj is rounded to the
 // table's dtype, or to bfloat16 for an int8 table (whose values are exact in
 // bfloat16); products accumulate in float32; an int8 table's scale
 // multiplies the sum, then the bias is added, as two rounded operations.
@@ -50,16 +50,18 @@
 // between calls that calls on two streams would share) and would run every
 // row's merge on the one SM that finishes last.
 //
-// Tie rule: larger, or equal with the lower index (better(), vocab_block.cuh),
+// Tie rule: larger, or equal with the lower index (better(), common.cuh),
 // at every comparison: within a thread the vocab rows come in ascending
 // order, so a strictly-better test keeps the earlier row first; lists, heads
 // and lanes merge with better(). So ids come out sorted by value and then
 // ascending index: jax.lax.top_k's order. 1 <= k <= 32.
 //
-// Kernel E (fused_transformer.cu) keeps its own head, vocab_block.cuh's
-// topk_partial and topk_combine.
+// Kernel E (fused_transformer.cu) runs both kernels as its head each step
+// (topk_head.cuh), with its early-stop flag and programmatic dependent launch.
+#include "topk_head.cuh"
+
+#include "common.cuh"
 #include "mma.cuh"
-#include "vocab_block.cuh"
 
 namespace capk {
 namespace topk {
@@ -396,7 +398,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 1 : 2)
               float* __restrict__ part_v,  // [M, nvt, k]
               int* __restrict__ part_i,    // [M, nvt, k]
               float* __restrict__ part_m,  // [M, nvt]
-              float* __restrict__ part_s) {  // [M, nvt]
+              float* __restrict__ part_s,  // [M, nvt]
+              const int* __restrict__ skip) {
+  if (pdl_enter(skip)) return;
   using S = typename Cfg<T>::S;
   constexpr int BT = Cfg<T>::BT, QT = kThreads / BT, LDL = ld_lg<T>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -490,7 +494,8 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
     topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
                const float* __restrict__ part_m, const float* __restrict__ part_s, int M,
                int nvt, int k, float* __restrict__ vals, int* __restrict__ ids,
-               float* __restrict__ lse) {
+               float* __restrict__ lse, const int* __restrict__ skip) {
+  if (pdl_enter(skip)) return;
   const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32, lane = threadIdx.x & 31;
   if (row >= M) return;  // a whole warp
   TopList<KB> top;
@@ -548,28 +553,48 @@ template <typename T, int KB>
 static bool launch(int M, int V, int E, int k, const float* proj, const void* table,
                    const float* bias, const float* scale, float* part_v, int* part_i,
                    float* part_m, float* part_s, float* vals, int* ids, float* lse,
-                   cudaStream_t stream) {
+                   const int* skip, bool pdl, cudaStream_t stream) {
   static const bool raised = raise_smem_limit(topk_tile<T, KB>);
   const size_t smem = smem_bytes<T>(E);
   if (!raised || smem > kMaxDynamicSmem) return false;
   const int nvt = (V + kVT - 1) / kVT;
-  topk_tile<T, KB><<<dim3(nvt, (M + kMB - 1) / kMB), kThreads, smem, stream>>>(
-      proj, static_cast<const T*>(table), bias, scale, M, V, E, k, part_v, part_i, part_m,
-      part_s);
-  if (cudaPeekAtLastError() != cudaSuccess) return true;  // reported by the caller
-  topk_merge<KB><<<(M + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream>>>(
-      part_v, part_i, part_m, part_s, M, nvt, k, vals, ids, lse);
+  if (launch_k(pdl, topk_tile<T, KB>, dim3(nvt, (M + kMB - 1) / kMB), kThreads, smem, stream,
+               proj, static_cast<const T*>(table), bias, scale, M, V, E, k, part_v, part_i,
+               part_m, part_s, skip) != cudaSuccess)
+    return true;  // reported by the caller
+  launch_k(pdl, topk_merge<KB>, (M + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
+           stream, part_v, part_i, part_m, part_s, M, nvt, k, vals, ids, lse, skip);
   return true;
 }
 
 }  // namespace topk
+
+int topk_head_vocab_tile() { return topk::kVT; }
+
+bool topk_head_launch(int table_dtype, int M, int V, int E, int k, const float* proj,
+                      const void* table, const float* bias, const float* scale, float* part_v,
+                      int* part_i, float* part_m, float* part_s, float* vals, int* ids,
+                      float* lse, const int* skip, bool pdl, cudaStream_t stream) {
+  if (M < 1 || V < 1 || E < 8 || E % 8 != 0 || k < 1 || k > kMaxK || k > V ||
+      (table_dtype == kI8) != (scale != nullptr))
+    return false;
+  return dispatch_table_dtype(table_dtype, [&](auto tag) {
+    using T = TableT<decltype(tag)>;
+    return topk::with_kb(k, [&](auto kb) {
+      return topk::launch<T, decltype(kb)::value>(M, V, E, k, proj, table, bias, scale, part_v,
+                                                  part_i, part_m, part_s, vals, ids, lse, skip,
+                                                  pdl, stream);
+    });
+  });
+}
+
 }  // namespace capk
 
 extern "C" {
 
 // Vocab rows of one tile of capk_topk_head: the partial buffers hold
 // ceil(V / tile) tiles per row.
-int capk_topk_head_vocab_tile() { return capk::topk::kVT; }
+int capk_topk_head_vocab_tile() { return capk::topk_head_vocab_tile(); }
 
 // vals[M, k], ids[M, k]: the top k of proj[M, E] . table[V, E]^T (* scale[V])
 // + bias[V] per row, sorted; lse[M]: the row's logsumexp. table_dtype and
@@ -581,18 +606,9 @@ int capk_topk_head(int table_dtype, int M, int V, int E, int k, const float* pro
                    const void* table, const float* bias, const float* scale,
                    float* part_v, int* part_i, float* part_m, float* part_s, float* vals,
                    int* ids, float* lse, cudaStream_t stream) {
-  if (M < 1 || V < 1 || E < 8 || E % 8 != 0 || k < 1 || k > capk::kMaxK || k > V ||
-      (table_dtype == capk::kI8) != (scale != nullptr))
+  if (!capk::topk_head_launch(table_dtype, M, V, E, k, proj, table, bias, scale, part_v, part_i,
+                              part_m, part_s, vals, ids, lse, nullptr, false, stream))
     return (int)cudaErrorInvalidValue;
-  const bool ok = capk::dispatch_table_dtype(table_dtype, [&](auto tag) {
-    using T = capk::TableT<decltype(tag)>;
-    return capk::topk::with_kb(k, [&](auto kb) {
-      return capk::topk::launch<T, decltype(kb)::value>(M, V, E, k, proj, table, bias, scale,
-                                                        part_v, part_i, part_m, part_s, vals,
-                                                        ids, lse, stream);
-    });
-  });
-  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -504,7 +504,7 @@ __global__ void __launch_bounds__(Sh::THREADS)
                 float* __restrict__ part_v,  // [M, pstride]
                 int* __restrict__ part_i,    // [M, pstride]
                 int pstride, const int* __restrict__ skip) {
-  if (skip != nullptr && *skip) return;
+  if (pdl_enter(skip)) return;
   // the vocab groups that meet in shared memory: the WM warp rows of the
   // tensor-core tile, every warp of the float32 one
   constexpr int NG = sizeof(typename Staged<T, Sh>::S) == 2 ? Sh::WM : Sh::THREADS / 32;
@@ -541,7 +541,7 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
     argmax_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
                  int pstride, int ntiles, int M, int* __restrict__ out,
                  const int* __restrict__ skip) {
-  if (skip != nullptr && *skip) return;
+  if (pdl_enter(skip)) return;
   const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32, lane = threadIdx.x & 31;
   if (row >= M) return;  // a whole warp
   const float* pv = part_v + (long)row * pstride;
@@ -573,16 +573,17 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
 template <typename T, class Sh>
 static bool launch(int M, int V, int E, const float* proj, const void* table, const float* bias,
                    const float* scale, float* part_v, int* part_i, int pstride, int* out,
-                   const int* skip, cudaStream_t stream) {
+                   const int* skip, bool pdl, cudaStream_t stream) {
   static const bool raised = raise_smem_limit(argmax_tile<T, Sh>);
   const size_t smem = smem_bytes<T, Sh>(E);
   if (!raised || smem > kMaxDynamicSmem) return false;
   const int ntiles = (V + Sh::VT - 1) / Sh::VT;
-  argmax_tile<T, Sh><<<dim3(ntiles, (M + Sh::MB - 1) / Sh::MB), Sh::THREADS, smem, stream>>>(
-      proj, static_cast<const T*>(table), bias, scale, M, V, E, part_v, part_i, pstride, skip);
-  if (cudaPeekAtLastError() != cudaSuccess) return true;  // reported by the caller
-  argmax_merge<<<(M + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream>>>(
-      part_v, part_i, pstride, ntiles, M, out, skip);
+  if (launch_k(pdl, argmax_tile<T, Sh>, dim3(ntiles, (M + Sh::MB - 1) / Sh::MB), Sh::THREADS,
+               smem, stream, proj, static_cast<const T*>(table), bias, scale, M, V, E, part_v,
+               part_i, pstride, skip) != cudaSuccess)
+    return true;  // reported by the caller
+  launch_k(pdl, argmax_merge, (M + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream,
+           part_v, part_i, pstride, ntiles, M, out, skip);
   return true;
 }
 
@@ -593,7 +594,7 @@ int vocab_argmax_width(int V) { return (V + 31) / 32; }  // the smallest VT
 bool vocab_argmax_launch(int table_dtype, int M, int V, int E, const float* proj,
                          const void* table, const float* bias, const float* scale,
                          float* part_v, int* part_i, int pstride, int* out, const int* skip,
-                         cudaStream_t stream) {
+                         bool pdl, cudaStream_t stream) {
   if (M < 1 || V < 1 || E < 8 || E % 8 != 0 || (table_dtype == kI8) != (scale != nullptr) ||
       pstride < vocab_argmax_width(V))
     return false;
@@ -601,12 +602,12 @@ bool vocab_argmax_launch(int table_dtype, int M, int V, int E, const float* proj
     using T = TableT<decltype(tag)>;
     if (M <= 8)
       return argmax::launch<T, argmax::Small8>(M, V, E, proj, table, bias, scale, part_v, part_i,
-                                               pstride, out, skip, stream);
+                                               pstride, out, skip, pdl, stream);
     if (M <= 16)
       return argmax::launch<T, argmax::Small16>(M, V, E, proj, table, bias, scale, part_v,
-                                                part_i, pstride, out, skip, stream);
+                                                part_i, pstride, out, skip, pdl, stream);
     return argmax::launch<T, argmax::Large>(M, V, E, proj, table, bias, scale, part_v, part_i,
-                                            pstride, out, skip, stream);
+                                            pstride, out, skip, pdl, stream);
   });
 }
 
@@ -634,7 +635,7 @@ int capk_vocab_argmax(int table_dtype, int M, int V, int E, const float* proj,
                       const void* table, const float* bias, const float* scale,
                       float* part_v, int* part_i, int* out, cudaStream_t stream) {
   if (!capk::vocab_argmax_launch(table_dtype, M, V, E, proj, table, bias, scale, part_v, part_i,
-                                 capk::vocab_argmax_width(V), out, nullptr, stream))
+                                 capk::vocab_argmax_width(V), out, nullptr, false, stream))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

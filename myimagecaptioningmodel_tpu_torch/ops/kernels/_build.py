@@ -51,6 +51,9 @@ _SIGNATURES = {
     "capk_matmul_stats": [_I] * 4 + [_VP] * 5 + [_I] + [_VP] * 3,
     "capk_fused_greedy_decode": [_PI, _PVP, _VP, _PI],
     "capk_fused_beam_decode": [_PI, _PVP, _VP, _PI],
+    "capk_stream_product": [_PI, _PVP, _VP],
+    "capk_stream_product_splits": [_I, _I, _I],
+    "capk_tile_stats": [_VP, _I, _I, _VP, _VP],
     "capk_fused_irb_splits": [_PI],
     "capk_fused_irb": [_PI, _PVP, _VP],
 }

@@ -12,11 +12,18 @@ logsumexp, then each image's top-W of its W^2 candidates, reorders the
 caches and keeps the finished/length bookkeeping. Early stop ends the decode
 once every row (every beam) is done.
 
-On CUDA tensors ``fused_greedy_decode`` and ``fused_beam_decode`` make one C
-call each that enqueues every kernel of the decode on PyTorch's stream
-(``csrc/fused_transformer.cu``, design and bounds in its note); early stop
-is a device-side flag, so a decode never synchronizes with the host. A shape
-the kernels cannot take raises. On CPU tensors they run the plain versions
+On CUDA tensors ``fused_greedy_decode`` and ``fused_beam_decode`` replay a
+CUDA graph of the C call that enqueues every kernel of the decode
+(``csrc/fused_transformer.cu``, design and bounds in its note): the first
+call of a ``decode_key`` (the C call's ints, the device and the packed
+weights' addresses) allocates the decode's own tensors and captures the
+call; every call copies its batch's image memory into the graph's copy and
+replays it on PyTorch's current stream (``DecodeGraphs``: at most 8 graphs
+and 3 GiB of their tensors, the least recently used dropped first). Early
+stop is a device-side flag, so a decode never synchronizes with the host.
+A shape the kernels cannot take raises; a failed launch or capture raises
+too (there is no eager or plain path for CUDA tensors). On CPU tensors they
+run the plain versions
 ``fused_greedy_decode_reference`` and ``fused_beam_decode_reference`` on the
 same packed tensors, built from ``models/transformer.py``'s own step (the
 packed tensors viewed as its params), so the decode's mathematics has one
@@ -57,6 +64,9 @@ kernels take any batch >= 1 and beam widths 1 to 8.
 from __future__ import annotations
 
 import ctypes
+import threading
+import time
+from collections import OrderedDict
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -75,6 +85,9 @@ from myimagecaptioningmodel_tpu_torch.ops.quantization import (
 
 NEG_INF = TM.NEG_INF  # beam score floor
 BEAM_MAX = 8  # csrc/fused_transformer.cu's kMaxBeam
+STREAM_TILE = 64  # csrc/fused_transformer.cu's wsp::kNT: output columns of a block
+LN_ROWS = 16  # its wsp::kLnRows: beyond, a LayerNorm product's rows are normalized first
+LN_MAX_DIM = 1024  # by tf_layernorm, which takes D <= 1024
 
 
 class FusedTransformerDecode(NamedTuple):
@@ -351,6 +364,11 @@ def _check(ftp: FusedTransformerDecode, max_length: int, n_heads: int, dt, rows:
     if D % 8 or E % 8 or F_ % 8 or D % n_heads:
         raise ValueError(f"kernels D and E take D, E, F in multiples of 8 and D a multiple "
                          f"of heads, got D={D}, E={E}, F={F_}, heads={n_heads}")
+    if dt == torch.bfloat16 and (D % STREAM_TILE or E % STREAM_TILE or F_ % STREAM_TILE or
+                                 (rows > LN_ROWS and D > LN_MAX_DIM)):
+        raise ValueError(f"the bfloat16 products take D, E, F in multiples of {STREAM_TILE} "
+                         f"(and D <= {LN_MAX_DIM} beyond {LN_ROWS} rows), got D={D}, E={E}, "
+                         f"F={F_}, rows={rows}")
     if not 1 <= max_length <= P:
         raise ValueError(f"max_length {max_length} outside 1..{P} (learned positions)")
     if rows < 1 or M < 1:
@@ -366,15 +384,22 @@ _PTR_FIELDS = ("w_qkv", "w_o", "w_xq", "w_xo", "w_fc1", "w_fc2", "b_qkv", "b_mis
                "mem_scale")
 _WORK_FIELDS = ("x", "q", "ctx", "hmid", "proj", "word", "kc0", "vc0", "kc1", "vc1",
                 "part_v", "part_i", "part_m", "part_s", "vals", "ids_k", "lse", "done",
-                "flag", "scores", "lens", "src_rows", "words_tm", "srcs_tm")
+                "flag", "scores", "lens", "src_rows", "words_tm", "srcs_tm", "stats", "xn")
+# the batch's inputs: copied into the graph's own tensors before each replay
+_INPUT_FIELDS = ("mem_kv", "mem_scale")
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _launch(entry: str, ftp, work: dict, ints, dev) -> int:
-    """One C call -> the number of kernels it enqueued."""
+    """One C call that enqueues a decode on the current stream, reading the
+    batch's inputs from ``work``'s copies -> the number of kernels it
+    enqueued."""
     lib = _build.load_library()
-    ptrs = [0 if getattr(ftp, f) is None else getattr(ftp, f).data_ptr()
-            for f in _PTR_FIELDS] + [
-        0 if work.get(f) is None else work[f].data_ptr() for f in _WORK_FIELDS]
+    ptrs = [_ptr(work.get(f) if f in _INPUT_FIELDS else getattr(ftp, f)) for f in _PTR_FIELDS]
+    ptrs += [_ptr(work.get(f)) for f in _WORK_FIELDS]
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     n = ctypes.c_int(0)
@@ -384,33 +409,161 @@ def _launch(entry: str, ftp, work: dict, ints, dev) -> int:
 
 
 def _work(ftp, rows, T, k, dt, beam: bool):
-    """Scratch, caches and state for one decode on ``rows`` rows."""
+    """A decode's own tensors on ``rows`` rows: scratch, caches, state, the
+    outputs and the copies of the batch's inputs (the CUDA graph's static
+    tensors), allocated before the capture."""
     L, D, F_, M, n_img, V, E = ftp.dims
     dev, f32, i32 = ftp.table.device, torch.float32, torch.int32
-    nblk = _build.load_library().capk_vocab_argmax_nblocks(V)
+    lib = _build.load_library()
 
     def empty(*shape, dtype=dt):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    # the tensor-core products read their activation rows in whole 32-row
-    # tiles: ctx and hmid carry zero rows up to the next multiple of 32
-    padded = -(-rows // 32) * 32
     work = dict(
-        x=empty(rows, D, dtype=f32), q=empty(rows, D),
-        ctx=torch.zeros((padded, D), dtype=dt, device=dev),
-        hmid=torch.zeros((padded, F_), dtype=dt, device=dev),
+        x=empty(rows, D, dtype=f32), q=empty(rows, D), ctx=empty(rows, D), hmid=empty(rows, F_),
         proj=empty(rows, E, dtype=f32), word=empty(rows, dtype=i32),
         kc0=empty(L, rows, T, D), vc0=empty(L, rows, T, D),
-        part_v=empty(rows, nblk, k, dtype=f32), part_i=empty(rows, nblk, k, dtype=i32),
-        done=torch.zeros(rows, dtype=i32, device=dev), flag=torch.zeros(1, dtype=i32, device=dev),
+        done=empty(rows, dtype=i32), flag=empty(1, dtype=i32), words_tm=empty(T, rows, dtype=i32),
+        stats=empty(D // STREAM_TILE, rows, 2, dtype=f32),  # x's row statistics, bf16 only
+        xn=empty(rows, D),  # LayerNorm rows, bf16 beyond LN_ROWS rows
+        mem_kv=torch.empty_like(ftp.mem_kv),
+        mem_scale=None if ftp.mem_scale is None else torch.empty_like(ftp.mem_scale),
     )
-    if beam:
+    if beam:  # kernel C's partial buffers: ceil(V / its vocab tile) tiles a row
+        nvt = -(-V // lib.capk_topk_head_vocab_tile())
+        b_rows = torch.arange(rows, device=dev)
         work.update(kc1=empty(L, rows, T, D), vc1=empty(L, rows, T, D),
-                    part_m=empty(rows, nblk, dtype=f32), part_s=empty(rows, nblk, dtype=f32),
+                    part_v=empty(rows, nvt, k, dtype=f32), part_i=empty(rows, nvt, k, dtype=i32),
+                    part_m=empty(rows, nvt, dtype=f32), part_s=empty(rows, nvt, dtype=f32),
                     vals=empty(rows, k, dtype=f32), ids_k=empty(rows, k, dtype=i32),
-                    lse=empty(rows, dtype=f32), lens=torch.zeros(rows, dtype=i32, device=dev),
-                    src_rows=empty(rows, dtype=i32))
+                    lse=empty(rows, dtype=f32), lens=empty(rows, dtype=i32),
+                    src_rows=empty(rows, dtype=i32), scores=empty(rows, dtype=f32),
+                    srcs_tm=empty(T, rows, dtype=i32),
+                    scores0=torch.where(b_rows < n_img, 0.0, NEG_INF).float(),
+                    srcs0=(b_rows // n_img).to(i32).expand(T, rows).contiguous())
+    else:  # kernel A's
+        nblk = lib.capk_vocab_argmax_nblocks(V)
+        work.update(part_v=empty(rows, nblk, dtype=f32), part_i=empty(rows, nblk, dtype=i32))
     return work
+
+
+def _reset(work: dict, start_idx: int, padding_idx: int) -> None:
+    """A decode's start state (captured in the graph, before the kernels)."""
+    work["word"].fill_(start_idx)
+    work["words_tm"].fill_(padding_idx)
+    work["done"].zero_()
+    work["flag"].zero_()
+    if "scores0" in work:
+        work["scores"].copy_(work["scores0"])
+        work["srcs_tm"].copy_(work["srcs0"])
+        work["lens"].zero_()
+
+
+def decode_key(entry: str, ftp: FusedTransformerDecode, ints) -> tuple:
+    """What fixes a captured decode: the entry, every int the C call takes
+    (dtype, dims, rows, beam, steps, heads, the start / pad / stop ids, early
+    stop, the int8 modes), the device, and the packed weights' addresses (a
+    bundle packs once; the graph reads them where they lie). The batch's
+    memory is not in it: each replay copies it in."""
+    weights = tuple((f, _ptr(getattr(ftp, f))) for f in _PTR_FIELDS if f not in _INPUT_FIELDS)
+    return (entry, str(ftp.table.device), tuple(int(i) for i in ints), weights)
+
+
+class _Captured(NamedTuple):
+    graph: object
+    work: dict
+    kernel_launches: int  # kernels a replay runs
+    capture_ms: float
+    nbytes: int
+
+
+def _nbytes(work: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in work.values() if t is not None)
+
+
+class DecodeGraphs:
+    """Captured decodes, one CUDA graph per ``decode_key``, the least recently
+    used dropped first: at most ``max_graphs`` of them and ``max_bytes`` of
+    their tensors (a single larger one is kept alone). ``run`` captures a
+    new key once and replays it on every later call, after copying the
+    batch's inputs into the graph's own tensors."""
+
+    def __init__(self, max_graphs: int = 8, max_bytes: int = 3 << 30):
+        self.max_graphs, self.max_bytes = max_graphs, max_bytes
+        self.entries: "OrderedDict[tuple, _Captured]" = OrderedDict()
+        self.captures = 0
+        self.replays = 0
+        self._lock = threading.Lock()
+
+    @property
+    def nbytes(self) -> int:
+        return sum(e.nbytes for e in self.entries.values())
+
+    @staticmethod
+    def capture(record, device):
+        """The CUDA graph of ``record()``'s work -> (graph, its result)."""
+        graph = torch.cuda.CUDAGraph()
+        # relaxed: the kernels' first launch sets their shared-memory limits
+        with torch.cuda.device(device), torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            out = record()
+        return graph, out
+
+    @staticmethod
+    def replay(graph) -> None:
+        graph.replay()
+
+    @staticmethod
+    def load(work: dict, inputs: dict) -> None:
+        """The batch's inputs into the graph's own tensors."""
+        for name, t in inputs.items():
+            if t is not None:
+                work[name].copy_(t)
+
+    def _evict(self, incoming: int) -> None:
+        while self.entries and (len(self.entries) >= self.max_graphs
+                                or self.nbytes + incoming > self.max_bytes):
+            self.entries.popitem(last=False)
+
+    def run(self, key, make_work, record, inputs: dict, outputs, device):
+        """Replay (capturing first if new) the decode of ``key`` on
+        ``inputs`` -> (outputs(work), the captured entry, whether this call
+        captured)."""
+        with self._lock:
+            entry = self.entries.get(key)
+            captured = entry is None
+            if captured:
+                work = make_work()
+                nbytes = _nbytes(work)
+                self._evict(nbytes)
+                t0 = time.perf_counter()
+                graph, launches = self.capture(lambda: record(work), device)
+                entry = _Captured(graph, work, launches, (time.perf_counter() - t0) * 1e3, nbytes)
+                self.entries[key] = entry
+                self.captures += 1
+            else:
+                self.entries.move_to_end(key)
+            self.load(entry.work, inputs)
+            self.replay(entry.graph)
+            self.replays += 1
+            return outputs(entry.work), entry, captured
+
+
+GRAPHS = DecodeGraphs()
+
+
+def _run(entry: str, fn, ftp, ints, rows, T, k, dt, beam, start_idx, padding_idx, outputs):
+    """One decode through the graph cache; sets ``fn``'s counters."""
+    dev = ftp.table.device
+    out, cap, captured = GRAPHS.run(
+        decode_key(entry, ftp, ints),
+        lambda: _work(ftp, rows, T, k, dt, beam),
+        lambda work: (_reset(work, start_idx, padding_idx),
+                      _launch(entry, ftp, work, ints, dev))[1],
+        {f: getattr(ftp, f) for f in _INPUT_FIELDS}, outputs, dev)
+    fn.kernel_launches = cap.kernel_launches
+    fn.capture_ms = cap.capture_ms if captured else None
+    fn.launches += 1
+    return out
 
 
 def fused_greedy_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: int,
@@ -418,7 +571,8 @@ def fused_greedy_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: i
                         compute_dtype=torch.bfloat16, early_stop: bool = False,
                         stop_idx: int = 3) -> torch.Tensor:
     """Whole greedy decode -> int32 ids [B, max_length] (B = the memory's
-    image count). Launches kernel D for CUDA tensors."""
+    image count). Launches kernel D for CUDA tensors, through a CUDA graph
+    captured once per ``decode_key``."""
     dev = ftp.table.device
     if dev.type == "cpu":
         return fused_greedy_decode_reference(ftp, max_length, n_heads, start_idx, padding_idx,
@@ -427,20 +581,16 @@ def fused_greedy_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: i
         raise ValueError(f"no kernel for device {dev}")
     dt, T = compute_dtype, max_length
     L, D, F_, M, B, V, E, P = _check(ftp, T, n_heads, dt, ftp.mem_kv.shape[2])
-    work = _work(ftp, B, T, 1, dt, beam=False)
-    work["word"].fill_(start_idx)
-    work["words_tm"] = torch.full((T, B), padding_idx, dtype=torch.int32, device=dev)
     ints = [_build.dtype_code(dt), L, D, F_, M, B, 0, V, E, T, n_heads, start_idx,
             padding_idx, stop_idx, int(early_stop), int(ftp.int8_stream),
             int(ftp.mem_scale is not None)]
-    fused_greedy_decode.kernel_launches = _launch("capk_fused_greedy_decode", ftp, work,
-                                                  ints, dev)
-    fused_greedy_decode.launches += 1
-    return work["words_tm"].T.contiguous()
+    return _run("capk_fused_greedy_decode", fused_greedy_decode, ftp, ints, B, T, 1, dt, False,
+                start_idx, padding_idx, lambda work: work["words_tm"].T.contiguous())
 
 
 fused_greedy_decode.launches = 0
-fused_greedy_decode.kernel_launches = 0  # kernels enqueued by the last call
+fused_greedy_decode.kernel_launches = 0  # kernels a decode of the last call's key runs
+fused_greedy_decode.capture_ms = None  # ms the last call spent capturing, None if it replayed
 
 
 def fused_beam_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: int,
@@ -450,7 +600,8 @@ def fused_beam_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: int
     """Whole beam search -> (words [T, n_img, W], srcs [T, n_img, W] int32,
     scores [n_img, W] float32, lengths [n_img, W] int32) for
     ``ops.backtrack.beam_backtrack``. Launches kernel E for CUDA
-    tensors. ``1 <= beam_size <= 8`` and float memory on every device."""
+    tensors, through a CUDA graph captured once per ``decode_key``.
+    ``1 <= beam_size <= 8`` and float memory on every device."""
     W = beam_size
     if not 1 <= W <= min(BEAM_MAX, ftp.table.shape[0]):
         raise ValueError(f"kernel E takes beam sizes 1 to {BEAM_MAX}, got {W}")
@@ -466,23 +617,129 @@ def fused_beam_decode(ftp: FusedTransformerDecode, max_length: int, n_heads: int
     n_img = ftp.mem_kv.shape[2]
     B = n_img * W
     L, D, F_, M, n_img, V, E, P = _check(ftp, T, n_heads, dt, B)
-    work = _work(ftp, B, T, W, dt, beam=True)
-    rows = torch.arange(B, device=dev)
-    work["word"].fill_(start_idx)
-    work["scores"] = torch.where(rows < n_img, 0.0, NEG_INF).float()
-    work["words_tm"] = torch.full((T, B), padding_idx, dtype=torch.int32, device=dev)
-    work["srcs_tm"] = (rows // n_img).to(torch.int32).expand(T, B).contiguous()
     ints = [_build.dtype_code(dt), L, D, F_, M, n_img, W, V, E, T, n_heads, start_idx,
             padding_idx, stop_idx, int(early_stop), int(ftp.int8_stream), 0]
-    fused_beam_decode.kernel_launches = _launch("capk_fused_beam_decode", ftp, work, ints, dev)
-    fused_beam_decode.launches += 1
 
-    def per_image_tm(a):
-        return a.reshape(T, W, n_img).permute(0, 2, 1)
+    def outputs(work):  # copies: the next replay rewrites the graph's tensors
+        def per_image_tm(a):
+            return a.reshape(T, W, n_img).permute(0, 2, 1).clone()
 
-    return (per_image_tm(work["words_tm"]), per_image_tm(work["srcs_tm"]),
-            work["scores"].reshape(W, n_img).T, work["lens"].reshape(W, n_img).T)
+        return (per_image_tm(work["words_tm"]), per_image_tm(work["srcs_tm"]),
+                work["scores"].reshape(W, n_img).T.clone(),
+                work["lens"].reshape(W, n_img).T.clone())
+
+    return _run("capk_fused_beam_decode", fused_beam_decode, ftp, ints, B, T, W, dt, True,
+                start_idx, padding_idx, outputs)
 
 
 fused_beam_decode.launches = 0
-fused_beam_decode.kernel_launches = 0  # kernels enqueued by the last call
+fused_beam_decode.kernel_launches = 0  # kernels a decode of the last call's key runs
+fused_beam_decode.capture_ms = None  # ms the last call spent capturing, None if it replayed
+
+
+# ---- one weight-streaming product on its own ------------------------------------
+
+A_MODES = {"rows": 0, "layernorm": 1, "gather": 2}
+E_MODES = {"store": 0, "store_f32": 1, "residual": 2, "qkv": 3, "gelu": 4, "embed": 5}
+
+
+def stream_splits(rows: int, N: int, K: int) -> int:
+    """K splits of the bf16 product of ``rows`` rows and a [K, N] weight:
+    split s takes the 32-row chunks [s c / S, (s + 1) c / S), c = K / 32."""
+    return _build.load_library().capk_stream_product_splits(rows, N, K)
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    """Rounded to bfloat16 (nearest even), as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def stream_product_reference(a, w, bias, mode="store", a_mode="rows", w_scale=None, ln_g=None,
+                             ln_b=None, word=None, pad=0, out=None, kc=None, vc=None, t=0,
+                             pos=None):
+    """Plain version of the decode's bf16 product (``stream_product``): the
+    rounded operands multiplied by one float32 ``torch.mm``, then the
+    epilogue's roundings (the product, the int8 scale, the bias) and its
+    mode. Writes and returns ``out`` as ``stream_product`` does."""
+    if a_mode == "layernorm":
+        A = TM._layer_norm({"g": ln_g, "b": ln_b}, a.float())
+    elif a_mode == "gather":
+        A = torch.where((word == pad)[:, None], 0.0, a[word.long()].float())
+    else:
+        A = a.float()
+    y = _bf(torch.mm(_bf(A), w.float()))
+    if w_scale is not None:
+        y = _bf(y * _bf(w_scale))
+    y = _bf(y + _bf(bias))
+    M, N = y.shape
+    out = _product_out(mode, M, N, out, a.device)
+    if mode == "residual":
+        out += y
+    elif mode == "embed":
+        out.copy_(y + pos)
+    elif mode == "gelu":
+        out.copy_(torch.nn.functional.gelu(y, approximate="tanh"))
+    elif mode == "qkv":
+        D = N // 3
+        out.copy_(y[:, :D])
+        kc[:, t] = y[:, D:2 * D].to(kc.dtype)
+        vc[:, t] = y[:, 2 * D:].to(vc.dtype)
+    else:
+        out.copy_(y)
+    return out
+
+
+def _product_out(mode, M, N, out, dev):
+    if out is not None:
+        return out
+    if mode in ("residual", "qkv"):
+        raise ValueError(f"mode {mode!r} writes into a given out")
+    dtype = torch.float32 if mode in ("store_f32", "embed") else torch.bfloat16
+    return torch.empty((M, N), dtype=dtype, device=dev)
+
+
+def stream_product(a, w, bias, mode="store", a_mode="rows", w_scale=None, ln_g=None, ln_b=None,
+                   word=None, pad=0, out=None, kc=None, vc=None, t=0, pos=None, *,
+                   pdl: bool = False):
+    """One product of kernels D and E as a bf16 decode runs it, on its own:
+    ``a`` [M, K] bf16 rows, float32 x under a LayerNorm (``ln_g``, ``ln_b``),
+    or a bf16 table [V, K] gathered by ``word`` [M] (``pad`` gathers zeros);
+    ``w`` [K, N] bf16, or int8 with ``w_scale`` [N]; ``bias`` [N] float32;
+    ``mode`` one of ``E_MODES``: "store" / "gelu" (bf16 out), "store_f32",
+    "residual" (out, float32 x, += y), "embed" (out = y + pos), "qkv" (q into
+    out [M, N / 3], k and v into kc / vc [M, steps, N / 3] at position t).
+    ``pdl``: launched with programmatic dependent launch, as a decode of
+    up to 16 rows launches it, so that calls in a row overlap (the next
+    one's weights stream in under this one). -> out. CPU tensors take
+    ``stream_product_reference``."""
+    if a.device.type == "cpu":
+        return stream_product_reference(a, w, bias, mode, a_mode, w_scale, ln_g, ln_b, word,
+                                        pad, out, kc, vc, t, pos)
+    dev = a.device
+    K, N = w.shape
+    M = word.shape[0] if a_mode == "gather" else a.shape[0]
+    if mode not in E_MODES or a_mode not in A_MODES:
+        raise ValueError(f"unknown mode {mode!r} / a_mode {a_mode!r}")
+    out = _product_out(mode, M, N, out, dev)
+    lib = _build.load_library()
+    stats = xn = None  # x's row statistics: read under a LayerNorm, written by residual and embed
+    if a_mode == "layernorm" or mode in ("residual", "embed"):
+        stats = torch.empty(max(K, N) // STREAM_TILE, M, 2, dtype=torch.float32, device=dev)
+    if a_mode == "layernorm" and M > LN_ROWS:
+        xn = torch.empty(M, K, dtype=torch.bfloat16, device=dev)
+    stream = _build.stream_ptr(dev)
+    if a_mode == "layernorm" and M <= LN_ROWS:  # as the decode's x-writing products leave them
+        _build.check(lib.capk_tile_stats(a.data_ptr(), M, K, stats.data_ptr(), stream),
+                     "capk_tile_stats")
+    ints = [M, N, K, A_MODES[a_mode], E_MODES[mode], int(w_scale is not None), pad, t,
+            0 if kc is None else kc.shape[1], int(pdl)]
+    ptrs = [_ptr(x) for x in (a, ln_g, ln_b, word, w, w_scale, bias, out, kc, vc, pos, stats,
+                              xn)]
+    _build.check(lib.capk_stream_product((ctypes.c_int * len(ints))(*ints),
+                                         (ctypes.c_void_p * len(ptrs))(*ptrs), stream),
+                 "capk_stream_product")
+    stream_product.launches += 1
+    return out
+
+
+stream_product.launches = 0

@@ -48,7 +48,14 @@ at B=1), and prepared weights with a shared split scratch give the same
 bits as a FoldedIRB. Kernel A at the edges of its tiling (B across the
 8-, 16- and 128-row batch tiles, vocabularies that are not whole tiles, E
 8, 24 and 256, every table dtype) under the near-tie rule, and ties inside
-one mma fragment, across lanes, warps and tiles to the lowest index.
+one mma fragment, across lanes, warps and tiles to the lowest index. D's
+and E's bf16 product (``stream_product``) at every (N, K) of a full-width
+decode step with the A operand and epilogue it has there, rows 1-512
+across its row tiles, bf16 and int8 weights, against a float32 ``torch.mm``
+of the same rounded operands (``stream_product_reference``), to one bf16 ulp
+at each element's magnitude plus 1e-3 of the largest (sums in other
+orders); and D and E at small dims replayed through one CUDA graph on two
+batches of other images, each held against its own plain decode as above.
 """
 
 import pytest
@@ -554,6 +561,130 @@ def test_cuda_kernel_e_int8_matches_plain(cuda, n_img, dt):
     rescore, steps = (tok * live).sum(dim=1), live.sum(dim=1)
     tol = (1e-4 if dt == torch.float32 else 2.5e-2) * steps.float().sqrt()
     assert ((rescore - score).abs() <= tol).all()
+
+
+# ---- kernels D and E: the weight-streaming product and the decode graphs -------------
+
+# (N, K, A operand, epilogue) of each product of a bf16 decode step
+STREAM_SHAPES = [(3072, 1024, "layernorm", "qkv"), (1024, 1024, "rows", "residual"),
+                 (1024, 1024, "layernorm", "store"), (4096, 1024, "layernorm", "gelu"),
+                 (1024, 4096, "rows", "residual"), (256, 1024, "layernorm", "store_f32"),
+                 (1024, 256, "gather", "embed")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 31, 33, 255, 257, 512])
+@pytest.mark.parametrize("N,K,a_mode,mode", STREAM_SHAPES)
+def test_cuda_stream_product_matches_mm(cuda, N, K, a_mode, mode, rows, int8):
+    g = torch.Generator().manual_seed(N + K + rows)
+    bf = torch.bfloat16
+    w = torch.randn(K, N, generator=g) / K ** 0.5
+    scale = None
+    if int8:
+        scale = (w.abs().amax(dim=0) / 127).to(cuda)
+        w = torch.round(w / scale.cpu()).to(torch.int8).to(cuda)
+    else:
+        w = w.to(cuda, bf)
+    bias = (0.1 * torch.randn(N, generator=g)).to(cuda)
+    kw = dict(w_scale=scale)
+    if a_mode == "gather":
+        a = torch.randn(300, K, generator=g).to(cuda, bf)
+        word = torch.randint(0, 300, (rows,), generator=g, dtype=torch.int32)
+        word[::3] = 0  # <pad>: zeros
+        kw.update(word=word.to(cuda), pad=0)
+    elif a_mode == "layernorm":
+        a = (3 * torch.randn(rows, K, generator=g) + 0.5).to(cuda)
+        kw.update(ln_g=(1 + 0.1 * torch.randn(K, generator=g)).to(cuda),
+                  ln_b=(0.1 * torch.randn(K, generator=g)).to(cuda))
+    else:
+        a = torch.randn(rows, K, generator=g).to(cuda, bf)
+    outs = {}
+    for name, fn in (("kernel", TFT.stream_product), ("plain", TFT.stream_product_reference)):
+        o = dict(kw)
+        if mode == "residual":
+            o["out"] = torch.ones(rows, N, device=cuda)
+        elif mode == "embed":
+            o["pos"] = torch.linspace(-1, 1, N, device=cuda)
+        elif mode == "qkv":
+            o.update(out=torch.zeros(rows, N // 3, dtype=bf, device=cuda), t=2,
+                     kc=torch.zeros(rows, 4, N // 3, dtype=bf, device=cuda),
+                     vc=torch.zeros(rows, 4, N // 3, dtype=bf, device=cuda))
+        n = TFT.stream_product.launches
+        out = fn(a, w, bias, mode, a_mode, **o)
+        torch.cuda.synchronize()
+        assert TFT.stream_product.launches == n + (name == "kernel")
+        outs[name] = [out] + ([o["kc"], o["vc"]] if mode == "qkv" else [])
+    # the float32 product (times the int8 scale): the two sums, taken in other
+    # orders, may round to neighbouring bf16 numbers, and that ulp carries
+    # through the scale, the bias and the mode's own rounding
+    A = a.float()
+    if a_mode == "gather":
+        A = torch.where((kw["word"] == 0)[:, None], 0.0, A[kw["word"].long()])
+    if a_mode == "layernorm":
+        A = TTF._layer_norm({"g": kw["ln_g"], "b": kw["ln_b"]}, A)
+    s = 1 if scale is None else scale
+    prod = (A @ w.float()).abs() * s
+    if a_mode == "layernorm":
+        # the kernel's row statistics and the plain two-pass ones differ in
+        # the last float32 bits, and an A element may round to the
+        # neighbouring bf16 number: at most one bf16 ulp (2^-8 of |A|) of
+        # each term of the sum
+        prod = prod + 2.0 ** -8 * (A.abs() @ w.float().abs()) * s
+    # the product's ulp carries through the scale's and the bias's roundings
+    # (and GELU's slope, at most 1.13): 2^-6 of the product and of the
+    # value before the mode
+    prod = prod + (A @ w.float() * s + bias).abs()
+    prods = [prod[:, :N // 3], prod[:, N // 3:2 * N // 3], prod[:, 2 * N // 3:]]
+    for i, (got, want) in enumerate(zip(outs["kernel"], outs["plain"])):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        got, want = got.float(), want.float()
+        if mode == "residual":  # x + y: y held
+            got, want = got - 1, want - 1
+        if mode == "embed":  # y + pos: y held
+            got, want = got - o["pos"], want - o["pos"]
+        p = prods[i] if mode == "qkv" else prod
+        if mode == "qkv" and i:
+            got, want = got[:, 2], want[:, 2]  # position t
+            assert not (outs["kernel"][i].float()[:, [0, 1, 3]]).any()
+        # and one bf16 ulp (at most 2^-7 of the magnitude) of the output
+        tol = 2.0 ** -6 * p + 2.0 ** -7 * want.abs() + 1e-6
+        assert ((got - want).abs() <= tol).all(), float(((got - want).abs() / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_d_e_replay_one_graph_on_two_batches(cuda, dt, beam):
+    params, _ = _tf_case(cuda, 8, dt, 2.5, seed=3)
+    pk = TFT.pack_weights(params, dt)
+    TFT.GRAPHS.entries.clear()  # no graph of an earlier test at these addresses
+    captures = TFT.GRAPHS.captures
+    for i, seed in enumerate((11, 12)):
+        gen = torch.Generator().manual_seed(seed)
+        img = torch.rand(8, 5, 256, generator=gen).to(cuda)
+        pre = TTF.precompute(params, img, torch.rand(8, 256, generator=gen).to(cuda), 2, dt)
+        ftp = TFT.prepare(params, pre, 2, dt, packed=pk)
+        if beam:
+            got = TFT.fused_beam_decode(ftp, 5, 2, 4, compute_dtype=dt, early_stop=True)
+            ref = TFT.fused_beam_decode_reference(ftp, 5, 2, 4, compute_dtype=dt,
+                                                  early_stop=True)
+            ids, score = beam_backtrack(*got, 0.0)
+            logits, live = _tf_logits(params, pre, ids, dt)
+            tok = torch.log_softmax(logits, dim=-1).gather(-1, ids.long()[..., None])[..., 0]
+            tol = (1e-4 if dt == torch.float32 else 2.5e-2) * live.sum(dim=1).float().sqrt()
+            assert (((tok * live).sum(dim=1) - score).abs() <= tol).all()
+            if dt == torch.float32:
+                assert all(torch.equal(a, b) for j, (a, b) in enumerate(zip(got, ref)) if j != 2)
+        else:
+            got = TFT.fused_greedy_decode(ftp, 5, 2, compute_dtype=dt, early_stop=True)
+            ref = TFT.fused_greedy_decode_reference(ftp, 5, 2, compute_dtype=dt, early_stop=True)
+            logits, live = _tf_logits(params, pre, got, dt)
+            assert _near_tie_ok(got[live], logits[live], dt) and (got[~live] == 0).all()
+            if dt == torch.float32:
+                assert torch.equal(got, ref)
+        torch.cuda.synchronize()
+        assert TFT.GRAPHS.captures == captures + 1, "the second batch replays the first's graph"
 
 
 # ---- kernel G: the fused inverted-residual block ------------------------------------
