@@ -1,12 +1,12 @@
 """Plant faults in kernel F's statistics, in the fused train step, in
-kernel E's inputs, in kernel G and the int8 modes of kernels D and E, and in
-kernel A, and read what each scores against ``chip_smoke.py``'s limits,
-beside the sound path.
+kernel E's inputs, in kernel G and the int8 modes of kernels D and E, in
+kernel A and in kernel B, and read what each scores against
+``chip_smoke.py``'s limits, beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
-only; nothing on disk changes. Six parts:
+only; nothing on disk changes. Seven parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -61,6 +61,19 @@ only; nothing on disk changes. Six parts:
    ``w_qkv``'s v block dropped; a decode replayed on the previous batch's
    memory (the graph's copy of the memory left out). Each must be caught
    in every case.
+
+7. Phases 3's and 20's checks of kernel B (the step at 8 and 128 rows with
+   its head and at 32 beam rows without it, h', c', proj to 3e-2, their
+   mean errors to ``B_MEAN_TOL`` and the word under the near-tie rule; the
+   greedy decode at B=8 under the near-tie rule, the beam decode on 8
+   images x 4 re-scored within 2e-3 a step), in
+   bfloat16, with faults the step could make: the gate weight interleaved
+   one hidden unit off; the gate product's last K split dropped (its rows
+   zeroed, the split as ``fused_step.product_splits`` plans it at 8, 32 and
+   128 rows); the attention's last H-slice left out of the scores (its
+   score weights zeroed); the sentinel gate reading h' instead of h_prev
+   (a plain stand-in for the step); the finish kernel writing step t's
+   words into row t - 1 (the decode's ids shifted). Each must be caught.
 
     python3 chip_fault_check.py --parts 3   # part 3 only
 
@@ -558,11 +571,175 @@ def stream_fault_readings(dev, seed):
     return caught
 
 
+# ---- part 7: kernel B -------------------------------------------------------------
+
+
+def _gate_units_shifted(pk):
+    """The gate weight interleaved one hidden unit off: unit j's five gate
+    columns hold unit j + 1's."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+
+    K, n5 = pk.w_gate.shape
+    w = FS.deinterleave_gates(pk.w_gate).reshape(K, 5, n5 // 5).roll(-1, dims=2)
+    return pk._replace(w_gate=FS.interleave_gates(w.reshape(K, n5)).contiguous())
+
+
+def _gate_last_split_dropped(rows):
+    """The gate weight's rows of the last K split of the product of ``rows``
+    rows zeroed, the split as ``fused_step.product_splits`` plans it."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+
+    def plant(pk):
+        K, n5 = pk.w_gate.shape
+        splits, chunks = FS.product_splits(rows, n5, K, gate=True), K // 32
+        w = pk.w_gate.clone()
+        w[(splits - 1) * chunks // splits * 32:] = 0
+        return pk._replace(w_gate=w)
+    return plant
+
+
+def _last_score_slice_dropped(pk):
+    """The attention's last H-slice left out of the scores: its score
+    weights zeroed, so its partials are 0."""
+    w = pk.w_score.clone()
+    w[:, -w.shape[1] // 8:] = 0
+    return pk._replace(w_score=w)
+
+
+def _sentinel_reads_new_h(fp, word_emb, h, c, img_k, img_v, with_head=True,
+                          compute_dtype=torch.bfloat16):
+    """The plain step with its sentinel gate on h' instead of h_prev (a
+    stand-in for a kernel with that fault) -> (h', c', proj, word')."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
+        greedy_vocab_argmax_reference,
+    )
+
+    fp = FS.unpack(fp) if isinstance(fp, FS.PackedStep) else fp
+    dt, H, B = compute_dtype, h.shape[1], h.shape[0]
+    h_new, c_new, _proj = FS._step_math(fp, word_emb, h, c, FS._per_row(img_k, B),
+                                        FS._per_row(img_v, B), dt)
+    # the sentinel gate's h-part on h' (the recurrent weight's last H columns)
+    gate = (FS._dot(word_emb, fp.w_word_cat[:, 4 * H:], dt) + FS._dot(h_new, fp.w_hh_cat[:, 4 * H:], dt)
+            + fp.gxb[:, 4 * H:])
+    sentinel = torch.sigmoid(gate) * torch.tanh(c_new)
+    p_hid = torch.tanh(FS._dot(h_new, fp.w_p, dt) + fp.b_p)
+    hid_emb = FS._dot(p_hid, fp.w_he, dt) + fp.b_he
+    sent_key = FS._dot(sentinel, fp.w_se, dt) + fp.b_se
+    ctx = FS._attention(fp.w_score, fp.b_score, hid_emb, sent_key, sentinel,
+                        FS._per_row(img_k, B), FS._per_row(img_v, B))
+    out = torch.tanh(FS._dot(ctx + p_hid, fp.w_out, dt) + fp.b_out)
+    proj = FS._dot(out, fp.w_proj, dt) + fp.b_proj
+    word = (greedy_vocab_argmax_reference(proj, fp.head_table, fp.head_bias) if with_head
+            else torch.zeros((B,), dtype=torch.int32, device=h.device))
+    return h_new, c_new, proj, word
+
+
+def b_fault_readings(dev, seed):
+    """Part 7 -> {fault: caught}: phase 3's check (bf16 at 8 and 128 rows
+    with the head, 32 beam rows on 8 images without it; h', c', proj to
+    3e-2, their mean errors to ``B_MEAN_TOL``, the word under the near-tie
+    rule) and phase 20's (greedy B=8 ids
+    under the near-tie rule against the plain step teacher-forced, beam 4 on
+    8 images re-scored within 2e-3 a step), each fault caught if any of them
+    fails, the sound kernel passing all."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import tree_to_torch
+    from myimagecaptioningmodel_tpu_torch.inference import beam as BM
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+
+    gen = torch.Generator().manual_seed(seed)
+    dims = D.DecoderDims(vocab_size=12295, embedding_size=S.E, hidden_dim=S.H,
+                         vocab_pad_multiple=128)
+    params = tree_to_torch(D.init(gen, dims), dev)
+    dt, T = torch.bfloat16, S.TF_STEPS
+    packed = FS.pack_weights(params, dt)
+
+    def pre_of(n):
+        img = torch.randn(n, S.K_SLOTS, S.H, generator=gen).to(dev)
+        return D.precompute(params, img, torch.randn(n, S.H, generator=gen).to(dev), dt)
+
+    steps = [(rows, head, S._step_inputs(dev, gen, rows, dt, params, S.b_images(rows, head)))
+             for rows, head in ((8, True), (128, True), (32, False))]
+    pre_g, pre_b = pre_of(8), pre_of(8)
+
+    def readings(plant=None, step=None, ids_fault=None):
+        """(ok, readings) of every check, the kernel's packed weights planted
+        by ``plant``, or ``step`` standing in for the kernel's step."""
+        out, ok = {}, True
+        for rows, head, args in steps:
+            pk = args[0] if plant is None else plant(args[0])
+            run = step or FS.fused_decode_step
+            got = run(pk, *args[1:], with_head=head, compute_dtype=dt)
+            torch.cuda.synchronize()
+            ref = FS.reference_step(*args, with_head=head, compute_dtype=dt)
+            errs, means = S.b_errors(got, ref)
+            err = max(errs)
+            good = err <= 3e-2 and max(means) <= S.B_MEAN_TOL[dt]
+            if head:
+                logits = torch.matmul(ref[2].to(dt).float(), args[0].table.float().T) + \
+                    args[0].head_bias
+                good = good and S.near_tie_ok(got[3], logits, dt)
+            out[f"step_{rows}_err"] = err
+            out[f"step_{rows}_mean_err"] = max(means)
+            ok = ok and good
+        pk = packed if plant is None else plant(packed)
+        if step is None:
+            ids = D.greedy_decode_ids(params, pre_g, T, compute_dtype=dt, use_kernels=True,
+                                      packed=pk)
+        else:  # the stand-in step's greedy decode
+            fp = FS.with_batch(pk, params, pre_g)
+            h = torch.zeros(8, S.H, device=dev)
+            c, word, cols = torch.zeros_like(h), torch.full((8,), 2, device=dev), []
+            for _t in range(T):
+                h, c, _p, word = step(fp, FS.gather_words(fp.table, word, 0), h, c,
+                                      pre_g.img_k.to(dt), pre_g.img_v.to(dt), compute_dtype=dt)
+                cols.append(word)
+            ids = torch.stack(cols, dim=1)
+        if ids_fault is not None:
+            ids = ids_fault(ids)
+        torch.cuda.synchronize()
+        good = S.lstm_greedy_ok(params, pre_g, ids, dt, False)
+        out["greedy_ok"] = good
+        ok = ok and good
+        if step is None and ids_fault is None:
+            bids, score = BM.beam_search_ids(params, pre_b, T, S.BEAM, compute_dtype=dt,
+                                             use_kernels=True, early_stop=True, packed=pk)
+            good, err = S.lstm_beam_ok(params, pre_b, bids, score, dt)
+            out.update(beam_ok=good, beam_rescore_err=err)
+            ok = ok and good
+        return ok, out
+
+    def finish_writes_row_before(ids):  # step t's words in row t - 1
+        return torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1)
+
+    faults = {"sound": lambda: readings(),
+              "gate_interleave_off_by_one_unit": lambda: readings(_gate_units_shifted),
+              "gate_last_k_split_dropped": None,  # planted for each checked row count
+              "last_h_slice_score_dropped": lambda: readings(_last_score_slice_dropped),
+              "sentinel_gate_reads_new_h": lambda: readings(step=_sentinel_reads_new_h),
+              "finish_writes_row_t_minus_1": lambda: readings(ids_fault=finish_writes_row_before)}
+    caught = {}
+    for fault, run in faults.items():
+        if run is None:
+            oks, out = [], {}
+            for rows in (8, 32, 128):
+                ok, r = readings(_gate_last_split_dropped(rows))
+                oks.append(ok)
+                out.update({f"{k}_planted_for_{rows}": v for k, v in r.items()})
+            ok = all(oks)
+        else:
+            ok, out = run()
+        caught[fault] = not ok
+        S.say("fault", check="phase3_20", dtype="bfloat16", fault=fault, caught=not ok, **out)
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", default="1,2,3,4,5,6", help="comma-separated parts to run")
+    ap.add_argument("--parts", default="1,2,3,4,5,6,7", help="comma-separated parts to run")
     args = ap.parse_args(argv)
     parts = {int(x) for x in args.parts.split(",")}
     if not torch.cuda.is_available():
@@ -591,6 +768,8 @@ def main(argv=None) -> int:
         summary["phase2_6_caught"] = a_fault_readings(dev, args.seed)
     if 6 in parts:
         summary["phase14_15_caught"] = stream_fault_readings(dev, args.seed)
+    if 7 in parts:
+        summary["phase3_20_caught"] = b_fault_readings(dev, args.seed)
     print(json.dumps(summary))
     if any(bool(v.get(f)) for v in summary.values()
            for f in ("sound", "encoder_sound", "e_sound")):

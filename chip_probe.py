@@ -1,9 +1,9 @@
-"""Probe kernels F, C, A, G, D and E on one CUDA card, beyond
+"""Probe kernels F, C, A, G, D, E and B on one CUDA card, beyond
 ``chip_smoke.py``'s checks: each call's device time split by kernel, the
-phases of C's, A's and G's tile kernels in SM cycles, and D's and E's
-decodes.
+phases of C's, A's and G's tile kernels in SM cycles, and D's, E's and the
+LSTM decodes.
 
-    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de] [--package-root DIR]
+    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de,b] [--package-root DIR]
 
 1. Kernel F (``matmul_stats``) at every ``chip_smoke.F_SHAPES`` shape and
    kernel C (``topk_vocab_head``) at M in {32, 512}, k in {1, 4, 8, 32},
@@ -50,6 +50,17 @@ decodes.
    kernel's role in the step, and the per-product table
    (``probe_products``). It reads the profiler's timeline only: no traced
    copy of a source.
+
+8. (part ``b``) ``probe_b``: kernel B per step at PERF.md's rows
+   (``chip_smoke.B_PERF_ROWS``: µs, device µs, the bound) and the LSTM
+   greedy and beam decodes (B=8, 128; 8, 128 images x beam 4: device busy
+   ms, host enqueue µs, wall ms) for this checkout's or
+   ``--package-root``'s package, each as its main path calls it; for this
+   checkout's also the decodes' critical path by role (gate, p_hid, he+se,
+   attention, out, proj, head, finish; the beam's PyTorch selection as
+   "torch") and each bf16 product alone and 20 in a row with programmatic
+   dependent launch, beside ``torch.mm`` and the byte bound
+   (``probe_b_products``).
 
 Each traced copy is built by ``traced_library`` (every anchor must occur
 once in the source, or the probe stops) and run through the port's own
@@ -706,15 +717,220 @@ def probe_products(dev):
                       bound_share=round(b_us / chain_us, 3))
 
 
+# ---- part b: kernel B --------------------------------------------------------------
+
+def b_params(dev):
+    """Full-width random LSTM decoder params (``decoder.init``, seed 0)."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import tree_to_torch
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+
+    dims = D.DecoderDims(vocab_size=12295, embedding_size=S.E, hidden_dim=S.H,
+                         vocab_pad_multiple=128)
+    return tree_to_torch(D.init(torch.Generator().manual_seed(0), dims), dev)
+
+
+def b_pre(params, n, dev, seed):
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+
+    g = torch.Generator().manual_seed(seed)
+    img = torch.randn(n, S.K_SLOTS, S.H, generator=g).to(dev)
+    return D.precompute(params, img, torch.randn(n, S.H, generator=g).to(dev), torch.bfloat16)
+
+
+def b_steps(dev, params):
+    """(rows, with the head, images, one step as the package's main path
+    calls it) at ``chip_smoke.B_PERF_ROWS``, bf16: a checkout with packed
+    weights (``fused_step.pack_step``) gathers the word rows in the gate
+    product and shares each image's memory among its beam rows; an older
+    one takes ``prepare``'s tensors and ``emb_table[word]``, the memory
+    repeated per row, as its decode loops did."""
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+
+    bf, packed = torch.bfloat16, hasattr(FS, "pack_step")
+    for rows, head in S.B_PERF_ROWS:
+        n_img = S.b_images(rows, head)
+        pre = b_pre(params, n_img, dev, rows)
+        pre_rows = D.Precomputed(*(t.repeat_interleave(rows // n_img, dim=0) for t in pre))
+        fp = FS.prepare(params, pre_rows, 0, bf)
+        g = torch.Generator().manual_seed(1)
+        word = torch.randint(0, 12295, (rows,), generator=g).to(dev)
+        h = (torch.randn(rows, S.H, generator=g) * 0.5).to(dev)
+        c = (torch.randn(rows, S.H, generator=g) * 0.5).to(dev)
+        if packed:
+            pk, w32 = FS.pack_step(fp), word.to(torch.int32)
+            img_k, img_v = pre.img_k.to(bf).contiguous(), pre.img_v.to(bf).contiguous()
+
+            def fn(pk=pk, w32=w32, h=h, c=c, img_k=img_k, img_v=img_v, head=head):
+                return FS.fused_decode_step(pk, None, h, c, img_k, img_v, with_head=head,
+                                            compute_dtype=bf, word=w32)
+        else:
+            emb = fp.emb_table[word]
+            img_k, img_v = pre_rows.img_k.to(bf).contiguous(), pre_rows.img_v.to(bf).contiguous()
+
+            def fn(fp=fp, emb=emb, h=h, c=c, img_k=img_k, img_v=img_v, head=head):
+                return FS.fused_decode_step(fp, emb, h, c, img_k, img_v, with_head=head,
+                                            compute_dtype=bf)
+        yield rows, head, n_img, fn
+
+
+def b_decodes(dev, params):
+    """(label, rows, one whole decode) for greedy B=8 and 128 and beam 4 on 8
+    and 128 images, bf16, 35 steps, early stop off, through the package's
+    own entry points (weights packed once where the package packs)."""
+    import inspect
+
+    from myimagecaptioningmodel_tpu_torch.inference import beam as BM
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+
+    bf = torch.bfloat16
+    kw = {}
+    if "packed" in inspect.signature(D.greedy_decode_ids).parameters:
+        kw["packed"] = FS.pack_weights(params, bf)
+    for beam, n in ((False, 8), (False, 128), (True, 8), (True, 128)):
+        pre = b_pre(params, n, dev, 100 + n)
+        if beam:
+            fn = lambda pre=pre: BM.beam_search_ids(  # noqa: E731
+                params, pre, S.TF_STEPS, S.BEAM, compute_dtype=bf, use_kernels=True, **kw)
+        else:
+            fn = lambda pre=pre: D.greedy_decode_ids(  # noqa: E731
+                params, pre, S.TF_STEPS, compute_dtype=bf, use_kernels=True, **kw)
+        yield f"{'beam' if beam else 'greedy'}_{n}", n * (S.BEAM if beam else 1), fn
+
+
+def b_role(name: str, nth_product: int) -> str:
+    """A device kernel's role in an LSTM decode step, from its name (the
+    gate product is the 80-column instance; the step's other products come
+    in the order p_hid, he+se, out, proj)."""
+    if "capk::" not in name:
+        return "torch"  # beam: the selection and reorder; both: input copies
+    for role, mark in (("attention", "lstm_attention"), ("head_tile", "argmax_tile"),
+                       ("head_merge", "argmax_merge"), ("head_tile", "topk_tile"),
+                       ("head_merge", "topk_merge"), ("finish", "greedy_finish"),
+                       ("gate", ", 5, true>"), ("gate", "Li5ELb1E"), ("gate", "gate_kernel")):
+        if mark in name:
+            return role
+    return ("p_hid", "he+se", "out", "proj")[nth_product % 4]
+
+
+def probe_b(dev, reps: int = 3):
+    """(part ``b``) Kernel B for the package first on sys.path (this
+    checkout's, or ``--package-root``'s): per step at PERF.md's rows, bf16,
+    the µs per call (CUDA events) and device µs per call (torch.profiler,
+    the union of the call's kernels' intervals; each kernel's own summed
+    time beside it) beside ``chip_smoke.bound_b``; per decode (``b_decodes``) the device
+    busy ms (the union of its device activities, ``reps`` profiled
+    decodes), the host's µs to enqueue it (median of 5, each after a
+    synchronize) and the wall ms (CUDA events). For this checkout's
+    package also the bf16 decodes' critical path by role (each device
+    kernel's end minus the latest end before it, summed over the steps;
+    ``b_role``) and the per-product table (``probe_b_products``)."""
+    from torch.autograd import DeviceType
+
+    import myimagecaptioningmodel_tpu_torch as pkg
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+    S.say("b_package", root=root)
+    params = b_params(dev)
+    bf = torch.bfloat16
+    for rows, head, n_img, fn in b_steps(dev, params):
+        _sum, parts = device_split(fn)
+        d_k = S.device_us(fn, busy=True)
+        b_ms, b_by = S.bound_b(rows, bf, head, n_img)
+        S.say("b_step", rows=rows, with_head=head, images=n_img,
+              kernel_us=round(S.time_ms(fn) * 1e3, 2), device_us=round(d_k, 2),
+              bound_us=round(b_ms * 1e3, 2), bound_by=b_by, bound_share=round(b_ms * 1e3 / d_k, 4),
+              kernels=parts)
+    this = os.path.abspath(root) == os.path.dirname(os.path.abspath(__file__))
+    for label, rows, fn in b_decodes(dev, params):
+        fn()
+        torch.cuda.synchronize()
+        busy, spans = [], []
+        for _ in range(reps):
+            wall, _events, prof = S.profile_events(fn, keep=True)
+            acts = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                          if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
+            busy.append(round(S.busy_us([(a, b) for a, b, _n in acts]) / 1e3, 3))
+            spans = acts
+        S.say("b_decode", decode=label, rows=rows, device_busy_ms=busy,
+              busy_us_per_step=round(min(busy) * 1e3 / S.TF_STEPS, 2),
+              wall_ms=round(S.time_ms(fn, reps=5, warmup=1), 3),
+              host_enqueue_us=round(S.enqueue_us(fn), 1), device_kernels=len(spans))
+        if this:
+            inc, prev_end, nth = {}, spans[0][0], 0
+            for a, b, name in spans:
+                role = b_role(name, nth)
+                nth += role in ("p_hid", "he+se", "out", "proj")
+                inc[role] = inc.get(role, 0.0) + max(0.0, b - prev_end)
+                prev_end = max(prev_end, b)
+            S.say("b_path", decode=label, rows=rows,
+                  span_ms=round((prev_end - spans[0][0]) / 1e3, 3),
+                  critical_ms_by_role={k: round(v / 1e3, 3) for k, v in inc.items()})
+    if this:
+        probe_b_products(dev)
+
+
+def probe_b_products(dev):
+    """The bf16 step's products one at a time (``fused_step.step_product``),
+    each at its full-width shape with its A operand and epilogue, at 8, 32,
+    128 and 512 rows: the kernel's device µs, the device µs a product of 20
+    in a row takes when each is launched with programmatic dependent
+    launch (``chained_us``), ``torch.mm``'s on bf16 operands of the same
+    shape, and the byte bound (the weight, A and the outputs once, at 3.35
+    TB/s) with its share of the chained time."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+
+    bf, H, E = torch.bfloat16, S.H, S.E
+    # (name, problems, N, K, k_split (the gathered word rows), mode)
+    shapes = [("gate", 1, 5 * H, E + H, E, "lstm"), ("p_hid", 1, H, H, 0, "tanh"),
+              ("he+se", 2, H, H, 0, "f32"), ("out", 1, H, H, 0, "tanh"),
+              ("proj", 1, E, H, 0, "f32")]
+    for name, P, N, K, k_split, mode in shapes:
+        for rows in (8, 32, 128, 512):
+            g = torch.Generator(device=dev).manual_seed(rows)
+            w = (torch.randn(P, K, N, device=dev, generator=g) / K ** 0.5).to(bf)
+            bias = torch.zeros(P, N, device=dev)
+            a2 = torch.randn(P, rows, K - k_split, device=dev, generator=g)
+            kw = {}
+            if mode == "lstm":
+                kw = dict(a=torch.randn(1000, E, device=dev, generator=g).to(bf),
+                          word=torch.randint(0, 1000, (rows,), device=dev, generator=g,
+                                             dtype=torch.int32),
+                          k_split=k_split, gxb=torch.zeros(rows, N, device=dev),
+                          c=torch.zeros(rows, H, device=dev))
+            if P == 1:
+                w, bias, a2 = w[0], bias[0], a2[0]
+
+            def call(pdl=False, w=w, bias=bias, a2=a2, kw=kw, mode=mode):
+                return FS.step_product(a2, w, None if mode == "lstm" else bias, mode, pdl=pdl,
+                                       **kw)
+            _total, parts = device_split(call, reps=10)
+            k_us = sum(v for n, v in parts.items() if "tf_stream" in n)
+            chain_us = chained_us(lambda: call(True))
+            x = torch.randn(rows, K, device=dev).to(bf)
+            wb = torch.randn(K, P * N, device=dev).to(bf)
+            mm_us = S.device_us(lambda: torch.mm(x, wb))
+            out_cols = 3 * H if mode == "lstm" else P * N  # h', c', sentinel
+            nbytes = P * K * N * 2 + P * rows * (K - k_split) * 4 + rows * k_split * 2 + \
+                rows * out_cols * 4 + (rows * (N + H) * 4 if mode == "lstm" else P * N * 4)
+            b_us = nbytes / S.HBM_BYTES_PER_S * 1e6
+            S.say("b_product", product=name, N=P * N, K=K, epilogue=mode, rows=rows,
+                  kernel_device_us=round(k_us, 2), chained_device_us=round(chain_us, 2),
+                  mm_device_us=round(mm_us, 2), bound_us=round(b_us, 2),
+                  bound_share=round(b_us / chain_us, 3))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Probe kernels F, C, A and G on one CUDA card.")
     ap.add_argument("--trace-only", action="store_true")
     ap.add_argument("--parts", default="fc,ag",
                     help="fc: kernels F and C; ag: A and G; ab: A's and G's device times only; "
                          "enc: the fused and plain eval encoders' forward times; de: kernels "
-                         "D's and E's decodes and products")
+                         "D's and E's decodes and products; b: kernel B's steps, decodes and "
+                         "products")
     ap.add_argument("--package-root", default=None,
-                    help="(parts ab, enc, de) measure the package of this checkout instead")
+                    help="(parts ab, enc, de, b) measure the package of this checkout instead")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -743,6 +959,8 @@ def main(argv=None) -> int:
         probe_encoder(dev)
     if "de" in parts:
         probe_de(dev)
+    if "b" in parts:
+        probe_b(dev)
     return 0
 
 

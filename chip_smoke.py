@@ -5,7 +5,8 @@ int8), and the fused-IRB eval encoder.
     python3 chip_smoke.py [--seed 0]
 
 Phases (each prints one line; any failure exits non-zero with no result;
-17 and 18 run right after 2, while torch.profiler still reads every event):
+17 and 18 run right after 2, and 3 and 20 after them, while torch.profiler
+still reads every event):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``myimagecaptioningmodel_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -17,11 +18,17 @@ Phases (each prints one line; any failure exits non-zero with no result;
    device µs per call (``device_us``) of the kernel and of ``logits_addmm``,
    the bound (``bound_a``) and the share of it the kernel's device time
    reaches;
-3. kernel B (``fused_decode_step``) against ``reference_step`` at
-   B in {1, 8, 128} with its head and, as beam search calls it, at
-   M in {32, 512} rows (8 and 128 images x beam 4) without it; H=1024,
-   E=256, k=49, V=12416: h', c', proj to atol 1e-4 in float32 and 3e-2 in
-   bfloat16, the word under the near-tie rule;
+3. kernel B (``fused_decode_step``) against ``reference_step`` at every
+   row tile of its products, 1, 8, 16, 17, 32, 128 and 512 rows, with its
+   head and without it (beam rows 4 an image, as beam search calls it),
+   float32 and bfloat16, on weights packed once (``pack_weights``);
+   H=1024, E=256, k=49, V=12416: h', c', proj to atol 1e-4 in float32 and
+   3e-2 in bfloat16, their mean errors to ``B_MEAN_TOL``, the word under
+   the near-tie rule; at PERF.md's rows
+   (``B_PERF_ROWS``: 1, 8 and 128 with the head, 32 and 512 beam rows
+   without it), bf16: µs per call (wall), device µs per call (``device_us``,
+   the union of the call's kernels' intervals), the bound (``bound_b``) and
+   its share;
 4. the slice: a full-width LSTM captioner (MobileNetV2 x1.0 at 224 px,
    H=1024, E=256, vocab 12295 padded to 12416, 35 steps, bfloat16) with
    random weights from ``--seed``, written as a port bundle, served by
@@ -48,8 +55,9 @@ Phases (each prints one line; any failure exits non-zero with no result;
    4's bundle, 24 requests from 8 threads: kernels B and C launch 35 x
    dispatches times, A none; the same with ``quantize=True``; then a greedy
    ``quantize=True`` service, where A and B launch 35 x dispatches times;
-   each service's stored decoder size and its peak device memory above what
-   was allocated before it loaded;
+   each service's stored decoder size, the size of its weights packed for
+   the kernels at load, and its peak device memory above what was allocated
+   before it loaded;
 9. beam correctness on one batch of 8, in bfloat16 and float32: the kernel
    path's best beam, teacher-forced through the plain versions of the same
    branch (``reference_step(with_head=False)`` and the plain head's float32
@@ -153,6 +161,17 @@ Phases (each prints one line; any failure exits non-zero with no result;
    of each service's decode, ms per batch and captions/s, kernel and plain
    path. Phase 19's kernel part profiles D int8, D int8 + kv and E int8 at
    B=8 / 8 images as phase 14 does.
+20. kernel B's whole decodes at full width, bf16, random weights packed
+   once, normal image features: greedy (``decoder.greedy_decode_ids``,
+   one C call of all 35 steps with kernel A's head) at B=8 and 128, beam
+   4 (``beam.beam_search_ids``: B without its head, C and the selection,
+   every step) on 8 and 128 images, each one CUDA graph replay per decode;
+   greedy ids the plain teacher-forced argmax under the near-tie rule, the
+   best beam's plain re-score within 2e-3 per step of its score; ms per
+   decode (CUDA events), capture ms, kernels per greedy decode and
+   ``decode_readings``; then one graph decodes two batches (greedy B=8,
+   beam 8 x 4), each checked, and a replay on the previous batch's memory
+   must fail the check.
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -166,8 +185,12 @@ launches of A and B are phase 4's, those of C phase 8's beam service, those
 of F phase 12 (c)'s, those of D and E phase 16's services, one per decode,
 those of D's and E's int8 modes phase 19's services, and G's phase 18's
 first forward, 17; B's, D's and E's entries (and D's and E's int8 modes')
-carry ``device_ms``: B's from ``device_us``, D's and E's the device busy ms
-of one decode at B=8 / 8 images, and under ``b128`` at B=128 / 128 images;
+carry ``device_ms``: B's per step from ``device_us`` at 8 rows with its
+head, under ``b128``, ``beam32`` and ``beam512`` at 128 rows with it and
+at 32 and 512 beam rows without it (phase 3), beside the device busy ms of
+one greedy decode at B=8 and one beam decode on 8 images (phase 20); D's
+and E's the device busy ms of one decode at B=8 / 8 images, and under
+``b128`` at B=128 / 128 images;
 ``bound_ms`` from the inputs' bytes at 3.35 TB/s and
 their operations at the peak rate of their type, whichever is longer (for D
 and E the bytes each step must read again, ``bound_tf``); G's numbers are
@@ -261,19 +284,23 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_us(fn, reps: int = 10) -> float:
+def device_us(fn, reps: int = 10, busy: bool = False) -> float:
     """Device µs per call: the summed device time of the kernels ``reps``
-    calls launch (``device_us_each``). ``time_ms`` of a µs-scale call reads
-    the host's enqueue rate."""
-    return device_us_each([fn], reps)[0]
+    calls launch (``device_us_each``; ``busy``: the union of their
+    intervals). ``time_ms`` of a µs-scale call reads the host's enqueue
+    rate."""
+    return device_us_each([fn], reps, busy=busy)[0]
 
 
-def device_us_each(fns, reps: int = 3, sessions: int = 4):
+def device_us_each(fns, reps: int = 3, sessions: int = 4, busy: bool = False):
     """Device µs per call of each function in ``fns``, read by torch.profiler
     in one session: each function's ``reps`` calls run in turn, each call
     ending with a synchronize and a spin kernel (``torch.cuda._sleep``) that
     marks its end. A session counts only if it saw every call's marker and
     the same number of kernels, at least one, in every call of a function.
+    ``busy``: a call's µs are the union of its kernels' intervals (with
+    programmatic dependent launch a kernel starts, and waits, before the one
+    ahead of it ends, so their summed times overlap).
     On the card the profiler now and then returns a session empty, or
     without its first kernel (``profile_events`` leads with markers), more
     often late in a process; after ``sessions`` failed sessions the reading
@@ -293,13 +320,14 @@ def device_us_each(fns, reps: int = 3, sessions: int = 4):
         _wall, _events, prof = profile_events(run, keep=True)
         kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                          key=lambda e: e.time_range.start)
-        calls, us, n = [], 0.0, 0  # (device µs, kernels) of each call
+        calls, spans = [], []  # (device µs, kernels) of each call
         for e in kernels:
             if "spin_kernel" in e.name:
-                calls.append((us, n))
-                us, n = 0.0, 0
+                us = busy_us(spans) if busy else sum(b - a for a, b in spans)
+                calls.append((us, len(spans)))
+                spans = []
             else:
-                us, n = us + e.time_range.end - e.time_range.start, n + 1
+                spans.append((e.time_range.start, e.time_range.end))
         while calls and calls[0][1] == 0:  # the leading markers
             calls.pop(0)
         per_fn = [calls[i * reps:(i + 1) * reps] for i in range(len(fns))]
@@ -536,60 +564,221 @@ def phase_kernel_c(dev, gen):
 # ---- phase 3 ----------------------------------------------------------------
 
 
-def _step_inputs(dev, gen, B, dt, params):
+# (rows, with the head): every row tile of the products (1-512 rows) with and
+# without kernel A's head; PERF.md's rows are B_PERF_ROWS: the infer CLI
+# (1), the server's batch (8) and offline (128) greedy, with the head, and
+# beam 4 on 8 and 128 images (32, 512 rows, 4 rows an image), without it
+B_ROWS = [(rows, head) for head in (True, False) for rows in (1, 8, 16, 17, 32, 128, 512)]
+B_PERF_ROWS = [(1, True), (8, True), (128, True), (32, False), (512, False)]
+
+
+def b_images(rows, head):
+    """Images the rows of a kernel-B call share: beam rows (no head, a
+    multiple of 4) 4 rows an image, as beam search calls it; else one a row."""
+    return rows // BEAM if not head and rows % BEAM == 0 and rows > 8 else rows
+
+
+def _step_inputs(dev, gen, rows, dt, params, n_img=None):
+    """-> (the packed step with the rows' gate inputs, word rows, h, c,
+    img_k, img_v of ``n_img`` images the rows share, one a row by default)."""
     from myimagecaptioningmodel_tpu_torch.models import decoder as D
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
 
-    img = torch.rand(B, K_SLOTS, H, generator=gen).to(dev)
-    gf = torch.rand(B, H, generator=gen).to(dev)
+    n_img = rows if n_img is None else n_img
+    img = torch.rand(n_img, K_SLOTS, H, generator=gen).to(dev)
+    gf = torch.rand(n_img, H, generator=gen).to(dev)
     pre = D.precompute(params, img, gf, dt)
-    fp = FS.prepare(params, pre, 0, dt)
-    word = torch.randint(0, 12295, (B,), generator=gen).to(dev)
-    h = (torch.randn(B, H, generator=gen) * 0.5).to(dev)
-    c = (torch.randn(B, H, generator=gen) * 0.5).to(dev)
-    return fp, fp.emb_table[word], h, c, pre.img_k.contiguous(), pre.img_v.contiguous()
+    pre_rows = D.Precomputed(*(t.repeat_interleave(rows // n_img, dim=0) for t in pre))
+    pk = FS.with_batch(FS.pack_weights(params, dt), params, pre_rows)
+    word = torch.randint(0, 12295, (rows,), generator=gen).to(dev)
+    h = (torch.randn(rows, H, generator=gen) * 0.5).to(dev)
+    c = (torch.randn(rows, H, generator=gen) * 0.5).to(dev)
+    return (pk, FS.gather_words(pk.table, word, 0), h, c, pre.img_k.to(dt).contiguous(),
+            pre.img_v.to(dt).contiguous())
+
+
+# Kernel B's limit on the mean |kernel - plain| of h', c' and proj (phase 3,
+# beside the largest's atol): one bf16 rounding of an activation that lands
+# on the other side of the plain step's moves a few outputs, a dataflow fault
+# moves every row's. Set between what the sound kernel and planted faults
+# read on an H100 (``chip_fault_check.py`` part 7, bf16): the sound kernel
+# at most 6.4e-5 at 1-512 rows; the sentinel gate on h' instead of h_prev
+# 9.4e-4 or more (its largest error, 6e-3, passes the atol), the other
+# faults 3.6e-3 or more. float32: 60x the sound kernel's 1.7e-7.
+B_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-4}
+
+
+def b_errors(out, ref):
+    """The largest and the mean |kernel - plain| of h', c' and proj."""
+    diffs = [(o - r).abs() for o, r in zip(out[:3], ref[:3])]
+    return [float(d.max()) for d in diffs], [float(d.mean()) for d in diffs]
 
 
 def phase_kernel_b(dev, gen, params32):
-    """Greedy rows (with the head) and beam rows (without it, as beam search
-    calls it on 8 and 128 images x beam 4)."""
+    """Kernel B against ``reference_step`` at every row tile (``B_ROWS``),
+    float32 and bf16; at ``B_PERF_ROWS`` in bf16 also µs per call (wall),
+    device µs per call and the bound. -> (worst bf16 error, {(dtype, rows,
+    head): (kernel ms, plain ms, device µs or None, bound ms, bound_by)})."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
 
     worst = 0.0
     times = {}
-    cases = [(B, True) for B in (1, 8, 128)] + [(M, False) for M in (8 * BEAM, 128 * BEAM)]
     for dt in (torch.float32, torch.bfloat16):
         tol = 1e-4 if dt == torch.float32 else 3e-2
-        for B, head in cases:
-            args = _step_inputs(dev, gen, B, dt, params32)
+        for B, head in B_ROWS:
+            n_img = b_images(B, head)
+            args = _step_inputs(dev, gen, B, dt, params32, n_img)
             out = FS.fused_decode_step(*args, with_head=head, compute_dtype=dt)
             torch.cuda.synchronize()
             ref = FS.reference_step(*args, with_head=head, compute_dtype=dt)
-            errs = [float((o - r).abs().max()) for o, r in zip(out[:3], ref[:3])]
-            ok = max(errs) <= tol
+            errs, means = b_errors(out, ref)
+            ok = max(errs) <= tol and max(means) <= B_MEAN_TOL[dt]
             if head:
-                fp = args[0]
-                logits = (torch.matmul(ref[2].to(dt).float(), fp.head_table.float().T)
-                          + fp.head_bias)
+                pk = args[0]
+                logits = torch.matmul(ref[2].to(dt).float(), pk.table.float().T) + pk.head_bias
                 ok = ok and near_tie_ok(out[3], logits, dt)
             if dt == torch.bfloat16:
                 worst = max(worst, *errs)
-            t_k = time_ms(lambda: FS.fused_decode_step(*args, with_head=head, compute_dtype=dt))
-            t_p = time_ms(lambda: FS.reference_step(*args, with_head=head, compute_dtype=dt))
-            d_k = None  # device µs of the main path's call (bf16, B=8, with the head)
-            if (dt, B, head) == (torch.bfloat16, 8, True):
+            line = {}
+            if dt == torch.bfloat16 and (B, head) in B_PERF_ROWS:
+                t_k = time_ms(lambda: FS.fused_decode_step(*args, with_head=head,
+                                                           compute_dtype=dt))
+                t_p = time_ms(lambda: FS.reference_step(*args, with_head=head,
+                                                        compute_dtype=dt), reps=5)
                 d_k = device_us(lambda: FS.fused_decode_step(*args, with_head=head,
-                                                             compute_dtype=dt))
-            times[(dt, B, head)] = (t_k, t_p, d_k)
-            say("kernel_b", dtype=str(dt).split(".")[-1], rows=B, with_head=head, atol=tol,
-                tf32=torch.backends.cuda.matmul.allow_tf32,
-                err_h=errs[0], err_c=errs[1], err_proj=errs[2], ok=ok,
-                kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2),
-                device_us=None if d_k is None else round(d_k, 2))
+                                                             compute_dtype=dt), busy=True)
+                b_ms, b_by = bound_b(B, dt, head, n_img)
+                times[(dt, B, head)] = (t_k, t_p, d_k, b_ms, b_by)
+                line = dict(kernel_us=round(t_k * 1e3, 2), plain_us=round(t_p * 1e3, 2),
+                            device_us=round(d_k, 2), bound_us=round(b_ms * 1e3, 2),
+                            bound_by=b_by, bound_share=round(b_ms * 1e3 / d_k, 4))
+            say("kernel_b", dtype=str(dt).split(".")[-1], rows=B, images=n_img, with_head=head,
+                atol=tol, tf32=torch.backends.cuda.matmul.allow_tf32,
+                err_h=errs[0], err_c=errs[1], err_proj=errs[2], mean_err_h=means[0],
+                mean_err_c=means[1], mean_err_proj=means[2], ok=ok, **line)
             if not ok:
                 raise AssertionError(
                     f"kernel B disagrees with reference_step ({dt}, rows={B}, head={head})")
     return worst, times
+
+
+# ---- phase 20: kernel B's whole decodes, one CUDA graph each ------------------------
+
+
+def lstm_forced(params, pre, ids, dt):
+    """The plain step (``reference_step`` on ``prepare``'s tensors)
+    teacher-forced on ``ids`` [B, T] -> (float32 logits [B, T, V], the
+    positions up to each row's first <stop>)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import head_logits_reference
+
+    fp = FS.prepare(params, pre, 0, dt)
+    img_k, img_v = pre.img_k.to(dt), pre.img_v.to(dt)
+    B, T = ids.shape
+    h = torch.zeros(B, H, device=ids.device)
+    c = torch.zeros_like(h)
+    word = torch.full((B,), 2, dtype=torch.long, device=ids.device)
+    logits = []
+    for t in range(T):
+        h, c, proj, _w = FS.reference_step(fp, fp.emb_table[word], h, c, img_k, img_v, False, dt)
+        logits.append(head_logits_reference(proj, fp.head_table, fp.head_bias))
+        word = ids[:, t].long()
+    after = torch.cumsum((ids == STOP).int(), dim=1) - (ids == STOP).int() > 0
+    return torch.stack(logits, dim=1), ~after
+
+
+def lstm_greedy_ok(params, pre, ids, dt, early):
+    """Each id the plain teacher-forced argmax under the near-tie rule (up to
+    the row's <stop> with ``early``, <pad> after it)."""
+    logits, live = lstm_forced(params, pre, ids, dt)
+    if not early:
+        live = torch.ones_like(live)
+    return near_tie_ok(ids[live], logits[live], dt) and bool((ids[~live] == 0).all())
+
+
+def lstm_beam_ok(params, pre, ids, score, dt):
+    """The best beam re-scored by the plain step teacher-forced on its ids,
+    within phase 9's bf16 limit (2e-3 per live step) of the reported score
+    -> (ok, largest |re-score - score|)."""
+    logits, live = lstm_forced(params, pre, ids, dt)
+    tok = torch.log_softmax(logits, dim=-1).gather(-1, ids.long()[..., None])[..., 0]
+    rescore, steps = (tok * live).sum(dim=1), live.sum(dim=1)
+    err = (rescore - score).abs()
+    return bool((err <= 2e-3 * steps).all()), float(err.max())
+
+
+def phase_lstm_graphs(dev, gen, params):
+    """Kernel B's whole decodes at full width, bf16, each one CUDA graph
+    replay: greedy (``decoder.greedy_decode_ids``) at B=8 and 128, beam 4
+    (``beam.beam_search_ids``) on 8 and 128 images, on weights packed once;
+    each held against the plain step teacher-forced on its ids; µs per
+    decode (CUDA events, 10 after warm-up), the first call's capture ms and
+    ``decode_readings`` (host enqueue µs, device busy and idle share). Then
+    one graph decodes two batches (greedy B=8, beam 8 x 4), each checked,
+    and a replay on the previous batch's memory must fail the check.
+    -> {label: (ms per decode, device busy ms)}."""
+    from myimagecaptioningmodel_tpu_torch.inference import beam as BM
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+
+    dt, T = torch.bfloat16, TF_STEPS
+    packed = FS.pack_weights(params, dt)
+
+    def pre_of(n):  # normal features: the random decoder's rows then emit distinct words
+        img = torch.randn(n, K_SLOTS, H, generator=gen).to(dev)
+        return D.precompute(params, img, torch.randn(n, H, generator=gen).to(dev), dt)
+
+    def decode(pre, beam):
+        if beam:
+            return BM.beam_search_ids(params, pre, T, BEAM, compute_dtype=dt, use_kernels=True,
+                                      early_stop=True, packed=packed)
+        return D.greedy_decode_ids(params, pre, T, compute_dtype=dt, use_kernels=True,
+                                   packed=packed)
+
+    def check(pre, out, beam):
+        return lstm_beam_ok(params, pre, *out, dt)[0] if beam else lstm_greedy_ok(
+            params, pre, out, dt, False)
+
+    out = {}
+    for beam, n in ((False, 8), (False, 128), (True, 8), (True, 128)):
+        label = f"lstm_{'beam' if beam else 'greedy'}_{n}"
+        pre = pre_of(n)
+        got = decode(pre, beam)
+        torch.cuda.synchronize()
+        capture_ms = (BM.beam_search_ids if beam else FS.lstm_greedy_decode).capture_ms
+        if beam:
+            ok, err = lstm_beam_ok(params, pre, *got, dt)
+            line = dict(rescore_max_abs_err=err)
+        else:
+            ok, line = lstm_greedy_ok(params, pre, got, dt, False), dict(
+                kernel_launches_per_decode=FS.lstm_greedy_decode.kernel_launches)
+        ms = time_ms(lambda: decode(pre, beam), reps=10, warmup=2)
+        busy = decode_readings(label, lambda: decode(pre, beam), capture_ms)
+        out[label] = (ms, busy)
+        say(label, dtype="bfloat16", rows=n * (BEAM if beam else 1), ok=ok,
+            ms_per_decode=round(ms, 3), device_busy_ms=round(busy, 3),
+            busy_us_per_step=round(busy * 1e3 / T, 2), wall_over_busy=round(ms / busy, 3),
+            capture_ms=None if capture_ms is None else round(capture_ms, 1), **line)
+        if not ok:
+            raise AssertionError(f"{label}: the decode disagrees with the plain step")
+    for beam in (False, True):
+        captures = FS.GRAPHS.captures
+        pres = [pre_of(8) for _ in range(2)]
+        sound = [check(pre, decode(pre, beam), beam) for pre in pres]
+        replayed = FS.GRAPHS.captures == captures  # the shape's graph from above
+        load = FS.GRAPHS.load
+        FS.GRAPHS.load = lambda work, inputs: None  # the first batch, its memory not copied in
+        try:
+            stale = check(pres[0], decode(pres[0], beam), beam)
+        finally:
+            FS.GRAPHS.load = load
+        say("lstm_beam_replay" if beam else "lstm_greedy_replay", dtype="bfloat16",
+            rows=8 * (BEAM if beam else 1), batches_replayed=replayed, batches_ok=sound,
+            stale_memory_check_ok=stale)
+        if not (replayed and all(sound)) or stale:
+            raise AssertionError("an LSTM decode graph did not replay each batch on its own "
+                                 "memory")
+    return out
 
 
 # ---- phase 4 ----------------------------------------------------------------
@@ -773,6 +962,8 @@ def phase_served_beam(dev, seed, cfg):
         say("served_" + label, load_and_warmup_s=load_s, requests=24, dispatches=d,
             decode_ms_p50=st["decode_ms_p50"],
             decoder_stored_mib=round(stored_bytes(svc.model.params["decoder"]) / 2**20, 2),
+            decoder_packed_mib=round(sum(t.nbytes for t in svc.model.decoder_packed
+                                         if t is not None) / 2**20, 2),
             peak_mib_above_base=round((torch.cuda.max_memory_allocated(dev) - base) / 2**20, 1),
             launches=json.dumps(launches).replace(" ", ""),
             distinct_captions=len({tuple(r["ids"]) for r in results}))
@@ -928,16 +1119,24 @@ def bound_c(M, k, dt):
     return bound(head_bytes(M, dt, 8 * k + 4), 2 * M * V_PAD * E, dt)
 
 
-def bound_b(B, dt):
-    """The fused step with its head: the step's operands and outputs
-    (fused_step.py's list) plus kernel A's table and bias."""
+def bound_b(rows, dt, head=True, n_img=None):
+    """One fused step of ``rows`` rows: its operands and outputs (the
+    weights, biases, each image's keys and values, ``n_img`` images the
+    rows share, one a row by default, the rows' word rows, h, c and gate
+    inputs; h', c', proj), each read or written once, and with its head
+    kernel A's table and bias and the word."""
     es = torch.tensor([], dtype=dt).element_size()
+    n_img = rows if n_img is None else n_img
     weights = E * 5 * H + H * 5 * H + 4 * H * H + H * E + H  # in the compute dtype
     step = (weights * es + (4 * H + E + 1) * 4  # + the f32 biases
-            + B * (E * es + 2 * H * 4 + 2 * K_SLOTS * H * es + 5 * H * 4)  # per-row inputs
-            + B * (2 * H * 4 + E * 4 + 4))  # h', c', proj, word
-    ops = 2 * B * weights + 4 * B * K_SLOTS * H + 2 * B * V_PAD * E
-    return bound(step + head_bytes(B, dt, 0), ops, dt)
+            + n_img * 2 * K_SLOTS * H * es  # the image memory
+            + rows * (E * es + 2 * H * 4 + 5 * H * 4)  # per-row inputs
+            + rows * (2 * H * 4 + E * 4))  # h', c', proj
+    ops = 2 * rows * weights + 4 * rows * K_SLOTS * H
+    if head:
+        step += rows * 4 + head_bytes(rows, dt, 0)
+        ops += 2 * rows * V_PAD * E
+    return bound(step, ops, dt)
 
 
 def bound_f(M, K, N, dt):
@@ -2498,7 +2697,10 @@ def main(argv=None) -> int:
 
     dims = D.DecoderDims(vocab_size=12295, embedding_size=E, hidden_dim=H,
                          vocab_pad_multiple=128)
-    err_b, t_b = phase_kernel_b(dev, gen, tree_to_torch(D.init(gen, dims), dev))
+    lstm_params = tree_to_torch(D.init(gen, dims), dev)
+    err_b, t_b = phase_kernel_b(dev, gen, lstm_params)
+    lstm_decodes = phase_lstm_graphs(dev, gen, lstm_params)
+    del lstm_params
     with tempfile.TemporaryDirectory() as root:
         launches, model, opts, cfg = phase_slice(dev, args.seed, root)
         phase_timing(model, opts, args.seed)
@@ -2527,13 +2729,19 @@ def main(argv=None) -> int:
 
     bf16 = torch.bfloat16
     f_key = (bf16, "conv3_1_expand")
-    b_b, b_c = bound_b(8, bf16), bound_c(8 * BEAM, BEAM, bf16)
+    b_c = bound_c(8 * BEAM, BEAM, bf16)
 
     def at_b(t_k, t_p, t_l, b_ms, b_by, d_k_ms, d_l_ms):
         """A kernel's numbers at one batch (A and G: B=8 in the entry's own
         keys, B=128 under "b128"), with the device times beside them."""
         return {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": t_l, "device_ms": d_k_ms, "library_device_ms": d_l_ms}
+
+    def b_at(rows, head):
+        """B's numbers at one row count, per step (device µs -> ms)."""
+        t_k, t_p, d_k, b_ms, b_by = t_b[(bf16, rows, head)]
+        return {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "device_ms": d_k / 1e3}
 
     def a_at(B):
         t_k, t_p, t_l, d_k, d_l, b_ms, b_by = t_a[(bf16, B)]
@@ -2549,9 +2757,10 @@ def main(argv=None) -> int:
          "max_abs_err": max(err_a, err_a8), **a_at(8), "b128": a_at(128)},
         {"name": "fused_decode_step", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": KERNEL_B_TPU, "launches": launches["fused_decode_step"],
-         "max_abs_err": err_b, "ms": t_b[(bf16, 8, True)][0],
-         "plain_ms": t_b[(bf16, 8, True)][1], "bound_ms": b_b[0], "bound_by": b_b[1],
-         "library_ms": None, "device_ms": t_b[(bf16, 8, True)][2] / 1e3},
+         "max_abs_err": err_b, **b_at(8, True), "b128": b_at(128, True),
+         "beam32": b_at(32, False), "beam512": b_at(512, False),
+         "greedy_decode_device_ms": lstm_decodes["lstm_greedy_8"][1],
+         "beam_decode_device_ms": lstm_decodes["lstm_beam_8"][1]},
         {"name": "topk_vocab_head", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": KERNEL_C_TPU, "launches": beam_launches["topk_vocab_head"],
          "max_abs_err": err_c, "ms": t_c[(bf16, 8 * BEAM, BEAM)][0],

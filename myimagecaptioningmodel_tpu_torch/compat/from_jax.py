@@ -145,9 +145,11 @@ def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
     """Reference-layout (params, state) -> a port ``Captioner`` on ``device``
     (CUDA unless the caller passes another; ``resolve_device``);
     ``quantize`` stores the decoder's weights as int8, quantized from the
-    float32 tree before the cast to the compute dtype. A transformer decoder
-    served through its kernels (``opts.use_kernels``) also keeps its weights
-    packed for them, once (int8: the layer streams stay int8)."""
+    float32 tree before the cast to the compute dtype. A decoder served
+    through its kernels (``opts.use_kernels``) also keeps its weights packed
+    for them, once (``fused_step.pack_weights`` for the LSTM, int8
+    dequantized; ``fused_transformer.pack_weights`` for the transformer, whose
+    int8 layer streams stay int8)."""
     from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner, resolve_device
     from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
@@ -169,9 +171,13 @@ def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
         dense["decoder"] = quantize_decoder(dense["decoder"])
     dense = _cast_weights(dense, opts.dtype)
     packed = None
-    if opts.arch == "transformer" and opts.use_kernels:
-        from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_transformer import pack_weights
-
+    if opts.use_kernels:  # the decoder family's kernel layout, packed once
+        if opts.arch == "transformer":
+            from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_transformer import (
+                pack_weights,
+            )
+        else:
+            from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_step import pack_weights
         packed = pack_weights(dense["decoder"], opts.dtype)
     return Captioner(encoder=encoder, params=dense, decoder_packed=packed)
 

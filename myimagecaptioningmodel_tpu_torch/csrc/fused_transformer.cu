@@ -54,7 +54,8 @@
 //    fixed by its shape (early stop is the device flag; the cache swap is
 //    fixed per step), so the wrapper captures this file's C call once and
 //    replays it; the host's ~1,300 enqueues become one graph launch.
-// 2. One weight-streaming product (tf_stream) for bf16 activations with bf16
+// 2. One weight-streaming product (tf_stream, stream_product.cuh, which
+//    kernel B's products share) for bf16 activations with bf16
 //    or int8 weights, at every row count (1-512). The weight is the 16-row
 //    side of mma.sync m16n8k16 (output columns x K, fragments by
 //    ldmatrix.trans from the row-major [K, N] slab) and the batch rows its
@@ -138,12 +139,7 @@
 // Shapes: the bf16 path takes D, F and E in multiples of 64 (whole column
 // tiles and K ranges) and D <= 1024 beyond 16 rows (tf_layernorm); others
 // return cudaErrorInvalidValue.
-#include <cooperative_groups.h>
-
-#include <algorithm>
-
-#include "common.cuh"
-#include "mma.cuh"
+#include "stream_product.cuh"
 #include "topk_head.cuh"
 #include "vocab_head.cuh"
 
@@ -151,34 +147,8 @@ namespace capk {
 
 constexpr int kMaxBeam = 8;  // fused_transformer.py's BEAM_MAX: W * W <= 64 candidates
 constexpr float kNegInf = -1e9f;
-constexpr float kLnEps = 1e-6f;
 constexpr int kAttnThreads = 128;
 constexpr int kTailThreads = 256;
-using bf = __nv_bfloat16;
-namespace cg = cooperative_groups;
-
-template <typename T>
-__device__ __forceinline__ float to_dt(float v);
-template <>
-__device__ __forceinline__ float to_dt<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_dt<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * (x * x * x)))));
-}
 
 // int8 weights and memory as float: exact. Byte b of a little-endian word,
 // sign-extended.
@@ -202,34 +172,7 @@ __device__ __forceinline__ void load_i8(const int8_t* p, float (&f)[4]) {
   for (int b = 0; b < 4; ++b) f[b] = i8_at(u, b);
 }
 
-// ---- products ------------------------------------------------------------------
-
-enum AMode : int { kARows = 0, kALayerNorm = 1, kAGather = 2 };
-enum EMode : int { kEStore = 0, kEStoreF32 = 1, kEResidual = 2, kEQkv = 3, kEGelu = 4, kEEmbed = 5 };
-
-// out = epilogue(round(round(A @ w) + round(bias))), A = prologue(a).
-struct TfDense {
-  int a_mode;
-  const void* a;      // kARows: T [M, K]; kALayerNorm: float [M, K]; kAGather: T table [V, K]
-  const float* ln_g;  // kALayerNorm: [K]
-  const float* ln_b;
-  const int* word;  // kAGather: [M] table rows; `pad` gathers zeros
-  int pad;
-  const void* w;      // WT [K, N]: T, or int8 with w_scale
-  const float* w_scale;  // int8 weights: [N] per output channel, else null
-  const float* bias;  // [N]
-  int e_mode;
-  void* out;  // kEStore, kEGelu: T [M, N]; kEStoreF32: float [M, N];
-              // kEResidual: float x [M, N] += y; kEEmbed: x = y + pos; kEQkv: q T [M, N / 3]
-  void* kc;   // kEQkv: this layer's caches [M, n_steps, N / 3], position t written
-  void* vc;
-  int t, n_steps;
-  const float* pos;  // kEEmbed: [N]
-  const int* skip;
-  // tf_stream only: x's statistics [N / 64][M] (written by kEResidual and
-  // kEEmbed, read by kALayerNorm)
-  float2* stats;
-};
+// ---- products (TfDense and the epilogue: stream_product.cuh) ---------------------
 
 // Per-row mean and 1 / std of the block's rows [m0, m0 + rows) of the float32
 // x (kALayerNorm only; two passes, a warp per row), then __syncthreads().
@@ -272,48 +215,6 @@ __device__ __forceinline__ float a_value(const TfDense& p, int row, int k, int K
     return wd == p.pad ? 0.f : ld(a, (long)wd * K + k);
   }
   return ld(a, (long)row * K + k);
-}
-
-// The epilogue of one output element from its float32 sum, the column's
-// bias, int8 scale (ignored for float weights) and position (kEEmbed):
-// the scale applied in T before the bias -> the value written (x's new
-// value for kEResidual and kEEmbed).
-template <typename T>
-__device__ __forceinline__ float epilogue(const TfDense& p, float sum, int row, int col, int N,
-                                          float bias, float scale, float pos, float x_old) {
-  float y = to_dt<T>(sum);
-  if (p.w_scale != nullptr) y = to_dt<T>(y * to_dt<T>(scale));
-  y = to_dt<T>(y + to_dt<T>(bias));
-  const long o = (long)row * N + col;
-  switch (p.e_mode) {
-    case kEStore:
-      st(static_cast<T*>(p.out) + o, y);
-      return y;
-    case kEStoreF32:
-      static_cast<float*>(p.out)[o] = y;
-      return y;
-    case kEResidual: {  // x_old: x[row, col] as the kernel found it
-      const float v = x_old + y;
-      static_cast<float*>(p.out)[o] = v;
-      return v;
-    }
-    case kEGelu:
-      st(static_cast<T*>(p.out) + o, gelu_tanh(y));
-      return y;
-    case kEEmbed: {
-      const float v = y + pos;
-      static_cast<float*>(p.out)[o] = v;
-      return v;
-    }
-    default: {  // kEQkv
-      const int D = N / 3, which = col / D, c = col % D;
-      T* dst = which == 0 ? static_cast<T*>(p.out) + (long)row * D + c
-                          : static_cast<T*>(which == 1 ? p.kc : p.vc) +
-                                ((long)row * p.n_steps + p.t) * D + c;
-      st(dst, y);
-      return y;
-    }
-  }
 }
 
 // ---- float32: the FMA product ----
@@ -413,341 +314,10 @@ static bool launch_fma(const TfDense& p, int M, int N, int K, bool pdl, cudaStre
 }
 
 // ---- bf16 and int8 weight streams: the weight-streaming product ----
+// (stream_product.cuh), and what D and E add to it: x's statistics for a
+// product called on its own, the LayerNorm rows beyond wsp::kLnRows rows
 
 namespace wsp {
-
-constexpr int kThreads = 256;  // 8 warps: 4 column strips x 2 (row halves or k halves)
-constexpr int kNT = 64;        // output columns of a block
-constexpr int kKC = 32;        // k rows of a ring stage
-constexpr int kLdW = kNT + 8;  // bf16 weight slab row: 144 B, ldmatrix rows on distinct banks
-constexpr int kLdW8 = kNT + 16;  // int8 weight slab row: 80 B, byte loads on distinct banks
-constexpr int kLdA = kKC + 8;  // bf16 activation row: 80 B
-constexpr int kLdX = kKC + 4;  // float32 activation row (LayerNorm input): 144 B
-constexpr int kLdC = kNT + 4;  // float32 row of the block's output tile
-constexpr int kMinBlocks = 128;
-constexpr int kMaxSplits = 8;  // a cluster's blocks (the portable cluster size)
-
-// MT row tiles of 8 per warp; KG = 2: the warp pairs split each stage's two
-// 16-deep steps (8 rows), KG = 1: they split the rows.
-template <int MT, int KG>
-struct Shape {
-  static constexpr int RB = 8 * MT * (2 / KG);  // rows of a block
-  static constexpr int STAGES = RB <= 16 ? 16 : RB <= 32 ? 6 : 4;
-};
-// Rows up to which a product normalizes its LayerNorm rows itself, as its
-// fragments are formed; beyond, tf_layernorm writes them once in bf16.
-constexpr int kLnRows = 16;
-
-// A ring stage: the weight slab [kKC][64] (bf16, or int8 copied raw), then
-// the stage's LayerNorm gain and offset [2][kKC]; the activation rows
-// [RB][kKC], float32 under a LayerNorm, else bf16 (room for the larger).
-template <typename WT>
-__host__ __device__ constexpr int w_slab_bytes() {
-  return std::is_same<WT, int8_t>::value ? kKC * kLdW8 : kKC * kLdW * 2;
-}
-template <typename WT>
-__host__ __device__ constexpr int w_stage_bytes() {
-  return w_slab_bytes<WT>() + 2 * kKC * 4;
-}
-__host__ __device__ constexpr int a_stage_bytes(int RB) { return RB * kLdX * 4; }
-
-template <typename WT, int MT, int KG>
-__host__ __device__ constexpr size_t ring_bytes() {
-  using S = Shape<MT, KG>;
-  // a LayerNorm product's rows are float32 (<= kLnRows rows), else bf16
-  const int a_bytes = S::RB <= kLnRows ? a_stage_bytes(S::RB) : S::RB * kLdA * 2;
-  return (size_t)S::STAGES * (w_stage_bytes<WT>() + a_bytes);
-}
-// The ring, then the partial sums a block receives: a slot per (split, warp
-// group) of the rows it finalizes, [splits KG][ceil(RB / splits)][kLdC].
-template <typename WT, int MT, int KG>
-__host__ __device__ constexpr size_t smem_bytes(int splits) {
-  using S = Shape<MT, KG>;
-  return ring_bytes<WT, MT, KG>() +
-         (size_t)splits * KG * ((S::RB + splits - 1) / splits) * kLdC * 4;
-}
-
-// Rows of a block, blocks and K splits (a cluster's blocks) of one product.
-struct Plan {
-  int rb, chunks, tiles, splits;
-};
-static Plan plan(int M, int N, int K) {
-  Plan s;
-  s.rb = M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : M <= 64 ? 64 : 128;
-  s.chunks = (M + s.rb - 1) / s.rb;
-  s.tiles = N / kNT;
-  const int nst = K / kKC;
-  s.splits = 1;
-  while (s.splits * 2 <= nst && s.splits < kMaxSplits &&
-         s.tiles * s.chunks * s.splits < kMinBlocks)
-    s.splits *= 2;
-  return s;
-}
-
-// Mean and sum of squared deviations of x's row over one 64-column tile, from
-// a warp whose lane holds columns 2 lane and 2 lane + 1; lane 0 writes them.
-__device__ __forceinline__ void tile_row_stats(float x0, float x1, float2* dst, int lane) {
-  const float mean = warp_sum(x0 + x1) / kNT;
-  const float d0 = x0 - mean, d1 = x1 - mean;
-  const float m2 = warp_sum(d0 * d0 + d1 * d1);
-  if (lane == 0) *dst = make_float2(mean, m2);
-}
-
-// Two int8 weights (rows k and k + 1 of column n of a raw slab) as a bf16
-// pair: exact.
-__device__ __forceinline__ uint32_t i8_pair(const int8_t* slab, int k, int n) {
-  return pack_bf16x2((float)slab[k * kLdW8 + n], (float)slab[(k + 1) * kLdW8 + n]);
-}
-
-template <typename WT, int MT, int KG>
-__global__ void __launch_bounds__(kThreads, 2) tf_stream(TfDense p, int M, int N, int K) {
-  using Sh = Shape<MT, KG>;
-  constexpr int RB = Sh::RB, ST = Sh::STAGES;
-  constexpr bool kI8 = std::is_same<WT, int8_t>::value;
-  constexpr int WSB = w_stage_bytes<WT>();
-  constexpr int ASB = RB <= kLnRows ? a_stage_bytes(RB) : RB * kLdA * 2;
-  extern __shared__ __align__(128) unsigned char ws_smem[];
-  unsigned char* wring = ws_smem;
-  unsigned char* aring = ws_smem + ST * WSB;
-  float* Rb = reinterpret_cast<float*>(ws_smem + ring_bytes<WT, MT, KG>());  // partials received
-  __shared__ float mu[RB], rstd[RB];
-  __shared__ int gword[RB];
-  cg::cluster_group cluster = cg::this_cluster();
-
-  const int tile = blockIdx.x, chunk = blockIdx.z;
-  const int splits = gridDim.y, split = (int)cluster.block_rank();  // the cluster spans y
-  const int n0 = tile * kNT, m0 = chunk * RB;
-  const int nst = K / kKC;
-  const int s_beg = (int)((long)split * nst / splits);
-  const int n = (int)((long)(split + 1) * nst / splits) - s_beg;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
-  const bool ln = RB <= kLnRows && p.a_mode == kALayerNorm;
-
-  if (flag_set(p.skip)) return;
-  const WT* W = static_cast<const WT*>(p.w);
-  auto load_w = [&](int j) {  // the block's stage j into slot j % ST
-    unsigned char* dst = wring + (j % ST) * WSB;
-    const int k0 = (s_beg + j) * kKC;
-    constexpr int CPR = kNT * (int)sizeof(WT) / 16;  // 16-byte chunks of a slab row
-    for (int i = tid; i < kKC * CPR; i += kThreads) {
-      const int r = i / CPR, c = i % CPR;
-      cp_async16(dst + r * (kI8 ? kLdW8 : kLdW * 2) + c * 16,
-                 W + (long)(k0 + r) * N + n0 + c * (16 / (int)sizeof(WT)), 16);
-    }
-    if (ln && tid < 2 * kKC / 4) {  // the gain and offset of the stage's k
-      const float* src = (tid < kKC / 4 ? p.ln_g : p.ln_b) + k0 + (tid % (kKC / 4)) * 4;
-      cp_async16(dst + w_slab_bytes<WT>() + tid * 16, src, 16);
-    }
-  };
-  // the weights first: they do not depend on the kernel before this one
-  for (int j = 0; j < ST; ++j) {
-    if (j < n) load_w(j);
-    cp_async_commit();
-  }
-  // the epilogue's operands of this lane's two columns (weights too)
-  const int c0 = 2 * lane;
-  const float2 bias2 = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + c0));
-  const float2 scale2 = p.w_scale != nullptr
-                            ? __ldg(reinterpret_cast<const float2*>(p.w_scale + n0 + c0))
-                            : make_float2(1.f, 1.f);
-  const float2 pos2 = p.e_mode == kEEmbed
-                          ? __ldg(reinterpret_cast<const float2*>(p.pos + n0 + c0))
-                          : make_float2(0.f, 0.f);
-  griddep_wait();
-  if (flag_set(p.skip)) {
-    cp_async_wait<0>();
-    return;
-  }
-
-  if (p.a_mode == kAGather) {
-    for (int r = tid; r < RB; r += kThreads)
-      gword[r] = m0 + r < M ? __ldcg(p.word + m0 + r) : p.pad;
-    __syncthreads();
-  }
-  // LayerNorm: a warp per row, lane t holding x's tile t (mean, squared
-  // deviations), loaded before the rows (which queue behind them)
-  constexpr int kRowsPerWarp = RB <= kLnRows ? RB / 8 : 1;
-  const int nt = K / kNT;
-  float2 st[kRowsPerWarp];
-  if (ln) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = m0 + warp + 8 * i;
-      st[i] = lane < nt && row < M ? __ldcg(p.stats + (long)lane * M + row)
-                                   : make_float2(0.f, 0.f);
-    }
-  }
-  auto load_a = [&](int j) {
-    unsigned char* dst = aring + (j % ST) * ASB;
-    const int k0 = (s_beg + j) * kKC;
-    if (ln) {  // float32 x rows: 8 chunks a row
-      const float* x = static_cast<const float*>(p.a);
-      for (int i = tid; i < RB * 8; i += kThreads) {
-        const int r = i / 8, c = i % 8, row = m0 + r;
-        const bool in = row < M;
-        cp_async16(dst + (r * kLdX + c * 4) * 4, in ? x + (long)row * K + k0 + c * 4 : x,
-                   in ? 16 : 0);
-      }
-    } else {  // bf16 rows: the activation, or the word's table row (<pad>: zeros)
-      const bf* a = static_cast<const bf*>(p.a);
-      for (int i = tid; i < RB * 4; i += kThreads) {
-        const int r = i / 4, c = i % 4, row = m0 + r;
-        long src = row < M ? row : -1;
-        if (p.a_mode == kAGather) src = gword[r] == p.pad ? -1 : gword[r];
-        cp_async16(dst + (r * kLdA + c * 8) * 2, src >= 0 ? a + src * K + k0 + c * 8 : a,
-                   src >= 0 ? 16 : 0);
-      }
-    }
-  };
-  for (int j = 0; j < ST && j < n; ++j) load_a(j);
-  cp_async_commit();
-  griddep_launch_dependents();
-  if (ln) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {  // equal tiles: the mean of the means, then
-      const float mean = warp_sum(st[i].x) / nt;  // M2 = sum M2_t + 64 (mean_t - mean)^2
-      const float d = st[i].x - mean;
-      const float m2 = warp_sum(lane < nt ? st[i].y + kNT * d * d : 0.f);
-      if (lane == 0) {
-        mu[warp + 8 * i] = mean;
-        rstd[warp + 8 * i] = m0 + warp + 8 * i < M ? rsqrtf(m2 / K + kLnEps) : 0.f;
-      }
-    }
-    __syncthreads();
-  }
-
-  const int strip = warp & 3, grp = warp >> 2;
-  const int r_base = KG == 1 ? grp * 8 * MT : 0;
-  const int g = lane >> 2, c = lane & 3;
-  float mu_t[MT], rs_t[MT];  // rows r_base + 8 t + g
-#pragma unroll
-  for (int t = 0; t < MT; ++t) {
-    mu_t[t] = ln ? mu[r_base + 8 * t + g] : 0.f;
-    rs_t[t] = ln ? rstd[r_base + 8 * t + g] : 0.f;
-  }
-  float acc[MT][4];
-#pragma unroll
-  for (int t = 0; t < MT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  // stage j's products: its weight slab's fragments (int8 widened, as
-  // formed) against the block's rows (normalized as formed, under a
-  // LayerNorm up to kLnRows rows)
-  auto stage = [&](int j) {
-    const unsigned char* ws = wring + (j % ST) * WSB;
-    const unsigned char* as = aring + (j % ST) * ASB;
-#pragma unroll
-    for (int ks = 0; ks < kKC / 16; ++ks) {
-      if (KG == 2 && ks != grp) continue;
-      uint32_t a[4];  // the weight's 16 columns x 16 k of this warp's strip
-      if constexpr (kI8) {  // widened to bf16 as the fragment is formed
-        const int8_t* slab = reinterpret_cast<const int8_t*>(ws);
-        const int k = ks * 16 + 2 * c, col = strip * 16 + g;
-        a[0] = i8_pair(slab, k, col);
-        a[1] = i8_pair(slab, k, col + 8);
-        a[2] = i8_pair(slab, k + 8, col);
-        a[3] = i8_pair(slab, k + 8, col + 8);
-      } else {
-        ldmatrix_x4_trans(a, reinterpret_cast<const bf*>(ws) +
-                                 (ks * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdW +
-                                 strip * 16 + (((lane >> 3) & 1) << 3));
-      }
-      if (ln) {  // the batch rows normalized to bf16 as the fragment is formed
-        const float* X = reinterpret_cast<const float*>(as);
-        const float* gb = reinterpret_cast<const float*>(ws + w_slab_bytes<WT>());
-        const int k = ks * 16 + 2 * c;
-        const float2 g0 = *reinterpret_cast<const float2*>(gb + k);
-        const float2 g1 = *reinterpret_cast<const float2*>(gb + k + 8);
-        const float2 b0 = *reinterpret_cast<const float2*>(gb + kKC + k);
-        const float2 b1 = *reinterpret_cast<const float2*>(gb + kKC + k + 8);
-#pragma unroll
-        for (int t = 0; t < MT; ++t) {
-          const float* xr = X + (r_base + 8 * t + g) * kLdX + k;
-          const float2 x0 = *reinterpret_cast<const float2*>(xr);
-          const float2 x1 = *reinterpret_cast<const float2*>(xr + 8);
-          const float m = mu_t[t], rs = rs_t[t];
-          mma_bf16(acc[t], a,
-                   pack_bf16x2((x0.x - m) * rs * g0.x + b0.x, (x0.y - m) * rs * g0.y + b0.y),
-                   pack_bf16x2((x1.x - m) * rs * g1.x + b1.x, (x1.y - m) * rs * g1.y + b1.y));
-        }
-      } else {
-        const bf* A = reinterpret_cast<const bf*>(as);
-#pragma unroll
-        for (int t = 0; t < MT; t += 2) {
-          const bf* arow = A + (r_base + t * 8 + (lane & 7)) * kLdA + ks * 16 +
-                           (((lane >> 3) & 1) << 3);
-          if (t + 1 < MT) {
-            uint32_t b[4];
-            ldmatrix_x4(b, arow + ((lane >> 4) << 3) * kLdA);
-            mma_bf16(acc[t], a, b[0], b[1]);
-            mma_bf16(acc[t + 1], a, b[2], b[3]);
-          } else {
-            uint32_t b[2];
-            ldmatrix_x2(b, arow);
-            mma_bf16(acc[t], a, b[0], b[1]);
-          }
-        }
-      }
-    }
-  };
-  if (n <= ST) {  // the whole K range is in the ring: one wait, no more syncs
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int j = 0; j < n; ++j) stage(j);
-  } else {
-    for (int j = 0; j < n; ++j) {
-      if (j == 0)
-        cp_async_wait<0>();
-      else
-        cp_async_wait<ST - 2>();
-      __syncthreads();  // stage j is in; every warp is done with stage j - 1's slot
-      if (j >= 1 && j - 1 + ST < n) {
-        load_w(j - 1 + ST);
-        load_a(j - 1 + ST);
-      }
-      cp_async_commit();
-      stage(j);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Each split's partial sums go straight into the shared memory of the
-  // block that finalizes their row (row r: the cluster's block r % splits),
-  // one slot per (split, warp group); one cluster barrier; then each block
-  // sums its rows' slots in order and runs their epilogue.
-  // acc[t]: output columns strip * 16 + g (+ 8), rows r_base + 8 t + 2 c (+ 1)
-  const int rpo = (RB + splits - 1) / splits;  // rows a block finalizes, at most
-  const int slot = split * KG + (KG == 2 ? grp : 0), slots = splits * KG;
-
-#pragma unroll
-  for (int t = 0; t < MT; ++t) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r_base + 8 * t + 2 * c + (e & 1), col = strip * 16 + g + (e & 2 ? 8 : 0);
-      if (m0 + r >= M) continue;
-      float* dst = splits == 1 ? Rb : cluster.map_shared_rank(Rb, r % splits);
-      dst[(slot * rpo + r / splits) * kLdC + col] = acc[t][e];
-    }
-  }
-  cluster.sync();  // every partial is in place
-
-  const bool stats = p.e_mode == kEResidual || p.e_mode == kEEmbed;
-  for (int li = warp; li < rpo; li += kThreads / 32) {
-    const int r = split + li * splits, row = m0 + r;
-    if (r >= RB || row >= M) break;
-    float s0 = 0.f, s1 = 0.f;  // the slots in order
-    for (int q = 0; q < slots; ++q) {
-      const float2 v = *reinterpret_cast<const float2*>(Rb + (q * rpo + li) * kLdC + c0);
-      s0 += v.x;
-      s1 += v.y;
-    }
-    const float2 xo = p.e_mode == kEResidual  // x as the kernel found it
-                          ? *reinterpret_cast<const float2*>(static_cast<const float*>(p.out) +
-                                                             (long)row * N + n0 + c0)
-                          : make_float2(0.f, 0.f);
-    const float x0 = epilogue<bf>(p, s0, row, n0 + c0, N, bias2.x, scale2.x, pos2.x, xo.x);
-    const float x1 = epilogue<bf>(p, s1, row, n0 + c0 + 1, N, bias2.y, scale2.y, pos2.y, xo.y);
-    if (stats) tile_row_stats(x0, x1, p.stats + (long)tile * M + row, lane);
-  }
-}
 
 // x's tile statistics, as the x-writing epilogues leave them, for a product
 // called on its own (capk_stream_product): a warp per (row, 64-column tile).
@@ -808,58 +378,6 @@ static bool launch_layernorm(const float* x, const float* g, const float* b, bf*
   if (D % 4 || D > 128 * kLnMaxChunks) return false;
   return launch_k(pdl, tf_layernorm, (M + 7) / 8, 256, 0, stream, x, g, b, xn, M, D, skip) ==
          cudaSuccess;
-}
-
-template <typename WT, int MT, int KG>
-static bool launch_shape(const TfDense& p, int M, int N, int K, const Plan& s, bool pdl,
-                         cudaStream_t stream) {
-  size_t most = 0;
-  for (int sp = 1; sp <= kMaxSplits; sp *= 2) most = std::max(most, smem_bytes<WT, MT, KG>(sp));
-  static const bool raised =
-      cudaFuncSetAttribute(tf_stream<WT, MT, KG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)most) == cudaSuccess;
-  if (!raised) return false;
-  const size_t smem = smem_bytes<WT, MT, KG>(s.splits);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(s.tiles, s.splits, s.chunks);
-  cfg.blockDim = kThreads;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;  // a cluster: the K splits of a tile
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = s.splits;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 2 : 1;
-  return cudaLaunchKernelEx(&cfg, tf_stream<WT, MT, KG>, p, M, N, K) == cudaSuccess;
-}
-
-// false for shapes it does not take: N a multiple of 64, K of 32 (of 64 under
-// a LayerNorm, whose row statistics tiles must also fit the activation ring).
-template <typename WT>
-static bool launch(const TfDense& p, int M, int N, int K, bool pdl, cudaStream_t stream) {
-  if (M < 1 || N < kNT || N % kNT || K < kKC || K % kKC ||
-      (p.a_mode == kALayerNorm && (M > kLnRows || K % kNT || K / kNT > 32)))
-    return false;  // (a LayerNorm row's statistics tiles: one a lane)
-  if ((p.a_mode == kALayerNorm || p.e_mode == kEResidual || p.e_mode == kEEmbed) &&
-      p.stats == nullptr)
-    return false;
-  const Plan s = plan(M, N, K);
-  switch (s.rb) {
-    case 8:
-      return launch_shape<WT, 1, 2>(p, M, N, K, s, pdl, stream);
-    case 16:
-      return launch_shape<WT, 1, 1>(p, M, N, K, s, pdl, stream);
-    case 32:
-      return launch_shape<WT, 2, 1>(p, M, N, K, s, pdl, stream);
-    case 64:
-      return launch_shape<WT, 4, 1>(p, M, N, K, s, pdl, stream);
-    default:
-      return launch_shape<WT, 8, 1>(p, M, N, K, s, pdl, stream);
-  }
 }
 
 }  // namespace wsp
@@ -946,27 +464,6 @@ static bool launch_attention(const void* q, const void* k, const void* v, void* 
 }
 
 // ---- the step's tail -------------------------------------------------------------
-
-// Greedy: done rows emit <pad>, a row is done once it has emitted <stop>, and
-// the flag is set once every row is done (early stop only); ids row t.
-__global__ void __launch_bounds__(kTailThreads)
-    greedy_finish(int* __restrict__ word, int* __restrict__ done, int* __restrict__ flag,
-                  int* __restrict__ ids_t, int B, int pad, int stop, int early) {
-  if (pdl_enter(flag)) return;
-  int live = 0;
-  for (int r = threadIdx.x; r < B; r += blockDim.x) {
-    int wd = word[r];
-    if (early) {
-      if (done[r]) wd = pad;
-      const int d = done[r] | (wd == stop);
-      done[r] = d;
-      live |= !d;
-      word[r] = wd;
-    }
-    ids_t[r] = wd;
-  }
-  if (!__syncthreads_or(live) && early && threadIdx.x == 0) *flag = 1;
-}
 
 // Beam: per image (one warp each) the top W of the W * W candidates
 // scores[src] + logp, logp = vals - lse of the source row's top W words, or
@@ -1229,7 +726,7 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
                                     p.part_v, p.part_i, vocab_argmax_width(V), p.word, p.flag,
                                     pdl, stream));
       TF_LAUNCH(true);
-      TF_LAUNCH(launch_k(pdl, greedy_finish, 1, kTailThreads, 0, stream, p.word, p.done, p.flag,
+      TF_LAUNCH(launch_k(pdl, greedy_finish, 1, kGreedyFinishThreads, 0, stream, p.word, p.done, p.flag,
                          p.words_tm + (long)t * B, B, pad, stop, early) == cudaSuccess);
     } else {
       // kernel C's tile kernel and merge (topk_head.cu): two launches

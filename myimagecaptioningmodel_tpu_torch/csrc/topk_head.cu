@@ -600,14 +600,16 @@ int capk_topk_head_vocab_tile() { return capk::topk_head_vocab_tile(); }
 // + bias[V] per row, sorted; lse[M]: the row's logsumexp. table_dtype and
 // scale as for capk_vocab_argmax; E a multiple of 8. part_v / part_i hold
 // M x nvt x k and part_m / part_s M x nvt elements, nvt = ceil(V /
-// capk_topk_head_vocab_tile()). Returns cudaGetLastError()
-// (cudaErrorInvalidValue for operands the kernel does not take).
+// capk_topk_head_vocab_tile()). skip, if not null, is a device flag: both
+// kernels return at once when it is set (the LSTM beam decode's early
+// stop). Returns cudaGetLastError() (cudaErrorInvalidValue for operands the
+// kernel does not take).
 int capk_topk_head(int table_dtype, int M, int V, int E, int k, const float* proj,
                    const void* table, const float* bias, const float* scale,
                    float* part_v, int* part_i, float* part_m, float* part_s, float* vals,
-                   int* ids, float* lse, cudaStream_t stream) {
+                   int* ids, float* lse, const int* skip, cudaStream_t stream) {
   if (!capk::topk_head_launch(table_dtype, M, V, E, k, proj, table, bias, scale, part_v, part_i,
-                              part_m, part_s, vals, ids, lse, nullptr, false, stream))
+                              part_m, part_s, vals, ids, lse, skip, false, stream))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

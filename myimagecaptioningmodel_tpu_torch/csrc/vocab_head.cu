@@ -611,6 +611,27 @@ bool vocab_argmax_launch(int table_dtype, int M, int V, int E, const float* proj
   });
 }
 
+// Greedy: done rows emit <pad>, a row is done once it has emitted <stop>, and
+// the flag is set once every row is done (early stop only); ids row t.
+__global__ void __launch_bounds__(kGreedyFinishThreads)
+    greedy_finish(int* __restrict__ word, int* __restrict__ done, int* __restrict__ flag,
+                  int* __restrict__ ids_t, int B, int pad, int stop, int early) {
+  if (pdl_enter(flag)) return;
+  int live = 0;
+  for (int r = threadIdx.x; r < B; r += blockDim.x) {
+    int wd = word[r];
+    if (early) {
+      if (done[r]) wd = pad;
+      const int d = done[r] | (wd == stop);
+      done[r] = d;
+      live |= !d;
+      word[r] = wd;
+    }
+    ids_t[r] = wd;
+  }
+  if (!__syncthreads_or(live) && early && threadIdx.x == 0) *flag = 1;
+}
+
 }  // namespace capk
 
 extern "C" {

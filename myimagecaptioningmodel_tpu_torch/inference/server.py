@@ -5,10 +5,9 @@ The bundle is loaded once onto one device. Concurrent requests are collected
 into batches (dispatch when ``batch_size`` are waiting or ``max_wait_ms``
 after the first), decoded in one call (greedy, or beam search with
 ``--beam N``; float or, with ``--quantize``, int8 decoder weights, either
-decoder family), and answered individually. On CUDA an LSTM decode step
-runs the hand-written fused-step kernels and a vocab-head kernel (argmax
-greedy, top-k beam); a transformer decode is one whole-decode kernel call
-(D greedy, E beam). The JAX server has no flag for the transformer's int8
+decoder family), and answered individually. On CUDA an LSTM decode is one CUDA-graph replay of
+kernel B's steps with a vocab-head kernel (argmax greedy, top-k beam); a
+transformer decode is one of kernel D's (greedy) or E's (beam). The JAX server has no flag for the transformer's int8
 cross-attention memory, and neither has this one (``load_bundle`` has).
 Unlike the reference, which pads every batch to one compiled shape, a
 partial batch is decoded at its own size: the kernels take any batch.

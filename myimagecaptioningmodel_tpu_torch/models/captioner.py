@@ -128,8 +128,9 @@ class ModelOptions(NamedTuple):
 class Captioner(NamedTuple):
     encoder: mobilenet_v2.MobileNetV2  # eval mode, BN moving stats as buffers
     params: Params  # {"img_embed", "img_global", "decoder"} tensors
-    # the transformer decoder's weights packed once for kernels D and E
-    # (``fused_transformer.pack_weights``), else None: packed per decode
+    # the decoder's weights packed once for its kernels (LSTM: kernels B
+    # and C, ``fused_step.pack_weights``; transformer: D and E,
+    # ``fused_transformer.pack_weights``), else None: packed per decode
     decoder_packed: Any = None
 
     @property
@@ -259,6 +260,7 @@ def _decode_features(dec: Params, img_embed, global_feat, opts: ModelOptions,
         use_kernels=opts.use_kernels,
         early_stop=opts.early_stop_decode,
         stop_idx=opts.stop_idx,
+        packed=packed,
     )
 
 

@@ -14,10 +14,10 @@ Params may hold int8 weights (``ops/quantization.py``): every product of
 such a weight applies its per-output-channel scale, and the tied head its
 per-row scale, where the reference does.
 
-``greedy_decode_ids`` runs the fused step kernels when ``use_kernels`` is on
-(CUDA), and the plain step otherwise. Unlike the reference it needs no model
-dims gate and pads no batch: the kernels take any B >= 1 and mask their own
-ragged edges, and decoding is per row either way.
+``greedy_decode_ids`` runs kernel B's whole-decode graph when ``use_kernels``
+is on (CUDA), and the plain step otherwise. Unlike the reference it needs no
+batch padding: the kernels take any B >= 1 and mask their own ragged edges,
+and decoding is per row either way (they take H and E in multiples of 64).
 
 ``teacher_forcing_logits`` is the training forward, with the reference's
 structure: everything that does not feed the recurrence is batched over
@@ -301,65 +301,58 @@ def greedy_decode_ids(
     use_kernels: bool = False,
     early_stop: bool = False,
     stop_idx: int = 3,
+    packed=None,
 ) -> torch.Tensor:
     """Greedy decode, argmax feedback for ``max_length`` steps -> int32 [B, T].
 
-    ``use_kernels``: each step is the fused step (``ops/kernels/fused_step``,
-    int8 params dequantized once at its ``prepare``) ending in the
-    vocab-argmax kernel; under ``parity_mode`` the plain step runs with the
+    ``use_kernels``: the whole decode is kernel B's (``ops/kernels/
+    fused_step.lstm_greedy_decode``: each step the fused step ending in the
+    vocab-argmax kernel, one CUDA graph replay per decode), on ``packed``
+    (``fused_step.pack_weights(params, compute_dtype)``, packed once at
+    load; packed here when None or of another dtype, int8 params
+    dequantized there); under ``parity_mode`` the plain step runs with the
     vocab-argmax kernel as its head (on an int8 table with its scale).
-    ``early_stop`` ends the loop once every row has emitted ``<stop>`` and
-    fills later positions with the padding id (captions equal the
-    fixed-length decode's).
+    ``early_stop`` fills the positions after a row's ``<stop>`` with the
+    padding id (captions equal the fixed-length decode's); the plain loop
+    also ends once every row has emitted ``<stop>``.
     """
     B = pre.global_feat.shape[0]
     H = dense_in_dim(params["p_hid"])
     dev = pre.global_feat.device
     dt = compute_dtype
-    h = torch.zeros((B, H), dtype=torch.float32, device=dev)
-    c = torch.zeros_like(h)
-    word = torch.full((B,), start_idx, dtype=torch.int64, device=dev)
 
     if use_kernels and not parity_mode:
         from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
 
-        fp = FS.prepare(params, pre, padding_idx, dt)
-        img_k = pre.img_k.to(dt).contiguous()
-        img_v = pre.img_v.to(dt).contiguous()
+        pk = FS.with_batch(FS.packed_for(params, dt, packed), params, pre)
+        return FS.lstm_greedy_decode(pk, pre.img_k.to(dt).contiguous(),
+                                     pre.img_v.to(dt).contiguous(), max_length, start_idx,
+                                     padding_idx, dt, early_stop, stop_idx)
+    if use_kernels:
+        from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
+            greedy_vocab_argmax,
+        )
 
-        def step(h, c, word):
-            h, c, _proj, nxt = FS.fused_decode_step(
-                fp, fp.emb_table[word], h, c, img_k, img_v,
-                with_head=True, compute_dtype=dt,
-            )
-            return h, c, nxt
+        # an int8 table streams 1 byte per element, its scale fused
+        table, scale = head_table(params["embedding"])
+
+        def argmax_head(proj):
+            return greedy_vocab_argmax(proj, table, params["out_bias"], scale)
     else:
-        if use_kernels:
-            from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
-                greedy_vocab_argmax,
-            )
 
-            # an int8 table streams 1 byte per element, its scale fused
-            table, scale = head_table(params["embedding"])
+        def argmax_head(proj):
+            return torch.argmax(head_logits(params, proj, dt), dim=-1).to(torch.int32)
 
-            def argmax_head(proj):
-                return greedy_vocab_argmax(proj, table, params["out_bias"], scale)
-        else:
-
-            def argmax_head(proj):
-                return torch.argmax(head_logits(params, proj, dt), dim=-1).to(torch.int32)
-
-        def step(h, c, word):
-            h, c, proj = step_core(params, pre, word, h, c, parity_mode,
-                                   padding_idx, dt)
-            return h, c, argmax_head(proj)
-
+    h = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    c = torch.zeros_like(h)
+    word = torch.full((B,), start_idx, dtype=torch.int64, device=dev)
     ids = torch.full((B, max_length), padding_idx, dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     for t in range(max_length):
         if early_stop and bool(done.all()):
             break
-        h, c, nxt = step(h, c, word)
+        h, c, proj = step_core(params, pre, word, h, c, parity_mode, padding_idx, dt)
+        nxt = argmax_head(proj)
         if early_stop:
             nxt = torch.where(done, torch.full_like(nxt, padding_idx), nxt)
             done = done | (nxt == stop_idx)

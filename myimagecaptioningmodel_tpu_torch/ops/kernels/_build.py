@@ -44,8 +44,11 @@ _SIGNATURES = {
     "capk_vocab_argmax_vocab_tile": [_I],
     "capk_vocab_argmax": [_I, _I, _I, _I] + [_VP] * 8,
     "capk_topk_head_vocab_tile": [],
-    "capk_topk_head": [_I] * 5 + [_VP] * 12,
-    "capk_fused_step": [_I] * 5 + [_VP] * 22,
+    "capk_topk_head": [_I] * 5 + [_VP] * 13,
+    "capk_fused_step": [_PI, _PVP, _VP],
+    "capk_lstm_greedy_decode": [_PI, _PVP, _VP, _PI],
+    "capk_lstm_product": [_PI, _PVP, _VP],
+    "capk_lstm_product_splits": [_I] * 4,
     "capk_matmul_stats_row_tile": [],
     "capk_matmul_stats_partial_rows": [_I] * 4,
     "capk_matmul_stats": [_I] * 4 + [_VP] * 5 + [_I] + [_VP] * 3,

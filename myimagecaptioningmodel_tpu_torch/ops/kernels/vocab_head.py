@@ -135,10 +135,13 @@ def topk_vocab_head(
     bias: torch.Tensor,  # [V] float32
     k: int = 4,
     scale: Optional[torch.Tensor] = None,  # [V] float32, for an int8 table
+    skip: Optional[torch.Tensor] = None,  # [1] int32 device flag
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (vals [B,k] f32 raw logits, ids [B,k] int32, lse [B] f32); the
     log-softmax of pick i is ``vals[:, i] - lse``. Launches kernel C for CUDA
-    tensors. ``1 <= k <= TOPK_MAX_K`` and ``k <= V`` on every device."""
+    tensors; with ``skip`` its kernels return at once, their outputs left
+    unwritten, when the flag is set on the device (the LSTM beam search's
+    early stop). ``1 <= k <= TOPK_MAX_K`` and ``k <= V`` on every device."""
     V = table.shape[0]
     if not 1 <= k <= min(TOPK_MAX_K, V):
         raise ValueError(f"topk_vocab_head takes 1 <= k <= {TOPK_MAX_K} and k <= V={V}, "
@@ -149,6 +152,8 @@ def topk_vocab_head(
         raise ValueError(f"no kernel for device {proj.device}")
     proj, code = _check_operands(proj, table, bias, scale)
     (B, E), dev = proj.shape, proj.device
+    if skip is not None:
+        _build.require(skip, "skip", dev, torch.int32, (1,))
     lib = _build.load_library()
     nvt = -(-V // _topk_vocab_tile(lib))
     # one int32 buffer: part_v, part_i [B, nvt, k], part_m, part_s [B, nvt],
@@ -159,7 +164,7 @@ def topk_vocab_head(
     err = lib.capk_topk_head(
         code, B, V, E, k, proj.data_ptr(), table.data_ptr(), bias.data_ptr(), _ptr(scale),
         part_v.data_ptr(), part_i.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
-        vals.data_ptr(), ids.data_ptr(), lse.data_ptr(), _build.stream_ptr(dev),
+        vals.data_ptr(), ids.data_ptr(), lse.data_ptr(), _ptr(skip), _build.stream_ptr(dev),
     )
     _build.check(err, "capk_topk_head")
     topk_vocab_head.launches += 1

@@ -6,7 +6,8 @@ no JAX, so it also runs on a machine that has none:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: h', c', proj to atol 1e-4 in float32 (TF32 off) and 3e-2 in
-bfloat16, with the head (greedy rows) and without it (beam rows); ids equal
+bfloat16, their mean errors to 1e-5 and 3e-4, with the head (greedy rows)
+and without it (beam rows), at 1-512 rows; ids equal
 wherever the plain version's top-2 logit gap exceeds 1e-3 x max|logit|
 (float32) or 2e-2 (bfloat16 and int8 tables). The top-k head: lse and the
 picked ids' logits (re-read from the plain float32 logits) to 1e-4 for every
@@ -56,6 +57,16 @@ of the same rounded operands (``stream_product_reference``), to one bf16 ulp
 at each element's magnitude plus 1e-3 of the largest (sums in other
 orders); and D and E at small dims replayed through one CUDA graph on two
 batches of other images, each held against its own plain decode as above.
+Kernel B's bf16 products (``step_product``) against a float32 product of
+the same rounded operands to 2^-16 of sum |A w| plus 1e-5; its gathered
+word rows and shared image memory give the same bits as the rows and the
+memory repeated; the LSTM greedy decode (one CUDA graph, small dims: H=128,
+E=64, V=2050, k=49, T=5) equal to its plain version in float32 and under
+the near-tie rule against the plain step teacher-forced in bfloat16, a
+graph replayed on two batches and, without the copy of its inputs, giving
+the previous batch's ids; the beam graph equal to the same search's plain
+versions in float32 and its best beams re-scored within 2.5e-2 a sqrt
+step in bfloat16.
 """
 
 import pytest
@@ -293,19 +304,250 @@ def _step_args(cuda, B, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,head", [(1, True), (8, True), (128, True),
-                                    (32, False), (512, False)])  # beam: 8, 128 x beam 4
+@pytest.mark.parametrize("head", [True, False])  # greedy rows; beam rows (8, 128 x beam 4)
+@pytest.mark.parametrize("B", [1, 8, 16, 17, 32, 128, 512])  # the products' row tiles
 def test_cuda_fused_step_matches_plain(cuda, dt, B, head):
     args = _step_args(cuda, B, dt)
     fp = args[0]
+    n = TFS.fused_decode_step.launches
     out = TFS.fused_decode_step(*args, with_head=head, compute_dtype=dt)
+    torch.cuda.synchronize()
+    assert TFS.fused_decode_step.launches == n + 1
     ref = TFS.reference_step(*args, with_head=head, compute_dtype=dt)
     tol = 1e-4 if dt == torch.float32 else 3e-2
+    # and the mean error, as chip_smoke.py's B_MEAN_TOL: a bf16 rounding on
+    # the other side of the plain step's moves a few outputs, a dataflow
+    # fault every row's
+    mean_tol = 1e-5 if dt == torch.float32 else 3e-4
     for t, r in zip(out[:3], ref[:3]):
         torch.testing.assert_close(t, r, rtol=0, atol=tol)
+        assert (t - r).abs().mean() <= mean_tol
     if head:
         logits = torch.matmul(ref[2].to(dt).float(), fp.head_table.float().T) + fp.head_bias
         assert _near_tie_ok(out[3], logits, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [8, 32])
+def test_cuda_fused_step_gathers_words_and_shares_images(cuda, dt, B):
+    """The gate product's gathered word rows (the padding id's zeroed) and
+    rows sharing their image's memory (beam rows) give the same bits as the
+    word rows and the memory repeated per row."""
+    fp, _emb, h, c, img_k, img_v = _step_args(cuda, B, dt)
+    pk = TFS.pack_step(fp)
+    word = torch.randint(0, 12295, (B,), generator=torch.Generator().manual_seed(1))
+    word[::3] = 0  # <pad>
+    word = word.to(cuda, torch.int32)
+    rows = TFS.fused_decode_step(pk, TFS.gather_words(pk.table, word, 0), h, c, img_k, img_v,
+                                 with_head=False, compute_dtype=dt)
+    gathered = TFS.fused_decode_step(pk, None, h, c, img_k, img_v, with_head=False,
+                                     compute_dtype=dt, word=word, padding_idx=0)
+    shared_k = img_k[::4].contiguous()  # 4 rows an image
+    shared = TFS.fused_decode_step(pk, None, h, c, shared_k.repeat_interleave(4, 0),
+                                   img_v[::4].repeat_interleave(4, 0).contiguous(),
+                                   with_head=False, compute_dtype=dt, word=word)
+    once = TFS.fused_decode_step(pk, None, h, c, shared_k, img_v[::4].contiguous(),
+                                 with_head=False, compute_dtype=dt, word=word)
+    torch.cuda.synchronize()
+    for a, b, x, y in zip(rows[:3], gathered[:3], shared[:3], once[:3]):
+        assert torch.equal(a, b) and torch.equal(x, y)
+
+
+# (name, problems, N, K, k_split, mode, gather) of each product of a bf16 step
+B_PRODUCTS = [("gate", 1, 5120, 1280, 256, "lstm", True), ("gate_rows", 1, 5120, 1280, 256,
+               "lstm", False), ("p_hid", 1, 1024, 1024, 0, "tanh", False),
+              ("he_se", 2, 1024, 1024, 0, "f32", False), ("proj", 1, 256, 1024, 0, "f32", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 9, 16, 17, 33, 128, 257, 512])
+@pytest.mark.parametrize("name,P,N,K,k_split,mode,gather", B_PRODUCTS)
+def test_cuda_step_product_matches_plain(cuda, name, P, N, K, k_split, mode, gather, rows):
+    """Each of kernel B's bf16 products against a float32 product of the
+    same rounded operands: to 2^-16 of sum |A w| plus 1e-5 (float32 sums in
+    other orders; the epilogue's tanh, sigmoid and cell move that by at most
+    as much)."""
+    g = torch.Generator().manual_seed(N + K + rows)
+    bf = torch.bfloat16
+    w = (torch.randn(P, K, N, generator=g) / K ** 0.5).to(cuda, bf)
+    bias = (0.1 * torch.randn(P, N, generator=g)).to(cuda)
+    a2 = torch.randn(P, rows, K - k_split, generator=g).to(cuda)
+    kw = {}
+    if mode == "lstm":
+        table = torch.randn(300, k_split, generator=g).to(cuda, bf)
+        word = torch.randint(0, 300, (rows,), generator=g, dtype=torch.int32)
+        word[::3] = 0  # <pad>: zeros
+        kw = dict(a=table, word=word.to(cuda), pad=0) if gather else dict(a=table[:rows])
+        kw.update(k_split=k_split, gxb=torch.randn(rows, N, generator=g).to(cuda),
+                  c=torch.randn(rows, N // 5, generator=g).to(cuda))
+        if not gather and rows > 300:
+            pytest.skip("the word rows come from a 300-row table")
+    if P == 1:
+        w, bias, a2 = w[0], bias[0], a2[0]
+    if mode == "lstm":
+        bias = None
+    n = TFS.step_product.launches
+    got = TFS.step_product(a2, w, bias, mode, **kw)
+    torch.cuda.synchronize()
+    assert TFS.step_product.launches == n + 1
+    want = TFS.step_product_reference(a2, w, bias, mode, **kw)
+    A = TFS._product_rows(a2, kw.get("a"), kw.get("word"), k_split, 0).to(bf).float()
+    W = TFS.deinterleave_gates(w) if mode == "lstm" else w
+    mag = (A.abs().reshape(P, rows, K) @ W.float().abs().reshape(P, K, -1)).reshape(
+        *(() if P == 1 else (P,)), rows, -1)
+    tol = 2.0 ** -16 * mag + 1e-5
+    if mode == "lstm":  # h', c', sentinel: each moves by at most the gates' errors
+        tol = 4 * tol.reshape(rows, 5, -1).amax(dim=1)
+    for a, b in zip(got if mode == "lstm" else [got], want if mode == "lstm" else [want]):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert ((a - b).abs() <= tol).all(), float(((a - b).abs() / tol).max())
+
+
+# ---- kernel B's whole decodes: greedy (one C call) and beam, each one CUDA graph ----
+
+LSTM_DIMS = TD.DecoderDims(vocab_size=2050, embedding_size=64, hidden_dim=128)
+
+
+def _lstm_case(dev, n_img, dt, stop_bias, seed=0):
+    """Small random LSTM params (the embedding table and the output
+    projection scaled up, so that rows and steps emit distinct words; a bias
+    on <stop> so that rows stop at different steps) and one batch's
+    ``Precomputed``."""
+    gen = torch.Generator().manual_seed(seed)
+    params = tree_to_torch(TD.init(gen, LSTM_DIMS), dev)
+    params["out_proj"]["w"] *= 4.0
+    params["embedding"]["table"] *= 4.0
+    params["out_bias"][3] += stop_bias
+    return params, _lstm_pre(params, n_img, dt, seed + 100)
+
+
+def _lstm_pre(params, n_img, dt, seed):
+    gen = torch.Generator().manual_seed(seed)
+    dev = params["out_bias"].device
+    img = torch.randn(n_img, 49, 128, generator=gen).to(dev)
+    return TD.precompute(params, img, torch.randn(n_img, 128, generator=gen).to(dev), dt)
+
+
+def _lstm_forced(params, pre, ids, dt, padding_idx=0):
+    """The plain step teacher-forced on ``ids`` -> (float32 logits [B, T, V],
+    positions up to each row's first <stop>)."""
+    fp = TFS.prepare(params, pre, padding_idx, dt)
+    B, T = ids.shape
+    h = torch.zeros(B, 128, device=ids.device)
+    c = torch.zeros_like(h)
+    word = torch.full((B,), 2, dtype=torch.long, device=ids.device)
+    logits = []
+    for t in range(T):
+        h, c, proj, _w = TFS.reference_step(fp, fp.emb_table[word], h, c, pre.img_k.to(dt),
+                                            pre.img_v.to(dt), False, dt)
+        logits.append(TVH.head_logits_reference(proj, fp.head_table, fp.head_bias))
+        word = ids[:, t].long()
+    after = torch.cumsum((ids == 3).int(), dim=1) - (ids == 3).int() > 0
+    return torch.stack(logits, dim=1), ~after
+
+
+def _lstm_greedy(params, pre, dt, early, packed=None):
+    pk = TFS.with_batch(TFS.packed_for(params, dt, packed), params, pre)
+    return pk, TFS.lstm_greedy_decode(pk, pre.img_k.to(dt).contiguous(),
+                                      pre.img_v.to(dt).contiguous(), 5, compute_dtype=dt,
+                                      early_stop=early)
+
+
+def _lstm_greedy_ok(params, pre, ids, dt, early):
+    logits, live = _lstm_forced(params, pre, ids, dt)
+    if not early:
+        live = torch.ones_like(live)
+    return _near_tie_ok(ids[live], logits[live], dt) and bool((ids[~live] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8, 17, 128])
+def test_cuda_lstm_greedy_decode_matches_plain(cuda, B, dt, early):
+    params, pre = _lstm_case(cuda, B, dt, 4.0 if early else 0.0)
+    n = (TFS.fused_decode_step.launches, TVH.greedy_vocab_argmax.launches)
+    pk, ids = _lstm_greedy(params, pre, dt, early)
+    torch.cuda.synchronize()
+    # every step counts, captured or replayed
+    assert (TFS.fused_decode_step.launches, TVH.greedy_vocab_argmax.launches) == (n[0] + 5,
+                                                                                  n[1] + 5)
+    assert ids.dtype == torch.int32 and TFS.lstm_greedy_decode.kernel_launches == 45
+    ref = TFS.lstm_greedy_decode_reference(pk, pre.img_k.to(dt), pre.img_v.to(dt), 5,
+                                           compute_dtype=dt, early_stop=early)
+    if dt == torch.float32:
+        assert torch.equal(ids, ref)
+    assert _lstm_greedy_ok(params, pre, ids, dt, early)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_lstm_greedy_replays_one_graph_on_two_batches(cuda, dt):
+    params, _ = _lstm_case(cuda, 8, dt, 4.0, seed=3)
+    packed = TFS.pack_weights(params, dt)
+    TFS.GRAPHS.entries.clear()  # no graph of an earlier test at these addresses
+    captures = TFS.GRAPHS.captures
+    pres = [_lstm_pre(params, 8, dt, seed) for seed in (11, 12)]
+    outs = []
+    for pre in pres:
+        _pk, ids = _lstm_greedy(params, pre, dt, True, packed)
+        torch.cuda.synchronize()
+        assert _lstm_greedy_ok(params, pre, ids, dt, True)
+        outs.append(ids)
+    assert TFS.GRAPHS.captures == captures + 1, "the second batch replays the first's graph"
+    assert not torch.equal(outs[0], outs[1])
+    load = TFS.GRAPHS.load
+    TFS.GRAPHS.load = lambda work, inputs: None  # the first batch, its inputs not copied in
+    try:
+        _pk, stale = _lstm_greedy(params, pres[0], dt, True, packed)
+    finally:
+        TFS.GRAPHS.load = load
+    torch.cuda.synchronize()
+    assert torch.equal(stale, outs[1])  # the graph decoded the second batch again
+
+
+def _beam_rescore(params, pre, ids, dt):
+    logits, live = _lstm_forced(params, pre, ids, dt)
+    tok = torch.log_softmax(logits, dim=-1).gather(-1, ids.long()[..., None])[..., 0]
+    return (tok * live).sum(dim=1), live.sum(dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_img", [1, 8, 32])
+def test_cuda_lstm_beam_graph_matches_plain(cuda, n_img, dt, early):
+    from myimagecaptioningmodel_tpu_torch.inference import beam as TB
+
+    params, pre = _lstm_case(cuda, n_img, dt, 4.0, seed=1)
+    packed = TFS.pack_weights(params, dt)
+    TFS.GRAPHS.entries.clear()
+    captures = TFS.GRAPHS.captures
+    for i, seed in enumerate((21, 22)):
+        pre = _lstm_pre(params, n_img, dt, seed)
+        n = (TFS.fused_decode_step.launches, TVH.topk_vocab_head.launches)
+        ids, score = TB.beam_search_ids(params, pre, 5, 4, compute_dtype=dt, use_kernels=True,
+                                        early_stop=early, packed=packed)
+        torch.cuda.synchronize()
+        assert (TFS.fused_decode_step.launches, TVH.topk_vocab_head.launches) == (n[0] + 5,
+                                                                                  n[1] + 5)
+        assert TFS.GRAPHS.captures == captures + 1
+        if dt == torch.float32:  # the same branch on the CPU: the kernels' plain versions
+            cpu = lambda t: t.cpu()  # noqa: E731
+            ref_ids, ref_score = TB.beam_search_ids(
+                {k: _tree_map(v, cpu) for k, v in params.items()},
+                TD.Precomputed(*(cpu(t) for t in pre)), 5, 4, compute_dtype=dt,
+                use_kernels=True, early_stop=early)
+            assert torch.equal(ids.cpu(), ref_ids)
+            assert (score.cpu() - ref_score).abs().max() <= 1e-4
+        rescore, steps = _beam_rescore(params, pre, ids, dt)
+        tol = (1e-4 if dt == torch.float32 else 2.5e-2) * steps.float().sqrt()
+        assert ((rescore - score).abs() <= tol).all()
+
+
+def _tree_map(tree, fn):
+    return {k: _tree_map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
 
 
 @pytest.mark.cuda

@@ -48,8 +48,10 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
     assert len(names) >= 20
-    # the modules of kernels G and D/E, the int8 transformer and the fused encoder
+    # the modules of kernels G, D/E and B, their decode graphs, the int8
+    # transformer and the fused encoder
     for name in ("ops.kernels.fused_irb", "ops.kernels.fused_transformer",
+                 "ops.kernels.fused_step", "ops.kernels.decode_graphs",
                  "models.transformer", "models.mobilenet_v2"):
         assert "myimagecaptioningmodel_tpu_torch." + name in names
 
