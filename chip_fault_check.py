@@ -1,12 +1,12 @@
 """Plant faults in kernel F's statistics, in the fused train step, in
 kernel E's inputs, in kernel G and the int8 modes of kernels D and E, in
-kernel A and in kernel B, and read what each scores against
-``chip_smoke.py``'s limits, beside the sound path.
+kernel A, in kernel B and in the transformer's training, and read what each
+scores against ``chip_smoke.py``'s limits, beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
-only; nothing on disk changes. Seven parts:
+only; nothing on disk changes. Eight parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -74,6 +74,17 @@ only; nothing on disk changes. Seven parts:
    score weights zeroed); the sentinel gate reading h' instead of h_prev
    (a plain stand-in for the step); the finish kernel writing step t's
    words into row t - 1 (the decode's ids shifted). Each must be caught.
+8. Phase 21's checks of the transformer's training at full width: the
+   optimizer's tree walker skipping what lies under lists (``tree_leaves``
+   without its list branch), caught if a float32 B=32 step leaves any leaf under
+   ``decoder/layers`` unchanged; after 20 sound bf16 B=128 steps,
+   ``decoder/layers`` exported in reversed order, caught if the reloaded
+   bundle differs from the trained tree (``bundle_mismatches``); the causal
+   mask dropped from ``teacher_forcing_logits``, caught if the served
+   greedy ids (kernel D) fail the near-tie rule against its argmax
+   (``served_greedy_check``) or the served best beam (kernel E) its
+   re-score (``served_beam_check``). Each must be caught, and each sound
+   reading pass.
 
     python3 chip_fault_check.py --parts 3   # part 3 only
 
@@ -214,7 +225,7 @@ def train_fault_readings(dev, seed, root):
     for fault, kw in TRAIN_FAULTS.items():
         MB._Conv1x1BN = faulty_conv_bn(**kw)
         try:
-            run, launches = S.one_step_run(cfg, ref_params, ref_state, dev, images, caps)
+            run, launches, _ = S.one_step_run(cfg, ref_params, ref_state, dev, images, caps)
         finally:
             MB._Conv1x1BN = sound_cls
         fused = S.step_errors(run, runs["float64"], lr)
@@ -735,11 +746,100 @@ def b_fault_readings(dev, seed):
     return caught
 
 
+def _lists_skipped(tree):
+    """``tree_leaves`` that skips what lies under lists and tuples."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _lists_skipped(tree[k])]
+    return [] if isinstance(tree, (list, tuple)) else [tree]
+
+
+def _causal_mask_dropped(fn):
+    """``teacher_forcing_logits`` whose self-attention sees every position."""
+    def logits(params, pre, source, dims, padding_idx=0, compute_dtype=torch.bfloat16):
+        from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+        dt, T = compute_dtype, source.shape[1]
+        x = TTF._embed_in(params, source, torch.arange(T, device=source.device), padding_idx, dt)
+        for layer, mk, mv in zip(params["layers"], pre.mem_k, pre.mem_v):
+            x = TTF._block(layer, x, mk, mv, dims.num_heads, dt, None)
+        return TTF.head_logits(params, x, dt)
+
+    del fn
+    return logits
+
+
+def tf_train_fault_readings(dev, seed, root):
+    """Part 8 -> {fault: caught}: phase 21's checks with faults in this
+    slice's code: the optimizer's walker skipping lists (every
+    ``decoder/layers`` leaf must change in a step, 21 (a)); ``decoder/layers``
+    exported in reversed order (the reloaded bundle must equal the trained
+    tree, 21 (c)); the causal mask dropped from ``teacher_forcing_logits``
+    (the served greedy ids against the teacher-forced argmax, 21 (c))."""
+    from myimagecaptioningmodel_tpu_torch.compat import from_jax as FJ
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+    from myimagecaptioningmodel_tpu_torch.parallel import train_step as TS
+    from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
+
+    lr = 1e-3
+    cfg32 = S.train_cfg(root, "float32", False, 32, lr, S.TF_ARCH)
+    ref_params, ref_state = C.init(torch.Generator().manual_seed(seed),
+                                   C.ModelOptions.from_config(cfg32))
+    images, caps = S.train_batch(cfg32, dev, seed)
+    caught = {}
+    n_layer = len(S.layer_leaves(ref_params))
+    for fault in ("walker_sound", "walker_skips_lists"):
+        sound = TS.tree_leaves
+        if fault != "walker_sound":
+            TS.tree_leaves = _lists_skipped
+        try:
+            _run, _launches, unchanged = S.one_step_run(cfg32, ref_params, ref_state, dev,
+                                                        images, caps)
+        finally:
+            TS.tree_leaves = sound
+        caught[fault] = unchanged > 0
+        S.say("fault", check="phase21a", fault=fault, layer_leaves=n_layer,
+              layer_leaves_unchanged=unchanged, caught=caught[fault])
+
+    # 20 sound bf16 steps, as phase 21 (b), then export and serve
+    cfg = S.train_cfg(root, "bfloat16", True, 128, S.TF_LR, S.TF_ARCH)
+    images, caps = S.train_batch(cfg, dev, seed + 1)
+    step, params, opt_state, state = S.trainer(cfg, ref_params, ref_state, dev)
+    for i in range(20):
+        params, opt_state, state, _n, _loss, _lr = step(params, opt_state, state, i, images, caps)
+    for fault in ("export_sound", "layers_reversed_on_export"):
+        p_np, s_np = FJ.reference_tree(params, state)
+        if fault != "export_sound":
+            p_np["decoder"]["layers"] = p_np["decoder"]["layers"][::-1]
+        ckpt.export_inference_bundle(f"{cfg.train.checkpoint_path}/{fault}", p_np, s_np, cfg)
+        model, _bcfg, _opts, _decode = load_bundle(cfg, fault, device=dev)
+        bad = S.bundle_mismatches(model, params, state)
+        caught[fault] = bool(bad)
+        S.say("fault", check="phase21c_bundle", fault=fault, leaves_differing=len(bad),
+              caught=caught[fault])
+    model, _bcfg, opts, _decode = load_bundle(cfg, "export_sound", device=dev)
+    for fault in ("served_sound", "causal_mask_dropped"):
+        sound = TTF.teacher_forcing_logits
+        if fault != "served_sound":
+            TTF.teacher_forcing_logits = _causal_mask_dropped(sound)
+        try:
+            ok, gap, _ids = S.served_greedy_check(model, opts, images[:8])
+            beam_ok, per_step, _ids = S.served_beam_check(model, opts, images[:8])
+        finally:
+            TTF.teacher_forcing_logits = sound
+        caught[fault] = not (ok and beam_ok)
+        S.say("fault", check="phase21c_served", fault=fault, near_tie_ok=ok,
+              near_tie_max_gap=gap, beam_ok=beam_ok, tf_rescore_per_sqrt_step=per_step,
+              caught=caught[fault])
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", default="1,2,3,4,5,6,7", help="comma-separated parts to run")
+    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8", help="comma-separated parts to run")
     args = ap.parse_args(argv)
     parts = {int(x) for x in args.parts.split(",")}
     if not torch.cuda.is_available():
@@ -770,13 +870,15 @@ def main(argv=None) -> int:
         summary["phase14_15_caught"] = stream_fault_readings(dev, args.seed)
     if 7 in parts:
         summary["phase3_20_caught"] = b_fault_readings(dev, args.seed)
+    if 8 in parts:
+        with tempfile.TemporaryDirectory() as root:
+            summary["phase21_caught"] = tf_train_fault_readings(dev, args.seed, root)
     print(json.dumps(summary))
-    if any(bool(v.get(f)) for v in summary.values()
-           for f in ("sound", "encoder_sound", "e_sound")):
+    sound = ("sound", "encoder_sound", "e_sound", "walker_sound", "export_sound", "served_sound")
+    if any(bool(v.get(f)) for v in summary.values() for f in sound):
         return 1
     return 0 if all(bool(v[f]) for k, v in summary.items() if k != "phase11_caught"
-                    for f in v if f not in ("sound", "encoder_sound", "e_sound")
-                    and f not in E_BELOW_RESOLUTION) else 1
+                    for f in v if f not in sound and f not in E_BELOW_RESOLUTION) else 1
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 phases of C's, A's and G's tile kernels in SM cycles, and D's, E's and the
 LSTM decodes.
 
-    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de,b] [--package-root DIR]
+    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de,b,train] [--package-root DIR]
 
 1. Kernel F (``matmul_stats``) at every ``chip_smoke.F_SHAPES`` shape and
    kernel C (``topk_vocab_head``) at M in {32, 512}, k in {1, 4, 8, 32},
@@ -61,6 +61,12 @@ LSTM decodes.
    "torch") and each bf16 product alone and 20 in a row with programmatic
    dependent launch, beside ``torch.mm`` and the byte bound
    (``probe_b_products``).
+
+9. (part ``train``) ``probe_train``: bf16 B=128 train steps at full width,
+   variants in turns over four rounds of 5-step windows (median, quartiles,
+   range, peak MiB, device busy of one profiled step): the LSTM (fused)
+   with ``layers.relu6``'s tie gradient against ``torch.clamp``'s, the LSTM
+   (fused) at bn_stat_rows 0, 16 and 32, the transformer unfused and fused.
 
 Each traced copy is built by ``traced_library`` (every anchor must occur
 once in the source, or the probe stops) and run through the port's own
@@ -921,6 +927,87 @@ def probe_b_products(dev):
                   bound_share=round(b_us / chain_us, 3))
 
 
+def probe_train(dev, rounds: int = 4, reps: int = 5):
+    """Part ``train``: bf16 B=128 train steps at full width, variants in
+    turns (each round runs them in order, then in reverse) over ``rounds``
+    rounds of ``reps``-step windows: the median, quartiles and range of each
+    variant's ms per step (CUDA events), its peak MiB above base, and its
+    device busy ms in one profiled step. Three sets: the LSTM, fused, with
+    ``layers.relu6``'s tie gradient against ``torch.clamp``'s (the port's
+    earlier gradient); the LSTM, fused, at bn_stat_rows 0, 16 and 32; the
+    transformer, unfused and fused."""
+    import tempfile
+
+
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.ops import layers as L
+
+    tie_relu6 = L.relu6
+
+    def clamp_relu6(x):
+        return torch.clamp(x, 0.0, 6.0)
+
+    sets = {
+        "relu6": {"tie": (True, (), tie_relu6), "clamp": (True, (), clamp_relu6)},
+        "bn_stat_rows": {f"R{r}": (True, (("model.bn_stat_rows", r),), tie_relu6)
+                         for r in (0, 16, 32)},
+        "transformer": {"plain": (False, S.TF_ARCH, tie_relu6),
+                        "kernel": (True, S.TF_ARCH, tie_relu6)},
+    }
+    with tempfile.TemporaryDirectory() as root:
+        for name, variants in sets.items():
+            cfgs = {v: S.train_cfg(root, "bfloat16", fuse, 128, 1e-4, extra)
+                    for v, (fuse, extra, _r) in variants.items()}
+            first = next(iter(cfgs.values()))
+            ref = C.init(torch.Generator().manual_seed(0), C.ModelOptions.from_config(first))
+            images, caps = S.train_batch(first, dev, 1)
+            steps = {v: S.trainer(cfg, *ref, dev) for v, cfg in cfgs.items()}
+            _fn, params, opt_state, state = steps[next(iter(steps))]
+            fns = {v: st[0] for v, st in steps.items()}
+            del steps
+            n = [0]
+
+            def run(v, k):
+                nonlocal params, opt_state, state
+                L.relu6 = variants[v][2]
+                try:
+                    for _ in range(k):
+                        params, opt_state, state, _s, _l, _lr = fns[v](
+                            params, opt_state, state, n[0], images, caps)
+                        n[0] += 1
+                finally:
+                    L.relu6 = tie_relu6
+
+            order = list(variants)
+            ms, peak = {v: [] for v in order}, {v: 0.0 for v in order}
+            for r in range(rounds):
+                for v in (order if r % 2 == 0 else order[::-1]):
+                    run(v, 1)
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    run(v, reps)
+                    b.record()
+                    torch.cuda.synchronize()
+                    ms[v].append(a.elapsed_time(b) / reps)
+                    peak[v] = max(peak[v], (torch.cuda.max_memory_allocated(dev) - base) / 2**20)
+            for v in order:
+                _wall, events = S.profile_events(lambda: run(v, 1))
+                q1, med, q3 = np.percentile(ms[v], [25, 50, 75])
+                S.say("probe_train", set=name, variant=v, B=128, dtype="bfloat16",
+                      windows=len(ms[v]), steps_a_window=reps, median_ms_per_step=round(med, 3),
+                      q1_ms=round(q1, 3), q3_ms=round(q3, 3), min_ms=round(min(ms[v]), 3),
+                      max_ms=round(max(ms[v]), 3),
+                      images_per_s_at_median=round(128 / med * 1e3, 1),
+                      peak_mib_above_base=round(peak[v], 1),
+                      device_busy_ms=round(sum(S.dev_us(e) for e in events) / 1e3, 3),
+                      windows_ms=[round(x, 3) for x in ms[v]])
+            del fns, params, opt_state, state
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Probe kernels F, C, A and G on one CUDA card.")
     ap.add_argument("--trace-only", action="store_true")
@@ -928,7 +1015,8 @@ def main(argv=None) -> int:
                     help="fc: kernels F and C; ag: A and G; ab: A's and G's device times only; "
                          "enc: the fused and plain eval encoders' forward times; de: kernels "
                          "D's and E's decodes and products; b: kernel B's steps, decodes and "
-                         "products")
+                         "products; train: bf16 train steps (relu6's gradient, bn_stat_rows, "
+                         "the transformer)")
     ap.add_argument("--package-root", default=None,
                     help="(parts ab, enc, de, b) measure the package of this checkout instead")
     args = ap.parse_args(argv)
@@ -961,6 +1049,8 @@ def main(argv=None) -> int:
         probe_de(dev)
     if "b" in parts:
         probe_b(dev)
+    if "train" in parts:
+        probe_train(dev)
     return 0
 
 

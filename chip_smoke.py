@@ -1,12 +1,13 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA card:
-the LSTM family served and trained, the transformer family served (float and
-int8), and the fused-IRB eval encoder.
+the LSTM family served and trained (with the subset-statistics BN too), the
+transformer family served (float and int8) and trained, and the fused-IRB
+eval encoder.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (each prints one line; any failure exits non-zero with no result;
-17 and 18 run right after 2, and 3 and 20 after them, while torch.profiler
-still reads every event):
+17 and 18 run right after 2, and 3 and 20 after them, and 21 and 22 right
+after 13, while torch.profiler still reads every event):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``myimagecaptioningmodel_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -172,6 +173,38 @@ still reads every event):
    ``decode_readings``; then one graph decodes two batches (greedy B=8,
    beam 8 x 4), each checked, and a replay on the previous batch's memory
    must fail the check.
+21. transformer training at full width (the default config with
+   ``arch="transformer"``: D=1024, 4 layers, 8 heads, MLP 4096, E=256, vocab
+   12295 padded to 12416, sentence length 35; MobileNetV2 x1.0 at 224 px;
+   random weights from ``--seed``): (a) one B=32 step in float32, unfused and
+   fused, against a float64 step (float32 at LayerNorm, the residual stream
+   and the scores in both packages): the unfused step within
+   ``F32_STEP_LIMITS``, the fused one as close as the unfused one
+   (``TF_FUSED_LIMITS``), F 35 launches a forward fused and none unfused,
+   every leaf under ``decoder/layers`` changed by each step; (b) 20 bf16
+   fused steps at B=128 on one batch (lr ``TF_LR``): the loss is finite and
+   falls, F launches 700 times; (c) the trained tree exported (``reference_tree``,
+   ``export_inference_bundle``) and reloaded by ``load_bundle``: every served
+   leaf equals the trained one in the served dtype (``bundle_mismatches``);
+   greedy at B=8 through kernel D (one launch, no other kernel) under the
+   near-tie rule against the plain teacher-forced argmax
+   (``served_greedy_check``), beam 4 on the same 8 images through E (one
+   launch), the best beam's teacher-forced re-score within ``E_RESCORE`` a
+   sqrt step (``served_beam_check``); (d) ms per bf16 B=128 step, unfused
+   and fused in turns (plain, kernel, kernel, plain; 3 steps a window),
+   images/s, peak device memory above base; (e) one profiled step of each by
+   kernel kind, then by part (``step_split``: device ms of the encoder's
+   convs, BN passes and kernel F, the decoder's products and the rest, the
+   attention, the head, the loss (CE), the projections and Adam; a backward
+   kernel counts to the part whose forward op made its autograd node);
+22. the subset-statistics BN (``model.bn_stat_rows``) on the LSTM at full
+   width: one float32 B=32 step with R=8, unfused and fused (whose 1x1 convs
+   keep full-batch statistics through kernel F), each against its own
+   path's float64 step (the fused one's on F's plain version,
+   ``plain_f_in_float64``), within ``F32_STEP_LIMITS``; 20 bf16 fused steps at
+   B=128 with R=16 (the loss falls); ms per bf16 B=128 fused step at R=0, 16
+   and 32 in turns (0, 16, 32, 32, 16, 0; 3 steps a window), images/s, peak
+   memory, and a profile of each.
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -182,7 +215,9 @@ neighbouring ranks by that gap. Float32 products are compared with TF32 off
 
 The line before the last is one JSON object describing each kernel (the
 launches of A and B are phase 4's, those of C phase 8's beam service, those
-of F phase 12 (c)'s, those of D and E phase 16's services, one per decode,
+of F phase 12 (c)'s (phase 21 (b)'s under ``tf_train_launches``), those of D
+and E phase 16's services, one per decode (serving phase 21's trained
+bundle under ``trained_bundle_launches``),
 those of D's and E's int8 modes phase 19's services, and G's phase 18's
 first forward, 17; B's, D's and E's entries (and D's and E's int8 modes')
 carry ``device_ms``: B's per step from ``device_us`` at 8 rows with its
@@ -1302,14 +1337,16 @@ def phase_kernel_f(dev, seed):
 GROUPS = ("decoder", "encoder", "img_embed", "img_global")  # tree_leaves order
 
 
-def train_cfg(root, dtype, fuse, batch, lr):
+def train_cfg(root, dtype, fuse, batch, lr, extra=()):
+    """The default (full-width) config with these training settings and the
+    dotted-path overrides ``extra``."""
     from myimagecaptioningmodel_tpu_torch.config import Config, replace_nested
 
     cfg = Config()
     for path, value in (("train.checkpoint_path", os.path.join(root, "save")),
                         ("data.dict_path", os.path.join(root, "dataset")),
                         ("model.compute_dtype", dtype), ("model.fuse_bn_stats", fuse),
-                        ("train.batch_size", batch), ("train.learning_rate", lr)):
+                        ("train.batch_size", batch), ("train.learning_rate", lr), *extra):
         cfg = replace_nested(cfg, path, value)
     return cfg
 
@@ -1410,15 +1447,30 @@ def step_errors(run, ref, lr):
     return out
 
 
+def layer_leaves(params):
+    """Every leaf under ``decoder/layers`` (none for the LSTM), walked here
+    rather than by ``tree_leaves``, whose walk the check reads."""
+    def walk(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in walk(t[k])]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in walk(v)]
+        return [t]
+
+    return walk(params["decoder"].get("layers", []))
+
+
 def one_step_run(cfg, ref_params, ref_state, dev, images, caps):
     """One train step from the reference tree -> ((loss, gradients, updates,
-    new BN state), kernel F's launches). The gradients are read back from
+    new BN state), kernel F's launches, the number of ``decoder/layers``
+    leaves the step left unchanged). The gradients are read back from
     Adam's first moment, (1 - b1) x the gradient after one step."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
     from myimagecaptioningmodel_tpu_torch.parallel.train_step import tree_leaves
 
     step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
     before = {g: [p.detach().clone() for p in tree_leaves(params[g])] for g in GROUPS}
+    layers_before = [p.detach().clone() for p in layer_leaves(params)]
     MB.matmul_stats.launches = 0
     params, opt_state, new_state, _n, loss, _lr = step(params, opt_state, state, 0,
                                                        images, caps)
@@ -1431,13 +1483,14 @@ def one_step_run(cfg, ref_params, ref_state, dev, images, caps):
         i += n
     updates = {g: [p.detach() - b for p, b in zip(tree_leaves(params[g]), before[g])]
                for g in GROUPS}
-    return (float(loss), grads, updates, new_state), launches
+    unchanged = sum(int(torch.equal(p.detach(), b))
+                    for p, b in zip(layer_leaves(params), layers_before))
+    return (float(loss), grads, updates, new_state), launches, unchanged
 
 
-def fused_failures(fused, unfused):
-    """The TRAIN_LIMITS readings on which the fused step's errors against
-    float64 (``step_errors``) fail, given the unfused step's."""
-    lim = TRAIN_LIMITS
+def fused_failures(fused, unfused, lim=TRAIN_LIMITS):
+    """The readings on which the fused step's errors against float64
+    (``step_errors``) fail ``lim``, given the unfused step's."""
     bad = [k for k in fused if k.startswith(("grad", "bn"))
            and fused[k] > lim["error_ratio"] * unfused[k] + lim["error_floor"]]
     bad += [k for k in fused if k.startswith("update")
@@ -1471,7 +1524,7 @@ def phase_train(dev, seed, root):
     for label, dtype, fuse in (("unfused", "float32", False), ("fused", "float32", True),
                                ("float64", "float64", False)):
         cfg = train_cfg(root, dtype, fuse, 32, lr)
-        runs[label], launches = one_step_run(cfg, ref_params, ref_state, dev, images, caps)
+        runs[label], launches, _ = one_step_run(cfg, ref_params, ref_state, dev, images, caps)
         want = 35 if fuse else 0
         if launches != want:
             raise AssertionError(f"kernel F launched {launches} times in one forward, "
@@ -1571,7 +1624,7 @@ def kernel_kind(name: str) -> str:
     n = name.lower()
     for kind, marks in (("kernel_f", ("matmul_stats", "stats_reduce")),
                         ("conv", ("conv", "cudnn", "dgrad", "wgrad", "fprop")),
-                        ("gemm", ("gemm", "cutlass", "xmma", "cublas")),
+                        ("gemm", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
                         ("reduce", ("reduce",)),
                         ("elementwise", ("elementwise", "copy", "fill", "cat", "index"))):
         if any(m in n for m in marks):
@@ -1579,17 +1632,21 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def phase_train_timing(dev, root, trained):
-    """ms per bf16 train step at B=128, unfused (plain) and fused (kernel),
-    in turns: each path's figure is its time over all its timed steps (two
-    windows of ``reps``), the windows listed beside it; then one profiled
-    step of each."""
+def phase_train_timing(dev, root, trained, paths=None, order=("plain", "kernel", "kernel", "plain"),
+                       reps=5, line="train", split=False):
+    """ms per bf16 train step at B=128 for each of ``paths`` ({path: (fuse,
+    config overrides)}; default: unfused "plain" and fused "kernel"), in the
+    turns of ``order``: each path's figure is its time over all its timed
+    steps (windows of ``reps``), the windows listed beside it; then one
+    profiled step of each (``split``: also by part of the step,
+    ``step_split``). -> {path: ms per step}."""
     ref_params, ref_state, params, opt_state, state, images, caps = trained
+    paths = paths or {"plain": (False, ()), "kernel": (True, ())}
     step_fns = {}
-    for path, fuse in (("plain", False), ("kernel", True)):
-        cfg = train_cfg(root, "bfloat16", fuse, 128, 1e-3)
+    for path, (fuse, extra) in paths.items():
+        cfg = train_cfg(root, "bfloat16", fuse, 128, 1e-3, extra)
         step_fns[path] = trainer(cfg, ref_params, ref_state, dev)[0]
-    B, reps = images.shape[0], 5
+    B = images.shape[0]
     n = [0]
 
     def run(path, k):
@@ -1600,7 +1657,7 @@ def phase_train_timing(dev, root, trained):
             n[0] += 1
 
     t, peak = {}, {}
-    for path in ("plain", "kernel", "kernel", "plain"):
+    for path in order:
         run(path, 1)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
@@ -1613,32 +1670,134 @@ def phase_train_timing(dev, root, trained):
         t.setdefault(path, []).append(start.elapsed_time(end))
         peak.setdefault(path, []).append((torch.cuda.max_memory_allocated(dev) - base) / 2**20)
     out = {}
-    for path in ("plain", "kernel"):
+    for path, (fuse, extra) in paths.items():
         steps = reps * len(t[path])
         ms = sum(t[path]) / steps
         out[path] = ms
-        say("train_timing", path=path, fuse_bn_stats=path == "kernel", B=B, dtype="bfloat16",
-            timed_steps=steps, total_ms=round(sum(t[path]), 3), ms_per_step=round(ms, 3),
-            images_per_s=round(B / ms * 1e3, 1),
+        options = {k.split(".")[-1]: v for k, v in extra}
+        say(line + "_timing", path=path, fuse_bn_stats=fuse, **options,
+            B=B, dtype="bfloat16", timed_steps=steps, total_ms=round(sum(t[path]), 3),
+            ms_per_step=round(ms, 3), images_per_s=round(B / ms * 1e3, 1),
             windows_ms_per_step=[round(x / reps, 3) for x in t[path]],
             peak_mib_above_base=round(max(peak[path]), 1))
 
-    # where a step's device time goes, unfused and fused
-    for path in ("plain", "kernel"):
+    # where a step's device time goes, on each path
+    for path in paths:
         wall_ms, events = profile_events(lambda: run(path, 1))
         busy_ms = sum(dev_us(e) for e in events) / 1e3
         by_kind = {}
         for e in events:
             kind = kernel_kind(e.key)
             by_kind[kind] = by_kind.get(kind, 0.0) + dev_us(e) / 1e3
-        say("train_profile", path=path, wall_ms=round(wall_ms, 3), device_busy_ms=round(busy_ms, 3),
+        say(line + "_profile", path=path, wall_ms=round(wall_ms, 3),
+            device_busy_ms=round(busy_ms, 3),
             device_idle_share=round(max(0.0, 1 - busy_ms / wall_ms), 4),
             busy_share_of_timed_step=round(busy_ms / out[path], 4),
             kernel_launches=sum(e.count for e in events),
             **{f"{k}_ms": round(v, 3) for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])})
         for e in sorted(events, key=dev_us, reverse=True)[:8]:
             print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:110]}", flush=True)
+        if split:
+            with step_split() as parts:
+                wall_ms, _events, prof = profile_events(lambda: run(path, 1), keep=True)
+            say(line + "_split", path=path, wall_ms=round(wall_ms, 3),
+                **{k: round(v, 3) for k, v in parts(prof).items()})
     return out
+
+
+# The parts of a train step, as ranges around the functions that compute
+# them (innermost range wins; a backward kernel takes the range of the
+# forward op its autograd node came from, by sequence number).
+SPLIT_RANGES = (
+    ("models.captioner", "loss_terms", "loss"),  # the CE and the token mask
+    ("models.captioner", "img2feature_tree", "img_proj"),  # the two projections
+    ("models.mobilenet_v2", "apply", "encoder"),
+    ("models.transformer", "precompute", "decoder"),  # cross-attention K/V products
+    ("models.transformer", "teacher_forcing_logits", "decoder"),
+    ("models.transformer", "_attend", "attention"),
+    ("models.transformer", "head_logits", "head"),
+    ("models.decoder", "teacher_forcing_logits", "decoder"),
+)
+
+
+class step_split:
+    """Context manager: the functions of ``SPLIT_RANGES`` and
+    ``Optimizer.apply`` ("adam") run inside ``record_function`` ranges; it
+    yields a function from a profile to {part_ms}: device ms by part and,
+    within the encoder and the decoder, by kernel kind."""
+
+    def __enter__(self):
+        import importlib
+
+        from torch.profiler import record_function
+
+        from myimagecaptioningmodel_tpu_torch.parallel import train_step as TS
+
+        self.saved = []
+        targets = [(importlib.import_module("myimagecaptioningmodel_tpu_torch." + m), a, label)
+                   for m, a, label in SPLIT_RANGES] + [(TS.Optimizer, "apply", "adam")]
+        for obj, attr, label in targets:
+            fn = getattr(obj, attr)
+
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                with record_function("split::" + _label):
+                    return _fn(*a, **k)
+
+            setattr(obj, attr, wrapped)
+            self.saved.append((obj, attr, fn))
+        return self.parts
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in reversed(self.saved):
+            setattr(obj, attr, fn)
+        return False
+
+    @staticmethod
+    def parts(prof):
+        import bisect
+
+        from torch.autograd import DeviceType
+
+        cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+        def enclosing(e):
+            """The innermost split range or autograd node evaluation around e."""
+            p = e
+            while p is not None:
+                if p.name.startswith("split::") or p.name.startswith(
+                        "autograd::engine::evaluate_function"):
+                    return p
+                p = p.cpu_parent
+            return None
+
+        fwd = {}
+        for e in cpu:
+            r = enclosing(e)
+            if e.sequence_nr >= 0 and r is not None and r.name.startswith("split::"):
+                fwd.setdefault(e.sequence_nr, r.name[7:])
+        seqs = sorted(fwd)
+
+        def label(e):
+            r = enclosing(e)
+            if r is None:
+                return "other"
+            if r.name.startswith("split::"):
+                return r.name[7:]
+            s = r.sequence_nr  # a backward node: its forward op's range
+            if s in fwd:
+                return fwd[s]
+            i = bisect.bisect_right(seqs, s) - 1  # a custom Function's node
+            return fwd[seqs[i]] if 0 <= i and s - seqs[i] < 64 else "backward_other"
+
+        ms = {}
+        for e in cpu:
+            for k in e.kernels:
+                part = label(e)
+                kind = kernel_kind(k.name)
+                if part in ("encoder", "decoder"):
+                    part = f"{part}_{'products' if kind == 'gemm' else kind}"
+                ms[part + "_ms"] = ms.get(part + "_ms", 0.0) + k.duration / 1e3
+        return dict(sorted(ms.items(), key=lambda kv: -kv[1]))
 
 
 # ---- phases 14-16: the transformer family -------------------------------------
@@ -2668,6 +2827,295 @@ def phase_tf_served_int8(dev, seed, cfg):
     return out
 
 
+# ---- phases 21 and 22: transformer training, subset-statistics BN ------------
+
+TF_ARCH = (("model.decoder.arch", "transformer"),)
+# Phases 21 (a) and 22 (a): a float32 step's errors against a float64 step
+# (``step_errors``), held absolutely. The transformer's float64 step is
+# float32 at LayerNorm, the residual stream and the attention scores (the
+# reference's rounding points, kept in both packages), so its float32
+# step's distance is floored there; with bn_stat_rows=8 each float32 step
+# is held against its own path's float64 step (with R < B the fused path
+# is another function). The encoder's gradients carry float32 BN noise
+# through 52 layers at B=32. The limits sit over the sound readings of an
+# H100 (seed 0; PERF.md §6), the largest of phases 21 and 22: loss 9.1e-8,
+# gradients' relative L2 6.3e-6 (decoder), 1.85e-2 (encoder), 3.0e-3
+# (img_embed), 9.1e-6 (img_global); BN means 6.5e-6 std, variances 4.9e-5.
+# The transformer's fused step is also held to its unfused one's distance
+# as in phase 12 (a) (``TF_FUSED_LIMITS``; ratios read 0.93-1.05).
+F32_STEP_LIMITS = {"loss_rel": 1e-6, "grad_rel_l2_decoder": 1e-4, "grad_rel_l2_encoder": 0.05,
+                   "grad_rel_l2_img_embed": 0.01, "grad_rel_l2_img_global": 1e-4,
+                   "bn_mean_in_std": 1e-3, "bn_var_rel": 1e-3}
+TF_FUSED_LIMITS = dict(TRAIN_LIMITS, loss_rel=1e-6)
+TF_LR = 1e-4  # phase 21 (b)'s bf16 steps
+
+
+def step_failures(errs, lim=F32_STEP_LIMITS):
+    """The readings of a float32 step's errors against float64
+    (``step_errors``) above ``lim``."""
+    return [k for k in lim if errs[k] > lim[k]]
+
+
+def bundle_mismatches(model, params, state):
+    """Leaves of a served bundle (``load_bundle``) that differ from the
+    training tree they were exported from, the tree's leaf cast to the
+    served leaf's dtype -> [names]."""
+    def flat(tree, prefix=""):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, (dict, list))
+                       else {f"{prefix}{k}": v})
+        return out
+
+    served = flat({k: model.params[k] for k in ("img_embed", "img_global", "decoder")})
+    trained = flat({k: params[k] for k in ("img_embed", "img_global", "decoder")})
+    bad = [k for k in trained if k not in served
+           or not torch.equal(served[k], trained[k].detach().to(served[k].dtype))]
+    for name, layer in model.encoder.layers.items():
+        p, st = params["encoder"][name], state["encoder"][name]["bn"]
+        for got, want in ((layer.weight, p["conv"]["w"]), (layer.scale, p["bn"]["scale"]),
+                          (layer.offset, p["bn"]["offset"]), (layer.mean, st["mean"]),
+                          (layer.var, st["var"])):
+            if not torch.equal(got, want.detach().to(got.dtype)):
+                bad.append(f"encoder/{name}")
+    return bad
+
+
+def served_greedy_check(model, opts, images):
+    """A transformer model's greedy ids (kernel D on CUDA) against the plain
+    teacher-forced argmax under the near-tie rule -> (ok, max gap, ids)."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+    dt = opts.dtype
+    with torch.no_grad():
+        ids = C.greedy_decode(model, images, opts)
+        img_embed, _f, gf = C.img2feature(model, images, opts)
+        pre = TTF.precompute(model.params["decoder"], img_embed, gf, TF_HEADS, dt)
+        ok, err = greedy_tf_check(model.params["decoder"], pre, ids, dt, opts.early_stop_decode)
+    return ok, err, ids
+
+
+def served_beam_check(model, opts, images):
+    """A transformer model's beam-4 decode (kernel E on CUDA): the best
+    beam's teacher-forced re-score against its score, per sqrt of its live
+    steps, under ``E_RESCORE`` -> (ok, reading, ids)."""
+    from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+    dt = opts.dtype
+    with torch.no_grad():
+        ids, score = beam_decode(model, images, opts, BEAM, stop_idx=opts.stop_idx)
+        img_embed, _f, gf = C.img2feature(model, images, opts)
+        pre = TTF.precompute(model.params["decoder"], img_embed, gf, TF_HEADS, dt)
+        tf_score, tf_steps = beam_rescore(model.params["decoder"], pre, ids, dt)
+    per = float(((tf_score - score).abs() / tf_steps.clamp(min=1).sqrt()).max())
+    return per <= E_RESCORE[dt], per, ids
+
+
+def serve_trained(dev, cfg, params, state, images, bundle="trained"):
+    """Export a training tree (``reference_tree``, ``export_inference_bundle``),
+    reload it with ``load_bundle`` greedy and beam 4, and hold both decodes
+    of ``images`` against the plain path -> readings (raises on a
+    failure)."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import reference_tree
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
+    from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
+
+    p_np, s_np = reference_tree(params, state)
+    ckpt.export_inference_bundle(os.path.join(cfg.train.checkpoint_path, bundle), p_np, s_np,
+                                 cfg, vocab_src_dir=cfg.data.dict_path)
+    counters = {"fused_greedy_decode": FT.fused_greedy_decode,
+                "fused_beam_decode": FT.fused_beam_decode,
+                "fused_decode_step": FS.fused_decode_step,
+                "greedy_vocab_argmax": VH.greedy_vocab_argmax,
+                "topk_vocab_head": VH.topk_vocab_head}
+    out = {}
+    for label, beam, kernel, check in (("greedy", 0, "fused_greedy_decode", served_greedy_check),
+                                       ("beam", BEAM, "fused_beam_decode", served_beam_check)):
+        model, _bcfg, opts, _decode = load_bundle(cfg, bundle, beam_size=beam, device=dev)
+        bad = bundle_mismatches(model, params, state)
+        for fn in counters.values():
+            fn.launches = 0
+        ok, reading, ids = check(model, opts, images)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        want = {name: int(name == kernel) for name in counters}
+        say("tf_train_then_serve", bundle=bundle, decode=label, B=images.shape[0],
+            leaves_differing=len(bad), launches=json.dumps(launches).replace(" ", ""),
+            ok=ok, **{"near_tie_max_gap" if beam == 0 else "tf_rescore_per_sqrt_step": reading},
+            distinct_captions=len({tuple(r) for r in ids.tolist()}))
+        if bad:
+            raise AssertionError(f"the reloaded bundle differs from the trained tree: {bad[:8]}")
+        if launches != want or tuple(ids.shape) != (images.shape[0], TF_STEPS):
+            raise AssertionError(f"serving the trained transformer ({label}): launches "
+                                 f"{launches}, expected {want}; ids {tuple(ids.shape)}")
+        if not ok:
+            raise AssertionError(f"the trained transformer served {label} disagrees with the "
+                                 f"plain path ({reading})")
+        out[kernel] = launches[kernel]
+        del model
+    return out
+
+
+def phase_tf_train(dev, seed, root):
+    """Phase 21 (a)-(c): the transformer trained at full width. -> (kernel
+    F's launches in (b), D's and E's launches serving the trained bundle,
+    the trained tree for the timing)."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import tree_leaves
+
+    lr = 1e-3
+    cfg32 = train_cfg(root, "float32", False, 32, lr, TF_ARCH)
+    ref_params, ref_state = C.init(torch.Generator().manual_seed(seed),
+                                   C.ModelOptions.from_config(cfg32))
+    n_params = sum(p.numel() for p in tree_leaves(ref_params))
+    images, caps = train_batch(cfg32, dev, seed)
+
+    # (a) one step from the same weights: float32 unfused and fused, float64
+    runs = {}
+    for label, dtype, fuse in (("unfused", "float32", False), ("fused", "float32", True),
+                               ("float64", "float64", False)):
+        cfg = train_cfg(root, dtype, fuse, 32, lr, TF_ARCH)
+        runs[label], launches, unchanged = one_step_run(cfg, ref_params, ref_state, dev,
+                                                        images, caps)
+        n_layer = len(layer_leaves(ref_params))
+        say("tf_train_step_one", B=32, dtype=dtype, fuse_bn_stats=fuse, loss=runs[label][0],
+            kernel_f_launches=launches, layer_leaves=n_layer, layer_leaves_unchanged=unchanged)
+        if launches != (35 if fuse else 0):
+            raise AssertionError(f"kernel F launched {launches} times in one transformer "
+                                 f"forward (fuse_bn_stats={fuse})")
+        if unchanged:
+            raise AssertionError(f"{unchanged} of {n_layer} decoder/layers leaves unchanged "
+                                 f"by a step ({label})")
+    errs = {label: step_errors(runs[label], runs["float64"], lr) for label in ("unfused", "fused")}
+    for label in ("unfused", "fused"):
+        say("tf_train_vs_float64", path=label, **errs[label])
+    bad = step_failures(errs["unfused"])
+    bad += ["fused:" + k for k in fused_failures(errs["fused"], errs["unfused"], TF_FUSED_LIMITS)]
+    say("tf_train_checks", limits=json.dumps(F32_STEP_LIMITS).replace(" ", ""),
+        fused_limits=json.dumps(TF_FUSED_LIMITS).replace(" ", ""), failed=bad, ok=not bad)
+    if bad:
+        raise AssertionError(f"the transformer's float32 steps are too far from float64: {bad}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # (b) bf16, B=128, fused: 20 steps on one batch, at lr 1e-4 (the
+    # default config's is 5e-5): at 1e-3 the loss rose at step 2 and the
+    # model served one caption for every image, whose argmax no longer
+    # read its context (part 8's causal-mask fault went uncaught)
+    cfg = train_cfg(root, "bfloat16", True, 128, TF_LR, TF_ARCH)
+    images, caps = train_batch(cfg, dev, seed + 1)
+    step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
+    MB.matmul_stats.launches = 0
+    losses, t0 = [], time.perf_counter()
+    for i in range(20):
+        params, opt_state, state, _n, loss, _lr = step(params, opt_state, state, i, images, caps)
+        losses.append(float(loss))
+    seconds = time.perf_counter() - t0
+    f_launches = MB.matmul_stats.launches
+    finite = all(np.isfinite(losses))
+    say("tf_train_bf16", B=128, steps=20, params=n_params, first_loss=losses[0],
+        last_loss=losses[-1], losses=[round(x, 4) for x in losses], finite=finite,
+        seconds=round(seconds, 2), kernel_f_launches=f_launches)
+    if not finite or not losses[-1] < losses[0]:
+        raise AssertionError(f"the transformer's loss did not fall: {losses}")
+    if f_launches != 35 * 20:
+        raise AssertionError(f"kernel F: {f_launches} launches in 20 steps, expected 700")
+
+    # (c) export, reload (leaf for leaf) and serve greedy (D) and beam 4 (E)
+    served = serve_trained(dev, cfg, params, state, images[:8])
+    return f_launches, served, (ref_params, ref_state, params, opt_state, state, images, caps)
+
+
+class plain_f_in_float64:
+    """Context manager: kernel F's wrapper runs its plain version on float64
+    inputs (the kernel takes float32 and bfloat16), for a float64 reference
+    of the fused path; other dtypes reach the kernel as before."""
+
+    def __enter__(self):
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
+
+        self.MB, self.kernel = MB, MB.matmul_stats
+
+        def stats(x, w):
+            if x.dtype == torch.float64:
+                return MB._matmul_stats_reference(x, w)
+            return self.kernel(x, w)
+
+        stats.launches = 0  # the kernel counts on the module's matmul_stats
+        MB.matmul_stats = stats
+        return self
+
+    def __exit__(self, *exc):
+        self.MB.matmul_stats = self.kernel
+        return False
+
+
+def phase_bn_subset(dev, seed, root):
+    """Phase 22: ``bn_stat_rows`` on the LSTM at full width: one float32 B=32
+    step with R=8, fused and not, each against the same path's float64 step
+    (the fused one's with kernel F's plain version); 20 bf16
+    B=128 fused steps with R=16; ms per step at R=0, 16 and 32 (fused) in
+    turns, and profiles of R=16 and R=0."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+
+    lr = 1e-3
+    r8 = (("model.bn_stat_rows", 8),)
+    cfg32 = train_cfg(root, "float32", False, 32, lr, r8)
+    ref_params, ref_state = C.init(torch.Generator().manual_seed(seed),
+                                   C.ModelOptions.from_config(cfg32))
+    images, caps = train_batch(cfg32, dev, seed)
+    runs = {}
+    for label, dtype, fuse in (("unfused", "float32", False), ("fused", "float32", True),
+                               ("float64", "float64", False), ("fused_float64", "float64", True)):
+        with plain_f_in_float64():
+            runs[label], launches, _ = one_step_run(train_cfg(root, dtype, fuse, 32, lr, r8),
+                                                    ref_params, ref_state, dev, images, caps)
+        say("bn_subset_step_one", B=32, bn_stat_rows=8, dtype=dtype, fuse_bn_stats=fuse,
+            loss=runs[label][0], kernel_f_launches=launches)
+        if launches != (35 if fuse and dtype == "float32" else 0) and dev.type == "cuda":
+            raise AssertionError(f"kernel F launched {launches} times in one forward "
+                                 f"(fuse_bn_stats={fuse}, bn_stat_rows=8)")
+    # with R < B the fused path is another function (its 1x1 convs keep
+    # full-batch statistics): each float32 step against its own float64 one
+    errs = {label: step_errors(runs[label], runs[ref], lr)
+            for label, ref in (("unfused", "float64"), ("fused", "fused_float64"))}
+    for label in ("unfused", "fused"):
+        say("bn_subset_vs_float64", path=label, bn_stat_rows=8, **errs[label])
+    bad = [f"{label}:{k}" for label in errs for k in step_failures(errs[label])]
+    say("bn_subset_checks", limits=json.dumps(F32_STEP_LIMITS).replace(" ", ""), failed=bad,
+        ok=not bad)
+    if bad:
+        raise AssertionError(f"the subset-statistics BN step is too far from float64: {bad}")
+    del runs
+    torch.cuda.empty_cache()
+
+    r16 = (("model.bn_stat_rows", 16),)
+    cfg = train_cfg(root, "bfloat16", True, 128, lr, r16)
+    images, caps = train_batch(cfg, dev, seed + 1)
+    step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
+    losses = []
+    for i in range(20):
+        params, opt_state, state, _n, loss, _lr = step(params, opt_state, state, i, images, caps)
+        losses.append(float(loss))
+    finite = all(np.isfinite(losses))
+    say("bn_subset_bf16", B=128, bn_stat_rows=16, steps=20, first_loss=losses[0],
+        last_loss=losses[-1], losses=[round(x, 4) for x in losses], finite=finite)
+    if not finite or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall with bn_stat_rows=16: {losses}")
+    rows = {f"R{r}": (True, (("model.bn_stat_rows", r),)) for r in (0, 16, 32)}
+    phase_train_timing(dev, root, (ref_params, ref_state, params, opt_state, state, images, caps),
+                       paths=rows, order=("R0", "R16", "R32", "R32", "R16", "R0"), reps=3,
+                       line="bn_subset")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -2715,6 +3163,14 @@ def main(argv=None) -> int:
         train_launches, trained = phase_train(dev, args.seed, root)
         phase_train_timing(dev, root, trained)
         del trained
+        torch.cuda.empty_cache()
+        # phases 21-22 here, before phases 14-16's many profiler sessions
+        tf_f_launches, tf_served, trained = phase_tf_train(dev, args.seed, root)
+        phase_train_timing(dev, root, trained, reps=3, line="tf_train", split=True,
+                           paths={"plain": (False, TF_ARCH), "kernel": (True, TF_ARCH)})
+        del trained
+        torch.cuda.empty_cache()
+        phase_bn_subset(dev, args.seed, root)
         torch.cuda.empty_cache()
         from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
 
@@ -2768,7 +3224,7 @@ def main(argv=None) -> int:
          "library_ms": t_c[(bf16, 8 * BEAM, BEAM)][2]},
         {"name": "matmul_stats", "route": "cuda", "source": KERNEL_F_SRC,
          "replaces": KERNEL_F_TPU, "launches": train_launches["matmul_stats"],
-         "max_abs_err": err_f, "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
+         "tf_train_launches": tf_f_launches, "max_abs_err": err_f, "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
          "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2]},
     ]
     def de_at(t, busy_ms):
@@ -2782,7 +3238,8 @@ def main(argv=None) -> int:
             ("fused_beam_decode", KERNEL_E_TPU, err_e, t_e, dev_e)):
         key = (lambda B: (bf16, B, "fixed")) if t is t_d else (lambda B: (bf16, B))
         kernels.append({"name": name, "route": "cuda", "source": KERNEL_DE_SRC, "replaces": tpu,
-                        "launches": tf_launches[name], "max_abs_err": err,
+                        "launches": tf_launches[name],
+                        "trained_bundle_launches": tf_served[name], "max_abs_err": err,
                         **de_at(t[key(8)], busy[8]), "b128": de_at(t[key(128)], busy[128])})
     for name, tpu, launches8, err, t, busy in (
             ("fused_greedy_decode[int8]", KERNEL_D_INT8_TPU, int8_launches["fused_greedy_decode"],

@@ -23,11 +23,13 @@
   reference quantizes its float32 params at load.
 - ``train_tree`` carries a reference (params, state) across for training:
   float32 tensors (float64 on request) on an explicit device, conv weights
-  OIHW, ``requires_grad`` on every param. Nothing is rounded to the compute
+  OIHW, ``requires_grad`` on every param (the transformer's
+  ``decoder/layers`` list included). Nothing is rounded to the compute
   dtype (no ``_cast_weights``): the tree holds the master weights, and each
   op casts to the compute dtype as the reference's ``dense`` does.
   ``reference_tree`` is the way back: numpy in the reference layout (HWIO
-  convs), as ``training/checkpoint.export_inference_bundle`` takes it.
+  convs, lists in index order), as
+  ``training/checkpoint.export_inference_bundle`` takes it.
 """
 
 from __future__ import annotations
@@ -194,25 +196,25 @@ def train_tree(params: Dict[str, Any], state: Dict[str, Any], device=None,
     OIHW, every param a leaf with ``requires_grad``."""
     from myimagecaptioningmodel_tpu_torch.models.captioner import resolve_device
 
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import tree_leaves
+
     device = resolve_device(device)
     p = tree_to_torch(_map_encoder_convs(params, conv_hwio_to_oihw), device, dtype)
-
-    def leaves(t):
-        for v in t.values():
-            yield from (leaves(v) if isinstance(v, dict) else (v,))
-
-    for leaf in leaves(p):
+    for leaf in tree_leaves(p):
         leaf.requires_grad_(True)
     return p, tree_to_torch(state, device, dtype)
 
 
 def reference_tree(params: Dict[str, Any], state: Dict[str, Any]):
     """A training tree -> (params, state) as float32 numpy (float64 for a
-    float64 tree) in the reference layout (encoder convs HWIO)."""
+    float64 tree) in the reference layout (encoder convs HWIO; lists, such
+    as the transformer's ``decoder/layers``, stay lists in index order)."""
 
     def to_np(tree):
         if isinstance(tree, dict):
             return {k: to_np(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [to_np(v) for v in tree]
         t = tree.detach().cpu()
         return (t if t.dtype == torch.float64 else t.float()).numpy()
 

@@ -11,17 +11,18 @@ dict layout, all on one device; ``compat/from_jax.captioner_from_tree``
 builds one from a reference-layout (params, state) pytree.
 
 Training works on the (params, state) tree itself, as the reference does:
-``img2feature_tree`` (train-mode BN, new state), ``loss_terms`` (masked CE
-sum and token count over teacher-forced logits) and ``loss_fn`` (their
-token mean). ``compat/from_jax.train_tree`` makes the tree: float32 master
-weights with ``requires_grad``; each op casts to the compute dtype.
+``img2feature_tree`` (train-mode BN, new state; ``bn_stat_rows`` > 0 takes
+the statistics of the non-1x1 convs' BN from the first rows only),
+``loss_terms`` (masked CE sum and token count over teacher-forced logits of
+either decoder family) and ``loss_fn`` (their token mean).
+``compat/from_jax.train_tree`` makes the tree: float32 master weights with
+``requires_grad``; each op casts to the compute dtype.
 
 ``init`` draws the reference's (params, state) pytree. Entry points run on
 CUDA unless the caller asks for the CPU (``resolve_device``).
 
-Both decoder families serve (``arch``: the LSTM of ``models/decoder.py``,
-the transformer of ``models/transformer.py``); only the LSTM trains so far
-(``TRANSFORMER_TRAIN_TODO``).
+Both decoder families serve and train (``arch``: the LSTM of
+``models/decoder.py``, the transformer of ``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -38,18 +39,6 @@ from myimagecaptioningmodel_tpu_torch.models.transformer import TransformerDims
 from myimagecaptioningmodel_tpu_torch.ops import layers as L
 
 Params = Dict[str, Any]
-
-TRANSFORMER_TRAIN_TODO = (
-    "training the transformer decoder is not ported yet "
-    "(ROADMAP.md, 'Left, in order' item 2)"
-)
-
-
-BN_STAT_ROWS_TODO = (
-    "model.bn_stat_rows > 0 (subset-statistics BN) is not ported yet "
-    "(ROADMAP.md, queue 1)"
-)
-
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
@@ -80,7 +69,8 @@ class ModelOptions(NamedTuple):
     use_kernels: bool = False  # hand-written CUDA kernels on the decode path
     # the encoder's stride-1 1x1 convs through kernel F (training only)
     fuse_bn_stats: bool = False
-    bn_stat_rows: int = 0  # > 0 is not ported (BN_STAT_ROWS_TODO)
+    # > 0: the non-1x1 convs' BN takes its statistics from this many rows
+    bn_stat_rows: int = 0
     early_stop_decode: bool = False
     stop_idx: int = 3
     # ((mean,)*3, (std,)*3) for normalizing raw uint8 image batches
@@ -189,14 +179,13 @@ def img2feature_tree(params: Params, state: Params, images, opts: ModelOptions,
     weights) -> (img_embed [B,k,H], raw feats [B,k,C], global_feat [B,H],
     new state). ``train`` normalizes with batch statistics and returns the
     updated moving statistics; otherwise the state comes back as it was."""
-    if train and opts.bn_stat_rows > 0:
-        raise NotImplementedError(BN_STAT_ROWS_TODO)
     dt = opts.dtype
     images = prepare_images(images, opts, params["img_embed"]["w"].device)
     feat, enc_state = mobilenet_v2.apply(
         params["encoder"], state["encoder"], images, train=train,
         trainable=opts.encoder_trainable, scale=opts.encoder_scale,
         compute_dtype=dt, fuse_bn_stats=opts.fuse_bn_stats,
+        bn_stat_rows=opts.bn_stat_rows,
     )
     B = feat.shape[0]
     feat = feat.reshape(B, -1, feat.shape[-1])  # [B, 49, 1280] (NHWC flatten)
@@ -209,24 +198,30 @@ def loss_terms(params: Params, state: Params, images, captions: torch.Tensor,
                opts: ModelOptions):
     """Unreduced train-mode loss -> (masked CE sum, non-pad token count, new
     state); the (sum, count) split is what gradient accumulation needs."""
-    if opts.arch != "lstm":
-        raise NotImplementedError(TRANSFORMER_TRAIN_TODO)
     captions = torch.as_tensor(captions).to(params["img_embed"]["w"].device).long()
     source, target = captions[:, :-1], captions[:, 1:]
     mask = (target != opts.padding_idx).float()
     img_embed, _feat, global_feat, new_state = img2feature_tree(
         params, state, images, opts, train=True)
     dec = params["decoder"]
-    pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
-    logits = decoder_mod.teacher_forcing_logits(
-        dec, pre, source, opts.parity_mode, opts.padding_idx, opts.dtype)  # [B, T, V]
+    if opts.arch == "transformer":
+        tpre = transformer_mod.precompute(dec, img_embed, global_feat,
+                                          opts.tdims.num_heads, opts.dtype)
+        logits = transformer_mod.teacher_forcing_logits(
+            dec, tpre, source, opts.tdims, opts.padding_idx, opts.dtype)  # [B, T, V]
+        real_v = opts.tdims.vocab_size
+    else:
+        pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
+        logits = decoder_mod.teacher_forcing_logits(
+            dec, pre, source, opts.parity_mode, opts.padding_idx, opts.dtype)  # [B, T, V]
+        real_v = opts.dims.vocab_size
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, target[..., None])[..., 0]
     ce = logz - gold
     if opts.label_smoothing > 0.0:
         # uniform smoothing over the real vocab rows (padded rows excluded)
         eps = opts.label_smoothing
-        mean_logit = logits[..., : opts.dims.vocab_size].mean(dim=-1)
+        mean_logit = logits[..., :real_v].mean(dim=-1)
         ce = (1.0 - eps) * ce + eps * (logz - mean_logit)
     return (ce * mask).sum(), mask.sum(), new_state
 

@@ -18,8 +18,10 @@ Two forwards:
   (no gradient) while the moving statistics still update.
   ``fuse_bn_stats`` sends every stride-1 1x1 conv through kernel F
   (``ops/kernels/matmul_bn.conv1x1_bn_train``), under the reference's
-  condition. ``use_fused_irb`` (eval mode only) folds BN into every conv
-  and runs each of the 17 inverted-residual blocks as kernel G
+  condition; ``bn_stat_rows`` > 0 takes the other convs' BN statistics from
+  the first rows (``layers.batch_norm_train``), as the reference does.
+  ``use_fused_irb`` (eval mode only) folds BN into every conv and runs each
+  of the 17 inverted-residual blocks as kernel G
   (``ops/kernels/fused_irb.fused_inverted_residual``) on NHWC activations;
   the state comes back unchanged.
 
@@ -162,8 +164,9 @@ class MobileNetV2(nn.Module):
 
 
 def _apply_conv_bn(p, s, x, stride: int, padding: int, groups: int, act: bool,
-                   train: bool, compute_dtype, fuse_bn_stats: bool):
-    """conv + BN (+ ReLU6) on NHWC ``x`` -> (y NHWC, {"bn": new state})."""
+                   train: bool, compute_dtype, fuse_bn_stats: bool, bn_stat_rows: int = 0):
+    """conv + BN (+ ReLU6) on NHWC ``x`` -> (y NHWC, {"bn": new state}); a conv
+    through kernel F keeps full-batch statistics whatever ``bn_stat_rows``."""
     w = p["conv"]["w"]  # OIHW
     if (fuse_bn_stats and train and groups == 1 and stride == 1 and padding == 0
             and w.shape[2] == 1 and w.shape[3] == 1):
@@ -175,7 +178,7 @@ def _apply_conv_bn(p, s, x, stride: int, padding: int, groups: int, act: bool,
         x = L.conv2d(w, x.permute(0, 3, 1, 2), stride, padding, groups,
                      compute_dtype).permute(0, 2, 3, 1)
         if train:
-            x, bn_s = L.batch_norm_train(p["bn"], s["bn"], x)
+            x, bn_s = L.batch_norm_train(p["bn"], s["bn"], x, bn_stat_rows)
         else:
             x, bn_s = L.batch_norm(p["bn"], s["bn"], x, channel_axis=-1), s["bn"]
     return (L.relu6(x) if act else x), {"bn": bn_s}
@@ -184,8 +187,10 @@ def _apply_conv_bn(p, s, x, stride: int, padding: int, groups: int, act: bool,
 def apply(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,
           train: bool = True, trainable: bool = True, scale: float = 1.0,
           compute_dtype=torch.bfloat16, fuse_bn_stats: bool = False,
-          use_fused_irb: bool = False):
-    """NHWC [B, H, W, 3] -> (NHWC [B, H/32, W/32, 1280] features, new state)."""
+          use_fused_irb: bool = False, bn_stat_rows: int = 0):
+    """NHWC [B, H, W, 3] -> (NHWC [B, H/32, W/32, 1280] features, new state).
+    ``bn_stat_rows`` (train mode): the subset-statistics BN
+    (``layers.batch_norm_train``) on every conv that kernel F does not take."""
     if use_fused_irb and not train:
         return _apply_fused_eval(params, state, x, compute_dtype)
     if not trainable:  # the reference's per-call stop_gradient
@@ -198,7 +203,7 @@ def apply(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,
     def conv_bn(name, x, stride, padding, groups=1, act=True):
         y, new_state[name] = _apply_conv_bn(
             params[name], state[name], x, stride, padding, groups, act, train,
-            compute_dtype, fuse_bn_stats,
+            compute_dtype, fuse_bn_stats, bn_stat_rows,
         )
         return y
 

@@ -1,4 +1,4 @@
-"""Transformer captioning decoder, serving side; port of
+"""Transformer captioning decoder; port of
 ``myimagecaptioningmodel_tpu/models/transformer.py``.
 
 A pre-LN transformer decoder with cross-attention over the same 49 + 1
@@ -15,7 +15,11 @@ reference's XLA path in bfloat16 and agree in float32 (which is what the CPU
 tests hold): attention scores ``q . k`` and the vocab logits are accumulated
 and kept in float32 here, as the whole-decode kernels D and E compute them
 (``ops/kernels/fused_transformer.py``); the reference rounds both to the
-compute dtype.
+compute dtype. Training keeps them in float32 too, so that one forward,
+``teacher_forcing_logits``, trains the weights and is the plain version D
+and E are held against; in bfloat16 the training loss then lies within
+the two packages' own bfloat16 noise of the reference's
+(``tests/test_torch_bf16_parity.py::test_transformer_loss_bf16``).
 
 Decoding carries a KV cache per layer, ``[B, T, heads, dh]``, updated in
 place (the reference's ``dynamic_update_slice``). ``greedy_decode_ids`` and
@@ -38,7 +42,6 @@ Not ported, and why: the reference's XLA fused-head beam branch (kernel E's
 plain version computes the same per-row top-W and logsumexp), and
 ``TransformerPreMBD``/``precompute_mbd``/``_mbd_to_pre`` (the TPU kernel's
 ``[M, B, D]`` DMA layout; the CUDA kernels take ``precompute``'s own).
-Training is later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -317,7 +320,8 @@ def teacher_forcing_logits(params: Params, pre: TransformerPre, source: torch.Te
                            dims: TransformerDims, padding_idx: int = 0,
                            compute_dtype=torch.bfloat16) -> torch.Tensor:
     """All T steps at once with causal self-attention -> logits [B, T, V]
-    float32 (forward only)."""
+    float32: the training forward (``captioner.loss_terms`` differentiates
+    it) and the plain version kernels D and E are held against."""
     B, T = source.shape
     dt = compute_dtype
     dev = source.device

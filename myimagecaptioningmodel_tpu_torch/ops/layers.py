@@ -21,6 +21,10 @@ pass of float32 statistics (float64 for float64 inputs), ``E[x^2] - mean^2``
 clamped at 0, the *biased* variance, and a backward written by hand in two
 passes over (x, dy). The moving statistics keep ``BN_MOMENTUM`` of the old
 value (``nn.BatchNorm2d``'s momentum and unbiased running variance differ).
+With ``stat_rows`` it is the reference's subset-statistics BN
+(``_bn_train_subset``, ``model.bn_stat_rows``): statistics from the first R
+rows, no gradient through them, dscale and doffset from the R rows scaled
+by B / R.
 """
 
 from __future__ import annotations
@@ -88,7 +92,27 @@ def batch_norm(
     return y.movedim(1, channel_axis)
 
 
+class _ReLU6(torch.autograd.Function):
+    """``clamp(x, 0, 6)`` with the reference's gradient: ``jnp.clip`` is
+    ``minimum(maximum(x, 0), 6)``, whose gradient at x == 0 or x == 6 is 1/2
+    (``torch.clamp``'s is 1). A tie is a BN output equal to its offset where
+    the channel is constant, as dead channels are at init (offset 0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 6.0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        # 1 inside (0, 6), 1/2 at either end, 0 outside; x - 6 is exact near 6
+        return (torch.sign(x) - torch.sign(x - 6.0)) * (0.5 * dy)
+
+
 def relu6(x: torch.Tensor) -> torch.Tensor:
+    if x.requires_grad and torch.is_grad_enabled():
+        return _ReLU6.apply(x)
     return torch.clamp(x, 0.0, 6.0)
 
 
@@ -149,14 +173,54 @@ class _BNTrain(torch.autograd.Function):
         return dscale, doffset, dx
 
 
+class _BNTrainSubset(torch.autograd.Function):
+    """The reference's ``_bn_train_subset``: (scale, offset, channel-last x,
+    R) -> (y, mean, var) with the statistics of the first R rows of the
+    leading axis, every row normalized with them. The backward treats the
+    statistics as constants: dx = dy * scale * inv elementwise, and dscale,
+    doffset are the R rows' sums times B / R. Only ``x[:R]`` is saved."""
+
+    @staticmethod
+    def forward(ctx, scale, offset, x, stat_rows):
+        xs = x[:stat_rows].to(stat_dtype(x))
+        dims = tuple(range(x.ndim - 1))
+        mean = xs.mean(dims)
+        var = torch.clamp(xs.square().mean(dims) - mean.square(), min=0.0)
+        y, inv = bn_normalize(x, mean, var, scale, offset)
+        # a copy: a view of x[:R] would keep all B rows alive until backward
+        ctx.save_for_backward(scale, x[:stat_rows].clone(), mean, inv)
+        ctx.n_full = x.shape[0]
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        scale, xs, mean, inv = ctx.saved_tensors
+        sd = mean.dtype
+        dims = tuple(range(xs.ndim - 1))
+        ratio = ctx.n_full / xs.shape[0]
+        dys = dy[: xs.shape[0]].to(sd)
+        xhat = (xs.to(sd) - mean) * inv
+        doffset = dys.sum(dims) * ratio
+        dscale = (dys * xhat).sum(dims) * ratio
+        dx = (dy.to(sd) * (scale * inv)).to(dy.dtype)
+        return dscale.to(scale.dtype), doffset.to(scale.dtype), dx, None
+
+
 def moving_update(s: Params, mean: torch.Tensor, var: torch.Tensor) -> Params:
     """New moving statistics: ``BN_MOMENTUM * old + (1 - BN_MOMENTUM) * batch``."""
     return {"mean": BN_MOMENTUM * s["mean"] + (1.0 - BN_MOMENTUM) * mean,
             "var": BN_MOMENTUM * s["var"] + (1.0 - BN_MOMENTUM) * var}
 
 
-def batch_norm_train(p: Params, s: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+def batch_norm_train(p: Params, s: Params, x: torch.Tensor,
+                     stat_rows: int = 0) -> Tuple[torch.Tensor, Params]:
     """Train-mode BN over all but the last (channel) axis of ``x`` ->
-    (y in ``x.dtype``, new moving statistics)."""
-    y, mean, var = _BNTrain.apply(p["scale"], p["offset"], x)
+    (y in ``x.dtype``, new moving statistics). ``0 < stat_rows < B`` takes
+    the statistics from the first ``stat_rows`` rows (``_BNTrainSubset``);
+    otherwise the exact BN, as the reference's ``batch_norm``."""
+    if 0 < stat_rows < x.shape[0]:
+        y, mean, var = _BNTrainSubset.apply(p["scale"], p["offset"], x, stat_rows)
+    else:
+        y, mean, var = _BNTrain.apply(p["scale"], p["offset"], x)
     return y, moving_update(s, mean, var)

@@ -29,15 +29,22 @@ B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults (eps_root 0)
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves of nested dicts in key order (the order ``tree_map`` rebuilds)."""
+    """Leaves of nested dicts (in sorted-key order) and lists or tuples (in
+    index order, as the transformer's ``decoder/layers``)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
 def tree_map(fn, tree):
+    """``fn`` on every leaf of nested dicts and lists (tuples come back as
+    lists)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 

@@ -216,15 +216,28 @@ def test_length_norm_semantics(monkeypatch):
 
 
 def test_transformer_beam_not_ported_yet(small):
-    """The transformer family serves (beam included); its training is not
-    ported yet: its ``loss_terms`` raises, naming ROADMAP.md."""
+    """The transformer family serves (beam included) and, once unported,
+    trains: its ``loss_terms`` runs (it raised before) and the gradient
+    reaches every leaf of every layer in ``decoder/layers``
+    (``tests/test_torch_transformer_train.py`` holds the values to JAX)."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import train_tree
     from myimagecaptioningmodel_tpu_torch.models import captioner as tcap
     from myimagecaptioningmodel_tpu_torch.models.transformer import TransformerDims
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import tree_leaves
 
-    opts = tcap.ModelOptions(dims=tdec.DecoderDims(), arch="transformer",
-                             tdims=TransformerDims())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcap.loss_terms(None, None, None, None, opts)
+    tdims = TransformerDims(vocab_size=40, embedding_size=8, model_dim=16, num_layers=2,
+                            num_heads=2, mlp_ratio=2, max_positions=6)
+    opts = tcap.ModelOptions(dims=tdec.DecoderDims(hidden_dim=16), arch="transformer",
+                             tdims=tdims, encoder_scale=0.35, compute_dtype="float32",
+                             sentence_length=6)
+    params, state = train_tree(*tcap.init(torch.Generator().manual_seed(1), opts), device="cpu")
+    images = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(2))
+    caps = torch.tensor([[2, 5, 6, 7, 3, 0], [2, 9, 3, 0, 0, 0]])
+    ce_sum, n_tok, _ = tcap.loss_terms(params, state, images, caps, opts)
+    assert float(n_tok) == 6 and torch.isfinite(ce_sum)
+    layers = tree_leaves(params["decoder"]["layers"])
+    grads = torch.autograd.grad(ce_sum, layers)
+    assert len(layers) == 2 * 24 and all(g.abs().sum() > 0 for g in grads)
 
 
 # ---- serving: load_bundle, CaptionService, HTTP, infer ----------------------

@@ -667,6 +667,86 @@ def test_cuda_conv1x1_bn_train_matches_unfused(cuda):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4, 15])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_subset_bn_matches_float64(cuda, dt, rows):
+    """The subset-statistics BN (``model.bn_stat_rows``) on the card against
+    the same function in float64 on the CPU, on the same (rounded) inputs:
+    y, mean, var and the backward's dscale, doffset and dx to 1e-5 of each
+    one's largest magnitude in float32 and 1e-2 (bf16 y and dx, 2^-8
+    relative) in bfloat16."""
+    g = torch.Generator().manual_seed(rows)
+    x = (torch.randn(16, 14, 14, 64, generator=g) * 2 + 0.5).to(dt)
+    scale, offset = 1 + 0.2 * torch.randn(64, generator=g), 0.1 * torch.randn(64, generator=g)
+    dy = torch.randn(16, 14, 14, 64, generator=g).to(dt)
+    outs = []
+    for dev, xdt in ((cuda, dt), ("cpu", torch.float64)):
+        s, o, xx = (t.to(dev).requires_grad_() for t in (scale, offset, x.to(xdt)))
+        y, mean, var = TL._BNTrainSubset.apply(s, o, xx, rows)
+        outs.append([y, mean, var, *torch.autograd.grad(y, (s, o, xx), dy.to(dev, xdt))])
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    for name, got, want in zip(("y", "mean", "var", "dscale", "doffset", "dx"), *outs):
+        err = (got.detach().cpu().double() - want.detach()).abs().max()
+        assert err <= tol * want.abs().max(), (name, float(err))
+
+
+@pytest.mark.cuda
+def test_cuda_transformer_train_step_fused_matches_unfused(cuda):
+    """A small transformer captioner (MobileNetV2 x0.35 at 64 px, B=8, D=64,
+    2 layers, 4 heads, vocab 200) trained one float32 step on the card with
+    kernel F (35 launches a forward) and without: loss to 1e-5 relative,
+    the decoder's and projections' gradients to 5e-4 of their group's
+    largest (float32 sums in other orders), the encoder's to a relative L2
+    error of 0.05 (float32 BN noise at B=8), and every leaf of every layer
+    updated by Adam."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import train_tree
+    from myimagecaptioningmodel_tpu_torch.models import captioner as TC
+    from myimagecaptioningmodel_tpu_torch.models.decoder import DecoderDims
+    from myimagecaptioningmodel_tpu_torch.parallel import train_step as TS
+
+    tdims = TTF.TransformerDims(vocab_size=200, embedding_size=32, model_dim=64, num_layers=2,
+                                num_heads=4, mlp_ratio=2, max_positions=10)
+    opts = TC.ModelOptions(dims=DecoderDims(vocab_size=200, hidden_dim=64), arch="transformer",
+                           tdims=tdims, encoder_scale=0.35, compute_dtype="float32",
+                           sentence_length=10, label_smoothing=0.1)
+    ref = TC.init(torch.Generator().manual_seed(0), opts)
+    g = torch.Generator().manual_seed(1)
+    images = torch.rand(8, 64, 64, 3, generator=g).to(cuda)
+    caps = torch.randint(4, 200, (8, 10), generator=g)
+    caps[:, 0], caps[:, 7], caps[:, 8:] = 2, 3, 0
+    runs = {}
+    for fuse in (False, True):
+        o = opts._replace(fuse_bn_stats=fuse)
+        params, state = train_tree(*ref, device=cuda)
+        n = TMB.matmul_stats.launches
+        loss, _ = TC.loss_fn(params, state, images, caps.to(cuda), o)
+        assert TMB.matmul_stats.launches - n == (35 if fuse else 0)
+        leaves = TS.tree_leaves(params)
+        runs[fuse] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    groups = [k for k in sorted(ref[0]) for _ in TS.tree_leaves(ref[0][k])]
+    (l0, g0), (l1, g1) = runs[False], runs[True]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for grp in ("decoder", "img_embed", "img_global"):
+        pairs = [(a, b) for a, b, k in zip(g1, g0, groups) if k == grp]
+        top = max(float(b.abs().max()) for _a, b in pairs)
+        assert all(float((a - b).abs().max()) <= 5e-4 * top for a, b in pairs), grp
+    enc = [(a, b) for a, b, k in zip(g1, g0, groups) if k == "encoder"]
+    diff = sum(float(((a - b) ** 2).sum()) for a, b in enc) ** 0.5
+    assert diff <= 0.05 * sum(float((b ** 2).sum()) for _a, b in enc) ** 0.5
+
+    schedule = lambda step: 1e-3  # noqa: E731
+    optimizer = TS.Optimizer(schedule)
+    steps = TS.build_steps(opts._replace(fuse_bn_stats=True), optimizer, schedule)
+    params, state = train_tree(*ref, device=cuda)
+    before = [p.detach().clone() for p in TS.tree_leaves(params["decoder"]["layers"])]
+    params, _o, _s, _n, loss, _lr = steps.train_step(params, optimizer.init(params), state, 0,
+                                                     images, caps.to(cuda))
+    after = TS.tree_leaves(params["decoder"]["layers"])
+    assert torch.isfinite(loss) and len(after) == 48
+    assert all(not torch.equal(a, b) for a, b in zip(after, before))
+
+
 # ---- kernels D and E: whole transformer decodes -----------------------------------
 
 TF_DIMS = TTF.TransformerDims(vocab_size=2050, embedding_size=128, model_dim=256, num_layers=2,

@@ -83,6 +83,22 @@ def test_relu6():
     _close(tL.relu6(torch.as_tensor(x)), jL.relu6(jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_relu6_gradient_matches_jax_at_the_ends(dtype):
+    """``jnp.clip``'s gradient is 1/2 at x == 0 and x == 6 (1 inside, 0
+    outside); ``torch.clamp``'s is 1 there. A BN output equal to its offset
+    of 0 (a constant channel at init) lands on the tie."""
+    import jax
+
+    x = np.array([-1.0, -0.0, 0.0, 1e-3, 3.0, 5.96875, 6.0, 6.03125, 7.0], np.float32)
+    dy = np.linspace(0.5, 2.5, x.size).astype(np.float32)
+    want = np.asarray(jax.vjp(jL.relu6, jnp.asarray(x))[1](jnp.asarray(dy))[0])
+    tx = torch.tensor(x, dtype=dtype, requires_grad=True)
+    (got,) = torch.autograd.grad(tL.relu6(tx), tx, torch.tensor(dy, dtype=dtype))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert list(want[[1, 2, 6]] / dy[[1, 2, 6]]) == [0.5, 0.5, 0.5]
+
+
 def test_lstm_from_gates_gate_order():
     rng = np.random.RandomState(4)
     gates = rng.randn(5, 4 * 16).astype(np.float32) * 2

@@ -133,9 +133,11 @@ def port_loss_and_grads(cfg, params, state, images, caps, tdt):
                                 materialize_grads=True)
     it = iter(grads)
 
-    def rebuild(tree):
+    def rebuild(tree):  # tree_leaves' order: dicts by sorted key, lists by index
         if isinstance(tree, dict):
             return {k: rebuild(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return [rebuild(v) for v in tree]
         return next(it)
 
     g_ref, _ = reference_tree(rebuild(tp), {})
@@ -144,12 +146,13 @@ def port_loss_and_grads(cfg, params, state, images, caps, tdt):
 
 
 def flat(tree, prefix=""):
+    """Nested dicts and lists -> {"a/0/b": float64 numpy}."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(v, (dict, list, tuple)):
             out.update(flat(v, f"{prefix}{k}/"))
         else:
-            out[prefix + k] = np.asarray(v, np.float64)
+            out[f"{prefix}{k}"] = np.asarray(v, np.float64)
     return out
 
 

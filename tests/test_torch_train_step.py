@@ -71,11 +71,16 @@ def _adam_state(opt_state):
 
 
 def _as_tree(like, leaves):
-    """A list in ``tree_leaves`` order -> the nested dicts of ``like``."""
+    """A list in ``tree_leaves`` order -> the nested dicts and lists of
+    ``like``."""
     it = iter(leaves)
 
     def rebuild(t):
-        return {k: rebuild(t[k]) for k in sorted(t)} if isinstance(t, dict) else next(it)
+        if isinstance(t, dict):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [rebuild(v) for v in t]
+        return next(it)
 
     return rebuild(like)
 

@@ -11,9 +11,11 @@ JAX bundle and converted to a port bundle:
   and E run their plain versions on CPU tensors);
 - ``CaptionService`` (beam 4) answers concurrent requests with the JAX ids,
   and its HTTP ``/healthz`` reports them;
-- what stays unported raises ``NotImplementedError`` naming ROADMAP.md:
-  training (``loss_terms``); int8 weights (``quantize=True``) load (their
-  decodes are held in ``tests/test_torch_transformer_int8.py``).
+- int8 weights (``quantize=True``) load (their decodes are held in
+  ``tests/test_torch_transformer_int8.py``), and the bundle's float32 tree
+  trains: ``loss_terms`` (once unported) equals the JAX ``loss_terms`` on
+  the JAX bundle's weights, CE sum to rtol 3e-5 and the token count exactly
+  (``tests/test_torch_transformer_train.py`` holds the gradients).
 """
 
 import json
@@ -30,6 +32,7 @@ from myimagecaptioningmodel_tpu import config as config_mod
 from myimagecaptioningmodel_tpu.evaluation import evaluate as jeval
 from myimagecaptioningmodel_tpu.models import captioner as jcap
 from myimagecaptioningmodel_tpu.training import checkpoint as jckpt
+from myimagecaptioningmodel_tpu_torch.compat.from_jax import train_tree
 from myimagecaptioningmodel_tpu_torch.evaluation import evaluate as teval
 from myimagecaptioningmodel_tpu_torch.inference import server as tserver
 from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
@@ -136,9 +139,17 @@ def test_service_and_http(bundles):
 
 
 def test_unported_raises(bundles):
-    _jcfg, tcfg, images = bundles
+    jcfg, tcfg, images = bundles
     model, _bc, _opts, _decode = teval.load_bundle(tcfg, quantize=True, device="cpu")
     assert model.params["decoder"]["layers"][0]["attn"]["wq"]["w_q"].dtype == torch.int8
-    opts = tcap.ModelOptions.from_config(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcap.loss_terms(None, None, images, np.zeros((5, 6), np.int32), opts)
+    caps = np.zeros((5, 6), np.int32)
+    caps[:, 0], caps[:, 1:4], caps[:, 4] = 2, np.arange(15).reshape(5, 3) + 4, 3
+    jp, js, _jc, jopts, _jdecode = jeval.load_bundle(jcfg)
+    want_sum, want_n, _ = jax.jit(lambda p: jcap.loss_terms(p, js, images, caps, jopts, True))(jp)
+    tp, ts, _cfg = tckpt.load_inference_bundle(os.path.join(tcfg.train.checkpoint_path, "infer"))
+    tp, ts = train_tree(tp, ts, device="cpu")
+    with torch.no_grad():
+        ce_sum, n_tok, _ = tcap.loss_terms(tp, ts, torch.as_tensor(images),
+                                           torch.as_tensor(caps), tcap.ModelOptions.from_config(tcfg))
+    assert float(n_tok) == float(want_n) == 20
+    np.testing.assert_allclose(float(ce_sum), float(want_sum), rtol=3e-5)
