@@ -3,10 +3,10 @@ kernel E's inputs, in kernel G and the int8 modes of kernels D and E, in
 kernel A, in kernel B and in the transformer's training, and read what each
 scores against ``chip_smoke.py``'s limits, beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8,9]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
-only; nothing on disk changes. Eight parts:
+only; nothing in the checkout changes. Nine parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -85,6 +85,18 @@ only; nothing on disk changes. Eight parts:
    (``served_greedy_check``) or the served best beam (kernel E) its
    re-score (``served_beam_check``). Each must be caught, and each sound
    reading pass.
+9. Phase 23's checks of the training workflow on its corpus (1,280 images,
+   full width): the reader a row off (``ShardManager._locate`` one past),
+   caught by the rows read against the rows written; the loop's dev decode
+   on the plain path on the card (``use_kernels`` off), caught by B's and
+   A's launch counts; ``calc_bleu_rows`` dropping the last row, caught by
+   the loop's dev BLEU (an epoch of 8 steps) against the
+   sentence-by-sentence one; resume
+   skipping ``mid_epoch_batches - 1`` batches, caught by the resumed losses
+   against the uninterrupted run's within ``RESUME_NOISE`` x the noise of
+   two uninterrupted runs; a checkpoint written without the EMA tree,
+   caught by the reload (it refuses a checkpoint that does not match the
+   training state). Each must be caught, and each sound reading pass.
 
     python3 chip_fault_check.py --parts 3   # part 3 only
 
@@ -835,11 +847,112 @@ def tf_train_fault_readings(dev, seed, root):
     return caught
 
 
+def trainer_fault_readings(dev, seed, root):
+    """Part 9 -> {fault: caught}: phase 23's checks with faults in the data
+    plane, the loop and the metrics: the reader a row off (the rows read
+    against the rows written, ``reader_rows_failures``); the dev decode on
+    the plain path on the card (the loop's launches, ``loop_launches_want``);
+    resume skipping one batch less than it ran
+    (``resume_readings``' losses); a checkpoint written without the EMA tree
+    (the resume's reload); ``calc_bleu_rows`` dropping the last row (the
+    loop's dev BLEU after 8 steps against ``dev_bleu_errors``)."""
+    from myimagecaptioningmodel_tpu_torch.data import shards as SH
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+    from myimagecaptioningmodel_tpu_torch.evaluation import metrics as M
+    from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
+    from myimagecaptioningmodel_tpu_torch.training import loop
+
+    base, _summary, rows = S.trainer_base(root, seed)
+    caught = {}
+    locate = SH.ShardManager._locate
+    for fault in ("reader_sound", "reader_off_by_one_row"):
+        if fault != "reader_sound":
+            SH.ShardManager._locate = lambda self, i: locate(self, min(i + 1, len(self) - 1))
+        try:
+            bad = S.reader_rows_failures(base, rows)
+        finally:
+            SH.ShardManager._locate = locate
+        caught[fault] = bool(bad)
+        S.say("fault", check="phase23a_rows", fault=fault, rows_differing=len(bad),
+              caught=caught[fault])
+    del rows
+
+    build = loop.build_steps
+    for fault in ("decode_sound", "dev_decode_plain"):
+        if fault != "decode_sound":
+            loop.build_steps = lambda opts, *a, **k: build(opts._replace(use_kernels=False),
+                                                           *a, **k)
+        cfg = S.loop_cfg(base, root, fault, S.NO_EXPORTS + (
+            ("train.max_epoch", 1), ("train.checkpoint_every_n_steps", False)))
+        try:
+            with S.counting() as c:
+                loop.train(cfg, device=dev, max_steps_per_epoch=2)
+        finally:
+            loop.build_steps = build
+        want = S.loop_launches_want(2, 1, 1)
+        caught[fault] = c.counts != want
+        S.say("fault", check="phase23b_launches", fault=fault,
+              launches=json.dumps(c.counts).replace(" ", ""), caught=caught[fault])
+
+    cfg_a = S.loop_cfg(base, root, "a", (("train.ema_decay", 0.999),))
+    with S.loop_probe() as probe_a:
+        loop.train(cfg_a, device=dev, max_steps_per_epoch=S.TRAINER_STEPS)
+    rows_sum = M.calc_bleu_rows
+    for fault in ("bleu_sound", "bleu_rows_drop_last"):
+        if fault != "bleu_sound":
+            def dropped(pred, real, *a, **k):
+                total, n = rows_sum(pred[:-1], real[:-1], *a, **k)
+                return total, n + 1
+            M.calc_bleu_rows = dropped
+        cfg = S.loop_cfg(base, root, fault, S.NO_EXPORTS + (
+            ("train.max_epoch", 1), ("train.checkpoint_every_n_steps", False)))
+        try:
+            with S.loop_probe() as probe:
+                loop.train(cfg, device=dev, max_steps_per_epoch=S.TRAINER_STEPS)
+        finally:
+            M.calc_bleu_rows = rows_sum
+        pairs = S.dev_bleu_errors(cfg, probe, 1)
+        caught[fault] = any(abs(a - b) > 1e-12 for a, b in pairs)
+        S.say("fault", check="phase23b_dev_bleu", fault=fault, logged_and_by_sentence=pairs,
+              caught=caught[fault])
+
+    cfg_a2 = S.loop_cfg(base, root, "a2", (("train.ema_decay", 0.999),
+                                          ("train.checkpoint_every_n_steps", False)) + S.NO_EXPORTS)
+    with S.loop_probe() as probe_a2:
+        loop.train(cfg_a2, device=dev, max_steps_per_epoch=S.TRAINER_STEPS)
+    get_reader, arrays = DataReader.get_reader, ckpt.checkpoint_arrays
+
+    def skip_one_less(self, batch_size=None, mode="train", keep_float16=False,
+                      shuffle_seed=None, skip_samples=0, **k):
+        return get_reader(self, batch_size, mode, keep_float16, shuffle_seed,
+                          max(0, skip_samples - (batch_size or 0)), **k)
+
+    def without_ema(*a):
+        return {k: v for k, v in arrays(*a).items() if not k.startswith("opt_state/ema/")}
+
+    for fault in ("resume_sound", "resume_skips_one_batch_less", "checkpoint_without_ema"):
+        if fault == "resume_skips_one_batch_less":
+            DataReader.get_reader = skip_one_less
+        elif fault == "checkpoint_without_ema":
+            ckpt.checkpoint_arrays = without_ema
+        try:
+            r = S.resume_readings(dev, base, root, fault, probe_a.loss_values(),
+                                  probe_a2.loss_values())
+            caught[fault] = not r["ok"]
+        except ValueError as e:  # the reload refuses a checkpoint that does not match
+            r, caught[fault] = {"error": str(e)[:160]}, True
+        finally:
+            DataReader.get_reader, ckpt.checkpoint_arrays = get_reader, arrays
+        S.say("fault", check="phase23c_resume", fault=fault, caught=caught[fault],
+              **{k: v for k, v in r.items() if not k.startswith("losses")})
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8", help="comma-separated parts to run")
+    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8,9", help="comma-separated parts to run")
     args = ap.parse_args(argv)
     parts = {int(x) for x in args.parts.split(",")}
     if not torch.cuda.is_available():
@@ -873,8 +986,12 @@ def main(argv=None) -> int:
     if 8 in parts:
         with tempfile.TemporaryDirectory() as root:
             summary["phase21_caught"] = tf_train_fault_readings(dev, args.seed, root)
+    if 9 in parts:
+        with tempfile.TemporaryDirectory() as root:
+            summary["phase23_caught"] = trainer_fault_readings(dev, args.seed, root)
     print(json.dumps(summary))
-    sound = ("sound", "encoder_sound", "e_sound", "walker_sound", "export_sound", "served_sound")
+    sound = ("sound", "encoder_sound", "e_sound", "walker_sound", "export_sound", "served_sound",
+             "reader_sound", "decode_sound", "bleu_sound", "resume_sound")
     if any(bool(v.get(f)) for v in summary.values() for f in sound):
         return 1
     return 0 if all(bool(v[f]) for k, v in summary.items() if k != "phase11_caught"

@@ -3,7 +3,7 @@
 phases of C's, A's and G's tile kernels in SM cycles, and D's, E's and the
 LSTM decodes.
 
-    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de,b,train] [--package-root DIR]
+    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de,b,train,loop] [--package-root DIR]
 
 1. Kernel F (``matmul_stats``) at every ``chip_smoke.F_SHAPES`` shape and
    kernel C (``topk_vocab_head``) at M in {32, 512}, k in {1, 4, 8, 32},
@@ -67,6 +67,11 @@ LSTM decodes.
    range, peak MiB, device busy of one profiled step): the LSTM (fused)
    with ``layers.relu6``'s tie gradient against ``torch.clamp``'s, the LSTM
    (fused) at bn_stat_rows 0, 16 and 32, the transformer unfused and fused.
+10. (part ``loop``) ``probe_loop``: ``loop.train`` on phase 23's corpus
+   and config, one epoch of 8 steps a run, in turns after a warm-up run:
+   the reader serial or
+   one gather a batch, rolling saves every 4 steps or none; images/s over
+   the epoch, the host ms a step takes to queue, the feeder's wait share.
 
 Each traced copy is built by ``traced_library`` (every anchor must occur
 once in the source, or the probe stops) and run through the port's own
@@ -1008,6 +1013,54 @@ def probe_train(dev, rounds: int = 4, reps: int = 5):
             torch.cuda.empty_cache()
 
 
+def probe_loop(dev, rounds: int = 3):
+    """Part ``loop``: where ``loop.train``'s wall goes beyond the bare step,
+    on phase 23's corpus and config (full-width LSTM, bf16, B=128, kernel
+    F, 1 epoch of ``chip_smoke.TRAINER_STEPS`` steps a run): four variants
+    in turns (in order, then in reverse, ``rounds`` times, after one
+    unrecorded warm-up run: a process's first run is cold), the reader
+    serial or one gather a batch (``train.reader_threads`` 0 or 1), rolling
+    saves every 4 steps or none. Each run's images/s over the epoch (the
+    ``train_wall`` record), the median host ms a step takes to queue
+    (``step_times``) and the feeder's queue-wait share."""
+    import tempfile
+
+    from myimagecaptioningmodel_tpu_torch.training import loop
+
+    variants = {"serial_saves": (0, 4), "gather_saves": (1, 4),
+                "serial_nosaves": (0, False), "gather_nosaves": (1, False)}
+    with tempfile.TemporaryDirectory() as root:
+        base, _summary, rows = S.trainer_base(root, 0)
+        del rows
+        reads = {v: [] for v in variants}
+        order = list(variants)
+
+        def run(v, label):
+            threads, every = variants[v]
+            cfg = S.loop_cfg(base, root, label, S.NO_EXPORTS + (
+                ("train.max_epoch", 1), ("train.reader_threads", threads),
+                ("train.checkpoint_every_n_steps", every)))
+            loop.train(cfg, device=dev, max_steps_per_epoch=S.TRAINER_STEPS)
+            return cfg
+
+        run(order[0], "warm_up")
+        for r in range(rounds):
+            for v in (order if r % 2 == 0 else order[::-1]):
+                cfg = run(v, f"{v}_{r}")
+                wall = S.read_scalars(cfg, "train_wall")[-1]
+                host = S.read_scalars(cfg, "step_times")[-1]
+                reads[v].append((wall["images"] / wall["seconds"], host["p50_ms"],
+                                 wall["feeder_wait_s"] / wall["seconds"]))
+        for v in order:
+            ips = [x[0] for x in reads[v]]
+            S.say("probe_loop", variant=v, reader_threads=variants[v][0],
+                  checkpoint_every_n_steps=variants[v][1], steps=S.TRAINER_STEPS, B=128,
+                  images_per_s=[round(x, 1) for x in ips],
+                  median_images_per_s=round(float(np.median(ips)), 1),
+                  step_host_ms_p50=[round(x[1], 2) for x in reads[v]],
+                  feeder_wait_share=[round(x[2], 4) for x in reads[v]])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Probe kernels F, C, A and G on one CUDA card.")
     ap.add_argument("--trace-only", action="store_true")
@@ -1016,7 +1069,7 @@ def main(argv=None) -> int:
                          "enc: the fused and plain eval encoders' forward times; de: kernels "
                          "D's and E's decodes and products; b: kernel B's steps, decodes and "
                          "products; train: bf16 train steps (relu6's gradient, bn_stat_rows, "
-                         "the transformer)")
+                         "the transformer); loop: loop.train's wall (reader, rolling saves)")
     ap.add_argument("--package-root", default=None,
                     help="(parts ab, enc, de, b) measure the package of this checkout instead")
     args = ap.parse_args(argv)
@@ -1051,6 +1104,8 @@ def main(argv=None) -> int:
         probe_b(dev)
     if "train" in parts:
         probe_train(dev)
+    if "loop" in parts:
+        probe_loop(dev)
     return 0
 
 

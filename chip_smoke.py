@@ -1,13 +1,14 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA card:
 the LSTM family served and trained (with the subset-statistics BN too), the
-transformer family served (float and int8) and trained, and the fused-IRB
-eval encoder.
+transformer family served (float and int8) and trained, the fused-IRB eval
+encoder, and the training workflow end to end (a corpus in port shards,
+``loop.train`` with its dev BLEU, crash and resume, ``evaluate()``).
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (each prints one line; any failure exits non-zero with no result;
-17 and 18 run right after 2, and 3 and 20 after them, and 21 and 22 right
-after 13, while torch.profiler still reads every event):
+17 and 18 run right after 2, and 3 and 20 after them, and 21, 22 and 23
+right after 13, while torch.profiler still reads every event):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``myimagecaptioningmodel_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -205,6 +206,46 @@ after 13, while torch.profiler still reads every event):
    B=128 with R=16 (the loss falls); ms per bf16 B=128 fused step at R=0, 16
    and 32 in turns (0, 16, 32, 32, 16, 0; 3 steps a window), images/s, peak
    memory, and a profile of each.
+23. the trainer (``phase_trainer``): (a) a corpus written without PIL:
+   1,280 random 3x224x224 uint8 images through ``ShardBuilder`` (uint8
+   shards, 193 MB), five captions an image of 12,291 generated words (each
+   at least twice in the train split, so the vocabulary is the default
+   12,295) through the port's ``word_seg`` ("space") and
+   ``tokenizer.main``, split 1,024 / 128 / 128; (b) ``loop.train`` of the
+   default LSTM at full width, bf16, B=128, kernel F on, raw uint8 rows to
+   the card, 2 epochs of 8 steps, a rolling checkpoint every 4 steps: the
+   epoch-2 mean loss below epoch 1's, F 35 launches a step, B and A 35 a
+   dev batch, each dev evaluation's BLEU equal to a sentence-by-sentence
+   recomputation from the ids it decoded (``dev_bleu_errors``, apart from
+   ``calc_bleu_rows``), the last one's ids the plain decode step's under
+   the near-tie rule on the same (checkpointed) params, every export of
+   ``save_model`` present and ``infer`` loaded by ``load_bundle``; (c) the
+   same run crashed at step 6 (``fault_injection_step``) and resumed: the
+   reloaded params, moments and BN state bit-equal to the saved
+   checkpoint, the per-step losses within ``RESUME_NOISE`` x the largest
+   difference between two uninterrupted runs (both printed) plus
+   ``RESUME_FLOOR`` x the loss; (d) ``evaluate()`` of the best-BLEU export
+   (``infer_bleu``: a bundle whose scores are above 0, so that a fault in
+   the scoring can show) on the test split, greedy (B and A 35 launches;
+   ids under the near-tie rule of the plain step) and beam 3 (B and C 35;
+   each best beam teacher-forced through the plain versions re-scores to
+   its reported score within 2e-3 a step, and to no less than the plain
+   beam search's best beam re-scored the same way, less that limit), each
+   one's BLEU-1..4 above 0 and equal to a sentence-by-sentence
+   recomputation from its ids (as each dev evaluation's BLEU of (b)), its
+   CIDEr-D above 0 and equal to a caption-by-caption one
+   (``cider_by_caption``); (e) the transformer trained 1 epoch of 2 steps,
+   its dev decode through D (one launch a dev batch, ids under the
+   near-tie rule of its plain teacher-forced logits); (f) readings beside the card's name and
+   power limit: the loop's images/s over epoch 2 (wall, the feeder, the
+   rolling saves and the wait for the last one's write included) and the
+   bare step's (phase 13's fused figure), the host ms a step takes to
+   queue (median), the share of that wall waiting on the feeder's queue,
+   dev-evaluation captions/s (a
+   graph capture included: the loop packs the decoder once an
+   evaluation), the ms ``save()`` holds the loop and the ms the async
+   write takes, and ``evaluate()``'s captions/s greedy and beam 3 (the
+   bundle's first batch, a capture included).
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -219,7 +260,10 @@ of F phase 12 (c)'s (phase 21 (b)'s under ``tf_train_launches``), those of D
 and E phase 16's services, one per decode (serving phase 21's trained
 bundle under ``trained_bundle_launches``),
 those of D's and E's int8 modes phase 19's services, and G's phase 18's
-first forward, 17; B's, D's and E's entries (and D's and E's int8 modes')
+first forward, 17; A, B, C, D and F also carry ``trainer_launches``, phase
+23's launches by path (``loop``: the LSTM run's training and dev
+evaluations, ``evaluate_greedy``, ``evaluate_beam3``, ``tf_loop``: the
+transformer's); B's, D's and E's entries (and D's and E's int8 modes')
 carry ``device_ms``: B's per step from ``device_us`` at 8 rows with its
 head, under ``b128``, ``beam32`` and ``beam512`` at 128 rows with it and
 at 32 and 512 beam rows without it (phase 3), beside the device busy ms of
@@ -3116,6 +3160,582 @@ def phase_bn_subset(dev, seed, root):
                        line="bn_subset")
 
 
+# ---- phase 23: the trainer ---------------------------------------------------
+
+TRAINER_SPLITS = (1024, 128, 128)  # train, dev, test images
+# words of the generated captions: each occurs at least twice in the train
+# split, so build_dict keeps them all, 12,291 + the 4 specials = 12,295
+TRAINER_WORDS = V_REAL - 4
+TRAINER_LR = 1e-3
+TRAINER_STEPS = 8  # steps an epoch (of the 40 that 5,120 train captions make at B=128)
+# phase 23 (c): the resumed run's per-step losses against the uninterrupted
+# run's within RESUME_NOISE x the largest difference between two
+# uninterrupted runs of the same call (the card's reductions need not be
+# bitwise deterministic; on an H100 these runs repeated their losses
+# exactly, so the floor sets the limit), plus RESUME_FLOOR x the loss
+RESUME_NOISE, RESUME_FLOOR = 4.0, 1e-5
+
+
+def trainer_corpus(root, seed, splits=TRAINER_SPLITS, words=TRAINER_WORDS, size=224,
+                   per_image=5, lengths=(6, 33)):
+    """A corpus written without PIL: random uint8 images through
+    ``ShardBuilder`` (uint8 shards), five captions an image of generated
+    words ``w0`` ... ``w{words-1}`` drawn with Zipf frequencies (1/(rank+1),
+    as a language's words are: a briefly trained model emits the frequent
+    ones, so a dev evaluation can score above 0; epoch 1's does at seed 0),
+    each word at least twice in the train
+    split, through the port's caption stages (``word_seg`` with the "space"
+    segmenter, the split files for ``splits``, ``tokenizer.main``) ->
+    (config with the corpus's paths, the tokenize summary, the image rows
+    in name order)."""
+    from myimagecaptioningmodel_tpu_torch.config import Config, replace_nested
+    from myimagecaptioningmodel_tpu_torch.data import dataset_gen, shards, tokenizer
+
+    rng = np.random.RandomState(seed)
+    ds = os.path.join(root, "dataset")
+    n = sum(splits)
+    names = [f"img_{i:05d}.jpg" for i in range(n)]
+    cfg = Config()
+    for path, value in (("build_dataset.output_path", ds),
+                        ("build_dataset.annotation_path", os.path.join(root, "captions.json")),
+                        ("build_dataset.storage_dtype", "uint8"),
+                        ("data.image_shape", (size, size)), ("data.dict_path", ds),
+                        ("data.h5_path", (ds,)),
+                        ("data.h5_name2idx", os.path.join(ds, "name2idx.json"))):
+        cfg = replace_nested(cfg, path, value)
+    rows = rng.randint(0, 256, (n, 3, size, size), dtype=np.uint8)
+    attrs = shards.storage_attrs("uint8", cfg.data.image_mean, cfg.data.image_std)
+    with shards.ShardBuilder(ds, "aic_flk", (3, size, size), cfg.build_dataset.shard_max_size,
+                             n, "uint8", attrs) as builder:
+        builder.append_rows(rows)
+    with open(os.path.join(ds, "name2idx.json"), "w") as f:
+        json.dump({name: i for i, name in enumerate(names)}, f)
+
+    zipf = 1.0 / np.arange(1, words + 1)
+    zipf /= zipf.sum()
+    n_train = splits[0] * per_image
+    lens = rng.randint(lengths[0], lengths[1] + 1, n * per_image)
+    extra = int(lens[:n_train].sum()) - 2 * words
+    assert extra >= 0, "the train captions are too short to hold every word twice"
+    pool = np.concatenate([np.repeat(np.arange(words), 2), rng.choice(words, extra, p=zipf)])
+    rng.shuffle(pool)
+    words_of = np.concatenate([pool, rng.choice(words, int(lens[n_train:].sum()), p=zipf)])
+    caps = np.split(words_of, np.cumsum(lens)[:-1])
+    records = [{"image_id": name, "caption": [" ".join(f"w{w}" for w in caps[i * per_image + j])
+                                              for j in range(per_image)]}
+               for i, name in enumerate(names)]
+    with open(cfg.build_dataset.annotation_path, "w", encoding="utf-8") as f:
+        json.dump(records, f)
+    dataset_gen.word_seg(cfg, "space")
+    temp = os.path.join(ds, "temp")
+    bounds = np.cumsum((0,) + tuple(splits))
+    for fname, lo, hi in zip(("train.txt", "dev.txt", "test.txt"), bounds[:-1], bounds[1:]):
+        with open(os.path.join(temp, fname), "w", encoding="utf-8") as f:
+            f.writelines(name + "\n" for name in names[lo:hi])
+    return cfg, tokenizer.main(cfg), rows
+
+
+def loop_cfg(base, root, run, extra=()):
+    """The trainer's config: ``base`` (the corpus's) at full width, bf16,
+    B=128, kernel F on, lr ``TRAINER_LR``, 2 epochs, a rolling checkpoint
+    every 4 steps, no backup and no bare-params export, a feed queue of 8
+    batches (the run stops each epoch after ``TRAINER_STEPS``), writing under
+    ``root/run``; ``extra``: dotted overrides."""
+    from myimagecaptioningmodel_tpu_torch.config import replace_nested
+
+    cfg = base
+    for path, value in (("train.checkpoint_path", os.path.join(root, run, "save")),
+                        ("log.log_path", os.path.join(root, run, "log")),
+                        ("train.seed", 0), ("train.learning_rate", TRAINER_LR),
+                        ("train.max_epoch", 2), ("train.log_every_n_step", 8),
+                        ("train.checkpoint_every_n_steps", 4),
+                        ("train.checkpoint_backup_every_n_epoch", False),
+                        ("train.export_params", False), ("train.device_convert", True),
+                        ("train.data_loader_capacity", 8), ("model.fuse_bn_stats", True),
+                        *extra):
+        cfg = replace_nested(cfg, path, value)
+    return cfg
+
+
+class loop_probe:
+    """While active: ``loop.build_steps``' steps record each train step's
+    loss tensor (no read back) and each dev decode's (images, ids), and
+    ``checkpoint.load_checkpoint`` records a host copy of what it returns
+    (``checkpoint_arrays``)."""
+
+    def __enter__(self):
+        from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
+        from myimagecaptioningmodel_tpu_torch.training import loop
+
+        self.losses, self.decodes, self.loaded = [], [], []
+        self._saved = [(loop, "build_steps", loop.build_steps),
+                       (ckpt, "load_checkpoint", ckpt.load_checkpoint)]
+        orig_build, orig_load = loop.build_steps, ckpt.load_checkpoint
+
+        def build_steps(*a, **k):
+            steps = orig_build(*a, **k)
+
+            def train_step(*args):
+                out = steps.train_step(*args)
+                self.losses.append(out[4].detach())
+                return out
+
+            def decode_step(params, state, images, packed=None):
+                ids = steps.decode_step(params, state, images, packed)
+                self.decodes.append((images, ids))
+                return ids
+
+            return steps._replace(train_step=train_step, decode_step=decode_step)
+
+        def load_checkpoint(*a, **k):
+            out = orig_load(*a, **k)  # a host copy now: the loop updates the trees in place
+            self.loaded.append(ckpt.checkpoint_arrays(*out[:3]))
+            return out
+
+        loop.build_steps, ckpt.load_checkpoint = build_steps, load_checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def loss_values(self):
+        return [float(x) for x in self.losses]
+
+
+def launch_counters():
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
+
+    return {"greedy_vocab_argmax": VH.greedy_vocab_argmax, "fused_decode_step": FS.fused_decode_step,
+            "topk_vocab_head": VH.topk_vocab_head, "matmul_stats": MB.matmul_stats,
+            "fused_greedy_decode": FT.fused_greedy_decode}
+
+
+class counting:
+    """Every kernel's launch count set to 0 on entry; ``counts`` read on exit."""
+
+    def __enter__(self):
+        for fn in launch_counters().values():
+            fn.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.counts = {k: fn.launches for k, fn in launch_counters().items()}
+
+
+def read_scalars(cfg, event):
+    with open(os.path.join(cfg.log.log_path, "log.jsonl"), encoding="utf-8") as f:
+        return [r for r in map(json.loads, f) if r["event"] == event]
+
+
+def tree_forced_ok(params, state, opts, images, ids):
+    """The loop's dev ids (a training tree, eval-mode BN) against the plain
+    decode step fed with those ids, each step under the near-tie rule ->
+    (ok, steps checked). The transformer's: its plain teacher-forced logits."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+    dt, prm = opts.dtype, params["decoder"]
+    with torch.no_grad():
+        img_embed, _f, gf, _s = C.img2feature_tree(params, state, images, opts, train=False)
+        if opts.arch == "transformer":
+            pre = TTF.precompute(prm, img_embed, gf, opts.tdims.num_heads, dt)
+            src = torch.cat([torch.full_like(ids[:, :1], opts.start_idx), ids[:, :-1]], 1).long()
+            logits = TTF.teacher_forcing_logits(prm, pre, src, opts.tdims, opts.padding_idx, dt)
+            ok = near_tie_ok(ids.reshape(-1), logits.reshape(-1, logits.shape[-1]), dt)
+            return ok, ids.shape[1]
+        pre = D.precompute(prm, img_embed, gf, dt)
+        h = torch.zeros(ids.shape[0], opts.dims.hidden_dim, device=ids.device)
+        c = torch.zeros_like(h)
+        word = torch.full((ids.shape[0],), opts.start_idx, dtype=torch.long, device=ids.device)
+        for t in range(ids.shape[1]):
+            h, c, proj = D.step_core(prm, pre, word, h, c, opts.parity_mode, opts.padding_idx, dt)
+            if not near_tie_ok(ids[:, t], D.head_logits(prm, proj, dt), dt):
+                return False, t
+            word = ids[:, t].long()
+    return True, ids.shape[1]
+
+
+def final_trees(cfg, dev):
+    """The run's last checkpoint as training trees on ``dev``."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import train_tree
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import make_optimizer
+    from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
+    from myimagecaptioningmodel_tpu_torch.training import lr_schedules
+
+    opts = C.ModelOptions.from_config(cfg)
+    p, s = train_tree(*C.init(torch.Generator().manual_seed(0), opts), dev)
+    o = make_optimizer(cfg, lr_schedules.from_config(cfg)).init(p)
+    params, _o, state, _m = ckpt.load_checkpoint(
+        os.path.join(cfg.train.checkpoint_path, "checkpoint"), p, o, s)
+    return params, state, opts
+
+
+def split_images(cfg, mode, dev):
+    """The split's stored rows (uint8 NCHW) on ``dev``, in reader order."""
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+
+    batches = list(DataReader(cfg).get_reader(cfg.train.batch_size, mode, keep_float16=True,
+                                              reader_threads=1)())
+    return torch.as_tensor(np.concatenate([b[0] for b in batches])).to(dev)
+
+
+NO_EXPORTS = (("train.export_infer_model", False), ("train.save_best_bleu_checkpoint", False))
+
+
+def reader_rows_failures(cfg, rows):
+    """The reader's rows against the rows written for their names: the first
+    two train batches (the serial reader) and the first dev batch (one
+    gather) -> the names whose rows differ."""
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+
+    dr, B = DataReader(cfg), cfg.train.batch_size
+    with open(cfg.data.h5_name2idx) as f:
+        n2i = json.load(f)
+    train = dr._load_split("train", None, 0)
+    bad = []
+    for b, batch in zip(range(2), dr.get_reader(B, "train", keep_float16=True)()):
+        bad += [name for (img, _c), (name, _n) in zip(batch, train[b * B:(b + 1) * B])
+                if not np.array_equal(img, rows[n2i[name]])]
+    files, _refs = dr._load_split("dev", None, 0)
+    imgs, _r = next(iter(dr.get_reader(B, "dev", keep_float16=True, reader_threads=1)()))
+    return bad + [f for f, img in zip(files[:B], imgs) if not np.array_equal(img, rows[n2i[f]])]
+
+
+def bleu_by_sentence(cfg, mode, ids_batches, weights=(0.25,) * 4):
+    """A split's BLEU recomputed from ``sentence_bleu`` row by row, apart from
+    ``calc_bleu_rows``: per batch the mean over its real rows (a caption of
+    at most one word scores 0), then the mean over batches, the loop's and
+    ``evaluate()``'s order of sums."""
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+    from myimagecaptioningmodel_tpu_torch.evaluation.metrics import filter_ids, sentence_bleu
+
+    dr, B = DataReader(cfg), cfg.train.batch_size
+    files, files2cap = dr._load_split(mode, None, 0)
+    total = 0.0
+    for b, ids in enumerate(ids_batches):
+        refs = [files2cap[f] for f in files[b * B:(b + 1) * B]]
+        row_sum = 0.0
+        for row, r in zip(ids[:len(refs)].tolist(), refs):
+            words = filter_ids(row, dr.index_word, cfg.data.stop_idx, cfg.data.padding_idx)
+            row_sum += sentence_bleu(r, words, weights) if len(words) > 1 else 0.0
+        total += row_sum / len(refs)
+    return total / len(ids_batches)
+
+
+def cider_by_caption(cfg, mode, ids_batches):
+    """A split's CIDEr-D from the decoded ids, apart from ``evaluate()``'s
+    own lists: each real row's words against its image's references, the
+    per-caption scores of ``CiderD`` (document frequencies over the split's
+    references) averaged in reader order."""
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+    from myimagecaptioningmodel_tpu_torch.evaluation.cider import CiderD
+    from myimagecaptioningmodel_tpu_torch.evaluation.metrics import filter_ids
+
+    dr, B = DataReader(cfg), cfg.train.batch_size
+    files, files2cap = dr._load_split(mode, None, 0)
+    cands = [filter_ids(row, dr.index_word, cfg.data.stop_idx, cfg.data.padding_idx)
+             for b, ids in enumerate(ids_batches)
+             for row in ids[:len(files[b * B:(b + 1) * B])].tolist()]
+    _mean, per_caption = CiderD().score(cands, [list(files2cap[f]) for f in files])
+    return float(sum(per_caption.tolist()) / len(per_caption))
+
+
+def loop_launches_want(steps, evals, dev_batches, arch="lstm"):
+    """A loop run's launches: F 35 a step, and per dev batch B and A 35 (the
+    LSTM's greedy decode) or D once (the transformer's)."""
+    lstm = arch == "lstm"
+    return {"matmul_stats": 35 * steps, "topk_vocab_head": 0,
+            "fused_decode_step": 35 * evals * dev_batches if lstm else 0,
+            "greedy_vocab_argmax": 35 * evals * dev_batches if lstm else 0,
+            "fused_greedy_decode": 0 if lstm else evals * dev_batches}
+
+
+def resume_readings(dev, base, root, run, losses_a, losses_a2):
+    """Crash a run (the EMA on) at step 6 (its rolling checkpoint at step 4)
+    and resume it
+    -> readings: the reloaded state bit-equal to the saved checkpoint, and
+    the per-step losses within ``RESUME_NOISE`` x the two uninterrupted
+    runs' largest difference plus ``RESUME_FLOOR`` x the loss."""
+    from myimagecaptioningmodel_tpu_torch.training import loop
+
+    cfg = loop_cfg(base, root, run, (("train.ema_decay", 0.999),) + NO_EXPORTS)
+    with loop_probe() as crashed:
+        try:
+            loop.train(cfg, device=dev, max_steps_per_epoch=TRAINER_STEPS, fault_injection_step=6)
+            raise AssertionError("the fault injection did not fire")
+        except RuntimeError as e:
+            if "fault injection" not in str(e):
+                raise
+    ckpt_dir = os.path.join(cfg.train.checkpoint_path, "checkpoint")
+    with open(os.path.join(ckpt_dir, "meta.json")) as f:
+        meta = json.load(f)
+    with np.load(os.path.join(ckpt_dir, "state.npz")) as z:
+        saved = {k: z[k] for k in z.files}
+    with loop_probe() as resumed:
+        loop.train(cfg, device=dev, max_steps_per_epoch=TRAINER_STEPS)
+    reloaded = resumed.loaded[0]
+    differ = sorted(set(saved) ^ set(reloaded)) + [
+        k for k in saved if k in reloaded and not np.array_equal(saved[k], reloaded[k])]
+    a, a2 = np.array(losses_a), np.array(losses_a2)
+    got = np.array(crashed.loss_values()[:4] + resumed.loss_values())
+    noise = float(np.abs(a - a2).max())
+    limit = RESUME_NOISE * noise + RESUME_FLOOR * float(np.abs(a).max())
+    err = float(np.abs(got - a).max()) if got.shape == a.shape else float("inf")
+    ok = not differ and meta.get("mid_epoch_batches") == 4 and err <= limit
+    return dict(crashed_at_step=6, resumed_from=json.dumps(meta).replace(" ", ""),
+                reloaded_leaves=len(reloaded), reloaded_bit_equal=not differ,
+                losses_a=[round(x, 6) for x in a.tolist()],
+                losses_a2=[round(x, 6) for x in a2.tolist()],
+                losses_resumed=[round(x, 6) for x in got.tolist()],
+                uninterrupted_max_diff=noise, resumed_max_diff=err, limit=limit, ok=ok)
+
+
+def evaluate_readings(dev, cfg, bundle, beam):
+    """``evaluate()`` of ``cfg``'s ``bundle`` on the test split -> (result,
+    launches, ok, readings): its ids against the plain path (greedy: the
+    plain step under the near-tie rule; beam: each best beam teacher-forced
+    through the plain versions re-scores to the score the search reported
+    within 2e-3 a step in bf16, 1e-3 in float32, phase 9's rule, and to no
+    less than the plain beam search's best beam re-scored the same way,
+    less the same limit), its BLEU-1..4 against ``bleu_by_sentence`` and
+    its CIDEr-D against ``cider_by_caption``, to 1e-12."""
+    from myimagecaptioningmodel_tpu_torch.evaluation import evaluate as EV
+    from myimagecaptioningmodel_tpu_torch.evaluation.metrics import BLEU_WEIGHT_VECTORS
+    from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
+
+    seen, searched, orig_load, orig_beam = [], [], EV.load_bundle, EV.beam_decode
+
+    def load_bundle(*a, **k):
+        out = orig_load(*a, **k)
+        seen.append(out)
+        decode = out[-1]
+
+        def wrapped(model, images):
+            ids = decode(model, images)
+            seen.append(ids)
+            return ids
+
+        return (*out[:-1], wrapped)
+
+    def search(*a, **k):
+        out = orig_beam(*a, **k)
+        searched.append(out)
+        return out
+
+    EV.load_bundle, EV.beam_decode = load_bundle, search
+    try:
+        with counting() as c:
+            res = EV.evaluate(cfg, bundle, mode="test", beam_size=beam, device=dev)
+    finally:
+        EV.load_bundle, EV.beam_decode = orig_load, orig_beam
+    model, _bc, opts, _d = seen[0]
+    batches = seen[1:]
+    rows = split_images(cfg, "test", dev)
+    n = rows.shape[0]
+    ids = torch.cat(batches)[:n]
+    with torch.no_grad():
+        if beam:
+            score = torch.cat([s for _i, s in searched])[:n]
+            rescore, nsteps = teacher_forced_scores(model, opts, rows, ids)
+            tol = 2e-3 * nsteps if opts.dtype != torch.float32 else 1e-3
+            err = (rescore - score).abs()
+            p_ids, p_score = beam_decode(model, rows, opts._replace(use_kernels=False), beam,
+                                         stop_idx=opts.stop_idx)
+            p_rescore, p_steps = teacher_forced_scores(model, opts, rows, p_ids)
+            # the plain search's best beams re-scored by the same scorer: its
+            # own sums come from bf16-rounded logits and stray further
+            below_plain = p_rescore - rescore
+            p_tol = (2e-3 * torch.maximum(nsteps, p_steps) if opts.dtype != torch.float32
+                     else 1e-3)
+            ok = bool((err <= tol).all()) and bool((below_plain <= p_tol).all())
+            read = dict(rescore_max_abs_err=float(err.max()),
+                        rows_equal_to_plain=float((ids == p_ids).all(dim=1).float().mean()),
+                        max_below_plain_rescore=float(below_plain.max()),
+                        plain_reported_minus_rescore=float((p_score - p_rescore).abs().max()))
+        else:
+            ok, checked = plain_teacher_forced_ok(model, opts._replace(use_kernels=False),
+                                                  rows, ids)
+            read = dict(steps_checked=checked)
+    host = [b.cpu() for b in batches]
+    by_hand = [bleu_by_sentence(cfg, "test", host, w) for w in BLEU_WEIGHT_VECTORS]
+    bleu_err = max(abs(x - y) for x, y in zip(res["bleu"][:4], by_hand))
+    cider_err = abs(res["cider"] - cider_by_caption(cfg, "test", host))
+    read.update(bleu_vs_by_sentence=bleu_err, cider_vs_by_caption=cider_err)
+    return res, c.counts, ok and bleu_err <= 1e-12 and cider_err <= 1e-12, read
+
+
+def dev_bleu_errors(cfg, probe, n_dev):
+    """Each dev evaluation's logged BLEU against ``bleu_by_sentence`` on the
+    ids the loop decoded -> [(logged, recomputed)]."""
+    logged = [r["bleu"] for r in read_scalars(cfg, "dev_bleu")]
+    ids = [i.cpu() for _im, i in probe.decodes]
+    return [(b, bleu_by_sentence(cfg, "dev", ids[e * n_dev:(e + 1) * n_dev]))
+            for e, b in enumerate(logged)]
+
+
+def trainer_base(root, seed):
+    """``trainer_corpus`` with its vocabulary and caption length checked ->
+    (config, summary, rows)."""
+    from myimagecaptioningmodel_tpu_torch.config import replace_nested
+
+    base, summary, rows = trainer_corpus(root, seed)
+    if (summary["vocab_size"] != TRAINER_WORDS + 4
+            or summary["max_len"] > base.model.decoder.sentence_length):
+        raise AssertionError(f"the corpus's vocabulary or caption length is off: {summary}")
+    return replace_nested(base, "model.decoder.vocab_size", summary["vocab_size"]), summary, rows
+
+
+def phase_trainer(dev, seed, root, bare_step_ms, card):
+    """Phase 23: build a corpus without PIL, train the full-width LSTM through
+    ``loop.train`` (2 epochs of 8 steps, dev BLEU through kernel B with head
+    A), crash at step 6 and resume, ``evaluate()`` the best-BLEU export
+    greedy and beam 3, and train the transformer an epoch of 2 steps (dev
+    decode through D). -> {path: {kernel: launches}}."""
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.training import loop
+
+    t0 = time.perf_counter()
+    base, summary, rows = trainer_base(root, seed)
+    bad_rows = reader_rows_failures(base, rows)
+    say("trainer_corpus", splits=list(TRAINER_SPLITS), train_captions=summary["train_size"],
+        vocab_size=summary["vocab_size"], max_len=summary["max_len"],
+        shard_mib=round(rows.nbytes / 2**20, 1), reader_rows_differ=len(bad_rows),
+        seconds=round(time.perf_counter() - t0, 2))
+    if bad_rows:
+        raise AssertionError(f"the reader's rows differ from the written ones: {bad_rows[:4]}")
+    del rows
+    n_dev = -(-TRAINER_SPLITS[1] // base.train.batch_size)
+    launches = {}
+
+    # (b) the main run: 2 epochs, rolling checkpoints, the EMA, exports
+    cfg_a = loop_cfg(base, root, "a", (("train.ema_decay", 0.999),))
+    with loop_probe() as probe_a, counting() as run_a:
+        result = loop.train(cfg_a, device=dev, max_steps_per_epoch=TRAINER_STEPS)
+    losses_a = probe_a.loss_values()
+    epoch_loss = [r["loss"] for r in read_scalars(cfg_a, "epoch_loss")]
+    dev_evals = read_scalars(cfg_a, "dev_bleu")
+    want = loop_launches_want(2 * TRAINER_STEPS, 2, n_dev)
+    dev_bleu = dev_bleu_errors(cfg_a, probe_a, n_dev)
+    say("trainer_run", steps=len(losses_a), epoch_loss=epoch_loss, result=json.dumps(result),
+        launches=json.dumps(run_a.counts).replace(" ", ""),
+        dev=[{k: r[k] for k in ("bleu", "distinct", "captions")} for r in dev_evals],
+        dev_bleu_logged_and_by_sentence=dev_bleu)
+    if run_a.counts != want or len(losses_a) != 2 * TRAINER_STEPS:
+        raise AssertionError(f"the training run: launches {run_a.counts} (expected {want}), "
+                             f"{len(losses_a)} steps")
+    if not (len(epoch_loss) == 2 and np.isfinite(epoch_loss).all()
+            and epoch_loss[1] < epoch_loss[0]):
+        raise AssertionError(f"the epoch-2 mean loss is not below epoch 1's: {epoch_loss}")
+    if any(abs(a - b) > 1e-12 for a, b in dev_bleu):
+        raise AssertionError(f"the loop's dev BLEU is not the sentence-by-sentence one "
+                             f"(logged, recomputed): {dev_bleu}")
+    launches["loop"] = run_a.counts
+
+    # the last evaluation's dev ids against the plain step on the same params
+    params, state, opts = final_trees(cfg_a, dev)
+    ok = True
+    for images, ids in probe_a.decodes[-n_dev:]:
+        good, checked = tree_forced_ok(params, state, opts, torch.as_tensor(images).to(dev), ids)
+        ok = ok and good
+    say("trainer_dev_ids_vs_plain", batches=n_dev, near_tie_ok=ok, steps_checked=checked)
+    if not ok:
+        raise AssertionError(f"the loop's dev ids disagree with the plain path at step {checked}")
+    del params, state
+
+    # every export of save_model, and load_bundle reads infer
+    save = cfg_a.train.checkpoint_path
+    best = {"checkpoint_best_bleu", "infer_bleu"} if max(r["bleu"] for r in dev_evals) > 0 else set()
+    want_dirs = {"checkpoint", "infer", "infer_ema"} | best
+    if set(os.listdir(save)) != want_dirs:
+        raise AssertionError(f"exports {sorted(os.listdir(save))}, expected {sorted(want_dirs)}")
+    model, _bcfg, bopts, _decode = load_bundle(cfg_a, "infer", device=dev)
+    say("trainer_exports", dirs=sorted(want_dirs), infer_use_kernels=bopts.use_kernels)
+    del model
+
+    # (c) crash at step 6 and resume, against a second uninterrupted run
+    cfg_a2 = loop_cfg(base, root, "a2", (("train.ema_decay", 0.999),
+                                         ("train.checkpoint_every_n_steps", False)) + NO_EXPORTS)
+    with loop_probe() as probe_a2:
+        loop.train(cfg_a2, device=dev, max_steps_per_epoch=TRAINER_STEPS)
+    losses_a2 = probe_a2.loss_values()
+    r = resume_readings(dev, base, root, "b", losses_a, losses_a2)
+    say("trainer_resume", **r)
+    if not r["ok"]:
+        raise AssertionError(f"crash and resume: {r}")
+
+    # (d) evaluate() on the best-BLEU export (a bundle that scores above 0 on
+    # the test split, so that a fault in the scoring can show), greedy and
+    # beam 3
+    if "infer_bleu" not in want_dirs:
+        raise AssertionError("no dev evaluation scored above 0: no best-BLEU export to evaluate")
+    evals = {}
+    for label, beam in (("greedy", 0), ("beam3", 3)):
+        res, counts, ok, read = evaluate_readings(dev, cfg_a, "infer_bleu", beam)
+        want = {"fused_decode_step": 35, "greedy_vocab_argmax": 0 if beam else 35,
+                "topk_vocab_head": 35 if beam else 0}
+        got = {k: counts[k] for k in want}
+        say("trainer_evaluate", mode=label, bleu=[round(x, 6) for x in res["bleu"]],
+            cider=res["cider"], distinct=res["distinct_sentences"], captions=res["captions"],
+            seconds=round(res["seconds"], 4), launches=json.dumps(counts).replace(" ", ""),
+            ok=ok, **read)
+        if not ok or got != want:
+            raise AssertionError(f"evaluate ({label}): checks {ok} {read}, launches {got} "
+                                 f"(expected {want})")
+        if not (min(res["bleu"][:4]) > 0 and res["cider"] > 0):
+            raise AssertionError(f"evaluate ({label}) scored 0, where no fault in the scoring "
+                                 f"could show: BLEU {res['bleu']}, CIDEr-D {res['cider']}")
+        evals[label] = res
+        launches[f"evaluate_{label}"] = counts
+
+    # (e) the transformer: 1 epoch of 2 steps, the dev decode through D
+    cfg_t = loop_cfg(base, root, "t", TF_ARCH + NO_EXPORTS + (
+        ("train.max_epoch", 1), ("train.checkpoint_every_n_steps", False)))
+    with loop_probe() as probe_t, counting() as run_t:
+        result_t = loop.train(cfg_t, device=dev, max_steps_per_epoch=2)
+    params, state, topts = final_trees(cfg_t, dev)
+    images, ids = probe_t.decodes[-1]
+    ok, _ = tree_forced_ok(params, state, topts, torch.as_tensor(images).to(dev), ids)
+    want = loop_launches_want(2, 1, n_dev, "transformer")
+    say("trainer_transformer", result=json.dumps(result_t),
+        launches=json.dumps(run_t.counts).replace(" ", ""), dev_ids_near_tie_ok=ok)
+    if run_t.counts != want or not ok or not np.isfinite(result_t["last_epoch_loss"]):
+        raise AssertionError(f"the transformer run: launches {run_t.counts} (expected {want}), "
+                             f"dev ids ok {ok}")
+    launches["tf_loop"] = run_t.counts
+    del params, state
+
+    # (f) readings
+    w2 = read_scalars(cfg_a, "train_wall")[-1]
+    host2 = read_scalars(cfg_a, "step_times")[-1]
+    saves = read_scalars(cfg_a, "checkpoint_save")
+    dev2 = dev_evals[-1]
+    B = base.train.batch_size
+    say("trainer_readings", card=card.replace(" ", "_"),
+        loop_epoch2_images_per_s=round(w2["images"] / w2["seconds"], 1),
+        bare_step_images_per_s=round(B / bare_step_ms * 1e3, 1) if bare_step_ms else None,
+        loop_epoch2_seconds=round(w2["seconds"], 4),
+        step_host_ms_p50=round(host2["p50_ms"], 2),
+        feeder_wait_share=round(w2["feeder_wait_s"] / w2["seconds"], 4),
+        dev_eval_captions_per_s=round(dev2["captions"] / dev2["seconds"], 1),
+        dev_eval_seconds=round(dev2["seconds"], 4),
+        save_blocked_ms=[round(x["save_blocked_s"] * 1e3, 1) for x in saves],
+        async_write_ms=[round(x["write_s"] * 1e3, 1) for x in saves],
+        evaluate_greedy_captions_per_s=round(evals["greedy"]["captions"]
+                                             / evals["greedy"]["seconds"], 1),
+        evaluate_beam3_captions_per_s=round(evals["beam3"]["captions"]
+                                            / evals["beam3"]["seconds"], 1),
+        seconds=round(time.perf_counter() - t0, 1))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -3133,7 +3753,7 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     t_start = time.perf_counter()
 
-    phase_card_and_build()
+    card = phase_card_and_build()
     err_a, t_a = phase_kernel_a(dev, args.seed)
     # phases 17-18 early: run after the training and decode profiles (and
     # ~120 profiler sessions), torch.profiler came back with events missing
@@ -3161,7 +3781,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         err_f, t_f = phase_kernel_f(dev, args.seed)
         train_launches, trained = phase_train(dev, args.seed, root)
-        phase_train_timing(dev, root, trained)
+        bare_ms = phase_train_timing(dev, root, trained)["kernel"]
         del trained
         torch.cuda.empty_cache()
         # phases 21-22 here, before phases 14-16's many profiler sessions
@@ -3171,6 +3791,8 @@ def main(argv=None) -> int:
         del trained
         torch.cuda.empty_cache()
         phase_bn_subset(dev, args.seed, root)
+        torch.cuda.empty_cache()
+        trainer = phase_trainer(dev, args.seed, root, bare_ms, card)
         torch.cuda.empty_cache()
         from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
 
@@ -3193,6 +3815,10 @@ def main(argv=None) -> int:
         return {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": t_l, "device_ms": d_k_ms, "library_device_ms": d_l_ms}
 
+    def in_trainer(name):
+        """Phase 23's launches of a kernel, by path (the paths that launched it)."""
+        return {path: c[name] for path, c in trainer.items() if c[name]}
+
     def b_at(rows, head):
         """B's numbers at one row count, per step (device µs -> ms)."""
         t_k, t_p, d_k, b_ms, b_by = t_b[(bf16, rows, head)]
@@ -3210,22 +3836,26 @@ def main(argv=None) -> int:
     kernels = [
         {"name": "greedy_vocab_argmax", "route": "cuda", "source": KERNEL_A_SRC,
          "replaces": KERNEL_A_TPU, "launches": launches["greedy_vocab_argmax"],
-         "max_abs_err": max(err_a, err_a8), **a_at(8), "b128": a_at(128)},
+         "max_abs_err": max(err_a, err_a8), **a_at(8), "b128": a_at(128),
+         "trainer_launches": in_trainer("greedy_vocab_argmax")},
         {"name": "fused_decode_step", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": KERNEL_B_TPU, "launches": launches["fused_decode_step"],
          "max_abs_err": err_b, **b_at(8, True), "b128": b_at(128, True),
          "beam32": b_at(32, False), "beam512": b_at(512, False),
          "greedy_decode_device_ms": lstm_decodes["lstm_greedy_8"][1],
-         "beam_decode_device_ms": lstm_decodes["lstm_beam_8"][1]},
+         "beam_decode_device_ms": lstm_decodes["lstm_beam_8"][1],
+         "trainer_launches": in_trainer("fused_decode_step")},
         {"name": "topk_vocab_head", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": KERNEL_C_TPU, "launches": beam_launches["topk_vocab_head"],
          "max_abs_err": err_c, "ms": t_c[(bf16, 8 * BEAM, BEAM)][0],
          "plain_ms": t_c[(bf16, 8 * BEAM, BEAM)][1], "bound_ms": b_c[0], "bound_by": b_c[1],
-         "library_ms": t_c[(bf16, 8 * BEAM, BEAM)][2]},
+         "library_ms": t_c[(bf16, 8 * BEAM, BEAM)][2],
+         "trainer_launches": in_trainer("topk_vocab_head")},
         {"name": "matmul_stats", "route": "cuda", "source": KERNEL_F_SRC,
          "replaces": KERNEL_F_TPU, "launches": train_launches["matmul_stats"],
          "tf_train_launches": tf_f_launches, "max_abs_err": err_f, "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
-         "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2]},
+         "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2],
+         "trainer_launches": in_trainer("matmul_stats")},
     ]
     def de_at(t, busy_ms):
         """D's or E's numbers at one batch, the device busy ms per decode beside."""
@@ -3240,7 +3870,9 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": KERNEL_DE_SRC, "replaces": tpu,
                         "launches": tf_launches[name],
                         "trained_bundle_launches": tf_served[name], "max_abs_err": err,
-                        **de_at(t[key(8)], busy[8]), "b128": de_at(t[key(128)], busy[128])})
+                        **de_at(t[key(8)], busy[8]), "b128": de_at(t[key(128)], busy[128]),
+                        **({"trainer_launches": in_trainer(name)} if name in
+                           launch_counters() else {})})
     for name, tpu, launches8, err, t, busy in (
             ("fused_greedy_decode[int8]", KERNEL_D_INT8_TPU, int8_launches["fused_greedy_decode"],
              err_d8, t_8[("int8", bf16, 8)], dev_8["int8"]),

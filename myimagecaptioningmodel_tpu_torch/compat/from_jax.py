@@ -29,7 +29,9 @@
   op casts to the compute dtype as the reference's ``dense`` does.
   ``reference_tree`` is the way back: numpy in the reference layout (HWIO
   convs, lists in index order), as
-  ``training/checkpoint.export_inference_bundle`` takes it.
+  ``training/checkpoint.export_inference_bundle`` takes it;
+  ``port_layout`` and ``reference_layout`` do the same for any params-shaped
+  tree (Adam's moments and the EMA in a checkpoint).
 """
 
 from __future__ import annotations
@@ -152,7 +154,9 @@ def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
     for them, once (``fused_step.pack_weights`` for the LSTM, int8
     dequantized; ``fused_transformer.pack_weights`` for the transformer, whose
     int8 layer streams stay int8)."""
-    from myimagecaptioningmodel_tpu_torch.models.captioner import Captioner, resolve_device
+    from myimagecaptioningmodel_tpu_torch.models.captioner import (
+        Captioner, pack_decoder, resolve_device,
+    )
     from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
     device = resolve_device(device)
@@ -172,21 +176,25 @@ def captioner_from_tree(params: Dict[str, Any], state: Dict[str, Any], opts,
 
         dense["decoder"] = quantize_decoder(dense["decoder"])
     dense = _cast_weights(dense, opts.dtype)
-    packed = None
-    if opts.use_kernels:  # the decoder family's kernel layout, packed once
-        if opts.arch == "transformer":
-            from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_transformer import (
-                pack_weights,
-            )
-        else:
-            from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_step import pack_weights
-        packed = pack_weights(dense["decoder"], opts.dtype)
-    return Captioner(encoder=encoder, params=dense, decoder_packed=packed)
+    # the decoder family's kernel layout, packed once
+    return Captioner(encoder=encoder, params=dense,
+                     decoder_packed=pack_decoder(dense["decoder"], opts))
 
 
 def _map_encoder_convs(params, fn):
+    """``fn`` on the encoder's conv weights of a params-shaped tree (one
+    without an ``encoder`` subtree comes back as it is)."""
+    if "encoder" not in params:
+        return params
     enc = {name: {**p, "conv": {"w": fn(p["conv"]["w"])}} for name, p in params["encoder"].items()}
     return {**params, "encoder": enc}
+
+
+def port_layout(tree: Dict[str, Any], device, dtype=torch.float32):
+    """A params-shaped reference-layout tree (the params, or an Adam moment
+    or the EMA of them) -> tensors on ``device``, encoder convs OIHW, no
+    ``requires_grad``."""
+    return tree_to_torch(_map_encoder_convs(tree, conv_hwio_to_oihw), device, dtype)
 
 
 def train_tree(params: Dict[str, Any], state: Dict[str, Any], device=None,
@@ -199,7 +207,7 @@ def train_tree(params: Dict[str, Any], state: Dict[str, Any], device=None,
     from myimagecaptioningmodel_tpu_torch.parallel.train_step import tree_leaves
 
     device = resolve_device(device)
-    p = tree_to_torch(_map_encoder_convs(params, conv_hwio_to_oihw), device, dtype)
+    p = port_layout(params, device, dtype)
     for leaf in tree_leaves(p):
         leaf.requires_grad_(True)
     return p, tree_to_torch(state, device, dtype)
@@ -210,12 +218,23 @@ def reference_tree(params: Dict[str, Any], state: Dict[str, Any]):
     float64 tree) in the reference layout (encoder convs HWIO; lists, such
     as the transformer's ``decoder/layers``, stay lists in index order)."""
 
-    def to_np(tree):
-        if isinstance(tree, dict):
-            return {k: to_np(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return [to_np(v) for v in tree]
-        t = tree.detach().cpu()
-        return (t if t.dtype == torch.float64 else t.float()).numpy()
+    return reference_layout(params), to_numpy(state)
 
-    return _map_encoder_convs(to_np(params), oihw_to_hwio), to_np(state)
+
+def to_numpy(tree):
+    """Tensors -> float32 numpy copies (float64 kept), nested the same way;
+    a copy shares no memory with the tensor, so a later in-place update of
+    the tensor does not reach it."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    t = tree.detach()
+    return t.to("cpu", torch.float64 if t.dtype == torch.float64 else torch.float32,
+                copy=True).numpy()
+
+
+def reference_layout(tree):
+    """A params-shaped training tree (the params, an Adam moment or the EMA)
+    -> numpy copies in the reference layout (encoder convs HWIO)."""
+    return _map_encoder_convs(to_numpy(tree), oihw_to_hwio)

@@ -191,7 +191,7 @@ class ModelConfig:
     # (and the scale/offset gradient estimates) from only the first R
     # images of the batch, with stats treated as constants in backward —
     # cuts the BN activation-pass count at the cost of gradient-estimate
-    # noise (not ported yet: ROADMAP.md). 0 = exact reference semantics
+    # noise (ops/layers._BNTrainSubset). 0 = exact reference semantics
     # (MobileNetV2.py:112-117 batch_norm).
     bn_stat_rows: int = 0
 

@@ -1,1 +1,1 @@
-"""Image preprocessing for the port (``image``)."""
+"""The data plane: images, shards, captions, readers and the feeder."""

@@ -1,6 +1,5 @@
-"""Image preprocessing; port of the serving part of
-``myimagecaptioningmodel_tpu/data/image.py`` (matching reference
-reader.py:13-28).
+"""Image preprocessing; port of ``myimagecaptioningmodel_tpu/data/image.py``
+(matching reference reader.py:13-28).
 
 PIL decode -> Lanczos resize to the configured shape -> float32 -> HWC->CHW
 -> /255 -> per-channel mean/std normalize. Non-3-channel images are rejected
@@ -34,6 +33,41 @@ def process_image(
     arr = arr.transpose(2, 0, 1) / 255.0
     arr -= np.asarray(mean, dtype=np.float32).reshape(3, 1, 1)
     arr /= np.asarray(std, dtype=np.float32).reshape(3, 1, 1)
+    return arr
+
+
+def read_image(path: str):
+    from PIL import Image
+
+    return Image.open(path)
+
+
+def resize_chw_uint8(img, shape: Tuple[int, int] = (224, 224)) -> Optional[np.ndarray]:
+    """PIL image -> raw resized CHW uint8 (the ``storage_dtype="uint8"``
+    shard row; /255 + mean/std normalization happens at feed time).
+    None if not 3-channel, like ``process_image``."""
+    from PIL import Image
+
+    lanczos = getattr(Image, "LANCZOS", getattr(Image, "ANTIALIAS", None))
+    img = img.resize(tuple(shape), lanczos)
+    arr = np.asarray(img, dtype=np.uint8)
+    if arr.ndim != 3 or arr.shape[2] != 3:
+        return None
+    return np.ascontiguousarray(arr.transpose(2, 0, 1))
+
+
+def normalize_uint8_chw(
+    batch: np.ndarray,
+    mean: Sequence[float] = (0.0, 0.0, 0.0),
+    std: Sequence[float] = (1.0, 1.0, 1.0),
+) -> np.ndarray:
+    """Raw uint8 CHW rows ([3,H,W] or [B,3,H,W]) -> normalized float32, the
+    same float32 operations in the same order as ``process_image`` and as
+    the device-side ``models.captioner.prepare_images``."""
+    arr = batch.astype(np.float32) / 255.0
+    ch = (3, 1, 1) if arr.ndim == 3 else (1, 3, 1, 1)
+    arr -= np.asarray(mean, np.float32).reshape(ch)
+    arr /= np.asarray(std, np.float32).reshape(ch)
     return arr
 
 

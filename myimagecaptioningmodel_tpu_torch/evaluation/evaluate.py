@@ -1,7 +1,11 @@
-"""Bundle loading for decode; port of ``load_bundle`` in
-``myimagecaptioningmodel_tpu/evaluation/evaluate.py`` (greedy and beam
-decode, float or int8 decoder weights, one device; both decoder families,
-and the transformer's int8 cross-attention memory).
+"""Bundle loading and offline evaluation; port of
+``myimagecaptioningmodel_tpu/evaluation/evaluate.py`` on one device.
+
+``load_bundle``: greedy and beam decode, float or int8 decoder weights, both
+decoder families, and the transformer's int8 cross-attention memory.
+``evaluate``: BLEU-1..4 and their mean, CIDEr-D and the distinct sentences
+of a bundle's captions on the dev or test split, the host scoring batch i
+while the card decodes batch i+1.
 
 Model options come from the bundle's own ``config.json``, as in the
 reference: a bundle is a self-contained artifact and its dims, parity mode
@@ -11,6 +15,7 @@ and dtype must not change under a caller's config. Paths stay the caller's.
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -73,6 +78,77 @@ def load_bundle(
             return captioner.greedy_decode(model, images, opts)
 
     return model, bundle_cfg, opts, decode
+
+
+def evaluate(cfg=None, bundle: str = "infer", mode: str = "test", beam_size: int = 0,
+             quantize: bool = False, early_stop: bool = False, length_norm: float = 0.0,
+             quantize_kv: bool = False, device=None) -> Dict[str, object]:
+    """-> {'bleu': [b1,b2,b3,b4,mean], 'cider': float, 'distinct_sentences':
+    int|None, 'captions': int, 'seconds': float} (the last two: rows decoded
+    and the wall time of the decode-and-score loop).
+
+    ``early_stop``: greedy decode ends once every row has emitted <stop>
+    (identical captions). Raw storage rows (float16/uint8 NCHW) go to the
+    card as they are, converted there (``prepare_images``), where the
+    bundle's normalization matches the shards'; otherwise the host
+    normalizes them."""
+    from myimagecaptioningmodel_tpu_torch import config as config_mod
+    from myimagecaptioningmodel_tpu_torch.data import reader as reader_mod
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+    from myimagecaptioningmodel_tpu_torch.evaluation import metrics
+    from myimagecaptioningmodel_tpu_torch.evaluation.cider import CiderD
+
+    cfg = cfg or config_mod.default
+    model, _bcfg, opts, decode = load_bundle(
+        cfg, bundle, beam_size, quantize, early_stop=early_stop, device=device,
+        length_norm=length_norm, quantize_kv=quantize_kv)
+    dr = DataReader(cfg)
+    index_word = dr.index_word
+    batch_size = cfg.train.batch_size
+    info = dr.shards.storage_info
+    raw_ok = bool(info.get("normalized", True))
+    if not raw_ok and opts.image_norm is not None:
+        mean, std = dr.storage_norm
+        raw_ok = np.allclose(mean, opts.image_norm[0]) and np.allclose(std, opts.image_norm[1])
+    reader = dr.get_reader(batch_size, mode, keep_float16=raw_ok,
+                           reader_threads=cfg.train.reader_threads)
+
+    bleu_score = [0.0] * 5
+    sentences = set()
+    cider_cands: list = []
+    cider_refs: list = []
+
+    def score(ids, refs):
+        for i, vec in enumerate(metrics.BLEU_WEIGHT_VECTORS):
+            bleu_score[i] += metrics.calc_bleu(
+                ids, refs, index_word, vec,
+                stop_idx=cfg.data.stop_idx, padding_idx=cfg.data.padding_idx)
+        for row, r in zip(ids.tolist(), refs):
+            words = metrics.filter_ids(row, index_word, cfg.data.stop_idx,
+                                       cfg.data.padding_idx)
+            cider_cands.append(words)
+            cider_refs.append(list(r))
+            if cfg.evaluate.sentence_statistics:
+                sentences.add(metrics.words2sentence(words))
+
+    t0 = time.perf_counter()
+    batches = reader_mod.decode_and_score(reader, batch_size,
+                                          lambda imgs: decode(model, imgs), score)
+    seconds = time.perf_counter() - t0
+
+    for i in range(4):
+        bleu_score[i] /= max(batches, 1)
+    bleu_score[4] = sum(bleu_score[:4]) / 4
+    cider, _per_image = CiderD().score(cider_cands, cider_refs)
+
+    print("BLEU [{:.7f}, {:.7f}, {:.7f}, {:.7f}] {:.7f}".format(*bleu_score))
+    print(f"CIDEr-D: {cider:.7f}")
+    distinct = None
+    if cfg.evaluate.sentence_statistics:
+        distinct = len(sentences)
+        print(f"distinct sentences: {distinct}")
+    return {"bleu": bleu_score, "cider": cider, "distinct_sentences": distinct,
+            "captions": len(cider_cands), "seconds": seconds}
 
 
 def load_index_word(cfg, bundle: str = "infer") -> Dict[int, str]:

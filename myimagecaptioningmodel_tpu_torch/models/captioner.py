@@ -268,9 +268,27 @@ def greedy_decode(model: Captioner, images, opts: ModelOptions) -> torch.Tensor:
 
 
 @torch.no_grad()
-def greedy_decode_tree(params: Params, state: Params, images, opts: ModelOptions):
+def pack_decoder(dec: Params, opts: ModelOptions):
+    """The decoder's weights in its kernels' layout (LSTM: kernels B and C,
+    ``fused_step.pack_weights``; transformer: D and E,
+    ``fused_transformer.pack_weights``) in the compute dtype, or None when
+    ``opts.use_kernels`` is off. A served bundle packs once at load; a dev
+    evaluation packs once for all its batches."""
+    if not opts.use_kernels:
+        return None
+    if opts.arch == "transformer":
+        from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_transformer import pack_weights
+    else:
+        from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_step import pack_weights
+    return pack_weights(dec, opts.dtype)
+
+
+@torch.no_grad()
+def greedy_decode_tree(params: Params, state: Params, images, opts: ModelOptions,
+                       packed=None):
     """Greedy caption ids from a training (params, state) tree (eval-mode BN
-    with the moving statistics)."""
+    with the moving statistics); ``packed``: ``pack_decoder``'s result for
+    these params (packed here, on every call, when None)."""
     img_embed, _feat, global_feat, _ = img2feature_tree(params, state, images, opts,
                                                         train=False)
-    return _decode_features(params["decoder"], img_embed, global_feat, opts)
+    return _decode_features(params["decoder"], img_embed, global_feat, opts, packed)

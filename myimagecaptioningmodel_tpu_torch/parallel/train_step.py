@@ -1,6 +1,9 @@
 """The training and decode steps on one device; port of
-``myimagecaptioningmodel_tpu/parallel/train_step.py`` (multi-device is not
-ported yet: ROADMAP.md).
+``myimagecaptioningmodel_tpu/parallel/train_step.py``: Adam with the
+optional clip and params-EMA, gradient accumulation, the tree walkers, and
+``build_steps``' train step and greedy dev decode (through the decoder
+family's kernels when ``opts.use_kernels``). Multi-device training is not
+ported yet (ROADMAP.md).
 
 The optimizer is optax's ``adam`` written out (b1 0.9, b2 0.999, eps 1e-8,
 eps_root 0), with the learning rate ``schedule(count)`` read at the count
@@ -36,6 +39,21 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """Leaves in ``tree_leaves`` order -> the nested dicts and lists of
+    ``like`` (dict keys sorted)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+
+    return build(like)
 
 
 def tree_map(fn, tree):
@@ -135,7 +153,7 @@ def make_optimizer(cfg, schedule) -> Optimizer:
 
 class TrainStepFns(NamedTuple):
     train_step: Callable  # (params, opt_state, model_state, step, imgs, caps) -> (params, opt_state, model_state, step, loss, lr)
-    decode_step: Callable  # (params, model_state, imgs) -> ids
+    decode_step: Callable  # (params, model_state, imgs, packed=None) -> ids
 
 
 def build_steps(opts: ModelOptions, optimizer: Optimizer, schedule,
@@ -174,7 +192,7 @@ def build_steps(opts: ModelOptions, optimizer: Optimizer, schedule,
         new_opt_state = optimizer.apply(grads, opt_state, params)
         return params, new_opt_state, new_model_state, step + 1, loss, schedule(step)
 
-    def decode_step(params, model_state, images):
-        return captioner.greedy_decode_tree(params, model_state, images, opts)
+    def decode_step(params, model_state, images, packed=None):
+        return captioner.greedy_decode_tree(params, model_state, images, opts, packed)
 
     return TrainStepFns(train_step, decode_step)

@@ -215,10 +215,9 @@ def test_length_norm_semantics(monkeypatch):
             np.testing.assert_allclose(float(score[0]), score_want, rtol=1e-5)
 
 
-def test_transformer_beam_not_ported_yet(small):
-    """The transformer family serves (beam included) and, once unported,
-    trains: its ``loss_terms`` runs (it raised before) and the gradient
-    reaches every leaf of every layer in ``decoder/layers``
+def test_transformer_loss_reaches_every_layer_leaf(small):
+    """The transformer family trains: its ``loss_terms`` runs and the
+    gradient reaches every leaf of every layer in ``decoder/layers``
     (``tests/test_torch_transformer_train.py`` holds the values to JAX)."""
     from myimagecaptioningmodel_tpu_torch.compat.from_jax import train_tree
     from myimagecaptioningmodel_tpu_torch.models import captioner as tcap

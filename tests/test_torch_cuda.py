@@ -66,7 +66,12 @@ the near-tie rule against the plain step teacher-forced in bfloat16, a
 graph replayed on two batches and, without the copy of its inputs, giving
 the previous batch's ids; the beam graph equal to the same search's plain
 versions in float32 and its best beams re-scored within 2.5e-2 a sqrt
-step in bfloat16.
+step in bfloat16. The training workflow at small dims
+(``chip_smoke.trainer_corpus``: 64 train images at 64 px, H=128, E=64,
+V=2050): the feeder's host buffers pinned and its batches on the card
+equal to the rows; ``loop.train``'s dev decode through kernel B with head A
+(35 launches each a dev batch) and kernel F 35 a step; ``evaluate()`` beam
+3 through B and C (35 each), A not at all.
 """
 
 import pytest
@@ -1119,3 +1124,90 @@ def test_cuda_fused_irb_refuses_what_it_cannot_take(cuda):
     n = TFI.fused_inverted_residual.launches
     TFI.fused_inverted_residual(x.cpu(), TFI.FoldedIRB(*(t.cpu() for t in fold)), 1, True)
     assert TFI.fused_inverted_residual.launches == n  # the plain version
+
+
+# ---- the training workflow on the card: feeder, loop, evaluate ---------------
+
+
+def _workflow_cfg(root, corpus_cfg, vocab):
+    """A small LSTM (MobileNetV2 x0.35 at 64 px, H=128, E=64, B=8, bf16,
+    kernel F on) over ``chip_smoke.trainer_corpus``'s corpus."""
+    from myimagecaptioningmodel_tpu_torch.config import replace_nested
+
+    cfg = corpus_cfg
+    for path, value in (("model.decoder.vocab_size", vocab), ("model.decoder.hidden_dim", 128),
+                        ("model.decoder.embedding_size", 64), ("model.encoder.encoder_scale", 0.35),
+                        ("model.fuse_bn_stats", True), ("train.batch_size", 8),
+                        ("train.max_epoch", 1), ("train.learning_rate", 1e-3),
+                        ("train.checkpoint_path", str(root / "save")),
+                        ("log.log_path", str(root / "log"))):
+        cfg = replace_nested(cfg, path, value)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def workflow(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from chip_smoke import trainer_corpus
+
+    root = tmp_path_factory.mktemp("workflow")
+    cfg, summary, _rows = trainer_corpus(str(root), 0, splits=(64, 8, 8), words=2046, size=64)
+    return root, _workflow_cfg(root, cfg, summary["vocab_size"])
+
+
+@pytest.mark.cuda
+def test_cuda_feeder_pins_and_copies_ahead(cuda):
+    from myimagecaptioningmodel_tpu_torch.data.feeder import PrefetchingFeeder
+
+    rng = torch.Generator().manual_seed(0)
+    rows = torch.randint(0, 256, (12, 3, 16, 16), generator=rng, dtype=torch.uint8).numpy()
+    caps = torch.randint(0, 50, (12, 7), generator=rng).numpy()
+
+    def reader():
+        for i in range(0, 12, 4):
+            yield rows[i:i + 4], caps[i:i + 4]
+
+    feeder = PrefetchingFeeder(reader, capacity=2, device=cuda, device_convert=True)
+    host = feeder._host_item((rows[:4], caps[:4]))
+    assert all(t.is_pinned() for t in host)
+    got = list(feeder)
+    assert len(got) == 3
+    for i, (imgs, c) in enumerate(got):
+        assert imgs.device.type == "cuda" and imgs.dtype == torch.uint8
+        assert torch.equal(imgs.cpu(), torch.from_numpy(rows[4 * i:4 * i + 4]))
+        assert torch.equal(c.cpu(), torch.from_numpy(caps[4 * i:4 * i + 4]))
+
+
+@pytest.mark.cuda
+def test_cuda_loop_dev_decode_runs_kernel_b(cuda, workflow):
+    from myimagecaptioningmodel_tpu_torch.training import loop
+
+    root, cfg = workflow
+    for fn in (TFS.fused_decode_step, TVH.greedy_vocab_argmax, TMB.matmul_stats):
+        fn.launches = 0
+    result = loop.train(cfg, device=cuda, max_steps_per_epoch=2)
+    torch.cuda.synchronize()
+    T = cfg.model.decoder.infer_max_length
+    assert result["final_step"] == 2
+    assert TMB.matmul_stats.launches == 2 * 35  # the fused 1x1 convs of two steps
+    # one dev batch of 8: one greedy decode through kernel B with head A
+    assert TFS.fused_decode_step.launches == TVH.greedy_vocab_argmax.launches == T
+
+
+@pytest.mark.cuda
+def test_cuda_evaluate_beam_runs_kernel_c(cuda, workflow):
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import evaluate
+    from myimagecaptioningmodel_tpu_torch.training import loop
+
+    root, cfg = workflow
+    if not (root / "save" / "infer").exists():
+        loop.train(cfg, device=cuda, max_steps_per_epoch=2)
+    for fn in (TFS.fused_decode_step, TVH.greedy_vocab_argmax, TVH.topk_vocab_head):
+        fn.launches = 0
+    res = evaluate(cfg, beam_size=3, device=cuda)
+    torch.cuda.synchronize()
+    T = cfg.model.decoder.infer_max_length
+    assert res["captions"] == 8 and len(res["bleu"]) == 5
+    assert TFS.fused_decode_step.launches == TVH.topk_vocab_head.launches == T
+    assert TVH.greedy_vocab_argmax.launches == 0

@@ -125,7 +125,7 @@ def test_greedy_ids_equal_jax(setup, parity_mode):
                 np.testing.assert_array_equal(one.numpy()[0], want[r])
 
 
-def test_transformer_arch_not_ported_yet(tmp_path):
+def test_transformer_bundle_serves_with_int8_weights(tmp_path):
     """The transformer family serves, with int8 weights too:
     ``quantize=True`` on a transformer bundle quantizes its decoder and
     decodes (the int8 decodes are held against the JAX package in

@@ -20,18 +20,25 @@ from myimagecaptioningmodel_tpu_torch import config as tconfig
 from myimagecaptioningmodel_tpu_torch.compat import from_jax
 from myimagecaptioningmodel_tpu_torch.data import image as timage
 from myimagecaptioningmodel_tpu_torch.evaluation import metrics as tmetrics
+from myimagecaptioningmodel_tpu_torch.evaluate import main as tevaluate_main
+from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import evaluate as tevaluate
 from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
 from myimagecaptioningmodel_tpu_torch.inference import infer as tinfer
 from myimagecaptioningmodel_tpu_torch.inference.server import CaptionService
 from myimagecaptioningmodel_tpu_torch.models import captioner as tcap
+from myimagecaptioningmodel_tpu_torch.train import main as ttrain_main
+from myimagecaptioningmodel_tpu_torch.training import loop as tloop
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "myimagecaptioningmodel_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "myimagecaptioningmodel_tpu")
+# and what the card's machine lacks besides: the port imports these only
+# inside the functions that need them
+CARD_MISSING = ("h5py", "PIL", "msgpack", "jieba", "pkuseg")
 
-IMPORT_ALL = f"""
+IMPORT_ALL = """
 import importlib, pkgutil, sys
-for name in {BLOCKED!r}:
+for name in {blocked!r}:
     sys.modules[name] = None  # any import of these raises ImportError
 import myimagecaptioningmodel_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -42,9 +49,14 @@ print(" ".join(names))
 """
 
 
+def import_all(blocked):
+    return subprocess.run([sys.executable, "-c", IMPORT_ALL.format(blocked=blocked)], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+
+
 def test_port_imports_with_jax_and_the_jax_package_blocked():
-    out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO, capture_output=True,
-                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    out = import_all(BLOCKED)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
     assert len(names) >= 20
@@ -53,6 +65,20 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     for name in ("ops.kernels.fused_irb", "ops.kernels.fused_transformer",
                  "ops.kernels.fused_step", "ops.kernels.decode_graphs",
                  "models.transformer", "models.mobilenet_v2"):
+        assert "myimagecaptioningmodel_tpu_torch." + name in names
+
+
+def test_port_imports_without_the_packages_the_card_lacks():
+    """h5py, PIL, msgpack, jieba and pkuseg blocked too: every module of the
+    port (the data plane, the loop, the entry points) and the card scripts
+    still import."""
+    out = import_all(BLOCKED + CARD_MISSING)
+    assert out.returncode == 0, out.stderr
+    names = out.stdout.split()
+    for name in ("data.shards", "data.reader", "data.feeder", "data.dataset_gen",
+                 "data.tokenizer", "data.segmenter", "native", "training.loop",
+                 "training.checkpoint", "evaluation.cider", "train", "evaluate",
+                 "dataset_gen"):
         assert "myimagecaptioningmodel_tpu_torch." + name in names
 
 
@@ -84,7 +110,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path
     for call in (lambda: load_bundle(cfg), lambda: CaptionService(cfg),
                  lambda: tinfer.caption_array(cfg, None),
                  lambda: from_jax.captioner_from_tree({}, {}, None),
-                 lambda: from_jax.train_tree({}, {})):
+                 lambda: from_jax.train_tree({}, {}),
+                 lambda: tloop.train(cfg), lambda: tevaluate(cfg),
+                 lambda: ttrain_main([]), lambda: tevaluate_main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert tcap.resolve_device("cpu") == torch.device("cpu")

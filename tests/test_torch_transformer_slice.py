@@ -138,7 +138,7 @@ def test_service_and_http(bundles):
         svc.close()
 
 
-def test_unported_raises(bundles):
+def test_int8_load_and_training_loss_match_jax(bundles):
     jcfg, tcfg, images = bundles
     model, _bc, _opts, _decode = teval.load_bundle(tcfg, quantize=True, device="cpu")
     assert model.params["decoder"]["layers"][0]["attn"]["wq"]["w_q"].dtype == torch.int8
