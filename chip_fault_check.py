@@ -3,10 +3,11 @@ kernel E's inputs, in kernel G and the int8 modes of kernels D and E, in
 kernel A, in kernel B and in the transformer's training, and read what each
 scores against ``chip_smoke.py``'s limits, beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8,9]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8,9,10]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
-only; nothing in the checkout changes. Nine parts:
+(or, for part 10's data-parallel faults, in each rank's process) only;
+nothing in the checkout changes. Ten parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -97,6 +98,26 @@ only; nothing in the checkout changes. Nine parts:
    two uninterrupted runs; a checkpoint written without the EMA tree,
    caught by the reload (it refuses a checkpoint that does not match the
    training state). Each must be caught, and each sound reading pass.
+10. Phases 24's and 25's checks. Phase 24 (batch captioning, the LSTM
+    bundle greedy, 300 images at batch 128, items handed over in shuffled
+    order): a padding row leaking into the records (the padded last
+    batch's first padding row given a record), caught by the records' count
+    and names; records in the order the items arrived instead of path
+    order, caught by the names' order. Phase 25 (b) (2 gloo processes on
+    the card against one, ``DP_LIMITS``): per-rank BN statistics (every BN
+    sum left unreduced: each rank normalizes with its own rows' statistics,
+    forward and backward); only the BN backward's sums left unreduced
+    (Σdy and Σdy·x̂: the forward, the first loss and the statistics stay
+    sound, and the ranks stay equal, since the gradients are summed
+    after); a mean of per-rank loss means (each rank divides
+    its CE sum by its own token count times the world: the token count's
+    all-reduce replaced); ``bn_stat_rows`` taken per rank (each rank's
+    subset statistics from its own first rows, at ``bn_stat_rows=96``).
+    The exact-BN faults are planted in bf16 and in float32, the subset's in
+    bf16. Each must be caught, but for the backward-only fault in bf16,
+    which bf16's rounding hides (read, and caught in float32), and each
+    sound reading pass. Each case also prints the rounding witness
+    (``chip_smoke.dp_witness``) read the same way.
 
     python3 chip_fault_check.py --parts 3   # part 3 only
 
@@ -110,9 +131,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 import chip_smoke as S
@@ -948,11 +971,137 @@ def trainer_fault_readings(dev, seed, root):
     return caught
 
 
+# ---- part 10: batch captioning and data parallelism ---------------------------------
+# The plants below run in each rank's process (``chip_smoke.dp_rank``), before
+# its steps.
+
+
+def _bn_per_rank():
+    """Every BN sum left unreduced: this rank's sums scaled by the world, so
+    that over the global count they are this rank's own statistics."""
+    from myimagecaptioningmodel_tpu_torch.ops import layers as L
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+
+    world = distributed.process_count()
+    L.global_sums = lambda *sums: tuple(t * world for t in sums)
+
+
+def _mean_of_rank_means():
+    """The token count's all-reduce replaced by this rank's count times the
+    world: each rank's CE over its own tokens, the ranks' means averaged."""
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+
+    reduce, world = distributed.dist.all_reduce, distributed.process_count()
+
+    def all_reduce(t, *a, **k):
+        if t.ndim == 0:  # the token count (the loss share rides in the bucket)
+            t.mul_(world)
+            return None
+        return reduce(t, *a, **k)
+
+    distributed.dist.all_reduce = all_reduce
+
+
+def _subset_rows_per_rank():
+    """``bn_stat_rows`` per rank: each rank's subset statistics from its own
+    first min(R, rows) rows, unreduced."""
+    from myimagecaptioningmodel_tpu_torch.ops import layers as L
+
+    orig = L._BNTrainSubset.forward
+    dist = L.distributed
+
+    def forward(ctx, scale, offset, x, stat_rows):
+        index, sums = dist.process_index, L.global_sums
+        dist.process_index, L.global_sums = (lambda: 0), (lambda *s: s)
+        try:
+            return orig(ctx, scale, offset, x, min(stat_rows, x.shape[0]))
+        finally:
+            dist.process_index, L.global_sums = index, sums
+
+    L._BNTrainSubset.forward = staticmethod(forward)
+
+
+def _bn_backward_per_rank():
+    """Only the BN backward's sums (Σdy, Σdy·x̂) left unreduced: dx from
+    this rank's own backward statistics, the forward's still global."""
+    from myimagecaptioningmodel_tpu_torch.ops import layers as L
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+
+    world, orig = distributed.process_count(), L.bn_backward
+
+    def bn_backward(*args):
+        sums = L.global_sums
+        L.global_sums = lambda *s: tuple(t * world for t in s)
+        try:
+            return orig(*args)
+        finally:
+            L.global_sums = sums
+
+    L.bn_backward = bn_backward
+
+
+DP_FAULTS = {"exact_bn": (_bn_per_rank, _bn_backward_per_rank, _mean_of_rank_means),
+             "subset_bn_r96": (_subset_rows_per_rank,),
+             "exact_bn_f32": (_bn_per_rank, _bn_backward_per_rank, _mean_of_rank_means)}
+# read, and not required to be caught: bf16's rounding hides this fault
+# (``chip_smoke.DP_LIMITS``' note); the float32 case must catch it
+DP_BELOW_RESOLUTION = ("exact_bn/bn_backward_per_rank",)
+
+
+def dp_fault_readings(dev, seed, root, card):
+    """Part 10 -> {fault: caught}."""
+    from myimagecaptioningmodel_tpu_torch.inference import batch_caption as BC
+
+    caught = {}
+    cfg = S.write_bundle(os.path.join(root, "part10_lstm"), seed)
+    orig = BC.caption_arrays
+
+    def padding_row_leaks(cfg_, items, *a, **k):
+        items = list(items)
+        pad = (S.BC_IMAGES, "pad.jpg", np.zeros_like(items[0][2]))
+        return orig(cfg_, items + [pad], *a, **k)
+
+    def records_in_arrival_order(cfg_, items, *a, **k):
+        items = list(items)
+        by_name = {r["image"]: r for r in orig(cfg_, items, *a, **k)}
+        return [by_name[name] for _i, name, _a in items]
+
+    for fault, fn in (("bc_sound", orig), ("bc_padding_row_leaks", padding_row_leaks),
+                      ("bc_records_out_of_order", records_in_arrival_order)):
+        BC.caption_arrays = fn
+        try:
+            S.phase_batch_caption(dev, seed, {"lstm": cfg}, card, modes=S.BC_MODES[:1])
+            caught[fault], detail = False, ""
+        except AssertionError as e:
+            caught[fault], detail = True, str(e)[:160]
+        finally:
+            BC.caption_arrays = orig
+        S.say("fault", check="phase24", fault=fault, caught=caught[fault], detail=detail)
+
+    for case, plants in DP_FAULTS.items():
+        dcfg = S.dp_cfg(root, case)
+        one = S.dp_run(dcfg, seed, dev)
+        S.say("fault", check="phase25b", case=case, fault="rounding_witness",
+              **{f"{k}_err": v for k, v in S.dp_witness(dcfg, seed, dev, one).items()})
+        torch.cuda.empty_cache()
+        for plant in (None,) + plants:
+            name = f"dp_{case}_sound" if plant is None else f"{case}/{plant.__name__.strip('_')}"
+            r, failed = S.dp_readings(dcfg, seed, dev, one, plant)
+            caught[name] = bool(failed)
+            S.say("fault", check="phase25b", case=case, fault=name, failed=failed,
+                  caught=caught[name], **{k: v for k, v in r.items()
+                                          if k.endswith("_err") or k in (
+                                              "ranks_bit_equal", "collectives_per_step",
+                                              "gloo_cuda")})
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8,9", help="comma-separated parts to run")
+    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10",
+                    help="comma-separated parts to run")
     args = ap.parse_args(argv)
     parts = {int(x) for x in args.parts.split(",")}
     if not torch.cuda.is_available():
@@ -961,11 +1110,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    S.phase_card_and_build()
+    card = S.phase_card_and_build()
     S.say("limits", F_STATS_TOL=json.dumps(S.F_STATS_TOL).replace(" ", ""),
           TRAIN_LIMITS=json.dumps(S.TRAIN_LIMITS).replace(" ", ""),
           E_RESCORE=S.E_RESCORE[torch.bfloat16], E_GAP=S.E_GAP[torch.bfloat16],
-          G_TOL=json.dumps({str(k).split(".")[-1]: v for k, v in S.G_TOL.items()}).replace(" ", ""))
+          G_TOL=json.dumps({str(k).split(".")[-1]: v for k, v in S.G_TOL.items()}).replace(" ", ""),
+          DP_LIMITS=json.dumps(S.DP_LIMITS).replace(" ", ""))
     summary = {}
     if 1 in parts:
         summary["phase11_caught"] = stats_fault_readings(dev, args.seed)
@@ -989,13 +1139,18 @@ def main(argv=None) -> int:
     if 9 in parts:
         with tempfile.TemporaryDirectory() as root:
             summary["phase23_caught"] = trainer_fault_readings(dev, args.seed, root)
+    if 10 in parts:
+        with tempfile.TemporaryDirectory() as root:
+            summary["phase24_25_caught"] = dp_fault_readings(dev, args.seed, root, card)
     print(json.dumps(summary))
     sound = ("sound", "encoder_sound", "e_sound", "walker_sound", "export_sound", "served_sound",
-             "reader_sound", "decode_sound", "bleu_sound", "resume_sound")
+             "reader_sound", "decode_sound", "bleu_sound", "resume_sound", "bc_sound",
+             "dp_exact_bn_sound", "dp_subset_bn_r96_sound", "dp_exact_bn_f32_sound")
     if any(bool(v.get(f)) for v in summary.values() for f in sound):
         return 1
     return 0 if all(bool(v[f]) for k, v in summary.items() if k != "phase11_caught"
-                    for f in v if f not in sound and f not in E_BELOW_RESOLUTION) else 1
+                    for f in v if f not in sound
+                    and f not in E_BELOW_RESOLUTION + DP_BELOW_RESOLUTION) else 1
 
 
 if __name__ == "__main__":

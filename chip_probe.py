@@ -3,7 +3,7 @@
 phases of C's, A's and G's tile kernels in SM cycles, and D's, E's and the
 LSTM decodes.
 
-    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de,b,train,loop] [--package-root DIR]
+    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de,b,train,loop,bc] [--package-root DIR]
 
 1. Kernel F (``matmul_stats``) at every ``chip_smoke.F_SHAPES`` shape and
    kernel C (``topk_vocab_head``) at M in {32, 512}, k in {1, 4, 8, 32},
@@ -72,6 +72,10 @@ LSTM decodes.
    the reader serial or
    one gather a batch, rolling saves every 4 steps or none; images/s over
    the epoch, the host ms a step takes to queue, the feeder's wait share.
+11. (part ``bc``) ``probe_batch_caption``: ``caption_arrays`` over phase
+   24's 300 items at batch 128, phase 24's modes, for this checkout's or
+   ``--package-root``'s package: images/s in 5 warm runs, and the decode
+   alone on rows already on the card.
 
 Each traced copy is built by ``traced_library`` (every anchor must occur
 once in the source, or the probe stops) and run through the port's own
@@ -1061,6 +1065,54 @@ def probe_loop(dev, rounds: int = 3):
                   feeder_wait_share=[round(x[2], 4) for x in reads[v]])
 
 
+def probe_batch_caption(dev, rounds: int = 5):
+    """Part ``bc``: ``batch_caption.caption_arrays`` (phase 24's device half)
+    of this checkout's or ``--package-root``'s package over phase 24's
+    ``BC_IMAGES`` items at batch ``BC_BATCH``, each of phase 24's modes on
+    random full-width bundles: images/s of ``rounds`` warm runs (after one
+    that captures the graphs), and the same batches' decode alone on rows
+    already on the card (CUDA events): the rate the host half leaves. The
+    records are held to the service's decode (``bc_mismatches``)."""
+    import tempfile
+
+    import myimagecaptioningmodel_tpu_torch as pkg
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.inference.batch_caption import caption_arrays
+
+    with tempfile.TemporaryDirectory() as root:
+        cfgs = {"lstm": S.write_bundle(os.path.join(root, "lstm"), 0),
+                "transformer": S.write_bundle(os.path.join(root, "transformer"), 0,
+                                              (("model.decoder.arch", "transformer"),))}
+        for label, family, beam, _per in S.BC_MODES:
+            cfg = cfgs[family]
+            items = S.bc_items(0, tuple(cfg.data.image_shape))
+            model, _bcfg, _opts, decode = load_bundle(cfg, beam_size=beam, early_stop=True,
+                                                      device=dev)
+            index_word = DataReader(cfg).index_word
+            caption_arrays(cfg, items[:S.BC_BATCH], model, decode, index_word, S.BC_BATCH)
+            ips = []
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                records = caption_arrays(cfg, items, model, decode, index_word, S.BC_BATCH)
+                ips.append(S.BC_IMAGES / (time.perf_counter() - t0))
+            batch = torch.rand(S.BC_BATCH, *cfg.data.image_shape, 3, device=dev)
+            decode_ms = S.time_ms(lambda: decode(model, batch), reps=rounds, warmup=1)
+            bad = S.bc_mismatches(cfg, items, model, decode, records)
+            S.say("probe_bc", package=os.path.dirname(pkg.__file__), mode=label,
+                  images=S.BC_IMAGES, batch=S.BC_BATCH,
+                  images_per_s=[round(x, 1) for x in ips],
+                  median_images_per_s=round(float(np.median(ips)), 1),
+                  decode_ms_per_batch=round(decode_ms, 3),
+                  decode_only_images_per_s=round(S.BC_BATCH / decode_ms * 1e3, 1),
+                  mismatches=bad)
+            if bad:
+                raise AssertionError(f"batch captioning ({label}): mismatches {bad}")
+            del model
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Probe kernels F, C, A and G on one CUDA card.")
     ap.add_argument("--trace-only", action="store_true")
@@ -1069,9 +1121,11 @@ def main(argv=None) -> int:
                          "enc: the fused and plain eval encoders' forward times; de: kernels "
                          "D's and E's decodes and products; b: kernel B's steps, decodes and "
                          "products; train: bf16 train steps (relu6's gradient, bn_stat_rows, "
-                         "the transformer); loop: loop.train's wall (reader, rolling saves)")
+                         "the transformer); loop: loop.train's wall (reader, rolling saves); "
+                         "bc: batch captioning's images/s")
     ap.add_argument("--package-root", default=None,
-                    help="(parts ab, enc, de, b) measure the package of this checkout instead")
+                    help="(parts ab, enc, de, b, bc) measure the package of this checkout "
+                         "instead")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -1106,6 +1160,8 @@ def main(argv=None) -> int:
         probe_train(dev)
     if "loop" in parts:
         probe_loop(dev)
+    if "bc" in parts:
+        probe_batch_caption(dev)
     return 0
 
 

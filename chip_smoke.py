@@ -1,14 +1,16 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA card:
 the LSTM family served and trained (with the subset-statistics BN too), the
 transformer family served (float and int8) and trained, the fused-IRB eval
-encoder, and the training workflow end to end (a corpus in port shards,
-``loop.train`` with its dev BLEU, crash and resume, ``evaluate()``).
+encoder, the training workflow end to end (a corpus in port shards,
+``loop.train`` with its dev BLEU, crash and resume, ``evaluate()``), batch
+captioning, and data-parallel training in a process group.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (each prints one line; any failure exits non-zero with no result;
 17 and 18 run right after 2, and 3 and 20 after them, and 21, 22 and 23
-right after 13, while torch.profiler still reads every event):
+right after 13, while torch.profiler still reads every event; 24 and 25
+run last):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``myimagecaptioningmodel_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -245,7 +247,37 @@ right after 13, while torch.profiler still reads every event):
    graph capture included: the loop packs the decoder once an
    evaluation), the ms ``save()`` holds the loop and the ms the async
    write takes, and ``evaluate()``'s captions/s greedy and beam 3 (the
-   bundle's first batch, a capture included).
+   bundle's first batch, a capture included);
+24. batch captioning (``inference/batch_caption.caption_arrays``, the device
+   half of ``caption_directory``; the card has no PIL): 300 synthetic
+   images handed over in shuffled order, at batch 128 (two full batches
+   and one padded), phase 4's LSTM bundle greedy and beam 4 and phase 16's
+   transformer bundle greedy, after a first pass that captures the graphs:
+   one record per image in path order (no padding row among them), each
+   record's ids equal to ``load_bundle``'s decode of the same rows in the
+   same padded batch (what the service runs), launches per dispatch as
+   phases 4, 8 and 16 count them (B and A 35, B and C 35, D 1; 3
+   dispatches), images/s and ms a batch beside the card's name and power
+   limit;
+25. data parallelism (``parallel/distributed.py``) on the one card: (a) a
+   world-1 NCCL group: ``loop.train`` of the full-width LSTM on phase 23's
+   corpus (bf16, B=128, kernel F, 4 steps and a dev evaluation) against the
+   same run without a group, the losses bit for bit (cuDNN's deterministic
+   algorithms for both), the collectives a step (the token count, one
+   gradient bucket, each of the 53 BN layers' sums forward and backward),
+   F 140 launches and B and A 35; the bare bf16 B=128 step's ms without
+   and in the group, in turns; (b) 2 processes on the card (gloo, which
+   runs two ranks on one GPU where NCCL refuses; the port hands it CUDA
+   tensors, and each rank first reports what gloo's all_reduce, broadcast
+   and all_gather do with them), 64 rows each of ``dp_batch``'s global
+   batches of 128 (rank 0's captions short, rank 1's long), ``DP_STEPS``
+   steps, at ``bn_stat_rows`` 0 and 96 in bf16 and 0 in float32, against
+   one process at 128 rows from the same seeded start: the first step's
+   loss, BN moving statistics and (float32) encoder gradient, and every
+   step's loss, within ``DP_LIMITS``; the
+   params and BN state bit-equal across the ranks, F launched as often as
+   in one process; beside it the rounding witness (one process, the rows
+   of each batch in another order) read the same way.
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -278,7 +310,10 @@ carry their device times (``device_ms``, ``library_device_ms``) and the same
 numbers at B=128 under ``b128``; ``library_ms`` one
 ``torch.addmm`` of the logits for A and C, ``torch.mm`` for F, each doing
 less than the kernel, the three cuDNN convolutions of each block for G,
-none for B, D and E), after a line with the script's own seconds; the last
+none for B, D and E); A, B, C and D also carry
+``batch_caption_launches`` (phase 24's, by mode) and A, B and F
+``dp_launches`` (phase 25's: (a)'s world-1 loop, and rank 0's F launches
+in each (b) case), after a line with the script's own seconds; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -3176,6 +3211,23 @@ TRAINER_STEPS = 8  # steps an epoch (of the 40 that 5,120 train captions make at
 RESUME_NOISE, RESUME_FLOOR = 4.0, 1e-5
 
 
+def corpus_cfg(root, size=224):
+    """The default config with the paths of ``trainer_corpus``'s corpus
+    under ``root`` (uint8 shards of ``size`` px)."""
+    from myimagecaptioningmodel_tpu_torch.config import Config, replace_nested
+
+    ds = os.path.join(root, "dataset")
+    cfg = Config()
+    for path, value in (("build_dataset.output_path", ds),
+                        ("build_dataset.annotation_path", os.path.join(root, "captions.json")),
+                        ("build_dataset.storage_dtype", "uint8"),
+                        ("data.image_shape", (size, size)), ("data.dict_path", ds),
+                        ("data.h5_path", (ds,)),
+                        ("data.h5_name2idx", os.path.join(ds, "name2idx.json"))):
+        cfg = replace_nested(cfg, path, value)
+    return cfg
+
+
 def trainer_corpus(root, seed, splits=TRAINER_SPLITS, words=TRAINER_WORDS, size=224,
                    per_image=5, lengths=(6, 33)):
     """A corpus written without PIL: random uint8 images through
@@ -3188,21 +3240,13 @@ def trainer_corpus(root, seed, splits=TRAINER_SPLITS, words=TRAINER_WORDS, size=
     segmenter, the split files for ``splits``, ``tokenizer.main``) ->
     (config with the corpus's paths, the tokenize summary, the image rows
     in name order)."""
-    from myimagecaptioningmodel_tpu_torch.config import Config, replace_nested
     from myimagecaptioningmodel_tpu_torch.data import dataset_gen, shards, tokenizer
 
     rng = np.random.RandomState(seed)
     ds = os.path.join(root, "dataset")
     n = sum(splits)
     names = [f"img_{i:05d}.jpg" for i in range(n)]
-    cfg = Config()
-    for path, value in (("build_dataset.output_path", ds),
-                        ("build_dataset.annotation_path", os.path.join(root, "captions.json")),
-                        ("build_dataset.storage_dtype", "uint8"),
-                        ("data.image_shape", (size, size)), ("data.dict_path", ds),
-                        ("data.h5_path", (ds,)),
-                        ("data.h5_name2idx", os.path.join(ds, "name2idx.json"))):
-        cfg = replace_nested(cfg, path, value)
+    cfg = corpus_cfg(root, size)
     rows = rng.randint(0, 256, (n, 3, size, size), dtype=np.uint8)
     attrs = shards.storage_attrs("uint8", cfg.data.image_mean, cfg.data.image_std)
     with shards.ShardBuilder(ds, "aic_flk", (3, size, size), cfg.build_dataset.shard_max_size,
@@ -3736,6 +3780,477 @@ def phase_trainer(dev, seed, root, bare_step_ms, card):
     return launches
 
 
+# ---- phase 24: batch captioning ----------------------------------------------
+
+BC_IMAGES, BC_BATCH = 300, 128  # two full batches and one padded one
+BC_MODES = (  # (label, bundle, beam, kernels that launch, launches per dispatch)
+    ("lstm_greedy", "lstm", 0, {"fused_decode_step": 35, "greedy_vocab_argmax": 35}),
+    ("lstm_beam4", "lstm", BEAM, {"fused_decode_step": 35, "topk_vocab_head": 35}),
+    ("tf_greedy", "transformer", 0, {"fused_greedy_decode": 1}),
+)
+
+
+def bc_items(seed, shape):
+    """``BC_IMAGES`` synthetic decoded images, in the shuffled order in which
+    the host half's decode threads may hand them over."""
+    rng = np.random.RandomState(seed)
+    arrays = rng.rand(BC_IMAGES, 3, *shape).astype(np.float32)
+    return [(int(i), f"img_{i:03d}.jpg", arrays[i]) for i in rng.permutation(BC_IMAGES)]
+
+
+def bc_mismatches(cfg, items, model, decode, records):
+    """Records against ``load_bundle``'s decode of the same rows in the same
+    padded batch (batches in arrival order, as ``caption_arrays`` forms
+    them; what the service runs) -> [(what, detail)]: records out of path
+    order or not one per image, and per batch the rows whose ids differ."""
+    from myimagecaptioningmodel_tpu_torch.data.image import chw_to_nhwc
+
+    names = [name for _i, name, _a in sorted(items, key=lambda it: it[0])]
+    got_names = [r["image"] for r in records]
+    if got_names != names:
+        return [("records", f"{len(records)} records, first {got_names[:3]}")]
+    bad = []
+    for lo in range(0, len(items), BC_BATCH):
+        part = items[lo:lo + BC_BATCH]
+        batch = np.zeros((BC_BATCH, *cfg.data.image_shape, 3), np.float32)
+        batch[:len(part)] = chw_to_nhwc(np.stack([a for _i, _n, a in part]))
+        want = decode(model, torch.from_numpy(batch).to(model.device)).cpu().numpy()
+        rows = sum(int(records[i]["ids"] != want[j].tolist())
+                   for j, (i, _n, _a) in enumerate(part))
+        if rows:
+            bad.append((lo, rows))
+    return bad
+
+
+def phase_batch_caption(dev, seed, cfgs, card, modes=BC_MODES):
+    """Phase 24: ``batch_caption.caption_arrays`` (the device half of
+    ``caption_directory``) over ``BC_IMAGES`` synthetic images at batch
+    ``BC_BATCH``, phase 4's LSTM bundle greedy and beam 4 and phase 16's
+    transformer bundle greedy: records in order, one per image (no padding
+    row among them), each equal to the service's decode of the same rows;
+    the kernels launch per dispatch as phases 4, 8 and 16 count them;
+    images/s (a warm run: the graphs captured by a first pass). -> {mode:
+    launches}."""
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.inference.batch_caption import caption_arrays
+
+    out = {}
+    for label, family, beam, per in modes:
+        cfg = cfgs[family]
+        items = bc_items(seed, tuple(cfg.data.image_shape))
+        model, _bcfg, _opts, decode = load_bundle(cfg, beam_size=beam, early_stop=True,
+                                                  device=dev)
+        index_word = DataReader(cfg).index_word
+        caption_arrays(cfg, items[:BC_BATCH], model, decode, index_word, BC_BATCH)  # capture
+        dispatches = -(-BC_IMAGES // BC_BATCH)
+        with counting() as run:
+            t0 = time.perf_counter()
+            records = caption_arrays(cfg, items, model, decode, index_word, BC_BATCH)
+            seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in run.counts.items() if v}
+        want = {k: n * dispatches for k, n in per.items()}
+        bad = bc_mismatches(cfg, items, model, decode, records)
+        say("batch_caption", mode=label, card=card.replace(" ", "_"), images=len(records),
+            batch=BC_BATCH, dispatches=dispatches, images_per_s=round(BC_IMAGES / seconds, 1),
+            ms_per_batch=round(seconds / dispatches * 1e3, 2),
+            launches=json.dumps(launches).replace(" ", ""), mismatches=bad,
+            distinct_captions=len({tuple(r["ids"]) for r in records}))
+        if len(records) != BC_IMAGES or bad or launches != want:
+            raise AssertionError(f"batch captioning ({label}): {len(records)} records, "
+                                 f"mismatches {bad}, launches {launches} (expected {want})")
+        out[label] = launches
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 25: data parallelism on the one card --------------------------------
+
+DP_STEPS, DP_WORLD = 8, 2  # (b): steps, processes sharing the card
+# (b)'s cases: (model.bn_stat_rows, compute dtype). 0: the exact BN; 96: the
+# subset BN's rows are rank 0's 64 and rank 1's first 32; float32: the
+# gradient check, which bf16's rounding hides (below)
+DP_CASES = {"exact_bn": (0, "bfloat16"), "subset_bn_r96": (96, "bfloat16"),
+            "exact_bn_f32": (0, "float32")}
+DP_TIMED = 10  # bare steps timed plain and in the group
+# (b)'s limits by compute dtype, 2 gloo ranks x 64 rows against one process
+# at 128 rows, kernel F: the first step's loss, the BN moving statistics
+# after it and the encoder's gradient it reduces (one forward and backward
+# from the same weights), and every step's loss. Calibrated by
+# ``chip_fault_check.py`` part 10, which also reads each case's rounding
+# witness (``dp_witness``: one process on the same rows in another order,
+# so only the order of sums changes). Read on an H100 (seed 0). bf16: the
+# witness moves the first step's encoder gradient by 0.86-0.90 (relative
+# L2), the two ranks 0.76-0.91, every planted fault 0.80-1.42, so bf16
+# holds no gradient limit, and the BN backward's sums left unreduced change
+# nothing else there (first loss and statistics sound, ranks equal, 8
+# steps' losses 1.8e-3 against 2.9e-3 sound). float32 holds it: gradient
+# 0.013 for the witness and the two ranks, 0.32 for that fault, 0.80-0.93
+# for the others; first loss 0 (faults 1.2e-5, 7.1e-4), statistics 9e-8
+# and 2.4e-7 (faults 3.6e-3, 6.3e-3), 8 steps' losses 2.4e-4 (per-rank BN
+# 6.8e-3). The moving statistics after the last step are printed and not
+# held: Adam's first steps (near lr x sign(g)) carry rounding into them,
+# the witness moving them 0.16-0.20 (means, in moving stds) and 0.16
+# (variances, relative) in bf16 and 0.04-0.05 in float32, the two ranks
+# 0.14-0.29 and 0.04-0.08, the faults 0.10-0.40.
+DP_LIMITS = {
+    "bfloat16": {"loss1_rel": 2.5e-5, "bn1_mean": 1.3e-3, "bn1_var": 2.5e-3,
+                 "loss_rel": 1e-2},
+    "float32": {"loss1_rel": 2e-6, "bn1_mean": 1e-5, "bn1_var": 2e-5, "grad1_rel": 5e-2,
+                "loss_rel": 2e-3},
+}
+
+
+def bn_layers(cfg) -> int:
+    """The encoder's BN layers (entries of its BN state)."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+
+    _p, state = C.init(torch.Generator().manual_seed(0), C.ModelOptions.from_config(cfg))
+    return sum(1 for s in state["encoder"].values() if "bn" in s)
+
+
+def moving_stat_errors(got, want):
+    """(worst moving-mean error in units of the channel's moving std, worst
+    relative moving-variance error) over every BN channel."""
+    def pairs(a, b):
+        if "mean" in b:
+            yield a, b
+        else:
+            for k in b:
+                yield from pairs(a[k], b[k])
+
+    worst_m = worst_v = 0.0
+    for a, b in pairs(got, want):
+        var = b["var"].double().clamp_min(1e-12)
+        worst_m = max(worst_m, float(((a["mean"].double() - b["mean"].double()).abs()
+                                      / var.sqrt()).max()))
+        worst_v = max(worst_v, float(((a["var"].double() - b["var"].double()).abs()
+                                      / var).max()))
+    return worst_m, worst_v
+
+
+def dp_batch(cfg, seed, step):
+    """Step ``step``'s global batch of (b): images, and captions whose first
+    half (rank 0's rows) is short and second half long, so that the ranks
+    hold different token counts."""
+    rng = np.random.RandomState(seed * 1000 + step)
+    B, T = cfg.train.batch_size, cfg.model.decoder.sentence_length
+    images = rng.rand(B, *cfg.data.image_shape, 3).astype(np.float32)
+    caps = np.zeros((B, T), np.int64)
+    caps[:, 0] = cfg.data.start_idx
+    zipf = 1.0 / np.arange(1, 201)
+    for b in range(B):
+        n = rng.randint(4, 9) if b < B // 2 else rng.randint(T - 8, T)
+        caps[b, 1:n] = 4 + rng.choice(200, n - 1, p=zipf / zipf.sum())
+        caps[b, n] = cfg.data.stop_idx
+    return images, caps
+
+
+def dp_cfg(root, case):
+    """(b)'s config: full width, B=128 (the global batch), kernel F, and
+    ``model.bn_stat_rows`` and the compute dtype by ``case``."""
+    rows, dtype = DP_CASES[case]
+    return train_cfg(root, dtype, True, 128, TRAINER_LR, (("model.bn_stat_rows", rows),))
+
+
+def dp_compare(got, one):
+    """``dp_run`` readings against one process's -> the errors ``DP_LIMITS``
+    names, and the last step's moving statistics (``bn_mean``,
+    ``bn_var``)."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], one["losses"])]
+    bn1_m, bn1_v = moving_stat_errors(got["state1"], one["state1"])
+    bn_m, bn_v = moving_stat_errors(got["state"], one["state"])
+    return {"loss1_rel": rel[0], "bn1_mean": bn1_m, "bn1_var": bn1_v,
+            "grad1_rel": rel_l2(got["enc_grads1"], one["enc_grads1"]),
+            "loss_rel": max(rel), "bn_mean": bn_m, "bn_var": bn_v}
+
+
+def dp_witness(cfg, seed, dev, one):
+    """The rounding witness of (b): one process on the same global batches
+    with their rows in another (seeded) order, which changes only the order
+    of sums (the subset BN's first R rows stay the first R) -> ``dp_compare``
+    against ``one``."""
+    rng, B = np.random.RandomState(seed + 1), cfg.train.batch_size
+    r = cfg.model.bn_stat_rows if 0 < cfg.model.bn_stat_rows < B else 0
+    rows = np.concatenate([rng.permutation(r), r + rng.permutation(B - r)])
+    return dp_compare(dp_run(cfg, seed, dev, rows), one)
+
+
+def dp_readings(cfg, seed, dev, one, plant=None):
+    """(b): ``DP_WORLD`` processes on ``dev``'s card (gloo), each on its rows
+    of every global batch of ``cfg``, against ``one`` (``dp_run`` of the
+    whole batches in this process); ``plant`` (a module-level function, or
+    None) runs in each process first -> (readings, the limits or invariants
+    failed)."""
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    ranks = distributed.spawn_local(dp_rank, DP_WORLD, args=(cfg, seed, str(dev), plant),
+                                    timeout=600)
+    errs = dp_compare(ranks[0], one)
+    equal_ranks = (ranks[0]["digest"] == ranks[1]["digest"]
+                   and ranks[0]["losses"] == ranks[1]["losses"])
+    B = cfg.train.batch_size
+    r = {"bn_stat_rows": cfg.model.bn_stat_rows, "dtype": cfg.model.compute_dtype,
+         "backend": "gloo",
+         "gloo_cuda": json.dumps(ranks[0]["gloo_cuda"]).replace(" ", ""),
+         "world": DP_WORLD, "rows_each": B // DP_WORLD, "steps": DP_STEPS,
+         "losses": [round(x, 6) for x in ranks[0]["losses"]],
+         "losses_one": [round(x, 6) for x in one["losses"]],
+         **{f"{k}_err": v for k, v in errs.items()},
+         "ranks_bit_equal": equal_ranks, "collectives_per_step": ranks[0]["collectives"],
+         "f_launches_each": [x["f_launches"] for x in ranks],
+         "step_ms_each": [x["step_ms"] for x in ranks],
+         "seconds": round(time.perf_counter() - t0, 1)}
+    limits = DP_LIMITS[cfg.model.compute_dtype]
+    failed = [k for k, v in errs.items() if k in limits and not v <= limits[k]]
+    if not equal_ranks:
+        failed.append("ranks_differ")
+    if any(x["f_launches"] != one["f_launches"] for x in ranks):  # as many as one process
+        failed.append("f_launches")
+    if any(v != "exact" for x in ranks for v in x["gloo_cuda"].values()):
+        failed.append("gloo_cuda")
+    return r, failed
+
+
+def dp_run(cfg, seed, dev, rows=None):
+    """``DP_STEPS`` train steps from the seeded init on ``rows`` of each
+    global batch (all when None) -> {"losses", "state" (BN state on the
+    host after the last step), "state1" (after the first), "enc_grads1"
+    (the encoder's gradients the first step's update takes, on the host),
+    "digest" (of the params and BN state), "f_launches" (kernel F's)}."""
+    import hashlib
+
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.parallel import train_step as TS
+
+    opts = C.ModelOptions.from_config(cfg)
+    ref_params, ref_state = C.init(torch.Generator().manual_seed(seed), opts)
+    step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
+    encoder = {id(t) for t in TS.tree_leaves(params["encoder"])}
+    grads1, apply = [], TS.Optimizer.apply
+
+    def first_grads(self, grads, opt, prm):
+        if not grads1:
+            grads1.extend(g.detach().float().cpu()
+                          for g, p in zip(grads, TS.tree_leaves(prm)) if id(p) in encoder)
+        return apply(self, grads, opt, prm)
+
+    losses, first = [], None
+    TS.Optimizer.apply = first_grads
+    try:
+        with counting() as run:
+            for i in range(DP_STEPS):
+                images, caps = dp_batch(cfg, seed, i)
+                if rows is not None:
+                    images, caps = images[rows], caps[rows]
+                params, opt_state, state, _n, loss, _lr = step(
+                    params, opt_state, state, i, torch.from_numpy(images).to(dev),
+                    torch.from_numpy(caps).to(dev))
+                losses.append(loss.detach())
+                if first is None:
+                    first = TS.tree_map(lambda t: t.detach().cpu(), state)
+    finally:
+        TS.Optimizer.apply = apply
+    digest = hashlib.sha1()
+    for t in TS.tree_leaves(params) + TS.tree_leaves(state):
+        digest.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return {"losses": [float(x) for x in losses],
+            "state": TS.tree_map(lambda t: t.detach().cpu(), state), "state1": first,
+            "enc_grads1": grads1, "digest": digest.hexdigest(),
+            "f_launches": run.counts["matmul_stats"]}
+
+
+def gloo_on_cuda(dev) -> dict:
+    """What this build's gloo does with CUDA tensors: all_reduce, broadcast
+    and all_gather called on them directly -> {collective: "exact", "wrong"
+    or the error's type}."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {}
+
+    def attempt(name, fn, want):
+        try:
+            got = fn()
+            out[name] = ("exact" if got.is_cuda and torch.equal(got.cpu(), want)
+                         else "wrong")
+        except Exception as e:  # reported in the phase's line
+            out[name] = type(e).__name__
+
+    def all_reduce():
+        t = torch.full((4,), rank + 1.0, device=dev)
+        dist.all_reduce(t)
+        return t
+
+    def broadcast():
+        t = torch.full((4,), rank + 1.0, device=dev)
+        dist.broadcast(t, 0)
+        return t
+
+    def all_gather():
+        parts = [torch.empty(4, device=dev) for _ in range(world)]
+        dist.all_gather(parts, torch.full((4,), rank + 1.0, device=dev))
+        return torch.cat(parts)
+
+    attempt("all_reduce", all_reduce, torch.full((4,), world * (world + 1) / 2))
+    attempt("broadcast", broadcast, torch.full((4,), 1.0))
+    attempt("all_gather", all_gather,
+            torch.arange(1, world + 1, dtype=torch.float32).repeat_interleave(4))
+    return out
+
+
+def dp_rank(rank, cfg, seed, device, plant=None):
+    """A rank of (b): its share of each global batch on the shared card ->
+    ``dp_run``'s readings, with the collectives a step, ms a step and
+    ``gloo_on_cuda``'s answers."""
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gloo_cuda = gloo_on_cuda(torch.device(device))
+    if plant is not None:
+        plant()
+    lb = cfg.train.batch_size // distributed.process_count()
+    calls = distributed.collective_calls()
+    t0 = time.perf_counter()
+    out = dp_run(cfg, seed, torch.device(device), slice(rank * lb, (rank + 1) * lb))
+    out["step_ms"] = round((time.perf_counter() - t0) / DP_STEPS * 1e3, 2)
+    out["collectives"] = (distributed.collective_calls() - calls) / DP_STEPS
+    out["gloo_cuda"] = gloo_cuda
+    return out
+
+
+class collective_probe:
+    """While active: each train step of ``loop.build_steps``' steps records
+    the collectives it issued."""
+
+    def __enter__(self):
+        from myimagecaptioningmodel_tpu_torch.parallel import distributed
+        from myimagecaptioningmodel_tpu_torch.training import loop
+
+        self.per_step, self._orig = [], loop.build_steps
+
+        def build_steps(*a, **k):
+            steps = self._orig(*a, **k)
+
+            def train_step(*args):
+                n = distributed.collective_calls()
+                out = steps.train_step(*args)
+                self.per_step.append(distributed.collective_calls() - n)
+                return out
+
+            return steps._replace(train_step=train_step)
+
+        loop.build_steps = build_steps
+        return self
+
+    def __exit__(self, *exc):
+        from myimagecaptioningmodel_tpu_torch.training import loop
+
+        loop.build_steps = self._orig
+
+
+def bare_step_ms(cfg, dev, seed):
+    """ms of one bf16 B=128 fused train step (CUDA events over
+    ``DP_TIMED`` steps after 3 warm-up steps)."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+
+    opts = C.ModelOptions.from_config(cfg)
+    step, params, opt_state, state = trainer(cfg, *C.init(torch.Generator().manual_seed(seed),
+                                                          opts), dev)
+    images, caps = train_batch(cfg, dev, seed)
+    carry = [params, opt_state, state, 0]
+
+    def one():
+        p, o, s, n, _loss, _lr = step(*carry, images, caps)
+        carry[:] = [p, o, s, n]
+
+    return time_ms(one, reps=DP_TIMED, warmup=3)
+
+
+def phase_data_parallel(dev, seed, root, card):
+    """Phase 25. (a) A world-1 NCCL group: ``loop.train`` of the full-width
+    LSTM (bf16, B=128, kernel F) for 4 steps and a dev evaluation, against
+    the same run without a group: the losses bit for bit, the reductions
+    through the group (collectives a step: the token count, one gradient
+    bucket, BN's sums); the bare step's ms without and in the group, in
+    turns. (b) 2 processes on the one card (gloo: NCCL refuses two ranks on
+    one GPU; gloo takes the CUDA tensors itself), 64 rows each,
+    ``DP_STEPS`` steps, against one process at 128 rows from the same start
+    (``dp_readings``; the rounding witness beside it, ``dp_witness``).
+    -> {path: {kernel: launches}}."""
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+    from myimagecaptioningmodel_tpu_torch.config import replace_nested
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+    from myimagecaptioningmodel_tpu_torch.training import loop
+
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False  # bitwise repeatable steps
+    base = corpus_cfg(root)
+    base = replace_nested(base, "model.decoder.vocab_size", len(DataReader(base).index_word))
+    extra = NO_EXPORTS + (("train.max_epoch", 1), ("train.checkpoint_every_n_steps", False))
+    step_cfg = train_cfg(root, "bfloat16", True, 128, TRAINER_LR)
+    launches = {}
+    try:
+        with loop_probe() as plain:
+            loop.train(loop_cfg(base, root, "dp_plain", extra), device=dev, max_steps_per_epoch=4)
+        ms = {"plain": [bare_step_ms(step_cfg, dev, seed)]}
+        distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0, backend="nccl")
+        try:
+            with loop_probe() as grouped, collective_probe() as calls, counting() as run:
+                loop.train(loop_cfg(base, root, "dp_group", extra), device=dev,
+                           max_steps_per_epoch=4)
+            ms["group"] = [bare_step_ms(step_cfg, dev, seed) for _ in range(2)]
+        finally:
+            distributed.shutdown()
+        ms["plain"].append(bare_step_ms(step_cfg, dev, seed))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was
+    launches["loop_world1"] = {k: v for k, v in run.counts.items() if v}
+    same = plain.loss_values() == grouped.loss_values()
+    # a step: the token count, one gradient bucket (float32), and each BN
+    # layer's sums forward and backward (the encoder trains)
+    n_bn = bn_layers(base)
+    want_calls = 2 + 2 * n_bn
+    want_launches = {"matmul_stats": 4 * 35, "fused_decode_step": 35, "greedy_vocab_argmax": 35}
+    plain_ms, group_ms = np.mean(ms["plain"]), np.mean(ms["group"])
+    say("dp_world1", card=card.replace(" ", "_"), backend="nccl", steps=len(grouped.losses),
+        losses_bit_equal=same, losses=grouped.loss_values(),
+        collectives_per_step=calls.per_step, bn_layers=n_bn,
+        launches=json.dumps(launches["loop_world1"]).replace(" ", ""),
+        step_ms_plain=[round(x, 3) for x in ms["plain"]],
+        step_ms_group=[round(x, 3) for x in ms["group"]],
+        group_overhead_ms=round(group_ms - plain_ms, 3))
+    if not same or len(grouped.losses) != 4:
+        raise AssertionError(f"world-1 group: losses {grouped.loss_values()} against "
+                             f"{plain.loss_values()} without it")
+    if calls.per_step != [want_calls] * 4 or launches["loop_world1"] != want_launches:
+        raise AssertionError(f"world-1 group: collectives a step {calls.per_step} (expected "
+                             f"{want_calls}), launches {launches['loop_world1']} (expected "
+                             f"{want_launches})")
+
+    # (b) two processes on the one card against one process, exact BN and
+    # the subset-statistics BN with its rows across the ranks' boundary
+    torch.cuda.empty_cache()
+    for case in DP_CASES:
+        cfg = dp_cfg(root, case)
+        one = dp_run(cfg, seed, dev)
+        say("dp_rounding_witness", card=card.replace(" ", "_"), case=case,
+            **{f"{k}_err": v for k, v in dp_witness(cfg, seed, dev, one).items()})
+        torch.cuda.empty_cache()
+        r, failed = dp_readings(cfg, seed, dev, one)
+        say("dp_two_processes", card=card.replace(" ", "_"), case=case, **r)
+        if failed:
+            raise AssertionError(f"two processes against one ({case}): {failed}")
+        launches[f"dp2_{case}_rank0"] = {"matmul_stats": r["f_launches_each"][0]}
+    say("dp_phase", seconds=round(time.perf_counter() - t0, 1))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -3804,6 +4319,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         tf_launches, tf_cfg = phase_tf_served(dev, args.seed, root)
         int8_launches = phase_tf_served_int8(dev, args.seed, tf_cfg)
+        del model
+        torch.cuda.empty_cache()
+        bc = phase_batch_caption(dev, args.seed, {"lstm": cfg, "transformer": tf_cfg}, card)
+        dp = phase_data_parallel(dev, args.seed, root, card)
 
     bf16 = torch.bfloat16
     f_key = (bf16, "conv3_1_expand")
@@ -3818,6 +4337,10 @@ def main(argv=None) -> int:
     def in_trainer(name):
         """Phase 23's launches of a kernel, by path (the paths that launched it)."""
         return {path: c[name] for path, c in trainer.items() if c[name]}
+
+    def in_paths(paths, name):
+        """Phase 24's or 25's launches of a kernel, by mode or path."""
+        return {path: c[name] for path, c in paths.items() if c.get(name)}
 
     def b_at(rows, head):
         """B's numbers at one row count, per step (device µs -> ms)."""
@@ -3837,25 +4360,30 @@ def main(argv=None) -> int:
         {"name": "greedy_vocab_argmax", "route": "cuda", "source": KERNEL_A_SRC,
          "replaces": KERNEL_A_TPU, "launches": launches["greedy_vocab_argmax"],
          "max_abs_err": max(err_a, err_a8), **a_at(8), "b128": a_at(128),
-         "trainer_launches": in_trainer("greedy_vocab_argmax")},
+         "trainer_launches": in_trainer("greedy_vocab_argmax"),
+         "batch_caption_launches": in_paths(bc, "greedy_vocab_argmax"),
+         "dp_launches": in_paths(dp, "greedy_vocab_argmax")},
         {"name": "fused_decode_step", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": KERNEL_B_TPU, "launches": launches["fused_decode_step"],
          "max_abs_err": err_b, **b_at(8, True), "b128": b_at(128, True),
          "beam32": b_at(32, False), "beam512": b_at(512, False),
          "greedy_decode_device_ms": lstm_decodes["lstm_greedy_8"][1],
          "beam_decode_device_ms": lstm_decodes["lstm_beam_8"][1],
-         "trainer_launches": in_trainer("fused_decode_step")},
+         "trainer_launches": in_trainer("fused_decode_step"),
+         "batch_caption_launches": in_paths(bc, "fused_decode_step"),
+         "dp_launches": in_paths(dp, "fused_decode_step")},
         {"name": "topk_vocab_head", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": KERNEL_C_TPU, "launches": beam_launches["topk_vocab_head"],
          "max_abs_err": err_c, "ms": t_c[(bf16, 8 * BEAM, BEAM)][0],
          "plain_ms": t_c[(bf16, 8 * BEAM, BEAM)][1], "bound_ms": b_c[0], "bound_by": b_c[1],
          "library_ms": t_c[(bf16, 8 * BEAM, BEAM)][2],
-         "trainer_launches": in_trainer("topk_vocab_head")},
+         "trainer_launches": in_trainer("topk_vocab_head"),
+         "batch_caption_launches": in_paths(bc, "topk_vocab_head")},
         {"name": "matmul_stats", "route": "cuda", "source": KERNEL_F_SRC,
          "replaces": KERNEL_F_TPU, "launches": train_launches["matmul_stats"],
          "tf_train_launches": tf_f_launches, "max_abs_err": err_f, "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
          "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2],
-         "trainer_launches": in_trainer("matmul_stats")},
+         "trainer_launches": in_trainer("matmul_stats"), "dp_launches": in_paths(dp, "matmul_stats")},
     ]
     def de_at(t, busy_ms):
         """D's or E's numbers at one batch, the device busy ms per decode beside."""
@@ -3872,7 +4400,9 @@ def main(argv=None) -> int:
                         "trained_bundle_launches": tf_served[name], "max_abs_err": err,
                         **de_at(t[key(8)], busy[8]), "b128": de_at(t[key(128)], busy[128]),
                         **({"trainer_launches": in_trainer(name)} if name in
-                           launch_counters() else {})})
+                           launch_counters() else {}),
+                        **({"batch_caption_launches": in_paths(bc, name)}
+                           if name == "fused_greedy_decode" else {})})
     for name, tpu, launches8, err, t, busy in (
             ("fused_greedy_decode[int8]", KERNEL_D_INT8_TPU, int8_launches["fused_greedy_decode"],
              err_d8, t_8[("int8", bf16, 8)], dev_8["int8"]),

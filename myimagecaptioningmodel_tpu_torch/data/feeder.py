@@ -15,8 +15,15 @@ feed queue, train.py:46, capacity 128) with a host-side prefetcher:
 
 Batches whose trailing remainder would give another shape are dropped
 (``drop_remainder``), as the JAX package drops them to keep one compiled
-step. Multi-process feeds (``process_local``, ``sharding``) come with the
-multi-GPU slice.
+step.
+
+Multi-process training feeds process-locally: each process's reader yields
+only its rows of every global batch (``DataReader.get_reader(...,
+process_shard=...)``) and its feeder copies them to its own device
+(``cuda:LOCAL_RANK``), pinned and one batch ahead as in one process. The JAX
+package's ``process_local`` assembles a global array from those rows; the
+port has none to assemble, since each rank's step sees its own rows and the
+collectives join them (``parallel/train_step.py``).
 """
 
 from __future__ import annotations

@@ -46,10 +46,12 @@ def batched(reader: Callable[[], Iterator], batch_size: int) -> Callable[[], Ite
 
 
 def process_slice_batches(items, local_batch: int, index: int, count: int) -> list:
-    """The rows of every *global* batch (``local_batch * count`` samples)
-    owned by process ``index``, concatenated in global-batch order; trailing
-    partial global batches are dropped (the multi-process feed split, kept
-    for the multi-GPU slice)."""
+    """Multi-process feed sharding: the rows of every *global* batch
+    (``local_batch * count`` samples) owned by process ``index``,
+    concatenated in global-batch order; trailing partial global batches are
+    dropped. Slicing each global batch (rather than block-splitting the
+    epoch) keeps the global sample -> step assignment of a single-process
+    run, so per-step losses match it."""
     gb = local_batch * count
     out = []
     for i in range(0, len(items) - gb + 1, gb):
@@ -71,18 +73,33 @@ def as_image_batch(batch) -> Tuple[np.ndarray, list]:
 
 def decode_and_score(reader_gen: Callable[[], Iterator], batch_size: int,
                      decode: Callable[[np.ndarray], object],
-                     score: Callable[[np.ndarray, list], None]) -> int:
+                     score: Callable[[np.ndarray, list, int], None],
+                     shard: Optional[Tuple[int, int]] = None) -> int:
     """Decode every eval batch of ``reader_gen`` and score it -> batches.
 
     The final partial batch is padded with zero images to ``batch_size``, so
     one decode shape (one captured CUDA graph) serves every batch; ``score``
-    gets the real rows only, as host ids ``[n, T]``, with their refs.
-    Software-pipelined: batch i+1's decode is queued on the card before the
-    host scores batch i."""
+    gets the real rows only, as host ids ``[n, T]``, with their refs and
+    ``n``, the batch's real rows. Software-pipelined: batch i+1's decode is
+    queued on the card before the host scores batch i.
+
+    ``shard=(index, count)`` (multi-process evaluation): every process reads
+    the same global batches; ``decode`` gets this process's
+    ``batch_size / count`` rows of the padded batch, and ``score`` the real
+    rows among them (none, for a process whose rows are all padding) with
+    their refs, and ``n`` of the whole batch."""
+    lo, lb = 0, batch_size
+    if shard is not None:
+        index, count = shard
+        if batch_size % count:
+            raise ValueError(f"batch_size {batch_size} does not divide over {count} processes")
+        lb = batch_size // count
+        lo = index * lb
     scored = []
 
     def score_host(ids_dev, refs, n):
-        score(ids_dev.cpu().numpy()[:n], refs)
+        valid = min(max(n - lo, 0), lb)
+        score(ids_dev.cpu().numpy()[:valid], refs[lo:lo + valid], n)
         scored.append(n)
 
     pending = None
@@ -92,7 +109,7 @@ def decode_and_score(reader_gen: Callable[[], Iterator], batch_size: int,
         if n < batch_size:
             pad = np.zeros((batch_size - n, *imgs.shape[1:]), imgs.dtype)
             imgs = np.concatenate([imgs, pad])
-        ids_dev = decode(imgs)  # queued on the card
+        ids_dev = decode(imgs[lo:lo + lb])  # queued on the card
         if pending is not None:
             score_host(*pending)
         pending = (ids_dev, refs, n)
@@ -174,6 +191,7 @@ class DataReader:
         skip_samples: int = 0,
         reader_threads: int = 0,
         process_shard: Optional[Tuple[int, int]] = None,
+        micro_batches: int = 1,
     ) -> Callable[[], Iterator[List[Sample]]]:
         """``keep_float16=True`` yields raw shard rows (float16 or uint8);
         the default is the reference contract of normalized float32 CHW
@@ -184,10 +202,19 @@ class DataReader:
         without touching the image store (mid-epoch resume fast-forward);
         ``reader_threads > 0`` (requires ``batch_size``) yields pre-stacked
         batches, each one gather from the memory-mapped rows.
-        ``process_shard`` (multi-process feeds) is not ported yet."""
-        if process_shard is not None:
-            raise NotImplementedError(
-                "process_shard: multi-GPU training is not ported yet (ROADMAP.md queue 1)")
+
+        ``process_shard=(index, count)`` (multi-process training, train
+        only): ``batch_size`` is this process's LOCAL batch; it reads only
+        its rows of each global batch of ``batch_size * count`` samples
+        (``process_slice_batches``), after the shuffle and ``skip_samples``
+        (both act on the global order: every process passes the same
+        values); a trailing partial global batch is dropped.
+        ``micro_batches=a`` slices each global batch's ``a`` microbatches
+        instead, so that this process's k-th chunk of ``batch_size / a``
+        rows is its share of the global batch's k-th microbatch, as a
+        single-process step with gradient accumulation splits it."""
+        if process_shard is not None and not batch_size:
+            raise ValueError("process_shard requires batch_size")
         store = self.shards
         mean, std = self.storage_norm
 
@@ -199,7 +226,8 @@ class DataReader:
                 return image_mod.normalize_uint8_chw(arr, mean, std)
             return arr.astype(np.float32)
 
-        split = self._load_split(mode, shuffle_seed, skip_samples)
+        split = self._load_split(mode, shuffle_seed, skip_samples, process_shard, batch_size,
+                                 micro_batches)
         if reader_threads and batch_size:
             return self._get_batch_reader(store, split, batch_size, mode, keep_float16,
                                           finalize)
@@ -225,7 +253,9 @@ class DataReader:
 
         return batched(reader, batch_size) if batch_size else reader
 
-    def _load_split(self, mode: str, shuffle_seed: Optional[int], skip_samples: int):
+    def _load_split(self, mode: str, shuffle_seed: Optional[int], skip_samples: int,
+                    process_shard: Optional[Tuple[int, int]] = None,
+                    local_batch: Optional[int] = None, micro_batches: int = 1):
         """One split's caption DB — the single source of ordering, shuffle
         and resume-skip semantics for the serial and the batch readers.
 
@@ -243,7 +273,19 @@ class DataReader:
                 captions = [captions[i] for i in order]
             if skip_samples:
                 captions = captions[skip_samples:]
+            if process_shard is not None:
+                index, count = process_shard
+                if local_batch % micro_batches:
+                    raise ValueError(f"local batch {local_batch} does not divide into "
+                                     f"{micro_batches} microbatches")
+                whole = len(captions) - len(captions) % (local_batch * count)
+                captions = process_slice_batches(list(captions[:whole]),
+                                                 local_batch // micro_batches, index, count)
             return captions
+        if process_shard is not None:
+            raise ValueError("process_shard is train-only; a multi-process dev/test "
+                             "evaluation reads the global stream on every process and "
+                             "decodes its own rows")
         fname = "dev_data.npy" if mode == "dev" else "eval_data.npy"
         return np.load(os.path.join(dict_path, fname), allow_pickle=True)
 

@@ -4,15 +4,19 @@ package's ``evaluate.py``, one process):
     python -m myimagecaptioningmodel_tpu_torch.evaluate [--config cfg.json]
         [--bundle infer] [--mode dev|test] [--beam N] [--quantize]
         [--quantize-kv] [--early-stop] [--length-norm A] [--device cpu]
+        [--distributed [--coordinator host:port --num-processes N --process-id I]]
 
 Decodes on one CUDA device unless ``--device`` names another; without a card
-and without ``--device cpu`` it stops with an error.
+and without ``--device cpu`` it stops with an error. In a process group
+(torchrun, or ``--distributed``, as ``train``) each process decodes its rows
+of every batch and every process scores the whole split.
 """
 
 import argparse
 
 from myimagecaptioningmodel_tpu_torch import config as config_mod
 from myimagecaptioningmodel_tpu_torch.evaluation import evaluate as evaluate_mod
+from myimagecaptioningmodel_tpu_torch.parallel import distributed
 
 
 def main(argv=None) -> None:
@@ -31,12 +35,17 @@ def main(argv=None) -> None:
                     help="beam only: normalize final scores by len**alpha (0 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu only when asked for)")
+    distributed.add_cli_arguments(ap)
     args = ap.parse_args(argv)
+    distributed.initialize_from_cli(args)
     cfg = config_mod.Config.from_json_file(args.config) if args.config else config_mod.default
-    evaluate_mod.evaluate(
-        cfg, bundle=args.bundle, mode=args.mode, beam_size=args.beam, quantize=args.quantize,
-        early_stop=args.early_stop, length_norm=args.length_norm,
-        quantize_kv=args.quantize_kv, device=args.device)
+    try:
+        evaluate_mod.evaluate(
+            cfg, bundle=args.bundle, mode=args.mode, beam_size=args.beam,
+            quantize=args.quantize, early_stop=args.early_stop, length_norm=args.length_norm,
+            quantize_kv=args.quantize_kv, device=args.device)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

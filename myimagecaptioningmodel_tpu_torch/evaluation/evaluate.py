@@ -5,7 +5,11 @@
 decoder families, and the transformer's int8 cross-attention memory.
 ``evaluate``: BLEU-1..4 and their mean, CIDEr-D and the distinct sentences
 of a bundle's captions on the dev or test split, the host scoring batch i
-while the card decodes batch i+1.
+while the card decodes batch i+1. Inside a process group
+(``parallel/distributed.py``) each process decodes its rows of every global
+batch on its own device, the ids are all-gathered, and every process scores
+the whole corpus, as the JAX package's multi-host ``evaluate``: the numbers
+are the single-process run's on every rank.
 
 Model options come from the bundle's own ``config.json``, as in the
 reference: a bundle is a self-contained artifact and its dims, parity mode
@@ -29,6 +33,8 @@ from myimagecaptioningmodel_tpu_torch.models.captioner import (
     ModelOptions,
     resolve_device,
 )
+from myimagecaptioningmodel_tpu_torch.parallel import distributed
+from myimagecaptioningmodel_tpu_torch.parallel import mesh as mesh_mod
 from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
 
 
@@ -100,8 +106,15 @@ def evaluate(cfg=None, bundle: str = "infer", mode: str = "test", beam_size: int
 
     cfg = cfg or config_mod.default
     model, _bcfg, opts, decode = load_bundle(
-        cfg, bundle, beam_size, quantize, early_stop=early_stop, device=device,
-        length_norm=length_norm, quantize_kv=quantize_kv)
+        cfg, bundle, beam_size, quantize, early_stop=early_stop,
+        device=distributed.default_device(device), length_norm=length_norm,
+        quantize_kv=quantize_kv)
+    if distributed.active():  # this rank's rows, then every rank's ids
+        decode_one, mesh = decode, mesh_mod.make_mesh(model.device)
+
+        def decode(model, imgs):
+            return distributed.all_gather_rows(decode_one(model, mesh_mod.shard_batch(mesh, imgs)))
+
     dr = DataReader(cfg)
     index_word = dr.index_word
     batch_size = cfg.train.batch_size
@@ -118,7 +131,7 @@ def evaluate(cfg=None, bundle: str = "infer", mode: str = "test", beam_size: int
     cider_cands: list = []
     cider_refs: list = []
 
-    def score(ids, refs):
+    def score(ids, refs, _n):
         for i, vec in enumerate(metrics.BLEU_WEIGHT_VECTORS):
             bleu_score[i] += metrics.calc_bleu(
                 ids, refs, index_word, vec,

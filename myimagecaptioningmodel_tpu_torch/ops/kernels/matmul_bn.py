@@ -14,7 +14,9 @@ and bound in that file's note); on a CPU tensor it runs
 NHWC batch, with its hand-written backward: the BN backward of
 ``ops/layers.bn_backward`` applied to the conv output, then the two matrix
 products a 1x1-conv backward is. The backward is plain PyTorch, as the JAX
-package leaves it to XLA.
+package leaves it to XLA. Inside a process group the statistics are the
+global batch's (``ops/layers.py``): kernel F's sums are all-reduced, and F
+itself is unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from myimagecaptioningmodel_tpu_torch.ops import layers as L
 from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
+from myimagecaptioningmodel_tpu_torch.parallel import distributed
 
 
 def _matmul_stats_reference(x: torch.Tensor, w: torch.Tensor):
@@ -87,9 +90,10 @@ class _Conv1x1BN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, scale, offset, x_flat):
         y, s, q = matmul_stats(x_flat, w)
-        n = x_flat.shape[0]
-        mean = s / n
-        var = torch.clamp(q / n - mean * mean, min=0.0)
+        # in a process group, the global batch's sums: kernel F's per-rank
+        # sums all-reduced before the mean and variance
+        s, q = L.global_sums(s, q)
+        mean, var = L.batch_stats(s, q, x_flat.shape[0] * distributed.process_count())
         yn, inv = L.bn_normalize(y, mean, var, scale, offset)
         ctx.save_for_backward(w, scale, x_flat, y, mean, inv)
         ctx.mark_non_differentiable(mean, var)

@@ -25,6 +25,17 @@ With ``stat_rows`` it is the reference's subset-statistics BN
 (``_bn_train_subset``, ``model.bn_stat_rows``): statistics from the first R
 rows, no gradient through them, dscale and doffset from the R rows scaled
 by B / R.
+
+Inside a process group (``parallel/distributed.py``) the train-mode BN is
+the JAX package's under a sharded batch: its statistics are those of the
+GLOBAL batch, the rows of every process in rank order. Each process
+all-reduces its per-channel sums (Σx and Σx² forward, Σdy and Σdy·x̂
+backward, one all-reduce each) before it divides by the global count; the
+subset BN takes the first R rows of the global batch. The parameter
+gradients a BN backward returns stay this rank's share (the train step's
+gradient all-reduce sums them), and the moving statistics come from the
+global statistics, so every rank holds the same bits. In one process, or
+a group of one, the arithmetic is the plain path's, bit for bit.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from myimagecaptioningmodel_tpu_torch.ops.quantization import is_quantized
+from myimagecaptioningmodel_tpu_torch.parallel import distributed
 
 Params = Dict[str, Any]
 
@@ -130,6 +142,22 @@ def stat_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
+def global_sums(*sums: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Per-channel sums of this process -> their sums over the process group
+    (one all-reduce for all of them); themselves outside a group."""
+    if not distributed.active():
+        return sums
+    flat = distributed.all_reduce_sum_(torch.cat(sums))
+    return tuple(flat.split([t.numel() for t in sums]))
+
+
+def batch_stats(s: torch.Tensor, q: torch.Tensor, n: int):
+    """(Σx, Σx², count) -> (mean, biased variance): ``E[x^2] - mean^2``
+    clamped at 0, the reference's one-pass statistics."""
+    mean = s / n
+    return mean, torch.clamp(q / n - mean.square(), min=0.0)
+
+
 def bn_normalize(x, mean, var, scale, offset):
     """(x - mean) * rsqrt(var + eps) * scale + offset in the statistics'
     dtype, over a channel-last ``x`` -> (y in ``x.dtype``, inv)."""
@@ -140,15 +168,18 @@ def bn_normalize(x, mean, var, scale, offset):
 
 def bn_backward(dy, x, mean, inv, scale):
     """The reference's two-pass BN backward over a channel-last ``x`` (the
-    statistics take no cotangent) -> (dx in ``x.dtype``, dscale, doffset)."""
+    statistics take no cotangent) -> (dx in ``x.dtype``, dscale, doffset).
+    In a process group, dx takes the global Σdy and Σdy·x̂ over the global
+    count; dscale and doffset are this rank's sums."""
     sd = mean.dtype
     dims = tuple(range(x.ndim - 1))
-    n = x.numel() // x.shape[-1]
+    n = x.numel() // x.shape[-1] * distributed.process_count()
     dy32 = dy.to(sd)
     xhat = (x.to(sd) - mean) * inv
     doffset = dy32.sum(dims)  # pass 1: both sums in one read of (dy, x)
     dscale = (dy32 * xhat).sum(dims)
-    dx = (scale * inv / n) * (n * dy32 - doffset - xhat * dscale)  # pass 2
+    g_offset, g_scale = global_sums(doffset, dscale)
+    dx = (scale * inv / n) * (n * dy32 - g_offset - xhat * g_scale)  # pass 2
     return dx.to(x.dtype), dscale.to(scale.dtype), doffset.to(scale.dtype)
 
 
@@ -159,8 +190,8 @@ class _BNTrain(torch.autograd.Function):
     def forward(ctx, scale, offset, x):
         x32 = x.to(stat_dtype(x))
         dims = tuple(range(x.ndim - 1))
-        mean = x32.mean(dims)
-        var = torch.clamp(x32.square().mean(dims) - mean.square(), min=0.0)
+        s, q = global_sums(x32.sum(dims), x32.square().sum(dims))
+        mean, var = batch_stats(s, q, x.numel() // x.shape[-1] * distributed.process_count())
         y, inv = bn_normalize(x, mean, var, scale, offset)
         ctx.save_for_backward(scale, x, mean, inv)
         ctx.mark_non_differentiable(mean, var)
@@ -176,20 +207,24 @@ class _BNTrain(torch.autograd.Function):
 class _BNTrainSubset(torch.autograd.Function):
     """The reference's ``_bn_train_subset``: (scale, offset, channel-last x,
     R) -> (y, mean, var) with the statistics of the first R rows of the
-    leading axis, every row normalized with them. The backward treats the
-    statistics as constants: dx = dy * scale * inv elementwise, and dscale,
-    doffset are the R rows' sums times B / R. Only ``x[:R]`` is saved."""
+    leading axis of the global batch (this rank's rows among them; a rank
+    whose rows all lie past R adds zeros), every row normalized with them.
+    The backward treats the statistics as constants: dx = dy * scale * inv
+    elementwise, and dscale, doffset are this rank's sums over its rows
+    among the R, times the global B / R. Only those rows of x are saved."""
 
     @staticmethod
     def forward(ctx, scale, offset, x, stat_rows):
-        xs = x[:stat_rows].to(stat_dtype(x))
+        b = x.shape[0]
+        rows = min(max(stat_rows - distributed.process_index() * b, 0), b)
+        xs = x[:rows].to(stat_dtype(x))
         dims = tuple(range(x.ndim - 1))
-        mean = xs.mean(dims)
-        var = torch.clamp(xs.square().mean(dims) - mean.square(), min=0.0)
+        s, q = global_sums(xs.sum(dims), xs.square().sum(dims))
+        mean, var = batch_stats(s, q, stat_rows * (x[0].numel() // x.shape[-1]))
         y, inv = bn_normalize(x, mean, var, scale, offset)
-        # a copy: a view of x[:R] would keep all B rows alive until backward
-        ctx.save_for_backward(scale, x[:stat_rows].clone(), mean, inv)
-        ctx.n_full = x.shape[0]
+        # a copy: a view of x[:rows] would keep all B rows alive until backward
+        ctx.save_for_backward(scale, x[:rows].clone(), mean, inv)
+        ctx.ratio = b * distributed.process_count() / stat_rows
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -198,11 +233,10 @@ class _BNTrainSubset(torch.autograd.Function):
         scale, xs, mean, inv = ctx.saved_tensors
         sd = mean.dtype
         dims = tuple(range(xs.ndim - 1))
-        ratio = ctx.n_full / xs.shape[0]
         dys = dy[: xs.shape[0]].to(sd)
         xhat = (xs.to(sd) - mean) * inv
-        doffset = dys.sum(dims) * ratio
-        dscale = (dys * xhat).sum(dims) * ratio
+        doffset = dys.sum(dims) * ctx.ratio
+        dscale = (dys * xhat).sum(dims) * ctx.ratio
         dx = (dy.to(sd) * (scale * inv)).to(dy.dtype)
         return dscale.to(scale.dtype), doffset.to(scale.dtype), dx, None
 
@@ -216,10 +250,11 @@ def moving_update(s: Params, mean: torch.Tensor, var: torch.Tensor) -> Params:
 def batch_norm_train(p: Params, s: Params, x: torch.Tensor,
                      stat_rows: int = 0) -> Tuple[torch.Tensor, Params]:
     """Train-mode BN over all but the last (channel) axis of ``x`` ->
-    (y in ``x.dtype``, new moving statistics). ``0 < stat_rows < B`` takes
-    the statistics from the first ``stat_rows`` rows (``_BNTrainSubset``);
-    otherwise the exact BN, as the reference's ``batch_norm``."""
-    if 0 < stat_rows < x.shape[0]:
+    (y in ``x.dtype``, new moving statistics). ``0 < stat_rows < B`` (B the
+    global batch in a process group) takes the statistics from the first
+    ``stat_rows`` rows (``_BNTrainSubset``); otherwise the exact BN, as the
+    reference's ``batch_norm``."""
+    if 0 < stat_rows < x.shape[0] * distributed.process_count():
         y, mean, var = _BNTrainSubset.apply(p["scale"], p["offset"], x, stat_rows)
     else:
         y, mean, var = _BNTrain.apply(p["scale"], p["offset"], x)

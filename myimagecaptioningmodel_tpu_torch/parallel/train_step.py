@@ -2,8 +2,18 @@
 ``myimagecaptioningmodel_tpu/parallel/train_step.py``: Adam with the
 optional clip and params-EMA, gradient accumulation, the tree walkers, and
 ``build_steps``' train step and greedy dev decode (through the decoder
-family's kernels when ``opts.use_kernels``). Multi-device training is not
-ported yet (ROADMAP.md).
+family's kernels when ``opts.use_kernels``).
+
+Data parallelism (inside a process group, ``parallel/distributed.py``): each
+process steps on its rows of the global batch, and the step reproduces the
+JAX package's step on the whole global batch. Its loss is the global token
+mean, so each rank differentiates its masked CE sum over the GLOBAL token
+count (all-reduced up front; under accumulation the sum is divided once, at
+the end), and the gradients (with the rank's loss share) are summed over
+the ranks as one flat bucket once a step (``distributed.reduce_flat_``),
+never as a mean of per-rank means: ranks hold different numbers of tokens.
+Clip, Adam and the EMA then run on every rank alike. The train-mode BN
+reduces its own statistics (``ops/layers.py``).
 
 The optimizer is optax's ``adam`` written out (b1 0.9, b2 0.999, eps 1e-8,
 eps_root 0), with the learning rate ``schedule(count)`` read at the count
@@ -25,6 +35,7 @@ import torch
 
 from myimagecaptioningmodel_tpu_torch.models import captioner
 from myimagecaptioningmodel_tpu_torch.models.captioner import ModelOptions
+from myimagecaptioningmodel_tpu_torch.parallel import distributed
 
 Params = Dict[str, Any]
 
@@ -158,30 +169,49 @@ class TrainStepFns(NamedTuple):
 
 def build_steps(opts: ModelOptions, optimizer: Optimizer, schedule,
                 grad_accum_steps: int = 1) -> TrainStepFns:
-    """The train and decode steps on one device.
+    """The train and decode steps on this process's device.
 
     ``grad_accum_steps > 1`` runs forward and backward over N sequential
     microbatches and applies one Adam update to the gradient of the summed
     CE over the GLOBAL token count, the whole-batch token-mean objective; the
-    BN state threads through the microbatches."""
+    BN state threads through the microbatches. Inside a process group the
+    step is data-parallel (module docstring); in a group of one its bits are
+    those of one process without a group."""
 
     def grads_and_loss(params, model_state, images, captions):
         leaves = tree_leaves(params)
         images = torch.as_tensor(images)
         captions = torch.as_tensor(captions)
         a = grad_accum_steps
+        dp = distributed.active()
+        n_global = None
+        if dp:  # the global token count, as loss_terms counts tokens
+            n_global = distributed.all_reduce_sum_(
+                (captions[:, 1:] != opts.padding_idx).float().sum().to(
+                    params["img_embed"]["w"].device))
         g_sum = [torch.zeros_like(p) for p in leaves]
+        got = [False] * len(leaves)
         ce_total, tok_total, mstate = 0.0, 0.0, model_state
         for im, cp in zip(images.chunk(a), captions.chunk(a)):
             ce_sum, n_tok, mstate = captioner.loss_terms(params, mstate, im, cp, opts)
             if a == 1:  # the token mean itself, as the reference differentiates it
-                ce_sum = ce_sum / torch.clamp(n_tok, min=1.0)
+                ce_sum = ce_sum / torch.clamp(n_tok if n_global is None else n_global,
+                                              min=1.0)
             g = torch.autograd.grad(ce_sum, leaves, allow_unused=True)
-            for acc, gi in zip(g_sum, g):
+            for i, gi in enumerate(g):
                 if gi is not None:  # None: a frozen encoder's params
-                    acc += gi
+                    g_sum[i] += gi
+                    got[i] = True
             ce_total = ce_total + ce_sum.detach()
             tok_total = tok_total + n_tok
+        if dp:  # one bucket: every gradient that exists, and the loss share
+            live = [i for i in range(len(leaves)) if got[i]]
+            summed = distributed.reduce_flat_(
+                [g_sum[i] for i in live] + [ce_total.to(leaves[0].dtype).reshape(1)])
+            for i, t in zip(live, summed):
+                g_sum[i] = t
+            ce_total = summed[-1].reshape(()).to(ce_total.dtype)
+            tok_total = n_global
         if a == 1:
             return g_sum, ce_total, mstate
         denom = torch.clamp(tok_total, min=1.0)

@@ -17,12 +17,25 @@ Epoch loop with the reference's observable behavior:
 - the "encoder just unfroze -> reload its pretrained weights" transition
   (train.py:103-107).
 
-What differs from the JAX loop: one device, no mesh and no multi-process
-feed; the parameters come from ``captioner.init`` on
-``torch.Generator().manual_seed(seed)``, so a run does not start from the
-JAX package's ``PRNGKey(seed)`` weights (a converted checkpoint carries a
-JAX run across, ``checkpoint.convert_jax_checkpoint``). As there, the final
-partial train batch of an epoch is dropped.
+Data parallelism, as the JAX loop's multi-host mode: inside a process group
+(``parallel/distributed.initialize`` on every process before ``train``),
+``cfg.train.batch_size`` stays the GLOBAL batch and must divide by the
+process count; each process reads only its rows of every global batch (the
+reader's ``process_shard``) onto its own device (``cuda:LOCAL_RANK`` unless
+``device`` names another), the train step all-reduces its gradients and the
+BN its statistics (global-batch BN, kernel F's sums too), and the per-step
+losses are the single-process run's. Process 0 alone writes the log,
+checkpoints and exports; every process resumes from the same checkpoint
+(a shared filesystem) and starts from process 0's values (``put_tree``).
+The dev evaluation decodes each process's rows and reduces the BLEU sum
+and the distinct count.
+
+What differs from the JAX loop: no vocab tensor parallelism; the parameters
+come from ``captioner.init`` on ``torch.Generator().manual_seed(seed)``, so
+a run does not start from the JAX package's ``PRNGKey(seed)`` weights (a
+converted checkpoint carries a JAX run across,
+``checkpoint.convert_jax_checkpoint``). As there, the final partial train
+batch of an epoch is dropped.
 """
 
 from __future__ import annotations
@@ -42,6 +55,8 @@ from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
 from myimagecaptioningmodel_tpu_torch.evaluation import metrics
 from myimagecaptioningmodel_tpu_torch.models import captioner
 from myimagecaptioningmodel_tpu_torch.models.captioner import ModelOptions, resolve_device
+from myimagecaptioningmodel_tpu_torch.parallel import distributed
+from myimagecaptioningmodel_tpu_torch.parallel import mesh as mesh_mod
 from myimagecaptioningmodel_tpu_torch.parallel.train_step import (
     build_steps, ema_params_from_opt_state, make_optimizer, tree_leaves,
 )
@@ -66,25 +81,39 @@ def _dev_eval(decode_fn, params, model_state, reader_gen, index_word, batch_size
     """Per-epoch dev greedy decode + BLEU + distinct sentences (reference
     train.py:152-167) -> (BLEU, distinct sentences, captions decoded), one
     decode shape for every batch and the host scoring batch i while the
-    card decodes batch i+1 (``reader.decode_and_score``)."""
+    card decodes batch i+1 (``reader.decode_and_score``).
+
+    Inside a process group, as the JAX loop's ``multihost``: every process
+    streams the same global dev batches, decodes its own rows, scores them
+    (``calc_bleu_rows`` is a sum over rows), and the BLEU sums and the
+    distinct sentences are reduced across the processes: the
+    single-process numbers on every rank."""
     bleu_total, captions = 0.0, 0
     sentences = set()
+    shard = ((distributed.process_index(), distributed.process_count())
+             if distributed.active() else None)
 
-    def score(ids, refs):
+    def score(ids, refs, n):
         nonlocal bleu_total, captions
         captions += len(ids)
         row_sum, _rows = metrics.calc_bleu_rows(
             ids, refs, index_word, stop_idx=stop_idx, padding_idx=padding_idx)
-        bleu_total += row_sum / len(ids)
+        bleu_total += row_sum / n
         for row in ids.tolist():
             sentences.add(metrics.words2sentence(
                 metrics.filter_ids(row, index_word, stop_idx, padding_idx)))
 
     batches = reader_mod.decode_and_score(
-        reader_gen, batch_size, lambda imgs: decode_fn(params, model_state, imgs), score)
+        reader_gen, batch_size, lambda imgs: decode_fn(params, model_state, imgs), score,
+        shard=shard)
+    distinct = len(sentences)
+    if shard is not None:
+        bleu_total = float(distributed.sum_across_processes([bleu_total])[0])
+        captions = int(distributed.sum_across_processes([captions])[0])
+        distinct = distributed.global_distinct_count(sentences)
     if batches == 0:
         return 0.0, 0, 0
-    return bleu_total / batches, len(sentences), captions
+    return bleu_total / batches, distinct, captions
 
 
 def save_model(cfg, logger: Logger, params, opt_state, model_state, epoch: int, step: int,
@@ -135,6 +164,8 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
     injection) raises RuntimeError after that many global steps, to check
     that a mid-epoch crash and resume reproduces an uninterrupted run.
 
+    Inside a process group the run is data-parallel (module docstring).
+
     Besides ``log.txt``, the logger's ``log.jsonl`` records per epoch
     ``epoch_loss``, ``step_times`` (host ms per queued step),
     ``train_wall`` (the epoch's training seconds up to its last loss read,
@@ -146,13 +177,25 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
     from myimagecaptioningmodel_tpu_torch import config as config_mod
 
     cfg = cfg or config_mod.default
-    device = resolve_device(device)
+    # the data-parallel group (one process outside one); vocab TP is refused
+    mesh = mesh_mod.make_mesh(resolve_device(distributed.default_device(device)),
+                              max(1, int(cfg.train.model_parallel)))
+    device, n_proc, proc_idx = mesh.device, mesh.size, mesh.rank
     opts = ModelOptions.from_config(cfg)
+    dp = distributed.active()
+    is_main = distributed.is_main_process()
+    batch_size = cfg.train.batch_size
+    if batch_size % n_proc:
+        raise ValueError(f"global batch {batch_size} must divide evenly over {n_proc} "
+                         "processes")
+    local_batch = batch_size // n_proc
     accum = int(getattr(cfg.train, "grad_accum_steps", 1) or 1)
-    if accum > 1 and cfg.train.batch_size % accum:
-        raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by "
-                         f"grad_accum_steps {accum}")
-    logger = Logger(cfg.log.log_path, opts.encoder_trainable)
+    if accum > 1 and local_batch % accum:
+        raise ValueError(f"batch_size {batch_size} ({local_batch} a process) not divisible "
+                         f"by grad_accum_steps {accum}")
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)  # this process's streams and graphs on its GPU
+    logger = Logger(cfg.log.log_path, opts.encoder_trainable, write=is_main)
     data_reader = DataReader(cfg)
     data_reader.init_shards()
     if not data_reader.shards.storage_info.get("normalized", True):
@@ -190,6 +233,12 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
 
     resume_skip_batches = 0  # mid-epoch resume fast-forward
     ckpt_dir = os.path.join(cfg.train.checkpoint_path, "checkpoint")
+    if dp:
+        # crash-debris recovery (checkpoint._recover) changes shared storage:
+        # process 0 alone runs it, and the others look once it is done
+        if is_main:
+            ckpt.checkpoint_exists(ckpt_dir)
+        distributed.barrier()
     if ckpt.checkpoint_exists(ckpt_dir):
         params, opt_state, model_state, meta = ckpt.load_checkpoint(
             ckpt_dir, params, opt_state, model_state)
@@ -211,8 +260,9 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
     elif cfg.data.pretrained_mobilenet_path:
         params = ckpt.graft_subtree(params, cfg.data.pretrained_mobilenet_path, "encoder")
         logger.log("Loaded pretrained MobileNetV2 encoder")
+    if dp:  # every process starts from process 0's values
+        distributed.put_tree((params, opt_state, model_state))
 
-    batch_size = cfg.train.batch_size
     ckpt_writer = ckpt.AsyncCheckpointWriter()  # rolling saves off the hot loop
     last_bleu = 0.0
     mean_loss = float("nan")  # stays NaN when resume finds nothing to run
@@ -231,9 +281,12 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
         shuffle_seed = ((cfg.train.seed or 0) * 100003 + epoch
                         if cfg.train.shuffle_each_epoch else None)
         feeder = PrefetchingFeeder(
-            data_reader.get_reader(batch_size, "train", keep_float16=True,
-                                   shuffle_seed=shuffle_seed, skip_samples=skip * batch_size,
-                                   reader_threads=cfg.train.reader_threads),
+            data_reader.get_reader(local_batch, "train", keep_float16=True,
+                                   shuffle_seed=shuffle_seed,
+                                   skip_samples=skip * batch_size,  # global samples
+                                   reader_threads=cfg.train.reader_threads,
+                                   process_shard=(proc_idx, n_proc) if dp else None,
+                                   micro_batches=accum if dp else 1),
             capacity=cfg.train.data_loader_capacity,
             drop_remainder=True,
             device=device,
@@ -268,15 +321,16 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
                             "are NaN/Inf; refusing to overwrite the checkpoint")
                     # the host copy happens here; the npz write and the
                     # atomic swap overlap the next steps. A write error
-                    # surfaces at the next save/wait.
-                    ckpt_writer.save(ckpt_dir, params, opt_state, model_state, {
-                        "next_epoch": epoch,
-                        "step": int(step),
-                        "mid_epoch_batches": nsteps,
-                        "best_bleu": logger.best_bleu,
-                        "best_meteor": logger.best_meteor,
-                        "train_encoder": logger.train_encoder,
-                    })
+                    # surfaces at the next save/wait. One writer.
+                    if is_main:
+                        ckpt_writer.save(ckpt_dir, params, opt_state, model_state, {
+                            "next_epoch": epoch,
+                            "step": int(step),
+                            "mid_epoch_batches": nsteps,
+                            "best_bleu": logger.best_bleu,
+                            "best_meteor": logger.best_meteor,
+                            "train_encoder": logger.train_encoder,
+                        })
                 if fault_injection_step is not None and step >= fault_injection_step:
                     raise RuntimeError(f"fault injection at global step {step}")
                 if nsteps % cfg.train.log_every_n_step == 0:
@@ -344,8 +398,12 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
                    f"took: {eval_seconds:.2f}s")
         logger.log_scalars("dev_bleu", epoch=epoch, bleu=bleu, distinct=distinct,
                            seconds=eval_seconds, captions=n_captions)
-        save_model(cfg, logger, params, opt_state, model_state, epoch, step, bleu)
+        if is_main:  # one writer; every process tracks best_bleu
+            save_model(cfg, logger, params, opt_state, model_state, epoch, step, bleu)
+        elif cfg.train.save_best_bleu_checkpoint and bleu > logger.best_bleu:
+            logger.best_bleu = bleu
         logger.log(f"Epoch took {time.time() - begin:2f}s")
+    distributed.barrier()  # process 0's writes are done when every process returns
 
     return {
         "epochs": cfg.train.max_epoch,

@@ -1211,3 +1211,85 @@ def test_cuda_evaluate_beam_runs_kernel_c(cuda, workflow):
     assert res["captions"] == 8 and len(res["bleu"]) == 5
     assert TFS.fused_decode_step.launches == TVH.topk_vocab_head.launches == T
     assert TVH.greedy_vocab_argmax.launches == 0
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's deterministic algorithms (its default wgrad may add with
+    atomics): a step must give the same bits twice for a bitwise
+    comparison."""
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    yield
+    cudnn.deterministic, cudnn.benchmark = was
+
+
+@pytest.mark.cuda
+def test_cuda_world1_nccl_step_equals_plain(cuda, workflow, deterministic):
+    """One fused train step (kernel F) in a world-1 NCCL group: the same bits
+    as without a group, with the reductions issued through the group."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import train_tree
+    from myimagecaptioningmodel_tpu_torch.models import captioner
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import (
+        build_steps, make_optimizer, tree_leaves)
+    from myimagecaptioningmodel_tpu_torch.training import lr_schedules
+
+    _root, cfg = workflow
+    opts = captioner.ModelOptions.from_config(cfg)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.rand(8, 64, 64, 3, generator=gen)
+    caps = torch.randint(4, 100, (8, cfg.model.decoder.sentence_length), generator=gen)
+    caps[:, 0] = 2
+    caps[4:, 5:] = 0  # rows of different lengths
+
+    def step():
+        schedule = lr_schedules.from_config(cfg)
+        opt = make_optimizer(cfg, schedule)
+        p, s = train_tree(*captioner.init(torch.Generator().manual_seed(0), opts), cuda,
+                          torch.float32)
+        p, _o, s, _, loss, _ = build_steps(opts, opt, schedule).train_step(
+            p, opt.init(p), s, 0, images.to(cuda), caps.to(cuda))
+        torch.cuda.synchronize()
+        return loss, tree_leaves(p), tree_leaves(s)
+
+    plain = step()
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0, backend="nccl")
+    try:
+        calls = distributed.collective_calls()
+        grouped = step()
+        calls = distributed.collective_calls() - calls
+    finally:
+        distributed.shutdown()
+    assert calls > 2  # the token count, the gradient bucket, BN's sums
+    assert torch.equal(plain[0], grouped[0])
+    for a, b in zip(plain[1] + plain[2], grouped[1] + grouped[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_caption_arrays_equals_load_bundle(cuda, workflow):
+    """Batch captioning's device half on the card: each record's ids are
+    ``load_bundle``'s decode of the same rows, in the same padded batch."""
+    import numpy as np
+
+    from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.inference.batch_caption import caption_arrays
+    from myimagecaptioningmodel_tpu_torch.training import loop
+
+    root, cfg = workflow
+    if not (root / "save" / "infer").exists():
+        loop.train(cfg, device=cuda, max_steps_per_epoch=2)
+    model, _bc, _opts, decode = load_bundle(cfg, device=cuda, early_stop=True)
+    arrays = np.random.RandomState(0).rand(10, 3, 64, 64).astype(np.float32)
+    records = caption_arrays(cfg, [(i, f"{i}.jpg", a) for i, a in enumerate(arrays)], model,
+                             decode, DataReader(cfg).index_word, batch_size=4)
+    assert [r["image"] for r in records] == [f"{i}.jpg" for i in range(10)]
+    for lo in range(0, 10, 4):
+        batch = np.zeros((4, 64, 64, 3), np.float32)
+        rows = arrays[lo:lo + 4].transpose(0, 2, 3, 1)
+        batch[:len(rows)] = rows
+        want = decode(model, torch.from_numpy(batch).to(cuda)).cpu().numpy()[:len(rows)]
+        np.testing.assert_array_equal([r["ids"] for r in records[lo:lo + 4]], want)

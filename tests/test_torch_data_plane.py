@@ -302,8 +302,13 @@ def test_reader_storage_norm_and_process_shard(corpus, image_sets):
     tr.init_shards()
     assert tr.storage_norm == jr.storage_norm
     assert tr.index_word == jr.index_word and tr.dataset_meta == jr.dataset_meta
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tr.get_reader(4, "train", process_shard=(0, 2))
+    for index in range(2):  # each process's rows of every global batch of 8
+        want = list(jr.get_reader(4, "train", keep_float16=True, process_shard=(index, 2))())
+        got = list(tr.get_reader(4, "train", keep_float16=True, process_shard=(index, 2))())
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            for a, b in zip(_stacked(g), _stacked(w)):
+                np.testing.assert_array_equal(a, b)
     items = list(range(23))
     for index in range(3):
         assert (treader.process_slice_batches(items, 2, index, 3)
@@ -351,7 +356,8 @@ def test_decode_and_score_pads_and_pipelines(rows, threads):
         events.append(("decode", batch.shape[0]))
         return torch.as_tensor(batch.reshape(batch.shape[0], -1)[:, :5].astype(np.int32))
 
-    def score(ids, refs):
+    def score(ids, refs, n):
+        assert n == len(ids)  # one process: every real row is this one's
         events.append(("score", len(ids)))
         scored.append((ids, refs))
 

@@ -6,13 +6,19 @@
   evaluated by both packages on the test split, greedy and beam 3: the ids
   are equal, and then BLEU-1..4 and their mean, CIDEr-D and the distinct
   count agree to 1e-9.
+- The same bundle evaluated by 2 gloo ranks (``distributed.spawn_local``,
+  batch 4 = 2 rows a rank, each rank decoding its rows and every rank
+  scoring the gathered ids): every rank returns the one-process port's
+  numbers exactly, greedy and beam 3.
 - ``python -m myimagecaptioningmodel_tpu_torch.{dataset_gen,train,evaluate}``
   run in subprocesses with ``jax``, the JAX package, ``h5py`` and ``PIL``
   blocked, as on the card's machine: ``dataset_gen --captions-only`` writes
   the caption DBs the JAX build wrote, ``train --device cpu`` trains an epoch
   and exports, ``evaluate --device cpu`` scores the export; without
   ``--device`` and without a card, ``train`` and ``evaluate`` stop with the
-  device error.
+  device error; ``train --distributed`` in two processes (gloo, explicit
+  addresses) trains an epoch as one group, process 0 alone printing and
+  exporting.
 """
 
 import os
@@ -29,6 +35,7 @@ from myimagecaptioningmodel_tpu.evaluation import evaluate as jeval
 from myimagecaptioningmodel_tpu.training import loop as jloop
 from myimagecaptioningmodel_tpu_torch.data import shards as tshards
 from myimagecaptioningmodel_tpu_torch.evaluation import evaluate as teval
+from myimagecaptioningmodel_tpu_torch.parallel import distributed as tdist
 from myimagecaptioningmodel_tpu_torch.training import checkpoint as tckpt
 from test_torch_data_plane import build_images, make_cfg, port_cfg, with_vocab
 
@@ -38,7 +45,11 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "myimagecaptioningmodel_tpu", "h5py
 TOL = 1e-9
 
 
-@pytest.fixture(autouse=True)
+# Module scope: pytest sets up the wider-scoped fixtures first, so a
+# function-scoped one would come after the module fixtures below, whose
+# float64 training then ran on PyTorch's whole spinning pool beside the
+# other xdist workers, 14x slower.
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -102,17 +113,48 @@ def test_evaluate_matches_the_jax_package(trained, monkeypatch, beam):
     assert max(want["bleu"]) > 0  # the trained bundle's captions match somewhere
 
 
-def run_module(module, *args):
-    code = ("import runpy, sys\n"
+def evaluate_rank(rank, tcfg):
+    """A rank's ``evaluate()``, greedy and beam 3 (``seconds`` left out)."""
+    out = []
+    for beam in (0, 3):
+        got = teval.evaluate(tcfg, beam_size=beam, device="cpu")
+        got.pop("seconds")
+        out.append(got)
+    return out
+
+
+def test_two_rank_evaluate_equals_one_process(trained):
+    _root, _jcfg, tcfg = trained
+    ranks = tdist.spawn_local(evaluate_rank, 2, args=(tcfg,), threads=1, timeout=300)
+    for beam, got in zip((0, 3), zip(*ranks)):
+        want = teval.evaluate(tcfg, beam_size=beam, device="cpu")
+        want.pop("seconds")
+        assert got[0] == got[1] == want, beam
+        assert want["captions"] == 8 and max(want["bleu"]) > 0
+
+
+def _module_code(module, args):
+    return ("import runpy, sys\n"
             + f"for name in {BLOCKED!r}:\n    sys.modules[name] = None\n"
             + f"sys.argv = [{module!r}] + {list(args)!r}\n"
             + f"runpy.run_module({module!r}, run_name='__main__')\n")
-    # one PyTorch thread, as the in-process tests: beside other test workers
-    # a spinning thread pool makes the CPU convolutions crawl
-    return subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                          text=True, timeout=300,
-                          env={**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": "",
-                               "OMP_NUM_THREADS": "1"})
+
+
+# one PyTorch thread, as the in-process tests: beside other test workers a
+# spinning thread pool makes the CPU convolutions crawl
+RUN_ENV = {"PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+
+
+def run_module_async(module, *args):
+    return subprocess.Popen([sys.executable, "-c", _module_code(module, args)], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, **RUN_ENV})
+
+
+def run_module(module, *args):
+    return subprocess.run([sys.executable, "-c", _module_code(module, args)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, **RUN_ENV})
 
 
 def test_entry_points_run_with_the_cards_packages_missing(trained, tmp_path):
@@ -149,3 +191,23 @@ def test_entry_points_run_with_the_cards_packages_missing(trained, tmp_path):
                    "myimagecaptioningmodel_tpu_torch.evaluate"):
         r = run_module(module, "--config", str(tmp_path / "train.json"))
         assert r.returncode != 0 and "no CUDA device" in r.stderr, (module, r.stderr[-500:])
+
+
+def test_train_cli_in_two_processes(trained, tmp_path):
+    _root, _jcfg, tcfg = trained
+    cfg = port_cfg(tcfg, train__checkpoint_path=str(tmp_path / "save"),
+                   log__log_path=str(tmp_path / "log"), train__max_epoch=1,
+                   train__batch_size=32)
+    (tmp_path / "train.json").write_text(cfg.to_json())
+    address = f"localhost:{tdist.free_port()}"
+    procs = [run_module_async("myimagecaptioningmodel_tpu_torch.train", "--config",
+                              str(tmp_path / "train.json"), "--device", "cpu", "--distributed",
+                              "--coordinator", address, "--num-processes", "2",
+                              "--process-id", str(r)) for r in range(2)]
+    out = [p.communicate(timeout=300) for p in procs]
+    for p, (_o, err) in zip(procs, out):
+        assert p.returncode == 0, err[-2000:]
+    assert "'final_step': 9" in out[0][0] and "final_step" not in out[1][0]
+    assert os.path.exists(tmp_path / "save" / "infer" / "params.npz")
+    log = (tmp_path / "log" / "log.txt").read_text()
+    assert log.count("Epoch 1\n") == 1 and log.count("Dev set: BLEU") == 1

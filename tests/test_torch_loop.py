@@ -19,7 +19,15 @@ embedding 8, float32, batch 4):
 6. ``train()`` without a card and without ``device="cpu"`` raises;
 7. ``use_kernels`` follows the device (a monkeypatched device check);
 8. the transformer trains an epoch, and its dev BLEU equals JAX's
-   ``_dev_eval`` on the same (exported) params.
+   ``_dev_eval`` on the same (exported) params;
+9. data parallelism: the port's epoch 2, resumed from the same converted
+   checkpoint on 2 gloo ranks (``distributed.spawn_local``, batch 4 = 2 a
+   rank), logs JAX's per-step losses to ``LOSS_ATOL`` and its dev BLEU (to
+   1e-12) and distinct count, both ranks return the same summary, and only
+   rank 0 wrote checkpoints, exports and log lines;
+10. the reader's ``process_shard`` equals JAX's (serial and batch readers,
+    a shuffle and a resume skip), and ``micro_batches`` slices each global
+    microbatch as JAX's reader does at the microbatch's share.
 """
 
 import json
@@ -45,6 +53,7 @@ from myimagecaptioningmodel_tpu_torch.data import reader as treader
 from myimagecaptioningmodel_tpu_torch.data import shards as tshards
 from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
 from myimagecaptioningmodel_tpu_torch.models import captioner as tcap
+from myimagecaptioningmodel_tpu_torch.parallel import distributed as tdist
 from myimagecaptioningmodel_tpu_torch.parallel import train_step as tts
 from myimagecaptioningmodel_tpu_torch.training import checkpoint as tckpt
 from myimagecaptioningmodel_tpu_torch.training import loop as tloop
@@ -78,9 +87,15 @@ STEP_RTOL, STEP_ATOL = 1e-4, 1e-3 * LR
 NOISE_LEAVES = ("p/decoder/attention/score/b",)
 NOISE_ATOL = 2 * LR * STEPS
 STATE_ATOL = 1e-10
+PARITY = dict(train__max_epoch=2, train__checkpoint_backup_every_n_epoch=1,
+              model__compute_dtype="float64", model__encoder__encoder_trainable=False)
 
 
-@pytest.fixture(autouse=True)
+# Module scope: pytest sets up the wider-scoped fixtures first, so a
+# function-scoped one would come after the module fixtures below, whose
+# float64 training then ran on PyTorch's whole spinning pool beside the
+# other xdist workers, 14x slower.
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -146,12 +161,10 @@ def parity(data):
     """The JAX run (two epochs, float64) and the port's epoch 2 from its
     converted epoch-1 backup."""
     root, jcfg0 = data
-    common = dict(train__max_epoch=2, train__checkpoint_backup_every_n_epoch=1,
-                  model__compute_dtype="float64", model__encoder__encoder_trainable=False)
-    jcfg, _ = run_cfg(root, jcfg0, "jax", **common)
+    jcfg, _ = run_cfg(root, jcfg0, "jax", **PARITY)
     with pytest.MonkeyPatch.context() as mp, float64_jax(mp):
         jloop.train(jcfg, mesh=None, max_steps_per_epoch=STEPS)
-    _, tcfg = run_cfg(root, jcfg0, "port", **common)
+    _, tcfg = run_cfg(root, jcfg0, "port", **PARITY)
     backup = os.path.join(jcfg.train.checkpoint_path, "checkpoint1")
     tckpt.convert_jax_checkpoint(backup, os.path.join(tcfg.train.checkpoint_path, "checkpoint"))
     start = str(root / "port_start")
@@ -392,3 +405,76 @@ def test_transformer_epoch_and_dev_bleu_equal_jax(data):
     assert abs(tbleu - jbleu) <= 1e-12 and tdistinct == jdistinct
     logged = scalars(tcfg.log.log_path, "dev_bleu")[-1]
     assert abs(logged["bleu"] - jbleu) <= 1e-12 and logged["distinct"] == jdistinct
+
+
+def dp_epoch2(rank, tcfg):
+    """A rank of the data-parallel resume: ``train`` -> (summary, the
+    checkpoint and export writes this rank made)."""
+    writes = []
+    for name in ("write_checkpoint", "export_inference_bundle"):
+        orig = getattr(tckpt, name)
+
+        def counted(*a, _orig=orig, _name=name, **k):
+            writes.append(_name)
+            return _orig(*a, **k)
+
+        setattr(tckpt, name, counted)
+    return tloop.train(tcfg, device="cpu", max_steps_per_epoch=STEPS), writes
+
+
+def test_two_rank_resume_equals_jax(parity, data):
+    jcfg, _tcfg, result, _start = parity
+    root, jcfg0 = data
+    _, tcfg = run_cfg(root, jcfg0, "port_dp", **PARITY)
+    tckpt.convert_jax_checkpoint(os.path.join(jcfg.train.checkpoint_path, "checkpoint1"),
+                                 os.path.join(tcfg.train.checkpoint_path, "checkpoint"))
+    ranks = tdist.spawn_local(dp_epoch2, 2, args=(tcfg,), threads=1, timeout=600)
+    (summary0, writes0), (summary1, writes1) = ranks
+    assert summary0 == summary1 and summary0["final_step"] == result["final_step"]
+    assert writes0 and not writes1
+    np.testing.assert_allclose(epoch_losses(tcfg.log.log_path, 2),
+                               epoch_losses(jcfg.log.log_path, 2), rtol=0, atol=LOSS_ATOL)
+    text = open(os.path.join(tcfg.log.log_path, "log.txt"), encoding="utf-8").read()
+    assert text.count("Epoch 2\n") == 1 and text.count("Dev set: BLEU") == 1
+    jdev = scalars(jcfg.log.log_path, "dev_bleu")[-1]
+    tdev = scalars(tcfg.log.log_path, "dev_bleu")
+    assert len(tdev) == 1 and tdev[0]["distinct"] == jdev["distinct"]
+    assert abs(tdev[0]["bleu"] - jdev["bleu"]) <= 1e-12 and tdev[0]["captions"] == 8
+    assert abs(summary1["last_dev_bleu"] - jdev["bleu"]) <= 1e-12
+
+
+def _samples(batches):
+    """A reader's batches (sample lists or stacked tuples) -> [(row, caption)]."""
+    out = []
+    for b in batches:
+        pairs = zip(*b) if isinstance(b, tuple) else b
+        out.extend((np.asarray(img), np.asarray(cap)) for img, cap in pairs)
+    return out
+
+
+@pytest.mark.parametrize("threads", [0, 2])
+def test_process_shard_reader_equals_jax(data, threads):
+    root, jcfg0 = data
+    jcfg, tcfg = run_cfg(root, jcfg0, "reader")
+    kw = dict(keep_float16=True, shuffle_seed=3, skip_samples=4, reader_threads=threads)
+    for index in range(2):
+        jr = jreader.DataReader(jcfg)
+        tr = treader.DataReader(tcfg)
+        want = _samples(jr.get_reader(2, "train", process_shard=(index, 2), **kw)())
+        got = _samples(tr.get_reader(2, "train", process_shard=(index, 2), **kw)())
+        assert len(got) == len(want) > 0
+        for (a, b), (c, d) in zip(got, want):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, d)
+        # microbatches: this rank's share of each global microbatch of 2
+        # (JAX's reader at the share, 1 row), over whole global batches of 4
+        micro = _samples(tr.get_reader(2, "train", process_shard=(index, 2),
+                                       micro_batches=2, **kw)())
+        share = _samples(jr.get_reader(1, "train", process_shard=(index, 2), **kw)())
+        assert 0 < len(micro) <= len(share) and len(micro) % 2 == 0
+        for (a, b), (c, d) in zip(micro, share):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, d)
+        for reader in (jr, tr):
+            with pytest.raises(ValueError, match="train-only"):
+                list(reader.get_reader(2, "dev", process_shard=(index, 2))())
