@@ -3,11 +3,11 @@ kernel E's inputs, in kernel G and the int8 modes of kernels D and E, in
 kernel A, in kernel B and in the transformer's training, and read what each
 scores against ``chip_smoke.py``'s limits, beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8,9,10]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8,9,10,11]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
 (or, for part 10's data-parallel faults, in each rank's process) only;
-nothing in the checkout changes. Ten parts:
+nothing in the checkout changes. Eleven parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -118,6 +118,21 @@ nothing in the checkout changes. Ten parts:
     which bf16's rounding hides (read, and caught in float32), and each
     sound reading pass. Each case also prints the rounding witness
     (``chip_smoke.dp_witness``) read the same way.
+11. Phases 26-28's checks. Phase 26 (vocab tensor parallelism, 2 gloo
+    processes of a (data=1, model=2) grid on the card against one process,
+    ``TP_LIMITS``, the LSTM and transformer dev decodes against the world-1
+    decodes, the merge of a tie planted across the halves): the merge
+    without the rank offset; ties merged to the highest index; the
+    cross-entropy's sums left unreduced over the model group; the
+    vocab-parallel lookup without its mask; BN's sums reduced over every
+    process instead of the data group (the rows of a model group counted
+    twice). Phase 27 (the imported Paddle bundle against the NumPy oracle):
+    Paddle's gate order left unpermuted; the conv weights transposed twice
+    (the import's shape check refuses them). Phase 28 (phase 4's LSTM
+    bundle exported greedy, in this process): the export traced from the
+    kernel path (the trace refuses the kernels' device-pointer calls). Each must
+    be caught and each sound reading pass; phase 26's rounding witness
+    (``chip_smoke.dp_witness``) is printed beside them.
 
     python3 chip_fault_check.py --parts 3   # part 3 only
 
@@ -1096,11 +1111,169 @@ def dp_fault_readings(dev, seed, root, card):
     return caught
 
 
+# ---- part 11: vocab tensor parallelism, the Paddle import, the export -----------------
+# The first five plants run in each rank's process (``chip_smoke.tp_rank``),
+# before its steps and decodes.
+
+
+def _merge_without_offset():
+    """Each rank's argmax merged as a global id without its rank's offset."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import greedy_vocab_argmax
+    from myimagecaptioningmodel_tpu_torch.parallel import vocab_parallel as VP
+
+    def greedy_head(proj, table, bias, logits_fn=None):
+        ids, val = greedy_vocab_argmax(proj, table, bias, with_value=True)
+        return VP.merge_argmax(val, ids.long())
+
+    VP.greedy_head = greedy_head
+
+
+def _ties_to_highest_index():
+    """The merge's ties to the highest global index."""
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+    from myimagecaptioningmodel_tpu_torch.parallel import vocab_parallel as VP
+
+    def merge_argmax(value, index):
+        both = torch.stack([value.double(), index.double()])
+        got = distributed.all_gather_rows(both, distributed.model_group())
+        vals, idx = got[0::2], got[1::2]
+        cand = torch.where(vals == vals.max(dim=0).values, idx, torch.full_like(idx, -1.0))
+        return cand.max(dim=0).values.to(torch.int32)
+
+    VP.merge_argmax = merge_argmax
+
+
+def _ce_sums_unreduced():
+    """The cross-entropy's sums (of exp, the gold logit, the smoothing mean)
+    left unreduced over the model group: each rank's CE over its columns."""
+    from myimagecaptioningmodel_tpu_torch.parallel import vocab_parallel as VP
+
+    orig, dist = VP._CrossEntropy.forward, VP.distributed
+
+    def forward(ctx, *args):
+        reduce = dist.all_reduce_sum_
+        dist.all_reduce_sum_ = lambda t, group=None: t
+        try:
+            return orig(ctx, *args)
+        finally:
+            dist.all_reduce_sum_ = reduce
+
+    VP._CrossEntropy.forward = staticmethod(forward)
+
+
+def _embed_unmasked():
+    """The vocab-parallel lookup without its mask: every rank adds the row
+    its clamped local index reads."""
+    from myimagecaptioningmodel_tpu_torch.parallel import vocab_parallel as VP
+
+    def embed(p, ids, padding_idx=0):
+        table = p["table"]
+        vl = table.shape[0]
+        local = (ids - VP.vocab_offset(vl)).clamp(0, vl - 1)
+        rows = table[local] * (ids != padding_idx).unsqueeze(-1).to(table.dtype)
+        return VP._ReduceForward.apply(rows)
+
+    VP.embed = embed
+
+
+def _bn_over_the_world():
+    """BN's sums reduced over every process instead of the data group: the
+    ranks of a model group hold the same rows, which count twice."""
+    from myimagecaptioningmodel_tpu_torch.ops import layers as L
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+
+    def global_sums(*sums):
+        flat = distributed.all_reduce_sum_(torch.cat(sums))
+        return tuple(flat.split([t.numel() for t in sums]))
+
+    L.global_sums = global_sums
+
+
+TP_FAULTS = (_merge_without_offset, _ties_to_highest_index, _ce_sums_unreduced,
+             _embed_unmasked, _bn_over_the_world)
+
+
+def _gates_unpermuted(timp):
+    timp.permute_lstm_gates = lambda arr, hidden, axis=-1: arr
+
+
+def _conv_transposed_twice(timp):
+    orig = timp.conv_oihw_to_hwio
+    timp.conv_oihw_to_hwio = lambda w: orig(orig(w))
+
+
+def _export_from_the_kernel_path(EP):
+    """The export traced with ``use_kernels`` on (the kernels' path, whose
+    C calls read device pointers)."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+
+    orig = C.greedy_decode
+
+    def greedy_decode(model, images, opts):
+        return orig(model, images, opts._replace(use_kernels=True))
+
+    C.greedy_decode = greedy_decode
+    return lambda: setattr(C, "greedy_decode", orig)
+
+
+def tp_fault_readings(dev, seed, root, card):
+    """Part 11 -> {fault: caught}: phase 26's (data=1, model=2) readings
+    (``tp_readings``) sound and with each of ``TP_FAULTS``; phase 27 sound,
+    with the Paddle gates left unpermuted and with the conv weights
+    transposed twice; phase 28 on phase 4's bundle sound and with the export
+    traced from the kernel path."""
+    from myimagecaptioningmodel_tpu_torch.compat import paddle_import as timp
+    from myimagecaptioningmodel_tpu_torch.inference import export_program as EP
+
+    caught = {}
+    cfg, tf_cfg = S.tp_cfgs(root)
+    one = S.tp_one(cfg, tf_cfg, seed, dev)
+    S.say("fault", check="phase26", fault="rounding_witness",
+          **{f"{k}_err": v for k, v in S.dp_witness(cfg, seed, dev, one).items()})
+    torch.cuda.empty_cache()
+    for plant in (None,) + TP_FAULTS:
+        name = "tp_sound" if plant is None else plant.__name__.strip("_")
+        r, failed = S.tp_readings(cfg, tf_cfg, seed, dev, one, plant)
+        caught[name] = bool(failed)
+        S.say("fault", check="phase26", fault=name, failed=failed, caught=caught[name],
+              **{k: v for k, v in r.items() if k.endswith("_err") or k in (
+                  "replicated_bit_equal", "lstm_decode_bit_equal_each",
+                  "tf_rows_equal_plain_each", "tie_to_lowest_each", "lookup_exact_each")})
+    for name, plant in (("paddle_sound", None), ("gates_unpermuted", _gates_unpermuted),
+                        ("conv_transposed_twice", _conv_transposed_twice)):
+        saved = (timp.permute_lstm_gates, timp.conv_oihw_to_hwio)
+        if plant is not None:
+            plant(timp)
+        try:
+            S.phase_paddle_import(dev, seed, os.path.join(root, name), card)
+            caught[name], detail = False, ""
+        except (AssertionError, ValueError) as e:
+            caught[name], detail = True, str(e)[:160]
+        finally:
+            timp.permute_lstm_gates, timp.conv_oihw_to_hwio = saved
+        S.say("fault", check="phase27", fault=name, caught=caught[name], detail=detail)
+    lstm = S.write_bundle(os.path.join(root, "part11_lstm"), seed)
+    for name in ("export_sound", "export_from_the_kernel_path"):
+        undo = _export_from_the_kernel_path(EP) if name != "export_sound" else None
+        out = os.path.join(root, "part11_lstm", name)
+        try:  # in this process, where the plant reaches the trace
+            started = S.start_exports(out, {"lstm": lstm}, [("lstm", 0)], in_process=True)
+            S.phase_export(dev, seed, out, started, card)
+            caught[name], detail = False, ""
+        except Exception as e:  # the trace itself may refuse the kernels' calls
+            caught[name], detail = True, f"{type(e).__name__}: {str(e)[:160]}"
+        finally:
+            if undo is not None:
+                undo()
+        S.say("fault", check="phase28", fault=name, caught=caught[name], detail=detail)
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated parts to run")
     args = ap.parse_args(argv)
     parts = {int(x) for x in args.parts.split(",")}
@@ -1115,7 +1288,8 @@ def main(argv=None) -> int:
           TRAIN_LIMITS=json.dumps(S.TRAIN_LIMITS).replace(" ", ""),
           E_RESCORE=S.E_RESCORE[torch.bfloat16], E_GAP=S.E_GAP[torch.bfloat16],
           G_TOL=json.dumps({str(k).split(".")[-1]: v for k, v in S.G_TOL.items()}).replace(" ", ""),
-          DP_LIMITS=json.dumps(S.DP_LIMITS).replace(" ", ""))
+          DP_LIMITS=json.dumps(S.DP_LIMITS).replace(" ", ""),
+          TP_LIMITS=json.dumps(S.TP_LIMITS).replace(" ", ""))
     summary = {}
     if 1 in parts:
         summary["phase11_caught"] = stats_fault_readings(dev, args.seed)
@@ -1142,10 +1316,14 @@ def main(argv=None) -> int:
     if 10 in parts:
         with tempfile.TemporaryDirectory() as root:
             summary["phase24_25_caught"] = dp_fault_readings(dev, args.seed, root, card)
+    if 11 in parts:
+        with tempfile.TemporaryDirectory() as root:
+            summary["phase26_28_caught"] = tp_fault_readings(dev, args.seed, root, card)
     print(json.dumps(summary))
     sound = ("sound", "encoder_sound", "e_sound", "walker_sound", "export_sound", "served_sound",
              "reader_sound", "decode_sound", "bleu_sound", "resume_sound", "bc_sound",
-             "dp_exact_bn_sound", "dp_subset_bn_r96_sound", "dp_exact_bn_f32_sound")
+             "dp_exact_bn_sound", "dp_subset_bn_r96_sound", "dp_exact_bn_f32_sound",
+             "tp_sound", "paddle_sound", "export_sound")
     if any(bool(v.get(f)) for v in summary.values() for f in sound):
         return 1
     return 0 if all(bool(v[f]) for k, v in summary.items() if k != "phase11_caught"

@@ -3,14 +3,16 @@ the LSTM family served and trained (with the subset-statistics BN too), the
 transformer family served (float and int8) and trained, the fused-IRB eval
 encoder, the training workflow end to end (a corpus in port shards,
 ``loop.train`` with its dev BLEU, crash and resume, ``evaluate()``), batch
-captioning, and data-parallel training in a process group.
+captioning, data-parallel training in a process group, vocab tensor
+parallelism, the Paddle checkpoint import and the ``torch.export`` serving
+artifact.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (each prints one line; any failure exits non-zero with no result;
 17 and 18 run right after 2, and 3 and 20 after them, and 21, 22 and 23
-right after 13, while torch.profiler still reads every event; 24 and 25
-run last):
+right after 13, while torch.profiler still reads every event; 24-28 run
+last):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``myimagecaptioningmodel_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -278,6 +280,41 @@ run last):
    params and BN state bit-equal across the ranks, F launched as often as
    in one process; beside it the rounding witness (one process, the rows
    of each batch in another order) read the same way.
+26. vocab tensor parallelism (``parallel/vocab_parallel.py``) on the one
+   card: 2 gloo processes of a (data=1, model=2) grid, each holding 6,208
+   of the 12,416 vocab rows (``tp_readings``): (a) ``TP_STEPS`` bf16 B=128
+   fused steps of the full-width LSTM against one process from the same
+   start, the first loss, its BN statistics and every step's loss within
+   ``TP_LIMITS`` (the rounding witness beside it), the replicated params
+   and BN state bit-equal across the ranks, F as often as in one process,
+   each rank's peak memory beside one process's; (b) the loop's LSTM dev
+   decode of 128 images, kernel B without its head and A on each half (35
+   launches each a rank), merged over the ranks: ids bit-equal to the
+   world-1 kernel decode's (else each id the plain teacher-forced argmax
+   under the near-tie rule); a tie planted across the halves resolves to
+   the lower index, and the vocab-parallel lookup of ids on both halves
+   equals the full table's rows bit for bit; (c) kernel A alone on 6,208 and 3,104-row slices at
+   B=8 and 128 (``phase_a_slices``, run right after phase 2 while the
+   profiler reads every event): ids under the near-tie rule, the
+   winning logit within 1e-4 of the plain one, the slices merged equal to
+   A on the full vocab bit for bit, µs beside the full vocab's; (d) the
+   transformer's dev decode (plain blocks, A on each half) against the
+   world-1 plain decode (rows equal; else the near-tie rule) and D's;
+27. the Paddle import: synthetic full-width persistables written with the
+   port's ``paddle_fmt``, imported by ``compat.paddle_import``'s CLI entry
+   (``--strict``, float32, parity mode), served by ``load_bundle`` on the
+   card (the plain step with A as its head, 35 launches, B none): 8
+   images' ids equal to a NumPy copy of the reference's decode
+   (``paddle_oracle``);
+28. the serving export (``inference/export_program.py``): phase 4's LSTM
+   and phase 16's transformer bundles exported for ``cuda`` greedy and beam
+   4 at B=8 by the CLI, four processes started before phase 25 (b)
+   (tracing a 35-step decode takes one host core minutes; they trace beside
+   phases 25 (b)-27), each ``.pt2`` loaded and run in a subprocess where the port and
+   jax are blocked: ids equal to the plain decode's on the card id for id,
+   the rows equal to the kernel decode's, each export's wall s, bytes, and
+   ms a batch of the artifact, the plain path and the kernel path (each
+   artifact taken as its export ends, while the others still trace).
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -313,13 +350,18 @@ less than the kernel, the three cuDNN convolutions of each block for G,
 none for B, D and E); A, B, C and D also carry
 ``batch_caption_launches`` (phase 24's, by mode) and A, B and F
 ``dp_launches`` (phase 25's: (a)'s world-1 loop, and rank 0's F launches
-in each (b) case), after a line with the script's own seconds; the last
+in each (b) case), ``tp_launches`` (phase 26's: A and B in (b)'s and (d)'s
+decodes and F in (a), rank 0's) and A ``paddle_import_launches`` (27's)
+and its phase 26 (c) numbers on each slice under ``slice{rows}_b{B}``,
+after a line with the script's own seconds; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -1444,15 +1486,17 @@ def train_batch(cfg, dev, seed):
     return torch.as_tensor(images).to(dev), torch.as_tensor(caps).to(dev)
 
 
-def trainer(cfg, ref_params, ref_state, dev):
+def trainer(cfg, ref_params, ref_state, dev, vocab_parallel=False):
     """-> (train step, params, optimizer state, BN state) on ``dev`` from a
-    reference-layout tree, through compat/from_jax's float32 path."""
+    reference-layout tree, through compat/from_jax's float32 path
+    (``vocab_parallel``: the step of a vocab-parallel grid, on the full
+    trees; ``mesh.shard_state`` keeps a rank's rows)."""
     from myimagecaptioningmodel_tpu_torch.compat.from_jax import train_tree
     from myimagecaptioningmodel_tpu_torch.models import captioner as C
     from myimagecaptioningmodel_tpu_torch.parallel.train_step import build_steps, make_optimizer
     from myimagecaptioningmodel_tpu_torch.training import lr_schedules
 
-    opts = C.ModelOptions.from_config(cfg)
+    opts = C.ModelOptions.from_config(cfg)._replace(vocab_parallel=vocab_parallel)
     schedule = lr_schedules.from_config(cfg)
     optimizer = make_optimizer(cfg, schedule)
     dtype = torch.float64 if opts.compute_dtype == "float64" else torch.float32
@@ -4014,20 +4058,26 @@ def dp_readings(cfg, seed, dev, one, plant=None):
     return r, failed
 
 
-def dp_run(cfg, seed, dev, rows=None):
-    """``DP_STEPS`` train steps from the seeded init on ``rows`` of each
+def dp_run(cfg, seed, dev, rows=None, steps=DP_STEPS, model_parallel=1):
+    """``steps`` train steps from the seeded init on ``rows`` of each
     global batch (all when None) -> {"losses", "state" (BN state on the
     host after the last step), "state1" (after the first), "enc_grads1"
     (the encoder's gradients the first step's update takes, on the host),
-    "digest" (of the params and BN state), "f_launches" (kernel F's)}."""
+    "digest" (of the params and BN state; with ``model_parallel`` > 1, a
+    vocab-parallel grid of the process group, of the replicated params),
+    "f_launches" (kernel F's)}."""
     import hashlib
 
     from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.parallel import mesh as M
     from myimagecaptioningmodel_tpu_torch.parallel import train_step as TS
 
     opts = C.ModelOptions.from_config(cfg)
     ref_params, ref_state = C.init(torch.Generator().manual_seed(seed), opts)
-    step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
+    step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev,
+                                             vocab_parallel=model_parallel > 1)
+    if model_parallel > 1:  # this rank's rows of the vocab-sized leaves
+        params, opt_state = M.shard_state(M.make_mesh(dev, model_parallel), params, opt_state)
     encoder = {id(t) for t in TS.tree_leaves(params["encoder"])}
     grads1, apply = [], TS.Optimizer.apply
 
@@ -4041,7 +4091,7 @@ def dp_run(cfg, seed, dev, rows=None):
     TS.Optimizer.apply = first_grads
     try:
         with counting() as run:
-            for i in range(DP_STEPS):
+            for i in range(steps):
                 images, caps = dp_batch(cfg, seed, i)
                 if rows is not None:
                     images, caps = images[rows], caps[rows]
@@ -4054,7 +4104,9 @@ def dp_run(cfg, seed, dev, rows=None):
     finally:
         TS.Optimizer.apply = apply
     digest = hashlib.sha1()
-    for t in TS.tree_leaves(params) + TS.tree_leaves(state):
+    shared = [t for p, t in zip(M.leaf_paths(params), TS.tree_leaves(params))
+              if model_parallel == 1 or p not in M.VOCAB_SHARDED]
+    for t in shared + TS.tree_leaves(state):
         digest.update(t.detach().contiguous().cpu().numpy().tobytes())
     return {"losses": [float(x) for x in losses],
             "state": TS.tree_map(lambda t: t.detach().cpu(), state), "state1": first,
@@ -4170,7 +4222,7 @@ def bare_step_ms(cfg, dev, seed):
     return time_ms(one, reps=DP_TIMED, warmup=3)
 
 
-def phase_data_parallel(dev, seed, root, card):
+def phase_data_parallel(dev, seed, root, card, before_b=None):
     """Phase 25. (a) A world-1 NCCL group: ``loop.train`` of the full-width
     LSTM (bf16, B=128, kernel F) for 4 steps and a dev evaluation, against
     the same run without a group: the losses bit for bit, the reductions
@@ -4180,7 +4232,9 @@ def phase_data_parallel(dev, seed, root, card):
     one GPU; gloo takes the CUDA tensors itself), 64 rows each,
     ``DP_STEPS`` steps, against one process at 128 rows from the same start
     (``dp_readings``; the rounding witness beside it, ``dp_witness``).
-    -> {path: {kernel: launches}}."""
+    ``before_b`` runs before (b) (phase 28's exports start tracing there,
+    so (b)'s ms a step are read beside them). -> {path: {kernel:
+    launches}}."""
     from myimagecaptioningmodel_tpu_torch.data.reader import DataReader
     from myimagecaptioningmodel_tpu_torch.config import replace_nested
     from myimagecaptioningmodel_tpu_torch.parallel import distributed
@@ -4236,6 +4290,8 @@ def phase_data_parallel(dev, seed, root, card):
     # (b) two processes on the one card against one process, exact BN and
     # the subset-statistics BN with its rows across the ranks' boundary
     torch.cuda.empty_cache()
+    if before_b is not None:  # phase 28's exports start tracing here
+        before_b()
     for case in DP_CASES:
         cfg = dp_cfg(root, case)
         one = dp_run(cfg, seed, dev)
@@ -4249,6 +4305,597 @@ def phase_data_parallel(dev, seed, root, card):
         launches[f"dp2_{case}_rank0"] = {"matmul_stats": r["f_launches_each"][0]}
     say("dp_phase", seconds=round(time.perf_counter() - t0, 1))
     return launches
+
+
+# ---- phase 26: vocab tensor parallelism ----------------------------------------------
+
+TP_STEPS, TP_WORLD = 4, 2  # (a): steps, model ranks on the one card (data axis 1)
+TP_SLICES = (6208, 3104)  # a rank's vocab rows at model_parallel 2 and 4 (V_PAD 12416)
+# (a)'s limits: 2 gloo ranks of a (data=1, model=2) grid, each on all 128
+# rows, against one process from the same seeded start (bf16, kernel F): the
+# first step's loss and BN moving statistics after it, and every step's
+# loss. Calibrated by ``chip_fault_check.py`` part 11 against the rounding
+# witness (``dp_witness``: one process, the rows in another order) and the
+# planted faults; the readings are in that script's notes and PERF.md.
+TP_LIMITS = {"loss1_rel": 2.5e-5, "bn1_mean": 1.3e-3, "bn1_var": 2.5e-3, "loss_rel": 1e-2}
+TP_DECODE_IMAGES = 128
+
+
+def tp_cfgs(root):
+    """(a)'s and (b)'s full-width LSTM and (d)'s transformer: bf16, B=128,
+    kernel F."""
+    return (train_cfg(root, "bfloat16", True, 128, TRAINER_LR),
+            train_cfg(root, "bfloat16", True, 128, TRAINER_LR, TF_ARCH))
+
+
+def spread_bn(state, gen):
+    """The encoder's BN moving statistics spread (as ``write_bundle``'s), so
+    that images give distinct features."""
+    for s in state["encoder"].values():
+        n = s["bn"]["mean"].shape[0]
+        s["bn"]["mean"] = torch.randn(n, generator=gen) * 0.1
+        s["bn"]["var"] = torch.rand(n, generator=gen) * 0.3 + 0.3
+    return state
+
+
+def decode_setup(cfg, seed, dev):
+    """A training tree from ``seed`` (BN statistics spread) and 128 images
+    -> (params, state, images) on ``dev``."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import train_tree
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+
+    gen = torch.Generator().manual_seed(seed + 26)
+    params, state = C.init(gen, C.ModelOptions.from_config(cfg))
+    params, state = train_tree(params, spread_bn(state, gen), dev)
+    rng = np.random.RandomState(seed + 26)
+    images = torch.from_numpy(
+        rng.rand(TP_DECODE_IMAGES, *cfg.data.image_shape, 3).astype(np.float32)).to(dev)
+    return params, state, images
+
+
+def tree_decode(cfg, seed, dev, use_kernels=True, model_parallel=1):
+    """The loop's dev decode (``greedy_decode_tree`` on ``pack_decoder``'s
+    pack) of ``decode_setup``'s images -> (ids on the host, launches);
+    ``model_parallel`` > 1: this rank's rows of the table and the bias, the
+    head on them and the merge over the model group."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.parallel import mesh as M
+
+    params, state, images = decode_setup(cfg, seed, dev)
+    opts = C.ModelOptions.from_config(cfg)._replace(use_kernels=use_kernels,
+                                                    vocab_parallel=model_parallel > 1)
+    if model_parallel > 1:
+        params = M.shard_params(M.make_mesh(dev, model_parallel), params)
+    with torch.no_grad():
+        packed = C.pack_decoder(params["decoder"], opts)
+        with counting() as run:
+            ids = C.greedy_decode_tree(params, state, images, opts, packed)
+    return ids.cpu(), {k: v for k, v in run.counts.items() if v}
+
+
+def tp_rank(rank, cfg, tf_cfg, seed, device, plant=None):
+    """A rank of phase 26's (data=1, model=2) grid on the shared card: (a)
+    ``TP_STEPS`` train steps on every row of each batch (``dp_run``), its
+    peak memory; (b) the LSTM dev decode through B without its head and A on
+    this rank's rows; (d) the transformer's (plain blocks, A on the rows).
+    ``plant`` (a module-level function, or None) runs first."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if plant is not None:
+        plant()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = dp_run(cfg, seed, dev, steps=TP_STEPS, model_parallel=TP_WORLD)
+    out["peak_mib"] = round(torch.cuda.max_memory_allocated(dev) / 2 ** 20, 1)
+    torch.cuda.empty_cache()
+    out["lstm_ids"], out["lstm_launches"] = tree_decode(cfg, seed, dev,
+                                                        model_parallel=TP_WORLD)
+    out["tf_ids"], out["tf_launches"] = tree_decode(tf_cfg, seed, dev, model_parallel=TP_WORLD)
+    out["tie_ok"] = tp_tie_ok(dev)
+    out["embed_ok"] = tp_embed_ok(dev)
+    return out
+
+
+def tp_embed_ok(dev):
+    """The vocab-parallel lookup (this rank's half of a full-width table,
+    summed over the model group) of ids on both halves, the padding id and
+    the halves' edge rows: bit-equal to the full table's rows (zeros for
+    the padding id)."""
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+    from myimagecaptioningmodel_tpu_torch.parallel import vocab_parallel as VP
+
+    table = torch.rand(V_PAD, E, generator=torch.Generator().manual_seed(27)).to(dev)
+    ids = torch.tensor([[0, 2, 5, 6207, 6208, 6209, 12294, 12415]], device=dev)
+    rows = V_PAD // TP_WORLD
+    lo = distributed.model_index() * rows
+    with torch.no_grad():
+        got = VP.embed({"table": table[lo:lo + rows]}, ids, 0)
+    want = table[ids] * (ids != 0).unsqueeze(-1)
+    return bool(torch.equal(got, want))
+
+
+def tp_tie_ok(dev):
+    """Kernel A on this rank's half of a bf16 table whose rows 100 and 6308
+    (one in each half) are equal and best by far, then the merge over the
+    model group: every row must get 100, the lowest index."""
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+    from myimagecaptioningmodel_tpu_torch.parallel import vocab_parallel as VP
+
+    proj, table, bias, _s = tie_operands(torch.Generator().manual_seed(26), dev,
+                                         torch.bfloat16, [100, 6308])
+    rows = V_PAD // TP_WORLD
+    lo = distributed.model_index() * rows
+    ids = VP.greedy_head(proj, table[lo:lo + rows], bias[lo:lo + rows])
+    return bool((ids == 100).all())
+
+
+def tp_readings(cfg, tf_cfg, seed, dev, one, plant=None):
+    """(a), (b) and (d) on ``TP_WORLD`` gloo processes against one process
+    (``one``: ``dp_run``'s readings and its ``lstm_ids``, ``tf_ids``,
+    ``tf_plain_ids``) -> (readings, the limits or invariants failed)."""
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    ranks = distributed.spawn_local(tp_rank, TP_WORLD, args=(cfg, tf_cfg, seed, str(dev), plant),
+                                    timeout=600)
+    errs = {k: v for k, v in dp_compare(ranks[0], one).items() if k != "grad1_rel"}
+    equal_ranks = (ranks[0]["digest"] == ranks[1]["digest"]
+                   and ranks[0]["losses"] == ranks[1]["losses"])
+    lstm_same = [bool(torch.equal(r["lstm_ids"], one["lstm_ids"])) for r in ranks]
+    tf_same = [int((r["tf_ids"] == one["tf_plain_ids"]).all(dim=1).sum()) for r in ranks]
+    tf_kernel = int((ranks[0]["tf_ids"] == one["tf_ids"]).all(dim=1).sum())
+    r = {"grid": "data=1,model=2", "backend": "gloo", "steps": TP_STEPS,
+         "losses": [round(x, 6) for x in ranks[0]["losses"]],
+         "losses_one": [round(x, 6) for x in one["losses"]],
+         **{f"{k}_err": v for k, v in errs.items()},
+         "replicated_bit_equal": equal_ranks,
+         "f_launches_each": [x["f_launches"] for x in ranks], "f_launches_one": one["f_launches"],
+         "peak_mib_each": [x["peak_mib"] for x in ranks], "peak_mib_one": one["peak_mib"],
+         "lstm_decode_bit_equal_each": lstm_same,
+         "lstm_launches_each": json.dumps([x["lstm_launches"] for x in ranks]).replace(" ", ""),
+         "tf_rows_equal_plain_each": tf_same, "tf_rows_equal_kernel_d": tf_kernel,
+         "tf_launches_each": json.dumps([x["tf_launches"] for x in ranks]).replace(" ", ""),
+         "tie_to_lowest_each": [x["tie_ok"] for x in ranks],
+         "lookup_exact_each": [x["embed_ok"] for x in ranks],
+         "seconds": round(time.perf_counter() - t0, 1)}
+    failed = [k for k, v in errs.items() if k in TP_LIMITS and not v <= TP_LIMITS[k]]
+    if not equal_ranks:
+        failed.append("replicated_differ")
+    if any(x["f_launches"] != one["f_launches"] for x in ranks):
+        failed.append("f_launches")
+    if not all(x["tie_ok"] for x in ranks):
+        failed.append("tie_rule")
+    if not all(x["embed_ok"] for x in ranks):
+        failed.append("lookup")
+    want = {"fused_decode_step": 35, "greedy_vocab_argmax": 35}
+    if any(x["lstm_launches"] != want for x in ranks):
+        failed.append("lstm_launches")
+    if any(x["tf_launches"] != {"greedy_vocab_argmax": 35} for x in ranks):
+        failed.append("tf_launches")
+    for x, same in zip(ranks, lstm_same):
+        # bit for bit, or each id the plain argmax under the near-tie rule
+        if not same and not tp_lstm_ids_ok(cfg, seed, dev, x["lstm_ids"]):
+            failed.append("lstm_ids")
+    for x, n in zip(ranks, tf_same):
+        if n != TP_DECODE_IMAGES and not tp_tf_ids_ok(tf_cfg, seed, dev, x["tf_ids"]):
+            failed.append("tf_ids")
+    r["near_tie_checked"] = sorted(set(f for f in ("lstm", "tf") if
+                                       (f == "lstm" and not all(lstm_same))
+                                       or (f == "tf" and min(tf_same) < TP_DECODE_IMAGES)))
+    return r, failed
+
+
+def _decoder_pre(cfg, seed, dev):
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+
+    params, state, images = decode_setup(cfg, seed, dev)
+    opts = C.ModelOptions.from_config(cfg)
+    with torch.no_grad():
+        img_embed, _f, gf, _s = C.img2feature_tree(params, state, images, opts, train=False)
+    return params["decoder"], img_embed, gf, opts
+
+
+def tp_lstm_ids_ok(cfg, seed, dev, ids):
+    """The LSTM TP decode's ids against the plain teacher-forced argmax of
+    the same decode (near-tie rule)."""
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+
+    dec, img_embed, gf, opts = _decoder_pre(cfg, seed, dev)
+    with torch.no_grad():
+        pre = D.precompute(dec, img_embed, gf, opts.dtype)
+        return lstm_greedy_ok(dec, pre, ids.to(dev), opts.dtype, False)
+
+
+def tp_tf_ids_ok(cfg, seed, dev, ids):
+    """The transformer TP decode's ids against its plain teacher-forced
+    logits (near-tie rule)."""
+    from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
+
+    dec, img_embed, gf, opts = _decoder_pre(cfg, seed, dev)
+    with torch.no_grad():
+        pre = TTF.precompute(dec, img_embed, gf, opts.tdims.num_heads, opts.dtype)
+        return greedy_tf_check(dec, pre, ids.to(dev), opts.dtype, False)[0]
+
+
+def merge_parts(parts):
+    """(ids, values) of each vocab slice, global ids -> the argmax over all:
+    the largest value, ties to the lowest index (``vocab_parallel``'s rule)."""
+    vals = torch.stack([v for _i, v in parts])
+    idx = torch.stack([i.long() for i, _v in parts])
+    best = vals.max(dim=0).values
+    cand = torch.where(vals == best, idx, torch.full_like(idx, 1 << 40))
+    return cand.min(dim=0).values.to(torch.int32), best
+
+
+def phase_a_slices(dev, seed, t_a):
+    """(c) Kernel A alone on a rank's vocab slice (6,208 and 3,104 rows of
+    V_PAD), bf16, B in {8, 128}: each slice's ids against its plain version
+    (near-tie rule) and its winning logit against the plain logit of that
+    id; the slices' (id, value) merged equal A on the full vocab, id for id
+    and bit for bit; device µs on one slice beside the full vocab's (phase
+    2). -> {(rows, B): (ms, plain ms, addmm ms, bound ms, bound_by)}."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
+        greedy_vocab_argmax as kernel,
+        greedy_vocab_argmax_reference as plain,
+        head_logits_reference,
+    )
+
+    bf16, out = torch.bfloat16, {}
+    for rows in TP_SLICES:
+        for B in (8, 128):
+            proj, table, bias, _s = head_operands(torch.Generator().manual_seed(seed + B), dev,
+                                                  B, bf16)
+            full_ids, full_val = kernel(proj, table, bias, with_value=True)
+            parts, ok, val_err = [], True, 0.0
+            for lo in range(0, V_PAD, rows):
+                t, b = table[lo:lo + rows], bias[lo:lo + rows]
+                ids, val = kernel(proj, t, b, with_value=True)
+                logits = head_logits_reference(proj, t, b)
+                ok = ok and near_tie_ok(ids, logits, bf16)
+                val_err = max(val_err, float((val - logits.gather(1, ids.long()[:, None])[:, 0])
+                                             .abs().max()))
+                parts.append((ids + lo, val))
+            m_ids, m_val = merge_parts(parts)
+            merged = bool(torch.equal(m_ids, full_ids) and torch.equal(m_val, full_val))
+            t, b = table[:rows], bias[:rows]
+            t_k = time_ms(lambda: kernel(proj, t, b))
+            t_p = time_ms(lambda: plain(proj, t, b))
+            t_l = time_ms(lambda: logits_addmm(proj, t, b))
+            d_k = device_us(lambda: kernel(proj, t, b))
+            b_ms, b_by = bound(B * E * 4 + rows * E * 2 + rows * 4 + B * 4, 2 * B * rows * E, bf16)
+            out[(rows, B)] = (t_k, t_p, t_l, b_ms, b_by)
+            say("kernel_a_slice", rows=rows, B=B, near_tie_ok=ok, value_err=val_err,
+                merged_equals_full=merged, kernel_us=round(t_k * 1e3, 2),
+                kernel_device_us=round(d_k, 2), full_vocab_device_us=round(t_a[(bf16, B)][3], 2),
+                plain_us=round(t_p * 1e3, 2), addmm_logits_us=round(t_l * 1e3, 2),
+                bound_us=round(b_ms * 1e3, 2), bound_by=b_by,
+                bound_share=round(b_ms * 1e3 / d_k, 4))
+            if not (ok and merged and val_err <= 1e-4):
+                raise AssertionError(f"kernel A on {rows}-row slices, B={B}: near_tie {ok}, "
+                                     f"merged {merged}, value error {val_err}")
+    return out
+
+
+def tp_one(cfg, tf_cfg, seed, dev):
+    """One process's readings for phase 26: ``dp_run`` at all 128 rows with
+    its peak memory, and the world-1 decodes (LSTM through kernel B's graph
+    and A; transformer through D and plain)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    one = dp_run(cfg, seed, dev, steps=TP_STEPS)
+    one["peak_mib"] = round(torch.cuda.max_memory_allocated(dev) / 2 ** 20, 1)
+    torch.cuda.empty_cache()
+    one["lstm_ids"], one["lstm_launches"] = tree_decode(cfg, seed, dev)
+    one["tf_ids"], _ = tree_decode(tf_cfg, seed, dev)
+    one["tf_plain_ids"], _ = tree_decode(tf_cfg, seed, dev, use_kernels=False)
+    return one
+
+
+def phase_vocab_tp(dev, seed, root, card):
+    """Phase 26: vocab tensor parallelism on the one card. (a), (b), (d) on
+    2 gloo processes of a (data=1, model=2) grid against one process
+    (``tp_readings``; the rounding witness beside it); (c) runs right after
+    phase 2 (``phase_a_slices``), while the profiler reads every event. ->
+    A's and B's launches a rank in (b) and (d), F's in (a)."""
+    t0 = time.perf_counter()
+    cfg, tf_cfg = tp_cfgs(root)
+    one = tp_one(cfg, tf_cfg, seed, dev)
+    say("tp_rounding_witness", card=card.replace(" ", "_"),
+        **{f"{k}_err": v for k, v in dp_witness(cfg, seed, dev, one).items()
+           if k != "grad1_rel"})
+    torch.cuda.empty_cache()
+    r, failed = tp_readings(cfg, tf_cfg, seed, dev, one)
+    say("tp_two_processes", card=card.replace(" ", "_"), **r)
+    if failed:
+        raise AssertionError(f"vocab TP on two processes against one: {failed}")
+    say("tp_phase", seconds=round(time.perf_counter() - t0, 1))
+    return {"tp_lstm_dev_decode_rank0": json.loads(r["lstm_launches_each"])[0],
+            "tp_tf_dev_decode_rank0": json.loads(r["tf_launches_each"])[0],
+            "tp_train_rank0": {"matmul_stats": r["f_launches_each"][0]}}
+
+
+# ---- phase 27: the Paddle checkpoint import ---------------------------------------------
+
+
+def paddle_var_shapes(enc_params, V, E_, H_, C_=1280):
+    """Every variable a reference checkpoint holds, with its shape (the
+    reference's names; convs OIHW)."""
+    shapes = {"word_embedding": (V, E_), "out_fc_bias": (V,), "lstm_w": (E_ + H_ + H_, 4 * H_),
+              "lstm_b": (4 * H_,)}
+    dense = {0: (C_, H_), 1: (C_, H_), 4: (E_ + H_, H_), 9: (H_, 1), 11: (H_, E_)}
+    for i in range(12):
+        w = dense.get(i, (H_, H_))
+        shapes[f"fc_{i}.w_0"], shapes[f"fc_{i}.b_0"] = w, (w[1],)
+    for layer, p in enc_params.items():
+        kh, kw, ig, o = p["conv"]["w"].shape
+        shapes[f"{layer}_weights"] = (o, ig, kh, kw)
+        for s in ("scale", "offset", "mean", "variance"):
+            shapes[f"{layer}_bn_{s}"] = (o,)
+    return shapes
+
+
+def paddle_vars(enc_params, V, seed):
+    """Random values for every reference variable (the distributions of
+    ``tests/test_paddle_import.py``'s ``_make_paddle_vars``)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, shape in paddle_var_shapes(enc_params, V, E, H).items():
+        fan_in = shape[0] if len(shape) == 2 else int(np.prod(shape[1:])) or 1
+        if name.endswith("_bn_variance"):
+            arr = rng.uniform(0.8, 1.2, shape)
+        elif name.endswith("_bn_scale"):
+            arr = rng.uniform(0.9, 1.1, shape)
+        elif name.endswith(("_bn_mean", "_bn_offset", ".b_0")) or name == "lstm_b":
+            arr = rng.randn(*shape) * 0.05
+        elif name == "out_fc_bias":
+            arr = rng.randn(*shape) * 0.1
+        elif name == "word_embedding":
+            arr = rng.uniform(-0.5, 0.5, shape)
+        else:
+            arr = rng.randn(*shape) * (1.0 / np.sqrt(fan_in))
+        out[name] = arr.astype(np.float32)
+    return out
+
+
+def paddle_oracle(v, feat, steps, start=2, pad=0):
+    """A NumPy copy of the reference's eval decode on the Paddle-named
+    variables (``tests/test_paddle_import.py``'s ``_oracle_greedy``):
+    Paddle's (i, f, o, g) gates, the degenerate uniform attention, the tied
+    head -> int32 ids [B, steps]."""
+
+    def fc(n, x, act=None):
+        y = x @ v[f"{n}.w_0"] + v[f"{n}.b_0"]
+        return np.maximum(y, 0.0) if act == "relu" else np.tanh(y) if act == "tanh" else y
+
+    def sig(z):
+        return 1.0 / (1.0 + np.exp(-z))
+
+    img_feat = fc("fc_2", fc("fc_0", feat, "relu"), "tanh")
+    global_feat = fc("fc_1", feat.mean(1), "relu")
+    B, hid = feat.shape[0], v["fc_6.w_0"].shape[0]
+    h = np.zeros((B, hid), np.float32)
+    c = np.zeros((B, hid), np.float32)
+    word = np.full((B,), start, np.int64)
+    ids, k1 = [], img_feat.shape[1] + 1
+    for _ in range(steps):
+        xt = np.concatenate([v["word_embedding"][word] * (word != pad)[:, None], global_feat], -1)
+        i_, f_, o_, g_ = np.split(np.concatenate([xt, h], -1) @ v["lstm_w"] + v["lstm_b"], 4, -1)
+        c_new = sig(f_) * c + sig(i_) * np.tanh(g_)
+        h_new = sig(o_) * np.tanh(c_new)
+        sentinel = sig(fc("fc_4", xt) + fc("fc_5", h)) * np.tanh(c_new)
+        h, c = h_new, c_new
+        p_hid = fc("fc_6", h, "tanh")
+        out = fc("fc_10", (img_feat.sum(1) + sentinel) / k1 + p_hid, "tanh")
+        word = (fc("fc_11", out) @ v["word_embedding"].T + v["out_fc_bias"]).argmax(-1)
+        ids.append(word.astype(np.int32))
+    return np.stack(ids, axis=1)
+
+
+def phase_paddle_import(dev, seed, root, card):
+    """Phase 27: synthetic full-width Paddle persistables (the port's
+    ``paddle_fmt``), imported by the CLI's entry (``compat.paddle_import
+    --strict``, float32, parity mode; run in this process), served by
+    ``load_bundle`` on the card (the plain step with kernel A as its head):
+    8 images' ids equal to the NumPy oracle's, A 35 launches and B none ->
+    A's launches."""
+    from myimagecaptioningmodel_tpu_torch.compat import paddle_fmt, paddle_import
+    from myimagecaptioningmodel_tpu_torch.config import Config, replace_nested
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+
+    t0 = time.perf_counter()
+    cfg = Config()
+    for path, value in (("train.checkpoint_path", os.path.join(root, "paddle_save")),
+                        ("model.compute_dtype", "float32")):
+        cfg = replace_nested(cfg, path, value)
+    enc, _ = C.init(torch.Generator().manual_seed(seed), C.ModelOptions.from_config(cfg))
+    variables = paddle_vars(enc["encoder"], cfg.model.decoder.vocab_size, seed + 27)
+    src = os.path.join(root, "paddle_persistables")
+    paddle_fmt.write_persistables_dir(src, variables)
+    cfg_path = os.path.join(root, "paddle_cfg.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        f.write(cfg.to_json())
+    t1 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):  # the CLI's entry, in this process
+        paddle_import.main([src, os.path.join(cfg.train.checkpoint_path, "infer"),
+                            "--config", cfg_path, "--strict"])
+    import_s = time.perf_counter() - t1
+    model, bcfg, opts, decode = load_bundle(cfg, "infer", device=dev)
+    images = np.random.RandomState(seed + 27).rand(8, *cfg.data.image_shape, 3).astype(np.float32)
+    with counting() as run:
+        ids = decode(model, images)
+    _e, feat, _g = C.img2feature(model, images, opts)
+    want = paddle_oracle(variables, feat.cpu().numpy().astype(np.float32),
+                         opts.infer_max_length, opts.start_idx, opts.padding_idx)
+    got = ids.cpu().numpy()
+    launches = {k: v for k, v in run.counts.items() if v}
+    ms = time_ms(lambda: decode(model, images), reps=5, warmup=1)
+    say("paddle_import", card=card.replace(" ", "_"), vars=len(variables),
+        cli=printed.getvalue().strip().splitlines()[0].replace(" ", "_"),
+        parity_mode=bcfg.model.parity_mode,
+        ids_equal_oracle=bool((got == want).all()),
+        rows_equal=int((got == want).all(axis=1).sum()), launches=launches,
+        import_s=round(import_s, 1), ms_per_batch_b8=round(ms, 3),
+        seconds=round(time.perf_counter() - t0, 1))
+    if not (got == want).all() or launches != {"greedy_vocab_argmax": 35}:
+        raise AssertionError(f"the imported Paddle bundle: ids equal the oracle's in "
+                             f"{int((got == want).all(axis=1).sum())} of 8 rows, launches "
+                             f"{launches}")
+    return launches
+
+
+# ---- phase 28: the serving export ----------------------------------------------------
+
+EXPORT_LOADER = """
+import json, sys, time
+for name in ("jax", "jaxlib", "flax", "optax", "myimagecaptioningmodel_tpu",
+             "myimagecaptioningmodel_tpu_torch"):
+    sys.modules[name] = None  # the artifact runs with torch alone
+import numpy as np, torch
+root, names = sys.argv[1], sys.argv[2:]
+out = {}  # name -> ms a batch
+for name in names:
+    x = torch.from_numpy(np.load(f"{root}/{name}.npy")).cuda()
+    prog = torch.export.load(f"{root}/{name}.pt2").module()
+    ids = prog(x)
+    for _ in range(2):
+        prog(x)
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(5):
+        prog(x)
+    e.record()
+    torch.cuda.synchronize()
+    np.save(f"{root}/{name}_ids.npy", ids.cpu().numpy())
+    out[name] = s.elapsed_time(e) / 5
+print(json.dumps(out))
+"""
+
+
+EXPORTS = [(arch, beam) for arch in ("lstm", "transformer") for beam in (0, BEAM)]
+
+
+def start_exports(root, cfgs, exports=EXPORTS, in_process=False):
+    """Phase 28's exports of ``cfgs``' bundles (``inference.export_program``,
+    ``cuda``, B=8), each through the CLI in a process of its own, started
+    here and left running (tracing a 35-step decode takes minutes of one
+    host core, so they trace beside phases 25 (b)-27) -> {name: (process, cfg,
+    beam, start time)}; ``in_process``: each exported here, one by one
+    (process None)."""
+    out_dir = os.path.join(root, "export")
+    os.makedirs(out_dir, exist_ok=True)
+    started = {}
+    for arch, beam in exports:
+        cfg = cfgs[arch]
+        name = f"{arch}_{'beam' if beam else 'greedy'}"
+        path = os.path.join(out_dir, f"{name}.pt2")
+        t0 = time.time()  # the artifact's mtime ends its export
+        if in_process:
+            from myimagecaptioningmodel_tpu_torch.inference import export_program as EP
+
+            EP.export_to_file(path, EP.export_decode(cfg, "infer", 8, beam, "cuda"))
+            started[name] = (None, cfg, beam, t0)
+            continue
+        cfg_path = os.path.join(out_dir, f"{name}.json")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            f.write(cfg.to_json())
+        with open(os.path.join(out_dir, f"{name}.log"), "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "myimagecaptioningmodel_tpu_torch.inference.export_program",
+                 os.path.join(cfg.train.checkpoint_path, "infer"), path, "--config", cfg_path,
+                 "--batch", "8", "--beam", str(beam), "--device", "cuda"],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        started[name] = (proc, cfg, beam, t0)
+    return started
+
+
+def phase_export(dev, seed, root, started, card, timeout=900):
+    """Phase 28: ``start_exports``' artifacts (the CLI's, for ``cuda``, B=8),
+    taken as each export ends: each loaded and run in a subprocess where the
+    port and jax cannot be imported (``EXPORT_LOADER``): its ids equal the
+    plain decode's on the card id for id; the rows equal to the kernel
+    decode's, the export's wall s, bytes, ms a batch of the artifact, the
+    plain path and the kernel path (read while the other exports trace)."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(root, "export")
+    pending, rows, loaders = dict(started), {}, {}
+    try:
+        while pending:
+            done = [n for n, (proc, *_r) in pending.items()
+                    if proc is None or proc.poll() is not None]
+            if not done:
+                if time.perf_counter() - t0 > timeout:
+                    raise AssertionError(f"exports not done in {timeout} s: {sorted(pending)}")
+                time.sleep(0.5)
+                continue
+            for name in done:
+                proc, cfg, beam, t_start = pending.pop(name)
+                if proc is not None and proc.returncode:
+                    with open(os.path.join(out_dir, f"{name}.log")) as log:
+                        raise AssertionError(f"export_program {name} failed: {log.read()}")
+                rows[name] = export_readings(dev, seed, out_dir, name, cfg, beam, t_start)
+                loaders[name] = subprocess.Popen(
+                    [sys.executable, "-c", EXPORT_LOADER, out_dir, name], cwd=root,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        artifact_ms = {}
+        for name, loader in loaders.items():
+            stdout, stderr = loader.communicate(timeout=600)
+            if loader.returncode:
+                raise AssertionError(f"loading the artifact {name} failed: {stdout}{stderr}")
+            artifact_ms.update(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for loader in loaders.values():
+            if loader.poll() is None:
+                loader.kill()
+                loader.wait()
+    failed = []
+    for name, r in rows.items():
+        got = np.load(os.path.join(out_dir, f"{name}_ids.npy"))
+        same = bool((got == r["plain_ids"]).all())
+        say("export", card=card.replace(" ", "_"), artifact=name, B=8,
+            export_wall_s=r["export_s"], bytes=r["bytes"], ids_equal_plain=same,
+            rows_equal_kernel=int((got == r["kernel_ids"]).all(axis=1).sum()),
+            artifact_ms=round(artifact_ms[name], 3), plain_ms=round(r["plain_ms"], 3),
+            kernel_ms=round(r["kernel_ms"], 3))
+        if not same:
+            failed.append(name)
+    say("export_phase", seconds_after_start=round(time.perf_counter() - t0, 1))
+    if failed:
+        raise AssertionError(f"exported artifacts whose ids differ from the plain decode's: "
+                             f"{failed}")
+
+
+def export_readings(dev, seed, out_dir, name, cfg, beam, t_start):
+    """One artifact's readings in this process: its export's wall s and
+    bytes, the B=8 images the loader runs it on, the plain and kernel
+    decodes' ids and ms a batch on the card."""
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+
+    path = os.path.join(out_dir, f"{name}.pt2")
+    images = np.random.RandomState(seed + 28).rand(8, *cfg.data.image_shape, 3).astype(
+        np.float32)
+    np.save(os.path.join(out_dir, f"{name}.npy"), images)
+    model, _b, opts, decode = load_bundle(cfg, "infer", beam, device=dev)
+    plain = opts._replace(use_kernels=False)
+    if beam:
+        def plain_fn():
+            return beam_decode(model, images, plain, beam, stop_idx=plain.stop_idx)[0]
+    else:
+        def plain_fn():
+            return C.greedy_decode(model, images, plain)
+    r = {"export_s": round(os.path.getmtime(path) - t_start, 1),
+         "bytes": os.path.getsize(path),
+         "plain_ids": plain_fn().cpu().numpy(),
+         "kernel_ids": decode(model, images).cpu().numpy(),
+         "plain_ms": time_ms(plain_fn, reps=3, warmup=1),
+         "kernel_ms": time_ms(lambda: decode(model, images), reps=5, warmup=1)}
+    del model
+    torch.cuda.empty_cache()
+    return r
 
 
 def main(argv=None) -> int:
@@ -4270,6 +4917,7 @@ def main(argv=None) -> int:
 
     card = phase_card_and_build()
     err_a, t_a = phase_kernel_a(dev, args.seed)
+    t_slices = phase_a_slices(dev, args.seed, t_a)  # phase 26 (c), early: see 17-18
     # phases 17-18 early: run after the training and decode profiles (and
     # ~120 profiler sessions), torch.profiler came back with events missing
     # or none on the card, though it read them in a fresh process
@@ -4322,7 +4970,21 @@ def main(argv=None) -> int:
         del model
         torch.cuda.empty_cache()
         bc = phase_batch_caption(dev, args.seed, {"lstm": cfg, "transformer": tf_cfg}, card)
-        dp = phase_data_parallel(dev, args.seed, root, card)
+        exports = {}
+        try:
+            dp = phase_data_parallel(dev, args.seed, root, card, before_b=lambda: exports.update(
+                start_exports(root, {"lstm": cfg, "transformer": tf_cfg})))
+            torch.cuda.empty_cache()
+            tp = phase_vocab_tp(dev, args.seed, root, card)
+            torch.cuda.empty_cache()
+            paddle = phase_paddle_import(dev, args.seed, root, card)
+            torch.cuda.empty_cache()
+            phase_export(dev, args.seed, root, exports, card)
+        finally:
+            for proc, *_rest in exports.values():
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
     bf16 = torch.bfloat16
     f_key = (bf16, "conv3_1_expand")
@@ -4352,6 +5014,11 @@ def main(argv=None) -> int:
         t_k, t_p, t_l, d_k, d_l, b_ms, b_by = t_a[(bf16, B)]
         return at_b(t_k, t_p, t_l, b_ms, b_by, d_k / 1e3, d_l / 1e3)
 
+    def a_slice(rows, B):
+        t_k, t_p, t_l, b_ms, b_by = t_slices[(rows, B)]
+        return {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": t_l}
+
     def g_at(B):
         t_k, t_p, t_l, b_ms, d_k, d_l, b_by = t_g[(bf16, B)]
         return at_b(t_k, t_p, t_l, b_ms, b_by, d_k, d_l)
@@ -4362,7 +5029,10 @@ def main(argv=None) -> int:
          "max_abs_err": max(err_a, err_a8), **a_at(8), "b128": a_at(128),
          "trainer_launches": in_trainer("greedy_vocab_argmax"),
          "batch_caption_launches": in_paths(bc, "greedy_vocab_argmax"),
-         "dp_launches": in_paths(dp, "greedy_vocab_argmax")},
+         "dp_launches": in_paths(dp, "greedy_vocab_argmax"),
+         "tp_launches": in_paths(tp, "greedy_vocab_argmax"),
+         "paddle_import_launches": paddle["greedy_vocab_argmax"],
+         **{f"slice{rows}_b{B}": a_slice(rows, B) for rows in TP_SLICES for B in (8, 128)}},
         {"name": "fused_decode_step", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": KERNEL_B_TPU, "launches": launches["fused_decode_step"],
          "max_abs_err": err_b, **b_at(8, True), "b128": b_at(128, True),
@@ -4371,7 +5041,8 @@ def main(argv=None) -> int:
          "beam_decode_device_ms": lstm_decodes["lstm_beam_8"][1],
          "trainer_launches": in_trainer("fused_decode_step"),
          "batch_caption_launches": in_paths(bc, "fused_decode_step"),
-         "dp_launches": in_paths(dp, "fused_decode_step")},
+         "dp_launches": in_paths(dp, "fused_decode_step"),
+         "tp_launches": in_paths(tp, "fused_decode_step")},
         {"name": "topk_vocab_head", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": KERNEL_C_TPU, "launches": beam_launches["topk_vocab_head"],
          "max_abs_err": err_c, "ms": t_c[(bf16, 8 * BEAM, BEAM)][0],
@@ -4383,7 +5054,8 @@ def main(argv=None) -> int:
          "replaces": KERNEL_F_TPU, "launches": train_launches["matmul_stats"],
          "tf_train_launches": tf_f_launches, "max_abs_err": err_f, "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
          "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2],
-         "trainer_launches": in_trainer("matmul_stats"), "dp_launches": in_paths(dp, "matmul_stats")},
+         "trainer_launches": in_trainer("matmul_stats"), "dp_launches": in_paths(dp, "matmul_stats"),
+         "tp_launches": in_paths(tp, "matmul_stats")},
     ]
     def de_at(t, busy_ms):
         """D's or E's numbers at one batch, the device busy ms per decode beside."""

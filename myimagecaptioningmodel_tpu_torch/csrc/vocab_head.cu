@@ -42,7 +42,9 @@
 //      through a few words of shared memory, and one (max, index) per
 //      (row, tile) goes to part_v / part_i.
 //   2. argmax_merge: a warp per batch row over the row's tiles, 16 loads a
-//      lane in flight at a time. A merge inside the tile kernel (the last
+//      lane in flight at a time; it also writes the winning logit when the
+//      caller asks for it (out_v, the vocab-parallel decode's merge over
+//      ranks: the value of the tile kernel's own sum, not a recomputation). A merge inside the tile kernel (the last
 //      block to take a ticket) measured slower on an H100 (chip_probe.py):
 //      the release fence before every block's ticket added ~1.2 us to each
 //      block, more than this kernel's ~2 us.
@@ -540,7 +542,7 @@ constexpr int kMergeWarps = 8, kMergeBatch = 16;
 __global__ void __launch_bounds__(kMergeWarps * 32)
     argmax_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
                  int pstride, int ntiles, int M, int* __restrict__ out,
-                 const int* __restrict__ skip) {
+                 float* __restrict__ out_v, const int* __restrict__ skip) {
   if (pdl_enter(skip)) return;
   const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32, lane = threadIdx.x & 31;
   if (row >= M) return;  // a whole warp
@@ -567,13 +569,16 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   }
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) shfl_best(bv, bi, off);
-  if (lane == 0) out[row] = bi[0];
+  if (lane == 0) {
+    out[row] = bi[0];
+    if (out_v != nullptr) out_v[row] = bv[0];
+  }
 }
 
 template <typename T, class Sh>
 static bool launch(int M, int V, int E, const float* proj, const void* table, const float* bias,
                    const float* scale, float* part_v, int* part_i, int pstride, int* out,
-                   const int* skip, bool pdl, cudaStream_t stream) {
+                   const int* skip, bool pdl, cudaStream_t stream, float* out_v) {
   static const bool raised = raise_smem_limit(argmax_tile<T, Sh>);
   const size_t smem = smem_bytes<T, Sh>(E);
   if (!raised || smem > kMaxDynamicSmem) return false;
@@ -583,7 +588,7 @@ static bool launch(int M, int V, int E, const float* proj, const void* table, co
                part_i, pstride, skip) != cudaSuccess)
     return true;  // reported by the caller
   launch_k(pdl, argmax_merge, (M + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream,
-           part_v, part_i, pstride, ntiles, M, out, skip);
+           part_v, part_i, pstride, ntiles, M, out, out_v, skip);
   return true;
 }
 
@@ -594,7 +599,7 @@ int vocab_argmax_width(int V) { return (V + 31) / 32; }  // the smallest VT
 bool vocab_argmax_launch(int table_dtype, int M, int V, int E, const float* proj,
                          const void* table, const float* bias, const float* scale,
                          float* part_v, int* part_i, int pstride, int* out, const int* skip,
-                         bool pdl, cudaStream_t stream) {
+                         bool pdl, cudaStream_t stream, float* out_v) {
   if (M < 1 || V < 1 || E < 8 || E % 8 != 0 || (table_dtype == kI8) != (scale != nullptr) ||
       pstride < vocab_argmax_width(V))
     return false;
@@ -602,12 +607,12 @@ bool vocab_argmax_launch(int table_dtype, int M, int V, int E, const float* proj
     using T = TableT<decltype(tag)>;
     if (M <= 8)
       return argmax::launch<T, argmax::Small8>(M, V, E, proj, table, bias, scale, part_v, part_i,
-                                               pstride, out, skip, pdl, stream);
+                                               pstride, out, skip, pdl, stream, out_v);
     if (M <= 16)
       return argmax::launch<T, argmax::Small16>(M, V, E, proj, table, bias, scale, part_v,
-                                                part_i, pstride, out, skip, pdl, stream);
+                                                part_i, pstride, out, skip, pdl, stream, out_v);
     return argmax::launch<T, argmax::Large>(M, V, E, proj, table, bias, scale, part_v, part_i,
-                                            pstride, out, skip, pdl, stream);
+                                            pstride, out, skip, pdl, stream, out_v);
   });
 }
 
@@ -649,14 +654,18 @@ int capk_vocab_argmax_vocab_tile(int M) {
 // table_dtype: capk::kF32, kBF16, or kI8 with a float32 scale (null for the
 // float tables); proj is float32 and is rounded to the table's dtype (to
 // bfloat16 for int8) before the product. E must be a multiple of 8.
-// part_v / part_i hold M x capk_vocab_argmax_nblocks(V) elements.
+// part_v / part_i hold M x capk_vocab_argmax_nblocks(V) elements. out_v
+// (null: not written) gets each row's winning logit, as the tile kernel
+// summed it.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for operands the kernel
 // does not take).
 int capk_vocab_argmax(int table_dtype, int M, int V, int E, const float* proj,
                       const void* table, const float* bias, const float* scale,
-                      float* part_v, int* part_i, int* out, cudaStream_t stream) {
+                      float* part_v, int* part_i, int* out, float* out_v,
+                      cudaStream_t stream) {
   if (!capk::vocab_argmax_launch(table_dtype, M, V, E, proj, table, bias, scale, part_v, part_i,
-                                 capk::vocab_argmax_width(V), out, nullptr, false, stream))
+                                 capk::vocab_argmax_width(V), out, nullptr, false, stream,
+                                 out_v))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -17,11 +17,12 @@ int vocab_argmax_width(int V);
 // once when skip is not null and *skip is set; `pdl` launches both with
 // programmatic dependent launch (common.cuh's launch_k). false for operands
 // the kernels do not take (the caller then reads no CUDA error); launch
-// errors are left for cudaGetLastError().
+// errors are left for cudaGetLastError(). out_v, if not null, gets each
+// row's winning logit.
 bool vocab_argmax_launch(int table_dtype, int M, int V, int E, const float* proj,
                          const void* table, const float* bias, const float* scale,
                          float* part_v, int* part_i, int pstride, int* out, const int* skip,
-                         bool pdl, cudaStream_t stream);
+                         bool pdl, cudaStream_t stream, float* out_v = nullptr);
 
 // The greedy decodes' step tail (kernels D and B's whole decodes), after
 // the argmax: with `early`, rows that are done emit <pad> and a row is done

@@ -50,6 +50,7 @@ from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
     topk_vocab_head,
 )
 from myimagecaptioningmodel_tpu_torch.ops.quantization import dense_in_dim, head_table
+from myimagecaptioningmodel_tpu_torch.utils import tracing
 
 NEG_INF = -1e9
 
@@ -201,7 +202,7 @@ def beam_search_ids(
     words, srcs = [], []  # per step [B, W]: chosen word, its source beam
 
     for _t in range(max_length):
-        if early_stop and bool(finished.all()):
+        if early_stop and tracing.all_done(finished):
             break
         h, c, logits = decoder_mod.step(params, pre_t, word, h, c, parity_mode, padding_idx, dt)
         logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, W, V)

@@ -23,6 +23,13 @@ CUDA unless the caller asks for the CPU (``resolve_device``).
 
 Both decoder families serve and train (``arch``: the LSTM of
 ``models/decoder.py``, the transformer of ``models/transformer.py``).
+
+``opts.vocab_parallel`` (vocab tensor parallelism, ``parallel/mesh.py``):
+the params hold this rank's rows of the tied table and of ``out_bias``;
+``loss_terms`` runs the families' forwards on them with the vocab-parallel
+lookup, head input and cross-entropy (``parallel/vocab_parallel.py``), and
+the greedy decode runs on the full table, gathered once
+(``pack_decoder``), with the head on this rank's rows.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from myimagecaptioningmodel_tpu_torch.models import transformer as transformer_m
 from myimagecaptioningmodel_tpu_torch.models.decoder import DecoderDims
 from myimagecaptioningmodel_tpu_torch.models.transformer import TransformerDims
 from myimagecaptioningmodel_tpu_torch.ops import layers as L
+from myimagecaptioningmodel_tpu_torch.parallel import vocab_parallel as VP
 
 Params = Dict[str, Any]
 
@@ -81,6 +89,8 @@ class ModelOptions(NamedTuple):
     quantize_kv: bool = False
     # uniform label smoothing over the real vocab rows; 0 = hard targets
     label_smoothing: float = 0.0
+    # the table and out_bias sharded by rows over the model group
+    vocab_parallel: bool = False
 
     @classmethod
     def from_config(cls, cfg) -> "ModelOptions":
@@ -208,13 +218,18 @@ def loss_terms(params: Params, state: Params, images, captions: torch.Tensor,
         tpre = transformer_mod.precompute(dec, img_embed, global_feat,
                                           opts.tdims.num_heads, opts.dtype)
         logits = transformer_mod.teacher_forcing_logits(
-            dec, tpre, source, opts.tdims, opts.padding_idx, opts.dtype)  # [B, T, V]
+            dec, tpre, source, opts.tdims, opts.padding_idx, opts.dtype,
+            opts.vocab_parallel)  # [B, T, V]
         real_v = opts.tdims.vocab_size
     else:
         pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
         logits = decoder_mod.teacher_forcing_logits(
-            dec, pre, source, opts.parity_mode, opts.padding_idx, opts.dtype)  # [B, T, V]
+            dec, pre, source, opts.parity_mode, opts.padding_idx, opts.dtype,
+            opts.vocab_parallel)  # [B, T, V]
         real_v = opts.dims.vocab_size
+    if opts.vocab_parallel:  # this rank's columns [B, T, V_local]
+        ce = VP.cross_entropy(logits, target, real_v, opts.label_smoothing)
+        return (ce * mask).sum(), mask.sum(), new_state
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, target[..., None])[..., 0]
     ce = logz - gold
@@ -234,6 +249,19 @@ def loss_fn(params: Params, state: Params, images, captions, opts: ModelOptions)
 
 def _decode_features(dec: Params, img_embed, global_feat, opts: ModelOptions,
                      packed=None):
+    vocab_slice = None
+    if opts.vocab_parallel:  # the full table, and the head on this rank's rows
+        if not isinstance(packed, VP.DecodePack):
+            packed = pack_decoder(dec, opts)
+        dec, vocab_slice, packed = packed
+    if opts.arch == "transformer" and vocab_slice is not None:
+        tpre = transformer_mod.precompute(dec, img_embed, global_feat,
+                                          opts.tdims.num_heads, opts.dtype)
+        return transformer_mod.greedy_decode_ids(
+            dec, tpre, opts.tdims, opts.infer_max_length, opts.start_idx,
+            opts.padding_idx, opts.dtype, use_kernels=opts.use_kernels,
+            early_stop=opts.early_stop_decode, stop_idx=opts.stop_idx,
+            vocab_slice=vocab_slice)
     if opts.arch == "transformer":  # kernel D exactly when use_kernels is set
         tpre = transformer_mod.precompute(dec, img_embed, global_feat,
                                           opts.tdims.num_heads, opts.dtype)
@@ -256,6 +284,7 @@ def _decode_features(dec: Params, img_embed, global_feat, opts: ModelOptions,
         early_stop=opts.early_stop_decode,
         stop_idx=opts.stop_idx,
         packed=packed,
+        vocab_slice=vocab_slice,
     )
 
 
@@ -273,7 +302,18 @@ def pack_decoder(dec: Params, opts: ModelOptions):
     ``fused_step.pack_weights``; transformer: D and E,
     ``fused_transformer.pack_weights``) in the compute dtype, or None when
     ``opts.use_kernels`` is off. A served bundle packs once at load; a dev
-    evaluation packs once for all its batches."""
+    evaluation packs once for all its batches. Under ``opts.vocab_parallel``
+    a ``vocab_parallel.DecodePack``: the full table gathered over the model
+    group (every rank of it calls this), and kernel B's pack of it for the
+    LSTM on a card (D and E are not used: the plain transformer blocks)."""
+    if opts.vocab_parallel:
+        full, rows = VP.full_decoder(dec)
+        packed = None
+        if opts.use_kernels and opts.arch != "transformer" and not opts.parity_mode:
+            from myimagecaptioningmodel_tpu_torch.ops.kernels.fused_step import pack_weights
+
+            packed = pack_weights(full, opts.dtype)
+        return VP.DecodePack(full, rows, packed)
     if not opts.use_kernels:
         return None
     if opts.arch == "transformer":

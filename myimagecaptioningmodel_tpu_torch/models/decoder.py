@@ -25,6 +25,13 @@ time, a Python loop over T keeps only the h-recurrent product (each step
 under ``torch.utils.checkpoint``, the reference's ``remat``), and the
 all-steps attention scores are checkpointed too, so the backward recomputes
 the ``[T, B, k, H]`` tanh tensor instead of storing it.
+
+Under vocab tensor parallelism (``parallel/vocab_parallel.py``) the params
+hold this rank's rows of the table and of ``out_bias``:
+``teacher_forcing_logits(vocab_parallel=True)`` looks the words up across
+the model group and returns this rank's logit columns, and
+``greedy_decode_ids(vocab_slice=(lo, hi))`` decodes on the full table (for
+the word rows) with the head on rows ``[lo, hi)``, merged over the group.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ from myimagecaptioningmodel_tpu_torch.ops.quantization import (
     head_table,
     is_quantized,
 )
+from myimagecaptioningmodel_tpu_torch.parallel import vocab_parallel as VP
+from myimagecaptioningmodel_tpu_torch.utils import tracing
 
 Params = Dict[str, Any]
 
@@ -230,8 +239,11 @@ def teacher_forcing_logits(
     parity_mode: bool = False,
     padding_idx: int = 0,
     compute_dtype=torch.bfloat16,
+    vocab_parallel: bool = False,
 ) -> torch.Tensor:
-    """Training forward over the whole caption -> logits [B, T, V] float32."""
+    """Training forward over the whole caption -> logits [B, T, V] float32
+    (``vocab_parallel``: this rank's columns [B, T, V_local] of a table
+    sharded by rows)."""
     B, T = source.shape
     H = dense_in_dim(params["p_hid"])
     dt = compute_dtype
@@ -239,7 +251,8 @@ def teacher_forcing_logits(
     h0 = torch.zeros((B, H), dtype=torch.float32, device=dev)
 
     # the word, global and bias gate terms of every step, batched over time
-    word_emb = L.embed(params["embedding"], source, padding_idx)  # [B, T, E]
+    embed = VP.embed if vocab_parallel else L.embed
+    word_emb = embed(params["embedding"], source, padding_idx)  # [B, T, E]
     E = word_emb.shape[-1]
     lw = params["lstm"]["w"]
     gx = (torch.matmul(word_emb.to(dt), lw[:E].to(dt)).float()
@@ -287,6 +300,8 @@ def teacher_forcing_logits(
 
     out = torch.tanh(L.dense(params["out"], context + p_hid, dt))
     proj = L.dense(params["out_proj"], out, dt)  # [T, B, E]
+    if vocab_parallel:
+        proj = VP.head_input(proj)
     return head_logits(params, proj, dt).transpose(0, 1)  # [B, T, V]
 
 
@@ -302,8 +317,15 @@ def greedy_decode_ids(
     early_stop: bool = False,
     stop_idx: int = 3,
     packed=None,
+    vocab_slice=None,
 ) -> torch.Tensor:
     """Greedy decode, argmax feedback for ``max_length`` steps -> int32 [B, T].
+
+    ``vocab_slice`` (lo, hi): vocab tensor parallelism, ``params`` with the
+    full table (``vocab_parallel.full_decoder``); the head runs on rows
+    ``[lo, hi)`` and is merged over the model group
+    (``vocab_parallel.greedy_head``: kernel A on the slice on a card), step
+    by step, with no host check (``_greedy_vocab_parallel``).
 
     ``use_kernels``: the whole decode is kernel B's (``ops/kernels/
     fused_step.lstm_greedy_decode``: each step the fused step ending in the
@@ -321,6 +343,10 @@ def greedy_decode_ids(
     dev = pre.global_feat.device
     dt = compute_dtype
 
+    if vocab_slice is not None:
+        return _greedy_vocab_parallel(params, pre, max_length, start_idx, parity_mode,
+                                      padding_idx, dt, use_kernels, early_stop, stop_idx,
+                                      packed, vocab_slice)
     if use_kernels and not parity_mode:
         from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
 
@@ -349,7 +375,7 @@ def greedy_decode_ids(
     ids = torch.full((B, max_length), padding_idx, dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     for t in range(max_length):
-        if early_stop and bool(done.all()):
+        if early_stop and tracing.all_done(done):
             break
         h, c, proj = step_core(params, pre, word, h, c, parity_mode, padding_idx, dt)
         nxt = argmax_head(proj)
@@ -358,4 +384,51 @@ def greedy_decode_ids(
             done = done | (nxt == stop_idx)
         ids[:, t] = nxt
         word = nxt.long()
+    return ids
+
+
+def _greedy_vocab_parallel(params: Params, pre: Precomputed, max_length: int, start_idx: int,
+                           parity_mode: bool, padding_idx: int, dt, use_kernels: bool,
+                           early_stop: bool, stop_idx: int, packed, vocab_slice) -> torch.Tensor:
+    """``greedy_decode_ids``' vocab-parallel decode: each step kernel B
+    without its head (``use_kernels``, not parity mode; its word rows
+    gathered from the full table in its pack) or the plain step, then the
+    head on this rank's rows merged over the model group. A collective
+    cannot sit inside a CUDA graph, so the steps run one by one; the loop
+    runs every step (the early-stop fill gives the same ids)."""
+    lo, hi = vocab_slice
+    B = pre.global_feat.shape[0]
+    H = dense_in_dim(params["p_hid"])
+    dev = pre.global_feat.device
+    fused = use_kernels and not parity_mode and dev.type == "cuda"
+    if fused:
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
+
+        pk = FS.with_batch(FS.packed_for(params, dt, packed), params, pre)
+        table, bias = pk.table[lo:hi], pk.head_bias[lo:hi]
+        img_k, img_v = pre.img_k.to(dt).contiguous(), pre.img_v.to(dt).contiguous()
+        logits_fn = None
+    else:
+        if is_quantized(params["embedding"]):
+            raise ValueError("the vocab-parallel decode takes a float table")
+        table, bias = params["embedding"]["table"][lo:hi], params["out_bias"][lo:hi]
+        local = {"embedding": {"table": table}, "out_bias": bias}
+        logits_fn = None if use_kernels else (lambda proj: head_logits(local, proj, dt))
+    h = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    c = torch.zeros_like(h)
+    word = torch.full((B,), start_idx, dtype=torch.int32, device=dev)
+    ids = torch.full((B, max_length), padding_idx, dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for t in range(max_length):
+        if fused:
+            h, c, proj, _ = FS.fused_decode_step(pk, None, h, c, img_k, img_v, False, dt,
+                                                 word=word, padding_idx=padding_idx)
+        else:
+            h, c, proj = step_core(params, pre, word.long(), h, c, parity_mode, padding_idx, dt)
+        nxt = VP.greedy_head(proj, table, bias, logits_fn)
+        if early_stop:
+            nxt = torch.where(done, torch.full_like(nxt, padding_idx), nxt)
+            done = done | (nxt == stop_idx)
+        ids[:, t] = nxt
+        word = nxt
     return ids

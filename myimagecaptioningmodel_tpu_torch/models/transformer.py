@@ -42,6 +42,12 @@ Not ported, and why: the reference's XLA fused-head beam branch (kernel E's
 plain version computes the same per-row top-W and logsumexp), and
 ``TransformerPreMBD``/``precompute_mbd``/``_mbd_to_pre`` (the TPU kernel's
 ``[M, B, D]`` DMA layout; the CUDA kernels take ``precompute``'s own).
+
+Vocab tensor parallelism, as in ``models/decoder.py``:
+``teacher_forcing_logits(vocab_parallel=True)`` returns this rank's logit
+columns; ``greedy_decode_ids(vocab_slice=(lo, hi))`` runs the plain blocks
+(as the JAX package under TP, whose kernels are off) with the head on rows
+``[lo, hi)`` merged over the model group.
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ from myimagecaptioningmodel_tpu_torch.ops.quantization import (
     is_quantized,
     quantize_weight,
 )
+from myimagecaptioningmodel_tpu_torch.parallel import vocab_parallel as VP
+from myimagecaptioningmodel_tpu_torch.utils import tracing
 
 Params = Dict[str, Any]
 
@@ -289,10 +297,11 @@ def _block(layer: Params, x: torch.Tensor, mem_k, mem_v, n_heads: int, dt,
     return x + L.dense(layer["mlp"]["fc2"], h, dt).float()
 
 
-def _embed_in(params: Params, ids: torch.Tensor, positions, padding_idx: int, dt):
+def _embed_in(params: Params, ids: torch.Tensor, positions, padding_idx: int, dt,
+              embed=L.embed):
     """ids [..., T] -> residual stream [..., T, D] (float32); the padding id
     embeds to zero."""
-    emb = L.embed(params["embedding"], ids, padding_idx)
+    emb = embed(params["embedding"], ids, padding_idx)
     x = L.dense(params["in_proj"], emb, dt).float()
     return x + params["pos"][positions]
 
@@ -307,8 +316,12 @@ def head_logits(params: Params, x: torch.Tensor, compute_dtype=torch.bfloat16):
     product accumulated and kept in float32; an int8 table's product rounded
     to the compute dtype, then times the row scale in float32, as the
     reference)."""
+    return logits_from_proj(params, head_proj(params, x, compute_dtype), compute_dtype)
+
+
+def logits_from_proj(params: Params, proj: torch.Tensor, compute_dtype=torch.bfloat16):
+    """The tied table head on ``head_proj``'s output (``head_logits``)."""
     dt = compute_dtype
-    proj = head_proj(params, x, dt)
     emb = params["embedding"]
     if is_quantized(emb):
         logits = torch.matmul(proj.float(), emb["table_q"].to(dt).float().T).to(dt).float()
@@ -318,18 +331,23 @@ def head_logits(params: Params, x: torch.Tensor, compute_dtype=torch.bfloat16):
 
 def teacher_forcing_logits(params: Params, pre: TransformerPre, source: torch.Tensor,
                            dims: TransformerDims, padding_idx: int = 0,
-                           compute_dtype=torch.bfloat16) -> torch.Tensor:
+                           compute_dtype=torch.bfloat16,
+                           vocab_parallel: bool = False) -> torch.Tensor:
     """All T steps at once with causal self-attention -> logits [B, T, V]
     float32: the training forward (``captioner.loss_terms`` differentiates
-    it) and the plain version kernels D and E are held against."""
+    it) and the plain version kernels D and E are held against
+    (``vocab_parallel``: this rank's columns of a table sharded by rows)."""
     B, T = source.shape
     dt = compute_dtype
     dev = source.device
-    x = _embed_in(params, source, torch.arange(T, device=dev), padding_idx, dt)
+    x = _embed_in(params, source, torch.arange(T, device=dev), padding_idx, dt,
+                  VP.embed if vocab_parallel else L.embed)
     causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
     for l, (layer, mk, mv) in enumerate(zip(params["layers"], pre.mem_k, pre.mem_v)):
         x = _block(layer, x, mk, mv, dims.num_heads, dt, causal,
                    kv_scale=None if pre.kv_scale is None else pre.kv_scale[l])
+    if vocab_parallel:
+        return logits_from_proj(params, VP.head_input(head_proj(params, x, dt)), dt)
     return head_logits(params, x, dt)
 
 
@@ -357,16 +375,32 @@ def greedy_decode_ids(params: Params, pre: TransformerPre, dims: TransformerDims
                       max_length: int, start_idx: int = 2, padding_idx: int = 0,
                       compute_dtype=torch.bfloat16, use_kernels: bool = False,
                       early_stop: bool = False, stop_idx: int = 3,
-                      packed=None, quantize_kv: bool = False) -> torch.Tensor:
+                      packed=None, quantize_kv: bool = False,
+                      vocab_slice=None) -> torch.Tensor:
     """Greedy decode -> int32 ids [B, max_length]. ``early_stop``: done rows
     emit ``<pad>``, a row is done once it has emitted ``<stop>``, and the
     loop ends when every row is done (later positions stay ``<pad>``).
     ``use_kernels``: the whole decode is kernel D, on the weights
     ``packed`` once by ``fused_transformer.pack_weights`` if given.
     ``quantize_kv``: the cross-attention memory on an int8 grid (kernel D
-    streams it as int8; the plain loop quantizes and dequantizes it)."""
+    streams it as int8; the plain loop quantizes and dequantizes it).
+    ``vocab_slice`` (lo, hi): vocab tensor parallelism on ``params`` with the
+    full table (``vocab_parallel.full_decoder``), the plain blocks and the
+    head on rows ``[lo, hi)`` merged over the model group (kernel A on the
+    slice on a card), every step run."""
     dt = compute_dtype
-    if use_kernels:
+    head = None
+    if vocab_slice is not None:
+        lo, hi = vocab_slice
+        local = {"embedding": {"table": params["embedding"]["table"][lo:hi]},
+                 "out_bias": params["out_bias"][lo:hi]}
+        table = local["embedding"]["table"].to(dt)
+
+        def head(x_last):
+            return VP.greedy_head(head_proj(params, x_last, dt), table, local["out_bias"],
+                                  None if use_kernels else
+                                  (lambda proj: logits_from_proj(local, proj, dt)))
+    elif use_kernels:
         from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
 
         ftp = FT.prepare(params, pre, dims.num_heads, dt, packed, quantize_kv=quantize_kv)
@@ -383,10 +417,13 @@ def greedy_decode_ids(params: Params, pre: TransformerPre, dims: TransformerDims
     ids = torch.full((B, max_length), padding_idx, dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     for t in range(max_length):
-        if early_stop and bool(done.all()):
+        if early_stop and head is None and tracing.all_done(done):
             break
         x_last = _decode_step(params, pre, dims, word, caches, t, padding_idx, dt, layers)
-        nxt = torch.argmax(head_logits(params, x_last, dt), dim=-1)
+        if head is not None:
+            nxt = head(x_last).long()
+        else:
+            nxt = torch.argmax(head_logits(params, x_last, dt), dim=-1)
         if early_stop:
             nxt = torch.where(done, torch.full_like(nxt, padding_idx), nxt)
             done = done | (nxt == stop_idx)
@@ -436,7 +473,7 @@ def beam_search_ids(params: Params, pre: TransformerPre, dims: TransformerDims,
     words = torch.full((max_length, B, W), padding_idx, dtype=torch.long, device=dev)
     srcs = torch.arange(W, device=dev).expand(max_length, B, W).clone()
     for t in range(max_length):
-        if early_stop and bool(finished.all()):
+        if early_stop and tracing.all_done(finished):
             break  # the rest keeps <pad> words and identity back-pointers
         x_last = _decode_step(params, pre_t, dims, word, caches, t, padding_idx, dt, layers)
         logp = torch.log_softmax(head_logits(params, x_last, dt), dim=-1).reshape(B, W, V)

@@ -42,7 +42,7 @@ _PI, _PVP = ctypes.POINTER(_I), ctypes.POINTER(_VP)
 _SIGNATURES = {
     "capk_vocab_argmax_nblocks": [_I],
     "capk_vocab_argmax_vocab_tile": [_I],
-    "capk_vocab_argmax": [_I, _I, _I, _I] + [_VP] * 8,
+    "capk_vocab_argmax": [_I, _I, _I, _I] + [_VP] * 9,
     "capk_topk_head_vocab_tile": [],
     "capk_topk_head": [_I] * 5 + [_VP] * 13,
     "capk_fused_step": [_PI, _PVP, _VP],

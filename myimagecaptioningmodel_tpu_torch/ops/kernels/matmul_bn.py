@@ -91,9 +91,9 @@ class _Conv1x1BN(torch.autograd.Function):
     def forward(ctx, w, scale, offset, x_flat):
         y, s, q = matmul_stats(x_flat, w)
         # in a process group, the global batch's sums: kernel F's per-rank
-        # sums all-reduced before the mean and variance
+        # sums all-reduced over the data group before the mean and variance
         s, q = L.global_sums(s, q)
-        mean, var = L.batch_stats(s, q, x_flat.shape[0] * distributed.process_count())
+        mean, var = L.batch_stats(s, q, x_flat.shape[0] * distributed.data_size())
         yn, inv = L.bn_normalize(y, mean, var, scale, offset)
         ctx.save_for_backward(w, scale, x_flat, y, mean, inv)
         ctx.mark_non_differentiable(mean, var)

@@ -52,9 +52,14 @@ def head_logits_reference(proj, table, bias, scale=None) -> torch.Tensor:
     return logits + bias
 
 
-def greedy_vocab_argmax_reference(proj, table, bias, scale=None) -> torch.Tensor:
-    """Plain version of kernel A -> int32 ``[B]``."""
-    return torch.argmax(head_logits_reference(proj, table, bias, scale), dim=-1).to(torch.int32)
+def greedy_vocab_argmax_reference(proj, table, bias, scale=None, with_value: bool = False):
+    """Plain version of kernel A -> int32 ``[B]`` (``with_value``: and the
+    winning float32 logits ``[B]``)."""
+    logits = head_logits_reference(proj, table, bias, scale)
+    ids = torch.argmax(logits, dim=-1)
+    if with_value:
+        return ids.to(torch.int32), logits.gather(-1, ids[:, None])[:, 0]
+    return ids.to(torch.int32)
 
 
 def topk_vocab_head_reference(proj, table, bias, k: int = 4, scale=None):
@@ -104,10 +109,14 @@ def greedy_vocab_argmax(
     table: torch.Tensor,  # [V, E] float32, bfloat16 or int8
     bias: torch.Tensor,  # [V] float32
     scale: Optional[torch.Tensor] = None,  # [V] float32, for an int8 table
-) -> torch.Tensor:
-    """-> int32 [B] ids. Launches kernel A for CUDA tensors."""
+    with_value: bool = False,
+):
+    """-> int32 [B] ids; ``with_value``: (ids, the winning float32 logits
+    [B]), the value from kernel A's own per-tile maxima (a recomputed dot
+    product could round otherwise and flip a near-tie across the ranks of
+    a vocab-parallel merge). Launches kernel A for CUDA tensors."""
     if proj.device.type == "cpu":
-        return greedy_vocab_argmax_reference(proj, table, bias, scale)
+        return greedy_vocab_argmax_reference(proj, table, bias, scale, with_value)
     if proj.device.type != "cuda":
         raise ValueError(f"no kernel for device {proj.device}")
     proj, code = _check_operands(proj, table, bias, scale)
@@ -117,13 +126,15 @@ def greedy_vocab_argmax(
     part_v = torch.empty((B, nblk), dtype=torch.float32, device=dev)
     part_i = torch.empty((B, nblk), dtype=torch.int32, device=dev)
     out = torch.empty((B,), dtype=torch.int32, device=dev)
+    out_v = torch.empty((B,), dtype=torch.float32, device=dev) if with_value else None
     err = lib.capk_vocab_argmax(
         code, B, V, E, proj.data_ptr(), table.data_ptr(), bias.data_ptr(), _ptr(scale),
-        part_v.data_ptr(), part_i.data_ptr(), out.data_ptr(), _build.stream_ptr(dev),
+        part_v.data_ptr(), part_i.data_ptr(), out.data_ptr(), _ptr(out_v),
+        _build.stream_ptr(dev),
     )
     _build.check(err, "capk_vocab_argmax")
     greedy_vocab_argmax.launches += 1
-    return out
+    return (out, out_v) if with_value else out
 
 
 greedy_vocab_argmax.launches = 0

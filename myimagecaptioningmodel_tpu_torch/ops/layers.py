@@ -143,11 +143,13 @@ def stat_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 def global_sums(*sums: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Per-channel sums of this process -> their sums over the process group
-    (one all-reduce for all of them); themselves outside a group."""
+    """Per-channel sums of this process -> their sums over its data group
+    (one all-reduce for all of them; under vocab tensor parallelism the
+    ranks of a model group hold the same rows, which must count once);
+    themselves outside a group."""
     if not distributed.active():
         return sums
-    flat = distributed.all_reduce_sum_(torch.cat(sums))
+    flat = distributed.all_reduce_sum_(torch.cat(sums), distributed.data_group())
     return tuple(flat.split([t.numel() for t in sums]))
 
 
@@ -173,7 +175,7 @@ def bn_backward(dy, x, mean, inv, scale):
     count; dscale and doffset are this rank's sums."""
     sd = mean.dtype
     dims = tuple(range(x.ndim - 1))
-    n = x.numel() // x.shape[-1] * distributed.process_count()
+    n = x.numel() // x.shape[-1] * distributed.data_size()
     dy32 = dy.to(sd)
     xhat = (x.to(sd) - mean) * inv
     doffset = dy32.sum(dims)  # pass 1: both sums in one read of (dy, x)
@@ -191,7 +193,7 @@ class _BNTrain(torch.autograd.Function):
         x32 = x.to(stat_dtype(x))
         dims = tuple(range(x.ndim - 1))
         s, q = global_sums(x32.sum(dims), x32.square().sum(dims))
-        mean, var = batch_stats(s, q, x.numel() // x.shape[-1] * distributed.process_count())
+        mean, var = batch_stats(s, q, x.numel() // x.shape[-1] * distributed.data_size())
         y, inv = bn_normalize(x, mean, var, scale, offset)
         ctx.save_for_backward(scale, x, mean, inv)
         ctx.mark_non_differentiable(mean, var)
@@ -216,7 +218,7 @@ class _BNTrainSubset(torch.autograd.Function):
     @staticmethod
     def forward(ctx, scale, offset, x, stat_rows):
         b = x.shape[0]
-        rows = min(max(stat_rows - distributed.process_index() * b, 0), b)
+        rows = min(max(stat_rows - distributed.data_index() * b, 0), b)
         xs = x[:rows].to(stat_dtype(x))
         dims = tuple(range(x.ndim - 1))
         s, q = global_sums(xs.sum(dims), xs.square().sum(dims))
@@ -224,7 +226,7 @@ class _BNTrainSubset(torch.autograd.Function):
         y, inv = bn_normalize(x, mean, var, scale, offset)
         # a copy: a view of x[:rows] would keep all B rows alive until backward
         ctx.save_for_backward(scale, x[:rows].clone(), mean, inv)
-        ctx.ratio = b * distributed.process_count() / stat_rows
+        ctx.ratio = b * distributed.data_size() / stat_rows
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -254,7 +256,7 @@ def batch_norm_train(p: Params, s: Params, x: torch.Tensor,
     global batch in a process group) takes the statistics from the first
     ``stat_rows`` rows (``_BNTrainSubset``); otherwise the exact BN, as the
     reference's ``batch_norm``."""
-    if 0 < stat_rows < x.shape[0] * distributed.process_count():
+    if 0 < stat_rows < x.shape[0] * distributed.data_size():
         y, mean, var = _BNTrainSubset.apply(p["scale"], p["offset"], x, stat_rows)
     else:
         y, mean, var = _BNTrain.apply(p["scale"], p["offset"], x)

@@ -12,9 +12,18 @@ its statistics, so every rank holds the same parameters bit for bit.
     distributed.initialize()          # under torchrun
     loop.train(cfg)                   # batch_size stays the GLOBAL batch
 
+Vocab tensor parallelism (``parallel/mesh.make_mesh`` with
+``model_parallel`` > 1) lays the processes out as a (data, model) grid,
+``rank = d * model_parallel + m`` (the JAX package's ``reshape(n // mp,
+mp)``): ``set_grid`` makes the data groups (the ranks of one ``m``) and the
+model groups (the ranks of one ``d``). The batch helpers then slice by the
+data index and size (the ranks of a model group hold the same rows), and
+the collectives take a ``group`` (default: every process). Outside a grid
+the data group is every process, and there is no model group.
+
 Each collective this module issues adds one to its function's ``calls``
-(``all_reduce_sum_.calls``, ``broadcast_.calls``, ``all_gather_rows.calls``),
-so a run can count the collectives of a step.
+(``all_reduce_sum_.calls``, ``broadcast_.calls``, ``all_gather_rows.calls``,
+``all_reduce_max_.calls``), so a run can count the collectives of a step.
 """
 
 from __future__ import annotations
@@ -95,6 +104,8 @@ def initialize_from_cli(args) -> bool:
 
 def shutdown() -> None:
     """Leave the process group (a no-op outside one)."""
+    global _GRID
+    _GRID = None
     if active():
         dist.destroy_process_group()
 
@@ -149,38 +160,120 @@ def barrier() -> None:
         dist.barrier()
 
 
+# ---- the (data, model) grid ------------------------------------------------------
+
+
+class _Grid:
+    """This process's place in the (data, model) grid and its two groups."""
+
+    def __init__(self, model_parallel: int) -> None:
+        n, r = process_count(), process_index()
+        self.model_parallel = model_parallel
+        self.data_size, self.data_index = n // model_parallel, r // model_parallel
+        self.model_index = r % model_parallel
+        # every process makes every group, in one order (dist.new_group's rule)
+        self.data_group = self.model_group = None
+        for m in range(model_parallel):
+            g = dist.new_group(list(range(m, n, model_parallel)))
+            if m == self.model_index:
+                self.data_group = g
+        for d in range(self.data_size):
+            g = dist.new_group(list(range(d * model_parallel, (d + 1) * model_parallel)))
+            if d == self.data_index:
+                self.model_group = g
+
+
+_GRID: Optional[_Grid] = None
+
+
+def set_grid(model_parallel: int) -> None:
+    """Lay the process group out as (process_count // model_parallel,
+    model_parallel) and make its groups (every process calls this, with the
+    same value); 1 clears the grid."""
+    global _GRID
+    if model_parallel == 1:
+        _GRID = None
+        return
+    if process_count() % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} does not divide the "
+                         f"{process_count()} processes")
+    _GRID = _Grid(model_parallel)
+
+
+def model_parallel() -> int:
+    return _GRID.model_parallel if _GRID is not None else 1
+
+
+def data_size() -> int:
+    """Processes along the data axis (that hold different rows)."""
+    return _GRID.data_size if _GRID is not None else process_count()
+
+
+def data_index() -> int:
+    return _GRID.data_index if _GRID is not None else process_index()
+
+
+def model_index() -> int:
+    """This process's vocab slice along the model axis."""
+    return _GRID.model_index if _GRID is not None else 0
+
+
+def data_group():
+    """The group of the processes that share this one's model index (None:
+    every process)."""
+    return _GRID.data_group if _GRID is not None else None
+
+
+def model_group():
+    """The group of the processes that share this one's rows (None outside a
+    grid: only vocab tensor parallelism, which makes one, reduces over it)."""
+    return _GRID.model_group if _GRID is not None else None
+
+
 def host_local_slice(total: int) -> Tuple[int, int]:
-    """(start, size) of this process's contiguous share of ``total`` samples."""
-    n, i = process_count(), process_index()
+    """(start, size) of this process's contiguous share of ``total`` samples
+    (by its data index: a model group shares one)."""
+    n, i = data_size(), data_index()
     base, rem = divmod(total, n)
     return i * base + min(i, rem), base + (1 if i < rem else 0)
 
 
 def local_rows(batch):
     """This process's rows of a global batch (a numpy array or tensor whose
-    leading axis divides by the process count), in global row order."""
-    n = process_count()
+    leading axis divides by the data size), in global row order."""
+    n = data_size()
     if batch.shape[0] % n:
         raise ValueError(f"global batch of {batch.shape[0]} rows does not divide over "
                          f"{n} processes")
     lb = batch.shape[0] // n
-    i = process_index()
+    i = data_index()
     return batch[i * lb:(i + 1) * lb]
 
 
 # ---- collectives ---------------------------------------------------------------
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over every process, in place (every rank gets the same
-    bits); a no-op outside a process group."""
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over every process of ``group`` (default: all), in place
+    (every rank gets the same bits); a no-op outside a process group."""
     if active():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         all_reduce_sum_.calls += 1
     return t
 
 
 all_reduce_sum_.calls = 0
+
+
+def all_reduce_max_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise maximum of ``t`` over the processes of ``group``, in place."""
+    if active():
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        all_reduce_max_.calls += 1
+    return t
+
+
+all_reduce_max_.calls = 0
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -194,14 +287,15 @@ def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
 broadcast_.calls = 0
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every process's ``t`` (equal shapes, on a device the backend
-    gathers on) concatenated along the rows in rank order."""
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every process's ``t`` of ``group`` (default: all; equal shapes, on a
+    device the backend gathers on) concatenated along the rows in rank
+    order."""
     if not active():
         return t
     src = t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(process_count())]
-    dist.all_gather(parts, src)
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
     all_gather_rows.calls += 1
     return torch.cat(parts)
 
@@ -211,13 +305,14 @@ all_gather_rows.calls = 0
 
 def collective_calls() -> int:
     """Collectives issued by this process so far."""
-    return all_reduce_sum_.calls + broadcast_.calls + all_gather_rows.calls
+    return (all_reduce_sum_.calls + all_reduce_max_.calls + broadcast_.calls
+            + all_gather_rows.calls)
 
 
-def reduce_flat_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Sum a list of tensors over every process as one flat bucket per
-    dtype (one all-reduce each) -> the summed tensors, in order and shapes
-    of ``tensors``."""
+def reduce_flat_(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Sum a list of tensors over the processes of ``group`` (default: all)
+    as one flat bucket per dtype (one all-reduce each) -> the summed
+    tensors, in order and shapes of ``tensors``."""
     if not active():
         return list(tensors)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
@@ -226,7 +321,7 @@ def reduce_flat_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        all_reduce_sum_(flat)
+        all_reduce_sum_(flat, group)
         for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
             out[i] = part.view_as(tensors[i])
     return out
@@ -253,18 +348,19 @@ def put_tree(tree, src: int = 0):
     return tree
 
 
-def sum_across_processes(values) -> np.ndarray:
-    """Elementwise sum of a float vector over every process (itself in one
-    process). float64: the JAX package's float32 is JAX's 32-bit default,
-    and a BLEU sum kept in float64 is the single-process number's."""
+def sum_across_processes(values, group=None) -> np.ndarray:
+    """Elementwise sum of a float vector over the processes of ``group``
+    (default: all; itself in one process). float64: the JAX package's
+    float32 is JAX's 32-bit default, and a BLEU sum kept in float64 is the
+    single-process number's."""
     vals = np.asarray(values, np.float64)
     if not active():
         return vals
     t = torch.from_numpy(vals.copy()).to(comm_device())
-    return all_reduce_sum_(t).cpu().numpy()
+    return all_reduce_sum_(t, group).cpu().numpy()
 
 
-def global_distinct_count(sentences) -> int:
+def global_distinct_count(sentences, group=None) -> int:
     """|union over processes| of each process's sentence set, without
     shipping strings: each sentence becomes a 64-bit blake2b hash (two int32
     lanes, as the JAX package gathers them), padded to the largest count and
@@ -277,14 +373,16 @@ def global_distinct_count(sentences) -> int:
     for i, s in enumerate(sorted(sentences)):
         h[i] = np.frombuffer(hashlib.blake2b(s.encode("utf-8"), digest_size=8).digest(),
                              np.int32)
-    counts = all_gather_rows(torch.tensor([len(sentences)], dtype=torch.int32, device=dev))
+    counts = all_gather_rows(torch.tensor([len(sentences)], dtype=torch.int32, device=dev),
+                             group)
     counts = counts.cpu().numpy()
     m = int(counts.max())
     if m == 0:
         return 0
     padded = np.zeros((m, 2), np.int32)
     padded[: len(sentences)] = h
-    gathered = all_gather_rows(torch.from_numpy(padded).to(dev)).cpu().numpy().reshape(-1, m, 2)
+    gathered = all_gather_rows(torch.from_numpy(padded).to(dev), group).cpu().numpy()
+    gathered = gathered.reshape(-1, m, 2)
     pairs = set()
     for p, c in enumerate(counts):
         pairs.update((int(a), int(b)) for a, b in gathered[p, :c])

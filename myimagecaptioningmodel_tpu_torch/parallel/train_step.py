@@ -15,6 +15,16 @@ never as a mean of per-rank means: ranks hold different numbers of tokens.
 Clip, Adam and the EMA then run on every rank alike. The train-mode BN
 reduces its own statistics (``ops/layers.py``).
 
+Vocab tensor parallelism (``opts.vocab_parallel``, a (data, model) grid of
+``parallel/mesh.py``): the ranks of a model group hold the same rows and
+each its own rows of the table and the output bias (and of their moments
+and EMA). Every reduction above runs over the data group only (a reduction
+over every process would count each row ``model_parallel`` times): the
+replicated leaves' gradients are already equal across the model group (the
+vocab-parallel head input sums them there), and each sharded leaf's rows
+are summed over the data group like any other leaf. Clip, Adam and the EMA
+are elementwise, so they run on each rank's shard unchanged.
+
 The optimizer is optax's ``adam`` written out (b1 0.9, b2 0.999, eps 1e-8,
 eps_root 0), with the learning rate ``schedule(count)`` read at the count
 *before* the update; an optional clip by value ahead of it and an optional
@@ -188,7 +198,7 @@ def build_steps(opts: ModelOptions, optimizer: Optimizer, schedule,
         if dp:  # the global token count, as loss_terms counts tokens
             n_global = distributed.all_reduce_sum_(
                 (captions[:, 1:] != opts.padding_idx).float().sum().to(
-                    params["img_embed"]["w"].device))
+                    params["img_embed"]["w"].device), distributed.data_group())
         g_sum = [torch.zeros_like(p) for p in leaves]
         got = [False] * len(leaves)
         ce_total, tok_total, mstate = 0.0, 0.0, model_state
@@ -207,7 +217,8 @@ def build_steps(opts: ModelOptions, optimizer: Optimizer, schedule,
         if dp:  # one bucket: every gradient that exists, and the loss share
             live = [i for i in range(len(leaves)) if got[i]]
             summed = distributed.reduce_flat_(
-                [g_sum[i] for i in live] + [ce_total.to(leaves[0].dtype).reshape(1)])
+                [g_sum[i] for i in live] + [ce_total.to(leaves[0].dtype).reshape(1)],
+                distributed.data_group())
             for i, t in zip(live, summed):
                 g_sum[i] = t
             ce_total = summed[-1].reshape(()).to(ce_total.dtype)

@@ -30,7 +30,18 @@ checkpoints and exports; every process resumes from the same checkpoint
 The dev evaluation decodes each process's rows and reduces the BLEU sum
 and the distinct count.
 
-What differs from the JAX loop: no vocab tensor parallelism; the parameters
+Vocab tensor parallelism (``cfg.train.model_parallel`` > 1, as the JAX
+loop's mesh): the processes form a (data, model) grid (``mesh.make_mesh``;
+the count must divide, and the padded vocab must divide by it); each data
+index reads its rows, the ranks of a model group share them and each keeps
+its rows of the table, the output bias and their moments and EMA
+(``mesh.shard_state``). Checkpoints and exports gather those rows back
+(``mesh.gather_state``, every rank taking part) before process 0 writes, so
+they have the format of a ``model_parallel=1`` run, and a run resumes from
+either. The dev decode runs the vocab-parallel head (kernel A on each
+rank's slice on a card).
+
+What differs from the JAX loop: the parameters
 come from ``captioner.init`` on ``torch.Generator().manual_seed(seed)``, so
 a run does not start from the JAX package's ``PRNGKey(seed)`` weights (a
 converted checkpoint carries a JAX run across,
@@ -90,7 +101,7 @@ def _dev_eval(decode_fn, params, model_state, reader_gen, index_word, batch_size
     single-process numbers on every rank."""
     bleu_total, captions = 0.0, 0
     sentences = set()
-    shard = ((distributed.process_index(), distributed.process_count())
+    shard = ((distributed.data_index(), distributed.data_size())
              if distributed.active() else None)
 
     def score(ids, refs, n):
@@ -107,10 +118,11 @@ def _dev_eval(decode_fn, params, model_state, reader_gen, index_word, batch_size
         reader_gen, batch_size, lambda imgs: decode_fn(params, model_state, imgs), score,
         shard=shard)
     distinct = len(sentences)
-    if shard is not None:
-        bleu_total = float(distributed.sum_across_processes([bleu_total])[0])
-        captions = int(distributed.sum_across_processes([captions])[0])
-        distinct = distributed.global_distinct_count(sentences)
+    if shard is not None:  # over the data group: a model group shares its rows
+        group = distributed.data_group()
+        bleu_total = float(distributed.sum_across_processes([bleu_total], group)[0])
+        captions = int(distributed.sum_across_processes([captions], group)[0])
+        distinct = distributed.global_distinct_count(sentences, group)
     if batches == 0:
         return 0.0, 0, 0
     return bleu_total / batches, distinct, captions
@@ -164,7 +176,8 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
     injection) raises RuntimeError after that many global steps, to check
     that a mid-epoch crash and resume reproduces an uninterrupted run.
 
-    Inside a process group the run is data-parallel (module docstring).
+    Inside a process group the run is data-parallel, and with
+    ``train.model_parallel`` > 1 also vocab-parallel (module docstring).
 
     Besides ``log.txt``, the logger's ``log.jsonl`` records per epoch
     ``epoch_loss``, ``step_times`` (host ms per queued step),
@@ -177,11 +190,15 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
     from myimagecaptioningmodel_tpu_torch import config as config_mod
 
     cfg = cfg or config_mod.default
-    # the data-parallel group (one process outside one); vocab TP is refused
+    # the (data, model) grid of the process group (one process outside one)
     mesh = mesh_mod.make_mesh(resolve_device(distributed.default_device(device)),
                               max(1, int(cfg.train.model_parallel)))
     device, n_proc, proc_idx = mesh.device, mesh.size, mesh.rank
     opts = ModelOptions.from_config(cfg)
+    if mesh.model_size > 1:  # vocab tensor parallelism
+        padded = (opts.tdims if opts.arch == "transformer" else opts.dims).padded_vocab
+        mesh_mod.vocab_rows(mesh, padded)  # the padded vocab divides, or ValueError
+        opts = opts._replace(vocab_parallel=True)
     dp = distributed.active()
     is_main = distributed.is_main_process()
     batch_size = cfg.train.batch_size
@@ -262,6 +279,9 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
         logger.log("Loaded pretrained MobileNetV2 encoder")
     if dp:  # every process starts from process 0's values
         distributed.put_tree((params, opt_state, model_state))
+    # vocab TP: each rank keeps its rows of the vocab-sized leaves; saves
+    # gather them back (mesh.gather_state, every rank taking part)
+    params, opt_state = mesh_mod.shard_state(mesh, params, opt_state)
 
     ckpt_writer = ckpt.AsyncCheckpointWriter()  # rolling saves off the hot loop
     last_bleu = 0.0
@@ -322,8 +342,9 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
                     # the host copy happens here; the npz write and the
                     # atomic swap overlap the next steps. A write error
                     # surfaces at the next save/wait. One writer.
+                    save_p, save_o = mesh_mod.gather_state(mesh, params, opt_state)
                     if is_main:
-                        ckpt_writer.save(ckpt_dir, params, opt_state, model_state, {
+                        ckpt_writer.save(ckpt_dir, save_p, save_o, model_state, {
                             "next_epoch": epoch,
                             "step": int(step),
                             "mid_epoch_batches": nsteps,
@@ -398,10 +419,12 @@ def train(cfg=None, device=None, max_steps_per_epoch: Optional[int] = None,
                    f"took: {eval_seconds:.2f}s")
         logger.log_scalars("dev_bleu", epoch=epoch, bleu=bleu, distinct=distinct,
                            seconds=eval_seconds, captions=n_captions)
+        save_p, save_o = mesh_mod.gather_state(mesh, params, opt_state)
         if is_main:  # one writer; every process tracks best_bleu
-            save_model(cfg, logger, params, opt_state, model_state, epoch, step, bleu)
+            save_model(cfg, logger, save_p, save_o, model_state, epoch, step, bleu)
         elif cfg.train.save_best_bleu_checkpoint and bleu > logger.best_bleu:
             logger.best_bleu = bleu
+        del save_p, save_o
         logger.log(f"Epoch took {time.time() - begin:2f}s")
     distributed.barrier()  # process 0's writes are done when every process returns
 

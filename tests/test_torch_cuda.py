@@ -1293,3 +1293,84 @@ def test_cuda_caption_arrays_equals_load_bundle(cuda, workflow):
         batch[:len(rows)] = rows
         want = decode(model, torch.from_numpy(batch).to(cuda)).cpu().numpy()[:len(rows)]
         np.testing.assert_array_equal([r["ids"] for r in records[lo:lo + 4]], want)
+
+
+# ---- vocab tensor parallelism: kernel A's winning logit and vocab slices -----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("B", [8, 128])
+def test_cuda_vocab_argmax_winning_logit(cuda, dt, B):
+    """``with_value``: the ids of the plain call and each row's winning
+    logit, within 1e-4 of the plain logit of that id (sums in other
+    orders)."""
+    g = torch.Generator(device="cpu").manual_seed(B)
+    V, E = 12416, 256
+    proj = torch.randn(B, E, generator=g).to(cuda)
+    table, scale = _table(g, V, E, dt, cuda)
+    bias = torch.randn(V, generator=g).to(cuda)
+    ids, val = TVH.greedy_vocab_argmax(proj, table, bias, scale, with_value=True)
+    assert torch.equal(ids, TVH.greedy_vocab_argmax(proj, table, bias, scale))
+    logits = TVH.head_logits_reference(proj, table, bias, scale)
+    assert _near_tie_ok(ids, logits, dt)
+    assert float((val - logits.gather(1, ids.long()[:, None])[:, 0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [6208, 3104])  # a rank's rows at model_parallel 2 and 4
+@pytest.mark.parametrize("B", [8, 128])
+def test_cuda_vocab_argmax_slices_merge_to_the_full_vocab(cuda, rows, B):
+    """A on each rank's slice of a 12,416-row bf16 table (ragged tiles at
+    B=128), merged by value and then the lowest global index, equals A on
+    the full vocab, ids and values bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(rows + B)
+    V, E = 12416, 256
+    proj = torch.randn(B, E, generator=g).to(cuda)
+    table = (torch.randn(V, E, generator=g) / 16).to(cuda, torch.bfloat16)
+    bias = torch.randn(V, generator=g).to(cuda)
+    bias[12295:] = -1e9
+    full_ids, full_val = TVH.greedy_vocab_argmax(proj, table, bias, with_value=True)
+    vals, idx = [], []
+    for lo in range(0, V, rows):
+        i, v = TVH.greedy_vocab_argmax(proj, table[lo:lo + rows], bias[lo:lo + rows],
+                                       with_value=True)
+        vals.append(v)
+        idx.append(i.long() + lo)
+    vals, idx = torch.stack(vals), torch.stack(idx)
+    best = vals.max(dim=0).values
+    merged = torch.where(vals == best, idx, torch.full_like(idx, 1 << 40)).min(dim=0).values
+    assert torch.equal(merged.to(torch.int32), full_ids) and torch.equal(best, full_val)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [0, 3])
+def test_cuda_exported_artifact_equals_plain_decode(cuda, tmp_path, beam):
+    """``export_program`` on the card: the reloaded ``.pt2`` gives the plain
+    decode's ids on the card, id for id (small dims, 6 steps)."""
+    import numpy as np
+
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import to_numpy
+    from myimagecaptioningmodel_tpu_torch.config import Config, replace_nested
+    from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
+    from myimagecaptioningmodel_tpu_torch.inference import export_program as EP
+    from myimagecaptioningmodel_tpu_torch.inference.beam import beam_decode
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.training import checkpoint as ckpt
+
+    cfg = Config()
+    for path, value in (("model.decoder.vocab_size", 64), ("model.decoder.embedding_size", 64),
+                        ("model.decoder.hidden_dim", 128), ("model.encoder.encoder_scale", 0.35),
+                        ("model.decoder.infer_max_length", 6), ("data.image_shape", (64, 64)),
+                        ("train.checkpoint_path", str(tmp_path))):
+        cfg = replace_nested(cfg, path, value)
+    params, state = C.init(torch.Generator().manual_seed(0), C.ModelOptions.from_config(cfg))
+    ckpt.export_inference_bundle(str(tmp_path / "infer"), to_numpy(params), to_numpy(state), cfg)
+    EP.export_to_file(str(tmp_path / "x.pt2"), EP.export_decode(cfg, "infer", 4, beam, cuda))
+    images = torch.from_numpy(np.random.RandomState(0).rand(4, 64, 64, 3).astype(np.float32))
+    got = torch.export.load(str(tmp_path / "x.pt2")).module()(images.to(cuda))
+    model, _b, opts, _d = load_bundle(cfg, beam_size=beam, device=cuda)
+    opts = opts._replace(use_kernels=False)
+    want = (beam_decode(model, images, opts, beam, stop_idx=opts.stop_idx)[0] if beam
+            else C.greedy_decode(model, images, opts))
+    assert torch.equal(got, want)

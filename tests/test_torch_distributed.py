@@ -219,19 +219,22 @@ def test_one_process_helpers_are_identities():
     assert tdist.all_reduce_sum_(t) is t and tdist.all_gather_rows(t) is t
     assert tdist.sum_across_processes([1.5]).tolist() == [1.5]
     assert tdist.global_distinct_count({"a", "b"}) == 2
-    with pytest.raises(NotImplementedError, match="vocab TP"):
+    # a model_parallel that does not divide the one process (JAX's
+    # test_model_parallel_validation)
+    with pytest.raises(ValueError, match="does not divide"):
         tmesh.make_mesh(device="cpu", model_parallel=2)
 
 
 def test_loop_refuses_vocab_tensor_parallelism(tmp_path):
-    """``train.model_parallel > 1`` (vocab TP, not ported) stops the loop
-    before it reads data, as its mesh is made."""
+    """``train.model_parallel`` that does not divide the process count stops
+    the loop before it reads data, as its mesh is made (JAX's
+    ``test_model_parallel_validation``)."""
     from myimagecaptioningmodel_tpu_torch.config import Config, replace_nested
     from myimagecaptioningmodel_tpu_torch.training import loop as tloop
 
     cfg = replace_nested(Config(), "train.model_parallel", 2)
     cfg = replace_nested(cfg, "data.dict_path", str(tmp_path / "missing"))
-    with pytest.raises(NotImplementedError, match="vocab TP"):
+    with pytest.raises(ValueError, match="does not divide"):
         tloop.train(cfg, device="cpu")
 
 

@@ -24,6 +24,7 @@ from myimagecaptioningmodel_tpu_torch.evaluate import main as tevaluate_main
 from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import evaluate as tevaluate
 from myimagecaptioningmodel_tpu_torch.evaluation.evaluate import load_bundle
 from myimagecaptioningmodel_tpu_torch.inference import batch_caption as tbatch
+from myimagecaptioningmodel_tpu_torch.inference import export_program as texport
 from myimagecaptioningmodel_tpu_torch.inference import infer as tinfer
 from myimagecaptioningmodel_tpu_torch.inference.server import CaptionService
 from myimagecaptioningmodel_tpu_torch.models import captioner as tcap
@@ -62,11 +63,14 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     names = out.stdout.split()
     assert len(names) >= 20
     # the modules of kernels G, D/E and B, their decode graphs, the int8
-    # transformer, the fused encoder, batch captioning and data parallelism
+    # transformer, the fused encoder, batch captioning, data and vocab tensor
+    # parallelism, the Paddle import and the serving export
     for name in ("ops.kernels.fused_irb", "ops.kernels.fused_transformer",
                  "ops.kernels.fused_step", "ops.kernels.decode_graphs",
                  "models.transformer", "models.mobilenet_v2", "inference.batch_caption",
-                 "parallel.distributed", "parallel.mesh"):
+                 "parallel.distributed", "parallel.mesh", "parallel.vocab_parallel",
+                 "compat.paddle_fmt", "compat.paddle_import", "inference.export_program",
+                 "utils.tracing"):
         assert "myimagecaptioningmodel_tpu_torch." + name in names
 
 
@@ -81,7 +85,8 @@ def test_port_imports_without_the_packages_the_card_lacks():
                  "data.tokenizer", "data.segmenter", "native", "training.loop",
                  "training.checkpoint", "evaluation.cider", "train", "evaluate",
                  "dataset_gen", "inference.batch_caption", "parallel.distributed",
-                 "parallel.mesh", "parallel.train_step"):
+                 "parallel.mesh", "parallel.train_step", "parallel.vocab_parallel",
+                 "compat.paddle_import", "inference.export_program"):
         assert "myimagecaptioningmodel_tpu_torch." + name in names
 
 
@@ -117,7 +122,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path
                  lambda: tloop.train(cfg), lambda: tevaluate(cfg),
                  lambda: ttrain_main([]), lambda: tevaluate_main([]),
                  lambda: tbatch.caption_directory(cfg, str(tmp_path)),
-                 lambda: tbatch.main([str(tmp_path)])):
+                 lambda: tbatch.main([str(tmp_path)]),
+                 lambda: texport.export_decode(cfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert tcap.resolve_device("cpu") == torch.device("cpu")
