@@ -1,13 +1,13 @@
 """Plant faults in kernel F's statistics, in the fused train step, in
 kernel E's inputs, in kernel G and the int8 modes of kernels D and E, in
-kernel A, in kernel B and in the transformer's training, and read what each
-scores against ``chip_smoke.py``'s limits, beside the sound path.
+kernel A, in kernel B, in the transformer's training and in kernel H, and
+read what each scores against ``chip_smoke.py``'s limits, beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8,9,10,11]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8,9,10,11,12]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
 (or, for part 10's data-parallel faults, in each rank's process) only;
-nothing in the checkout changes. Eleven parts:
+nothing in the checkout changes. Twelve parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -133,6 +133,18 @@ nothing in the checkout changes. Eleven parts:
     kernel path (the trace refuses the kernels' device-pointer calls). Each must
     be caught and each sound reading pass; phase 26's rounding witness
     (``chip_smoke.dp_witness``) is printed beside them.
+12. Phase 29 (a)'s check of kernel H (``chip_smoke.h_checks``: e and the
+    four gradients against the plain version, each score within its limit,
+    at the full-width and the ragged shape, float32 and bfloat16), with the
+    kernel's outputs replaced by those of a faulty one, each made from the
+    kernel itself: the (1 - z^2) factor dropped (dimg_k and dh_emb from the
+    kernel on zero inputs, where z is 0); the bias dropped from e (the
+    forward without it); the last time step left out of dimg_k (its sums on
+    de with the last step zeroed); the last image left out of dw's sum over
+    the batch; the last time step left out of db. Each must be caught in
+    every case, and the sound kernel pass. Beside each, phase 29 (c)'s check
+    of the decoder's fused bf16 step at B=128 with the same plant is read
+    (the sound kernel must pass it; a fault need not be caught there).
 
     python3 chip_fault_check.py --parts 3   # part 3 only
 
@@ -1269,11 +1281,125 @@ def tp_fault_readings(dev, seed, root, card):
     return caught
 
 
+def _one_minus_z2_dropped(fwd, bwd):
+    """dimg_k and dh_emb as sums of de w: the kernel's own on zero inputs
+    (z = 0 there); dw and db the sound ones."""
+    def faulty(ik, he, w, b, de, dt):
+        dw, db, _dk, _dh = bwd(ik, he, w, b, de, dt)
+        _dw, _db, dk, dh = bwd(torch.zeros_like(ik), torch.zeros_like(he), w, b, de, dt)
+        return dw, db, dk, dh
+    return fwd, faulty
+
+
+def _bias_dropped(fwd, bwd):
+    return (lambda ik, he, w, b, dt: fwd(ik, he, w, None, dt)), bwd
+
+
+def _dimg_k_misses_last_t(fwd, bwd):
+    """dimg_k the kernel's own on de with its last time step zeroed."""
+    def faulty(ik, he, w, b, de, dt):
+        dw, db, _dk, dh = bwd(ik, he, w, b, de, dt)
+        cut = de.clone()
+        cut[-1] = 0
+        return dw, db, bwd(ik, he, w, b, cut, dt)[2], dh
+    return fwd, faulty
+
+
+def _dw_misses_last_image(fwd, bwd):
+    """dw the kernel's own on de with its last image zeroed: the reduce over
+    the batch without its last partial."""
+    def faulty(ik, he, w, b, de, dt):
+        _dw, db, dk, dh = bwd(ik, he, w, b, de, dt)
+        cut = de.clone()
+        cut[:, -1] = 0
+        return bwd(ik, he, w, b, cut, dt)[0], db, dk, dh
+    return fwd, faulty
+
+
+def _db_misses_last_t(fwd, bwd):
+    """db the kernel's own on de with its last time step zeroed."""
+    def faulty(ik, he, w, b, de, dt):
+        dw, _db, dk, dh = bwd(ik, he, w, b, de, dt)
+        cut = de.clone()
+        cut[-1] = 0
+        return dw, bwd(ik, he, w, b, cut, dt)[1], dk, dh
+    return fwd, faulty
+
+
+H_FAULTS = (_one_minus_z2_dropped, _bias_dropped, _dimg_k_misses_last_t,
+            _dw_misses_last_image, _db_misses_last_t)
+
+
+class _h_planted:
+    """Kernel H's wrappers replaced by a plant's, where the decoder's fused
+    path (``ops/attention.AttnScoresFusedBwd``) calls them."""
+
+    def __init__(self, plant):
+        self.plant = plant
+
+    def __enter__(self):
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+        self.saved = KH.attn_scores, KH.attn_scores_bwd
+        if self.plant is not None:
+            planted = self.plant(*self.saved)
+            for fn in planted:  # the wrappers count on the module's names
+                if not hasattr(fn, "launches"):
+                    fn.launches = 0
+            KH.attn_scores, KH.attn_scores_bwd = planted
+
+    def __exit__(self, *exc):
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+        KH.attn_scores, KH.attn_scores_bwd = self.saved
+        return False
+
+
+def h_fault_readings(dev, seed):
+    """Part 12 -> {fault: caught}: phase 29 (a)'s scores (``h_checks``, every
+    shape and dtype) of kernel H sound and with each of ``H_FAULTS``; a fault
+    is caught if some score in every case exceeds 1. Beside them, phase 29
+    (c)'s check (``h_step_verdict``) of the decoder's fused bf16 step at
+    B=128 with the same plant: read, and not required to catch a fault that
+    (a) catches (the score bias's gradient is not held there)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+    caught = {}
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    setup = S.decoder_step_setup(dev, seed)
+    names = S.leaf_paths(setup[0])
+    ref = S.h_step_reference(setup)
+    for plant in (None,) + H_FAULTS:
+        name = "h_sound" if plant is None else plant.__name__.strip("_")
+        fwd, bwd = (KH.attn_scores, KH.attn_scores_bwd)
+        if plant is not None:
+            fwd, bwd = plant(fwd, bwd)
+        scores, _err = S.h_checks(fwd, bwd, dev, seed, label="fault_h")
+        failing = [max(s.values()) > 1.0 for s in scores.values()]
+        caught[name] = any(failing) if plant is None else all(failing)
+        with _h_planted(plant):
+            loss_f, g_f = S.decoder_step(setup, "fused")
+        within, loss_rel, err_f, over = S.h_step_verdict(names, ref, loss_f, g_f)
+        del g_f
+        if plant is None:
+            caught[name] = caught[name] or not within
+        worst = {f"{str(dt).split('.')[-1]}:{shape[0]}:{max(s, key=s.get)}": round(max(s.values()), 3)
+                 for (dt, shape), s in scores.items()}
+        S.say("fault", check="phase29a", fault=name, caught=caught[name],
+              worst_scores=json.dumps(worst).replace(" ", ""))
+        S.say("fault", check="phase29c", fault=name, caught=not within,
+              loss_rel=loss_rel, leaves_over=over,
+              leaf_ratio_to_limit=json.dumps({
+                  n: round(f / (S.H_STEP_LIMITS["grad_ratio"] * d + S.H_STEP_LIMITS["grad_floor"]), 3)
+                  for n, f, d in zip(names, err_f, ref[2])}).replace(" ", ""))
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated parts to run")
     args = ap.parse_args(argv)
     parts = {int(x) for x in args.parts.split(",")}
@@ -1319,11 +1445,13 @@ def main(argv=None) -> int:
     if 11 in parts:
         with tempfile.TemporaryDirectory() as root:
             summary["phase26_28_caught"] = tp_fault_readings(dev, args.seed, root, card)
+    if 12 in parts:
+        summary["phase29_caught"] = h_fault_readings(dev, args.seed)
     print(json.dumps(summary))
     sound = ("sound", "encoder_sound", "e_sound", "walker_sound", "export_sound", "served_sound",
              "reader_sound", "decode_sound", "bleu_sound", "resume_sound", "bc_sound",
              "dp_exact_bn_sound", "dp_subset_bn_r96_sound", "dp_exact_bn_f32_sound",
-             "tp_sound", "paddle_sound", "export_sound")
+             "tp_sound", "paddle_sound", "export_sound", "h_sound")
     if any(bool(v.get(f)) for v in summary.values() for f in sound):
         return 1
     return 0 if all(bool(v[f]) for k, v in summary.items() if k != "phase11_caught"

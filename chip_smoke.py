@@ -4,14 +4,15 @@ transformer family served (float and int8) and trained, the fused-IRB eval
 encoder, the training workflow end to end (a corpus in port shards,
 ``loop.train`` with its dev BLEU, crash and resume, ``evaluate()``), batch
 captioning, data-parallel training in a process group, vocab tensor
-parallelism, the Paddle checkpoint import and the ``torch.export`` serving
-artifact.
+parallelism, the Paddle checkpoint import, the ``torch.export`` serving
+artifact, and the LSTM decoder's training forward and backward with the
+attention scores' one-pass backward (kernel H).
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (each prints one line; any failure exits non-zero with no result;
-17 and 18 run right after 2, and 3 and 20 after them, and 21, 22 and 23
-right after 13, while torch.profiler still reads every event; 24-28 run
+29, 17 and 18 run right after 2, and 3 and 20 after them, and 21, 22 and
+23 right after 13, while torch.profiler still reads every event; 24-28 run
 last):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
@@ -297,7 +298,8 @@ last):
    B=8 and 128 (``phase_a_slices``, run right after phase 2 while the
    profiler reads every event): ids under the near-tie rule, the
    winning logit within 1e-4 of the plain one, the slices merged equal to
-   A on the full vocab bit for bit, µs beside the full vocab's; (d) the
+   A on the full vocab bit for bit, µs beside the full vocab's, and the
+   device µs of A and of ``logits_addmm`` on the slice; (d) the
    transformer's dev decode (plain blocks, A on each half) against the
    world-1 plain decode (rows equal; else the near-tie rule) and D's;
 27. the Paddle import: synthetic full-width persistables written with the
@@ -315,6 +317,27 @@ last):
    the rows equal to the kernel decode's, each export's wall s, bytes, and
    ms a batch of the artifact, the plain path and the kernel path (each
    artifact taken as its export ends, while the others still trace).
+29. kernel H (``ops/kernels/attention.py``: ``attn_scores`` and
+   ``attn_scores_bwd``, the forward and one-pass backward of
+   ``ops/attention.attn_scores_fused_bwd``): (a) against its plain version
+   at full width (T=34, B=128, k=49, H=1024) and ragged (T=7, B=3, k=16,
+   H=200), float32 (TF32 off) and bfloat16 (cuBLAS's bf16 products with
+   float32 sums), random operands and a random ``de`` (``h_checks``): e and
+   the four gradients each held to its limit (``h_scores``: a bf16 ulp of
+   each bf16 output, two for e, plus the float32 sums' accumulation bound;
+   dw and db against a float64 sum by the bound of the kernel's own order),
+   each rerun bit-equal; (b) at full width, bf16, ms and device µs of each
+   wrapper and of its plain version, the bound (``bound_h``: bytes, float32
+   operations, and the tanh at the special-function rate), and the
+   checkpointed autograd path's forward and backward (ms, device µs, peak
+   MiB beside H's); (c) the decoder's bf16 forward and backward at full
+   width, B=128 (``decoder_step``), default (checkpointed autograd),
+   ``fused_attn_bwd=True`` and ``parity_mode``: ms a step by CUDA events in
+   turns, peak MiB above base, one profiled step of each (device busy, idle
+   share, the attention's device ms: H's kernels, or the ops of the
+   checkpointed ``attn_scores_reference``); H launches once forward and once
+   backward in the fused step (counts set to 0 just before it), and its
+   loss and gradients are held to the default step's (``H_STEP_LIMITS``).
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -352,8 +375,13 @@ none for B, D and E); A, B, C and D also carry
 ``dp_launches`` (phase 25's: (a)'s world-1 loop, and rank 0's F launches
 in each (b) case), ``tp_launches`` (phase 26's: A and B in (b)'s and (d)'s
 decodes and F in (a), rank 0's) and A ``paddle_import_launches`` (27's)
-and its phase 26 (c) numbers on each slice under ``slice{rows}_b{B}``,
-after a line with the script's own seconds; the last
+and its phase 26 (c) numbers on each slice under ``slice{rows}_b{B}``;
+H's two entries (``attn_scores``, ``attn_scores_bwd``) carry phase 29's
+launches in one fused decoder step (``attn_scores_bwd`` counts a call, which
+launches two kernels, the backward and dw's reduce: ``kernels_per_count``)
+and its full-width bf16 numbers, the
+bound's three parts, the autograd path's ms and device ms, and (c)'s ms a
+step of each variant; all after a line with the script's own seconds; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -3392,6 +3420,7 @@ class loop_probe:
 
 
 def launch_counters():
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
     from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
@@ -3399,7 +3428,8 @@ def launch_counters():
 
     return {"greedy_vocab_argmax": VH.greedy_vocab_argmax, "fused_decode_step": FS.fused_decode_step,
             "topk_vocab_head": VH.topk_vocab_head, "matmul_stats": MB.matmul_stats,
-            "fused_greedy_decode": FT.fused_greedy_decode}
+            "fused_greedy_decode": FT.fused_greedy_decode, "attn_scores": KH.attn_scores,
+            "attn_scores_bwd": KH.attn_scores_bwd}
 
 
 class counting:
@@ -3538,12 +3568,14 @@ def cider_by_caption(cfg, mode, ids_batches):
 
 def loop_launches_want(steps, evals, dev_batches, arch="lstm"):
     """A loop run's launches: F 35 a step, and per dev batch B and A 35 (the
-    LSTM's greedy decode) or D once (the transformer's)."""
+    LSTM's greedy decode) or D once (the transformer's); H never (the train
+    step keeps the decoder's default, ``fused_attn_bwd=False``)."""
     lstm = arch == "lstm"
     return {"matmul_stats": 35 * steps, "topk_vocab_head": 0,
             "fused_decode_step": 35 * evals * dev_batches if lstm else 0,
             "greedy_vocab_argmax": 35 * evals * dev_batches if lstm else 0,
-            "fused_greedy_decode": 0 if lstm else evals * dev_batches}
+            "fused_greedy_decode": 0 if lstm else evals * dev_batches,
+            "attn_scores": 0, "attn_scores_bwd": 0}
 
 
 def resume_readings(dev, base, root, run, losses_a, losses_a2):
@@ -4533,7 +4565,8 @@ def phase_a_slices(dev, seed, t_a):
     (near-tie rule) and its winning logit against the plain logit of that
     id; the slices' (id, value) merged equal A on the full vocab, id for id
     and bit for bit; device µs on one slice beside the full vocab's (phase
-    2). -> {(rows, B): (ms, plain ms, addmm ms, bound ms, bound_by)}."""
+    2), and ``logits_addmm``'s. -> {(rows, B): (ms, plain ms, addmm ms,
+    bound ms, bound_by, device µs, addmm device µs)}."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels.vocab_head import (
         greedy_vocab_argmax as kernel,
         greedy_vocab_argmax_reference as plain,
@@ -4561,14 +4594,15 @@ def phase_a_slices(dev, seed, t_a):
             t_k = time_ms(lambda: kernel(proj, t, b))
             t_p = time_ms(lambda: plain(proj, t, b))
             t_l = time_ms(lambda: logits_addmm(proj, t, b))
-            d_k = device_us(lambda: kernel(proj, t, b))
+            d_k, d_l = device_us_each([lambda: kernel(proj, t, b),
+                                       lambda: logits_addmm(proj, t, b)])
             b_ms, b_by = bound(B * E * 4 + rows * E * 2 + rows * 4 + B * 4, 2 * B * rows * E, bf16)
-            out[(rows, B)] = (t_k, t_p, t_l, b_ms, b_by)
+            out[(rows, B)] = (t_k, t_p, t_l, b_ms, b_by, d_k, d_l)
             say("kernel_a_slice", rows=rows, B=B, near_tie_ok=ok, value_err=val_err,
                 merged_equals_full=merged, kernel_us=round(t_k * 1e3, 2),
                 kernel_device_us=round(d_k, 2), full_vocab_device_us=round(t_a[(bf16, B)][3], 2),
                 plain_us=round(t_p * 1e3, 2), addmm_logits_us=round(t_l * 1e3, 2),
-                bound_us=round(b_ms * 1e3, 2), bound_by=b_by,
+                addmm_logits_device_us=round(d_l, 2), bound_us=round(b_ms * 1e3, 2), bound_by=b_by,
                 bound_share=round(b_ms * 1e3 / d_k, 4))
             if not (ok and merged and val_err <= 1e-4):
                 raise AssertionError(f"kernel A on {rows}-row slices, B={B}: near_tie {ok}, "
@@ -4898,6 +4932,409 @@ def export_readings(dev, seed, out_dir, name, cfg, beam, t_start):
     return r
 
 
+# ---- phase 29: kernel H, the attention scores' backward ---------------------
+
+KERNEL_H_SRC = "myimagecaptioningmodel_tpu_torch/csrc/attn_scores.cu"
+KERNEL_H_REPLACES = "myimagecaptioningmodel_tpu/ops/attention.py:42"  # a custom VJP, not Pallas
+H_SHAPES = ((34, 128, 49, 1024), (7, 3, 16, 200))  # (T, B, k, H): full width, ragged
+# 16 special-function results a clock an SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0), 132 SMs at the
+# H100 SXM's 1.98 GHz boost clock; 67 TFLOP/s float32 outside the tensor
+# cores is the same clock's 128 FMA lanes an SM
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+H_FLOPS = {"fwd": 3, "bwd": 9}  # a (t, b, k, h) element: add, fma | add, 2 for dw, 4 for dz, 2 sums
+H_TERMS = ("e", "dw", "db", "dimg_k", "dh_emb")
+H_REDUCE_THREADS = 256  # csrc/attn_scores.cu's kReduceThreads: db's partial sums
+
+
+def h_operands(gen, dev, T, B, K, H, dt):
+    """(img_k, h_emb, w [H, 1], b [1], de) as the decoder hands them to the
+    scores: activations and de in ``dt``, float32 params; b is not 0, so that
+    a dropped bias shows."""
+    ik = (torch.randn(B, K, H, generator=gen) * 0.5).to(dev, dt)
+    he = (torch.randn(T, B, H, generator=gen) * 0.5).to(dev, dt)
+    w = (torch.randn(H, 1, generator=gen) / H ** 0.5).to(dev)
+    b = torch.full((1,), 0.37, device=dev)
+    de = torch.randn(T, B, K, generator=gen).to(dev, dt)
+    return ik, he, w, b, de
+
+
+def h_run(fwd, bwd, ops, dt):
+    ik, he, w, b, de = ops
+    return (fwd(ik, he, w, b, dt), *bwd(ik, he, w, b, de, dt))
+
+
+def h_scores(got, ops, dt):
+    """Kernel H's outputs ``got`` (e, dw, db, dimg_k, dh_emb) against the plain
+    version's -> ({term: max |got - plain| / limit}, max |got - plain|).
+    A limit per element. For a bf16 output one bf16 ulp of the larger of the
+    two values (e: and one of the product before the bias). e, dimg_k and
+    dh_emb add (2 n + 8) 2^-24 sum |terms|, the float32 sums of their n terms
+    in other orders (``accumulation_bound``'s rule), with 8 more for a tanh
+    that differs by a float32 ulp or two; the terms are the plain version's
+    rounded z w (e, n = H) and dz over t (dimg_k) and over k (dh_emb).
+    dw and db sum n = T B k terms, too many for that rule: it would pass a dw
+    of zeros. Each is held instead to the float64 sum of the plain version's
+    rounded terms (z de, de), by the bound of the kernel's own order plus
+    the plain version's measured distance from that sum: dw sums T k terms a
+    thread, then the B partials in order, (T k + B + 8) 2^-24 sum |z de|; db
+    sums ceil(n / 256) terms in each of 256 threads, then a tree of 8 levels,
+    (ceil(n / 256) + 16) 2^-24 sum |de|. Pass: every score <= 1 (a value
+    that is not finite scores inf)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+    ik, he, w, b, de = ops
+    T, B, K = de.shape
+    H = ik.shape[2]
+    u = 2.0 ** -24
+    with torch.no_grad():
+        want = (KH.attn_scores_reference(ik, he, w, b, dt),
+                *KH.attn_scores_bwd_reference(ik, he, w, b, de, dt))
+        z = KH._z(ik, he, dt)
+        wd, ded = w[:, 0].to(dt), de.to(dt)
+        zde = (z * ded[..., None]).double()  # the plain version's rounded terms of dw
+        exact = {"dw": zde.sum((0, 1, 2))[:, None], "db": ded.double().sum().reshape(1)}
+        own = {"dw": (T * K + B + 8) * u * zde.abs().sum((0, 1, 2))[:, None],
+               "db": (-(-T * B * K // H_REDUCE_THREADS) + 16) * u
+               * ded.double().abs().sum().reshape(1)}
+        del zde
+        sums = {"e": torch.matmul(z.float().abs(), wd.float().abs())}
+        dz = ((ded[..., None] * wd) * (1.0 - torch.square(z))).float().abs()
+        del z
+        sums["dimg_k"], sums["dh_emb"] = dz.sum(0), dz.sum(2)
+        del dz
+        n = {"e": H, "dimg_k": T, "dh_emb": K}
+        scores, err = {}, 0.0
+        for name, g0, r0 in zip(H_TERMS, got, want):
+            if g0 is None and r0 is None:  # no bias, no db
+                continue
+            g, r = g0.float(), r0.float()
+            if name in own:
+                lim = own[name] + (r.double() - exact[name]).abs()
+            else:
+                lim = (2 * n[name] + 8) * u * sums[name]
+            if g0.dtype == torch.bfloat16:
+                lim = lim + bf16_ulp(torch.maximum(g.abs(), r.abs()))
+                if name == "e":  # the product's own rounding, before the bias
+                    lim = lim + bf16_ulp((r - (0.0 if b is None else b.float())).abs())
+            diff = (g - r).abs()
+            err = max(err, float(diff.max()))
+            score = (diff / lim.clamp_min(1e-30)).nan_to_num(nan=float("inf"))
+            scores[name] = float(score.max())
+    return scores, err
+
+
+def h_checks(fwd, bwd, dev, seed, shapes=H_SHAPES, dts=(torch.float32, torch.bfloat16),
+             label="kernel_h"):
+    """Phase 29 (a) for forward and backward functions with the wrappers'
+    signatures -> ({(dt, shape): scores}, max |err|): each case's scores
+    (``h_scores``) and a rerun bit-equal."""
+    out, err = {}, 0.0
+    for dt in dts:
+        for shape in shapes:
+            gen = torch.Generator().manual_seed(seed + sum(shape))
+            ops = h_operands(gen, dev, *shape, dt)
+            got = h_run(fwd, bwd, ops, dt)
+            again = h_run(fwd, bwd, ops, dt)
+            torch.cuda.synchronize()
+            scores, e = h_scores(got, ops, dt)
+            rerun_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            out[(dt, shape)] = scores
+            err = max(err, e)
+            say(label, dtype=str(dt).split(".")[-1], T_B_k_H=",".join(map(str, shape)),
+                max_abs_err=e, rerun_bit_equal=rerun_equal,
+                **{f"{k}_score": round(v, 4) for k, v in scores.items()},
+                ok=max(scores.values()) <= 1.0 and rerun_equal)
+            assert rerun_equal, f"kernel H reran to other bits ({dt}, {shape})"
+    return out, err
+
+
+def h_failures(scores):
+    return {f"{str(dt).split('.')[-1]}:{','.join(map(str, shape))}:{k}": v
+            for (dt, shape), s in scores.items() for k, v in s.items() if v > 1.0}
+
+
+def bound_h(T, B, K, H, dt, part):
+    """(least ms, "bytes" or "operations", its three parts in ms) for kernel
+    H's forward or backward: the bytes of its inputs and outputs once at
+    3.35 TB/s; its float32 operations at 67 TFLOP/s (elementwise and sums:
+    no product the tensor cores could take); its T B k H tanh at the special
+    function units' rate (``SFU_OPS_PER_S``)."""
+    s = torch.empty((), dtype=dt).element_size()
+    n = T * B * K * H
+    act = (B * K * H + T * B * H) * s
+    nbytes = act + (T * B * K * s + H * s if part == "fwd" else T * B * K * s + act + H * 4 + 4)
+    parts = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "flops_ms": H_FLOPS[part] * n / PEAK_OPS_PER_S[torch.float32] * 1e3,
+             "tanh_ms": n / SFU_OPS_PER_S * 1e3}
+    ms = max(parts.values())
+    return ms, "bytes" if parts["bytes_ms"] == ms else "operations", parts
+
+
+def h_timings(dev, seed, dt=torch.bfloat16, shape=H_SHAPES[0]):
+    """Kernel H's forward and backward at full width: ms (CUDA events) and
+    device µs a call of each wrapper and of its plain version, and of the
+    checkpointed autograd path the decoder takes by default (forward, then
+    the backward that recomputes it: several PyTorch calls, none of which
+    alone computes the function); the bound of each."""
+    from torch.utils.checkpoint import checkpoint
+
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+    ik, he, w, b, de = h_operands(torch.Generator().manual_seed(seed), dev, *shape, dt)
+    leaves = [x.detach().requires_grad_(True) for x in (ik, he, w, b)]
+
+    def autograd_fwd_bwd():
+        e = checkpoint(KH.attn_scores_reference, *leaves, dt, use_reentrant=False)
+        return torch.autograd.grad(e, leaves, de)
+
+    calls = {"fwd": (lambda: KH.attn_scores(ik, he, w, b, dt),
+                     lambda: KH.attn_scores_reference(ik, he, w, b, dt)),
+             "bwd": (lambda: KH.attn_scores_bwd(ik, he, w, b, de, dt),
+                     lambda: KH.attn_scores_bwd_reference(ik, he, w, b, de, dt))}
+    out = {}
+    for part, (kern, plain) in calls.items():
+        d_k, d_p = device_us_each([kern, plain])
+        b_ms, b_by, b_parts = bound_h(*shape, dt, part)
+        out[part] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, reps=5),
+                     "device_ms": d_k / 1e3, "plain_device_ms": d_p / 1e3,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     **{f"bound_{k}": v for k, v in b_parts.items()}}
+    out["autograd"] = {"ms": time_ms(autograd_fwd_bwd, reps=5),
+                       "device_ms": device_us(autograd_fwd_bwd, reps=3) / 1e3}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    for name, fn in (("kernel", lambda: (calls["fwd"][0](), calls["bwd"][0]())),
+                     ("autograd", autograd_fwd_bwd)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        out[name + "_peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    for part in ("fwd", "bwd"):
+        r = out[part]
+        say("kernel_h_timing", part=part, dtype="bfloat16", T_B_k_H=",".join(map(str, shape)),
+            ms=round(r["ms"], 4), device_us=round(r["device_ms"] * 1e3, 2),
+            plain_ms=round(r["plain_ms"], 4), plain_device_us=round(r["plain_device_ms"] * 1e3, 2),
+            bound_us=round(r["bound_ms"] * 1e3, 2), bound_by=r["bound_by"],
+            **{k.replace("_ms", "_us"): round(v * 1e3, 2) for k, v in r.items()
+               if k.startswith("bound_") and k not in ("bound_ms", "bound_by")},
+            share_of_bound=round(r["bound_ms"] / r["device_ms"], 4))
+    say("kernel_h_autograd", dtype="bfloat16", T_B_k_H=",".join(map(str, shape)),
+        fwd_bwd_ms=round(out["autograd"]["ms"], 4),
+        fwd_bwd_device_us=round(out["autograd"]["device_ms"] * 1e3, 2),
+        kernel_fwd_bwd_device_us=round((out["fwd"]["device_ms"] + out["bwd"]["device_ms"]) * 1e3, 2),
+        peak_mib_autograd=round(out["autograd_peak_mib"], 1),
+        peak_mib_kernel=round(out["kernel_peak_mib"], 1))
+    return out
+
+
+H_VARIANTS = ("default", "fused", "parity")  # phase 29 (c)
+H_ORDER = ("default", "fused", "parity", "parity", "fused", "default")
+# (c): the fused bf16 step against the default one. Their forwards differ
+# where kernel H's e and cuBLAS's bf16 product round a sum to neighbouring
+# bf16 values (within (a)'s limit), their backwards where H rounds de w,
+# z^2, 1 - z^2 and dz as the JAX package does and autograd's tanh backward
+# rounds once; both pass through the softmax and the recurrence. So the
+# loss is held to two bf16 ulps of the default's, and each gradient leaf,
+# as a relative L2 distance from the float32 step's, to 1.25 x the default
+# bf16 step's own distance plus 2^-8. But the score bias's: its exact
+# gradient is 0 (the softmax sees the same b on all k + 1 slots), so each
+# path's value is the rounding noise of its own sums; (a) holds H's db to
+# the plain version's. chip_fault_check.py part 12 runs its faults of H
+# through this check too (``h_step_verdict``)
+H_STEP_LIMITS = {"loss_rel": 2.0 ** -7, "grad_ratio": 1.25, "grad_floor": 2.0 ** -8}
+H_STEP_UNCHECKED = ("attention/score/b",)
+
+
+def leaf_paths(tree, prefix=""):
+    """The "a/b/c" path of each leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def decoder_step_setup(dev, seed, B=128):
+    """Full-width decoder params (float32, requiring grad), the encoder's
+    projected features and captions, all from ``seed``."""
+    from myimagecaptioningmodel_tpu_torch.compat.from_jax import tree_to_torch
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import tree_leaves
+
+    gen = torch.Generator().manual_seed(seed)
+    dims = D.DecoderDims(vocab_size=V_REAL, embedding_size=E, hidden_dim=H,
+                         vocab_pad_multiple=128)
+    params = tree_to_torch(D.init(gen, dims), dev)
+    leaves = tree_leaves(params)
+    for x in leaves:
+        x.requires_grad_(True)
+    with torch.no_grad():  # not 0, so that a bias dropped from the image scores shows
+        params["attention"]["score"]["b"].fill_(0.37)
+    p_img = (torch.randn(B, K_SLOTS, H, generator=gen) * 0.1).to(dev)
+    gfeat = (torch.randn(B, H, generator=gen) * 0.1).to(dev)
+    src = torch.randint(1, V_REAL, (B, 34), generator=gen).to(dev)
+    return params, leaves, p_img, gfeat, src
+
+
+def decoder_step(setup, variant, dt=torch.bfloat16):
+    """The decoder's forward and backward on ``setup`` (the loss of the JAX
+    package's benchmarks/proto_attn_bwd.py, over the real vocab's columns:
+    the padded ones' -1e9 bias would swamp it) -> (loss, gradients)."""
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
+
+    params, leaves, p_img, gfeat, src = setup
+    pre = D.precompute(params, p_img, gfeat, dt)
+    logits = D.teacher_forcing_logits(params, pre, src, parity_mode=variant == "parity",
+                                      compute_dtype=dt, fused_attn_bwd=variant == "fused")
+    loss = torch.mean(logits[..., :V_REAL].float() ** 2)  # the real vocab's columns
+    # parity mode leaves the score params out of the graph: no gradient
+    return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+class attention_range:
+    """The decoder's checkpointed ``attn_scores_reference`` (called again by
+    checkpoint's recompute) inside a ``split::attention`` range;
+    ``step_split.parts`` of a profile then gives the device ms of its
+    forward, recompute and backward ops."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+        self.saved = fn = KH.attn_scores_reference
+
+        def wrapped(*a, **k):
+            with record_function("split::attention"):
+                return fn(*a, **k)
+
+        KH.attn_scores_reference = wrapped
+        return step_split.parts
+
+    def __exit__(self, *exc):
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+        KH.attn_scores_reference = self.saved
+        return False
+
+
+def h_step_reference(setup):
+    """(c)'s reference readings: the float32 default step's gradients, the
+    bf16 default step's loss, its leaves' distances from them, and its
+    gradients."""
+    _loss32, g_32 = decoder_step(setup, "default", torch.float32)
+    loss_d, g_d = decoder_step(setup, "default")
+    return g_32, float(loss_d), rel_l2_each(g_d, g_32), g_d
+
+
+def rel_l2_each(g, ref):
+    return [float((a.double() - r.double()).norm() / r.double().norm().clamp_min(1e-30))
+            for a, r in zip(g, ref)]
+
+
+def h_step_verdict(names, ref, loss_f, g_f):
+    """A fused step's loss and gradients against (c)'s reference ->
+    (within ``H_STEP_LIMITS``, loss_rel, the leaves' distances, leaves over)."""
+    g_32, loss_d, err_d, _g_d = ref
+    loss_rel = abs(float(loss_f) - loss_d) / abs(loss_d)
+    err_f = rel_l2_each(g_f, g_32)
+    over = [n for n, f, d in zip(names, err_f, err_d) if n not in H_STEP_UNCHECKED
+            and f > H_STEP_LIMITS["grad_ratio"] * d + H_STEP_LIMITS["grad_floor"]]
+    return loss_rel <= H_STEP_LIMITS["loss_rel"] and not over, loss_rel, err_f, over
+
+
+def h_step_readings(dev, seed, reps=3):
+    """Phase 29 (c) -> (kernel H's launches in one fused step, {variant:
+    readings}): ms a step in the turns of ``H_ORDER`` (CUDA events), peak MiB
+    above base, one profiled step of each (device busy, the attention's
+    device ms: H's kernels, or the ops of ``attention_range``), and the
+    fused loss and gradients against the default step's (``h_step_verdict``)."""
+    setup = decoder_step_setup(dev, seed)
+    ref = h_step_reference(setup)
+    g_32, loss_d, err_d, g_d = ref
+    with counting() as run:
+        loss_f, g_f = decoder_step(setup, "fused")
+    launches = {k: run.counts[k] for k in ("attn_scores", "attn_scores_bwd")}
+    others = {k: v for k, v in run.counts.items() if v and k not in launches}
+    names = leaf_paths(setup[0])
+    within, loss_rel, err_f, over = h_step_verdict(names, ref, loss_f, g_f)
+    unchecked = {n: [float(g[names.index(n)].sum()) for g in (g_32, g_d, g_f)]
+                 for n in H_STEP_UNCHECKED}
+    del g_f, g_d, g_32, ref
+    times, peak = {}, {}
+    for variant in H_ORDER:
+        decoder_step(setup, variant)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            decoder_step(setup, variant)
+        end.record()
+        torch.cuda.synchronize()
+        times.setdefault(variant, []).append(start.elapsed_time(end) / reps)
+        peak.setdefault(variant, []).append(
+            (torch.cuda.max_memory_allocated(dev) - base) / 2**20)
+    out = {}
+    for variant in H_VARIANTS:
+        with attention_range() as parts:
+            wall_ms, events, prof = profile_events(lambda: decoder_step(setup, variant),
+                                                   keep=True)
+        events = [e for e in events if not e.key.startswith("split::")]  # the range's own
+        busy_ms = sum(dev_us(e) for e in events) / 1e3
+        h_ms = sum(dev_us(e) for e in events if "attn_scores" in e.key) / 1e3
+        split = parts(prof)
+        attn_ms = h_ms if variant == "fused" else split.get("attention_ms", 0.0)
+        ms = sum(times[variant]) / len(times[variant])
+        out[variant] = {"ms": ms, "windows_ms": times[variant], "peak_mib": max(peak[variant]),
+                        "device_busy_ms": busy_ms, "attention_device_ms": attn_ms,
+                        "kernel_h_device_ms": h_ms, "wall_ms": wall_ms}
+        say("attn_step", variant=variant, B=128, dtype="bfloat16", ms_per_step=round(ms, 3),
+            windows_ms=[round(x, 3) for x in times[variant]],
+            peak_mib_above_base=round(max(peak[variant]), 1),
+            profiled_wall_ms=round(wall_ms, 3), device_busy_ms=round(busy_ms, 3),
+            device_idle_share=round(max(0.0, 1 - busy_ms / wall_ms), 4),
+            attention_device_ms=round(attn_ms, 3), kernel_h_device_ms=round(h_ms, 3),
+            kernel_launches=sum(e.count for e in events))
+        for e in sorted(events, key=dev_us, reverse=True)[:5]:
+            print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:110]}", flush=True)
+    ok = within and all(launches.values()) and not others
+    say("attn_step_check", loss_default=loss_d, loss_fused=float(loss_f),
+        loss_rel=loss_rel, leaves=",".join(names),
+        leaf_err_vs_f32_fused=[round(x, 5) for x in err_f],
+        leaf_err_vs_f32_default=[round(x, 5) for x in err_d], leaves_over=over,
+        unchecked_f32_default_fused=json.dumps(unchecked).replace(" ", ""),
+        limits=json.dumps(H_STEP_LIMITS).replace(" ", ""),
+        launches=json.dumps(launches).replace(" ", ""),
+        other_launches=json.dumps(others).replace(" ", ""), ok=ok)
+    assert ok, "phase 29 (c): the fused step is off the default one, or H did not launch"
+    return launches, out
+
+
+def phase_attn_scores(dev, seed):
+    """Phase 29: kernel H against its plain version at full width and ragged,
+    float32 and bf16 ((a), (b)); its times and the checkpointed autograd
+    path's; the decoder's bf16 forward and backward at B=128, default, fused
+    and parity mode ((c)). -> (launches, max |err|, timings, step readings)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+    t0 = time.perf_counter()
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        scores, err = h_checks(KH.attn_scores, KH.attn_scores_bwd, dev, seed)
+        failed = h_failures(scores)
+        assert not failed, f"phase 29 (a): kernel H over its limits: {failed}"
+        timings = h_timings(dev, seed)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    torch.cuda.empty_cache()
+    launches, steps = h_step_readings(dev, seed)
+    torch.cuda.empty_cache()
+    say("phase29", seconds=round(time.perf_counter() - t0, 1))
+    return launches, err, timings, steps
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -4918,6 +5355,7 @@ def main(argv=None) -> int:
     card = phase_card_and_build()
     err_a, t_a = phase_kernel_a(dev, args.seed)
     t_slices = phase_a_slices(dev, args.seed, t_a)  # phase 26 (c), early: see 17-18
+    h_launches, err_h, t_h, h_steps = phase_attn_scores(dev, args.seed)  # 29, early too
     # phases 17-18 early: run after the training and decode profiles (and
     # ~120 profiler sessions), torch.profiler came back with events missing
     # or none on the card, though it read them in a fresh process
@@ -5015,9 +5453,9 @@ def main(argv=None) -> int:
         return at_b(t_k, t_p, t_l, b_ms, b_by, d_k / 1e3, d_l / 1e3)
 
     def a_slice(rows, B):
-        t_k, t_p, t_l, b_ms, b_by = t_slices[(rows, B)]
+        t_k, t_p, t_l, b_ms, b_by, d_k, d_l = t_slices[(rows, B)]
         return {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": t_l}
+                "library_ms": t_l, "device_ms": d_k / 1e3, "library_device_ms": d_l / 1e3}
 
     def g_at(B):
         t_k, t_p, t_l, b_ms, d_k, d_l, b_by = t_g[(bf16, B)]
@@ -5087,6 +5525,20 @@ def main(argv=None) -> int:
     kernels.append({"name": "fused_inverted_residual", "route": "cuda", "source": KERNEL_G_SRC,
                     "replaces": KERNEL_G_TPU, "launches": g_launches, "max_abs_err": err_g,
                     **g_at(8), "b128": g_at(128)})
+    for part, name in (("fwd", "attn_scores"), ("bwd", "attn_scores_bwd")):
+        r = t_h[part]
+        kernels.append({"name": name, "route": "cuda", "source": KERNEL_H_SRC,
+                        "replaces": KERNEL_H_REPLACES, "launches": h_launches[name],
+                        "kernels_per_count": 2 if part == "bwd" else 1,
+                        "max_abs_err": err_h, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": None, "device_ms": r["device_ms"],
+                        "plain_device_ms": r["plain_device_ms"],
+                        **{k: v for k, v in r.items() if k.startswith("bound_") and
+                           k not in ("bound_ms", "bound_by")},
+                        "autograd_fwd_bwd_ms": t_h["autograd"]["ms"],
+                        "autograd_fwd_bwd_device_ms": t_h["autograd"]["device_ms"],
+                        "decoder_step_ms": {v: h_steps[v]["ms"] for v in H_VARIANTS}})
     say("chip_smoke", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -225,7 +225,7 @@ def loss_terms(params: Params, state: Params, images, captions: torch.Tensor,
         pre = decoder_mod.precompute(dec, img_embed, global_feat, opts.dtype)
         logits = decoder_mod.teacher_forcing_logits(
             dec, pre, source, opts.parity_mode, opts.padding_idx, opts.dtype,
-            opts.vocab_parallel)  # [B, T, V]
+            vocab_parallel=opts.vocab_parallel)  # [B, T, V]
         real_v = opts.dims.vocab_size
     if opts.vocab_parallel:  # this rank's columns [B, T, V_local]
         ce = VP.cross_entropy(logits, target, real_v, opts.label_smoothing)

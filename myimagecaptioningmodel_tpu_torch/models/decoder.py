@@ -22,9 +22,12 @@ and decoding is per row either way (they take H and E in multiples of 64).
 ``teacher_forcing_logits`` is the training forward, with the reference's
 structure: everything that does not feed the recurrence is batched over
 time, a Python loop over T keeps only the h-recurrent product (each step
-under ``torch.utils.checkpoint``, the reference's ``remat``), and the
-all-steps attention scores are checkpointed too, so the backward recomputes
-the ``[T, B, k, H]`` tanh tensor instead of storing it.
+under ``torch.utils.checkpoint`` with ``remat``, the reference's switch),
+and the all-steps attention scores are checkpointed too, so the backward
+recomputes the ``[T, B, k, H]`` tanh tensor instead of storing it. With
+``fused_attn_bwd`` the scores are ``ops/attention.attn_scores_fused_bwd``
+instead (kernel H on a card), whose backward writes no ``[T, B, k, H]``
+tensor.
 
 Under vocab tensor parallelism (``parallel/vocab_parallel.py``) the params
 hold this rank's rows of the table and of ``out_bias``:
@@ -42,8 +45,9 @@ from typing import Any, Dict, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from myimagecaptioningmodel_tpu_torch.ops import attention as A
 from myimagecaptioningmodel_tpu_torch.ops import layers as L
-from myimagecaptioningmodel_tpu_torch.ops.attention import adaptive_attention
+from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
 from myimagecaptioningmodel_tpu_torch.ops.lstm import lstm_from_gates
 from myimagecaptioningmodel_tpu_torch.ops.quantization import (
     dense_in_dim,
@@ -192,7 +196,7 @@ def step_core(params: Params, pre: Precomputed, word: torch.Tensor,
     p_hid = torch.tanh(L.dense(params["p_hid"], h, dt))
     hid_emb = L.dense(params["hid_emb"], p_hid, dt)
     sent_key = L.dense(params["sent_emb"], sentinel, dt)
-    context, _alpha = adaptive_attention(
+    context, _alpha = A.adaptive_attention(
         params["attention"], pre.img_k, pre.img_v, sent_key, sentinel, hid_emb,
         parity_mode, dt,
     )
@@ -226,12 +230,6 @@ def _recurrent_step(h, c, gx_t, w_hh, dt):
     return lstm_from_gates(gates, c)
 
 
-def _attn_scores(w, b, img_k, h_emb, dt):
-    """e[t, b, k] = tanh(img_k[b, k] + h_emb[t, b]) @ w + b."""
-    z_img = torch.tanh(img_k[None].to(dt) + h_emb[:, :, None, :])
-    return L.dense({"w": w, "b": b}, z_img, dt)[..., 0]
-
-
 def teacher_forcing_logits(
     params: Params,
     pre: Precomputed,
@@ -239,11 +237,22 @@ def teacher_forcing_logits(
     parity_mode: bool = False,
     padding_idx: int = 0,
     compute_dtype=torch.bfloat16,
+    remat: bool = True,
+    fused_attn_bwd: bool = False,
     vocab_parallel: bool = False,
 ) -> torch.Tensor:
     """Training forward over the whole caption -> logits [B, T, V] float32
     (``vocab_parallel``: this rank's columns [B, T, V_local] of a table
-    sharded by rows)."""
+    sharded by rows).
+
+    ``remat`` checkpoints each recurrent step (its backward recomputes the
+    cell instead of storing its intermediates); off, the same forward bits
+    and gradients. ``fused_attn_bwd`` takes the image scores from
+    ``attn_scores_fused_bwd`` (the same forward bits on the CPU; its
+    backward one pass, kernel H on a card) instead of autograd of the
+    checkpointed expression. Both as the JAX package, which defaults the
+    fused backward off: it measured the two at parity on a TPU, where XLA
+    fuses the recompute into each reduction."""
     B, T = source.shape
     H = dense_in_dim(params["p_hid"])
     dt = compute_dtype
@@ -263,7 +272,10 @@ def teacher_forcing_logits(
     h, c = h0, torch.zeros_like(h0)
     hs, cs = [], []
     for t in range(T):  # only the h-recurrent product is inside the loop
-        h, c = checkpoint(_recurrent_step, h, c, gx_tm[t], w_hh, dt, use_reentrant=False)
+        if remat:
+            h, c = checkpoint(_recurrent_step, h, c, gx_tm[t], w_hh, dt, use_reentrant=False)
+        else:
+            h, c = _recurrent_step(h, c, gx_tm[t], w_hh, dt)
         hs.append(h)
         cs.append(c)
     hs, cs = torch.stack(hs), torch.stack(cs)  # [T, B, H]
@@ -287,8 +299,11 @@ def teacher_forcing_logits(
         context = (pre.img_v.sum(dim=1).float()[None] + sentinel) / k1
     else:
         score = params["attention"]["score"]
-        e_img = checkpoint(_attn_scores, score["w"], score["b"], pre.img_k, hid_emb, dt,
-                           use_reentrant=False)
+        if fused_attn_bwd:
+            e_img = A.attn_scores_fused_bwd(dt, score, pre.img_k, hid_emb)
+        else:
+            e_img = checkpoint(KH.attn_scores_reference, pre.img_k, hid_emb, score["w"],
+                               score["b"], dt, use_reentrant=False)
         z_sent = torch.tanh(sent_key + hid_emb)
         e_sent = L.dense(score, z_sent, dt)
         e = torch.cat([e_img, e_sent], dim=-1).float()

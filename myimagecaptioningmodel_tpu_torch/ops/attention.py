@@ -8,6 +8,11 @@
 
 ``parity_mode=True`` reproduces the reference's degenerate attention
 (alpha == 1, context = mean over the k+1 slots).
+
+``attn_scores_fused_bwd`` is the training forward's all-steps image scores
+``e[t, b, k] = tanh(img_k[b, k] + h_emb[t, b]) @ w + b`` with a hand-written
+backward; port of the JAX package's custom VJP of the same name (its
+``_attn_fused_bwd``).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as K
 from myimagecaptioningmodel_tpu_torch.ops.layers import Params, dense
 
 
@@ -49,3 +55,32 @@ def adaptive_attention(
         + alpha[:, -1:] * sentinel
     )
     return context, alpha
+
+
+class AttnScoresFusedBwd(torch.autograd.Function):
+    """(dt, w [H, 1], b [1] or None, img_k [B, k, H], h_emb [T, B, H]) ->
+    e [T, B, k] in dt; on the CPU its forward is the decoder's default
+    path's expression (``attn_scores_reference``), bit for bit. It saves the
+    score params and the two inputs, never z: the backward computes dw, db,
+    dimg_k and dh_emb from them in one pass (kernel H on a card,
+    ``ops/kernels/attention.py``), so no ``[T, B, k, H]`` tensor is written
+    on the card."""
+
+    @staticmethod
+    def forward(ctx, dt, w, b, img_k, h_emb):
+        ctx.dt = dt
+        ctx.save_for_backward(w, b, img_k, h_emb)
+        return K.attn_scores(img_k, h_emb, w, b, dt)
+
+    @staticmethod
+    def backward(ctx, de):
+        w, b, img_k, h_emb = ctx.saved_tensors
+        dw, db, dk, dh = K.attn_scores_bwd(img_k, h_emb, w, b, de, ctx.dt)
+        return None, dw, db, dk, dh
+
+
+def attn_scores_fused_bwd(dt, score: Params, img_k: torch.Tensor,
+                          h_emb: torch.Tensor) -> torch.Tensor:
+    """e [T, B, k] for the score params ``{"w": [H, 1], "b": [1]}`` (``"b"``
+    optional), through ``AttnScoresFusedBwd``."""
+    return AttnScoresFusedBwd.apply(dt, score["w"], score.get("b"), img_k, h_emb)

@@ -1,1 +1,1 @@
-"""Hand-written CUDA kernels for the decode path, each beside its plain PyTorch version."""
+"""Hand-written CUDA kernels for the decode and training paths, each beside its plain PyTorch version."""

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "capk_tile_stats": [_VP, _I, _I, _VP, _VP],
     "capk_fused_irb_splits": [_PI],
     "capk_fused_irb": [_PI, _PVP, _VP],
+    "capk_attn_scores": [_I] * 5 + [_VP] * 6,
+    "capk_attn_scores_bwd": [_I] * 5 + [_VP] * 4 + [_I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _VP],
 }
 
 

@@ -66,7 +66,13 @@ the near-tie rule against the plain step teacher-forced in bfloat16, a
 graph replayed on two batches and, without the copy of its inputs, giving
 the previous batch's ids; the beam graph equal to the same search's plain
 versions in float32 and its best beams re-scored within 2.5e-2 a sqrt
-step in bfloat16. The training workflow at small dims
+step in bfloat16. Kernel H (the attention scores and their one-pass
+backward) against its plain version at ragged shapes (k across the
+backward's 128-, 64- and 32-column blocks and past 48 KB of shared sums),
+float32 and bfloat16, by ``chip_smoke.h_checks``'s limits (a bf16 ulp of
+each bf16 output, two for e, plus the float32 sums' accumulation bound; dw
+and db against a float64 sum by the bound of the kernel's own order), each
+rerun bit-equal, and without a score bias. The training workflow at small dims
 (``chip_smoke.trainer_corpus``: 64 train images at 64 px, H=128, E=64,
 V=2050): the feeder's host buffers pinned and its batches on the card
 equal to the rows; ``loop.train``'s dev decode through kernel B with head A
@@ -82,6 +88,7 @@ from myimagecaptioningmodel_tpu_torch.models import decoder as TD
 from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
 from myimagecaptioningmodel_tpu_torch.ops import layers as TL
 from myimagecaptioningmodel_tpu_torch.ops.backtrack import beam_backtrack
+from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as TKH
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as TFI
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as TFS
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as TFT
@@ -1374,3 +1381,49 @@ def test_cuda_exported_artifact_equals_plain_decode(cuda, tmp_path, beam):
     want = (beam_decode(model, images, opts, beam, stop_idx=opts.stop_idx)[0] if beam
             else C.greedy_decode(model, images, opts))
     assert torch.equal(got, want)
+
+
+# kernel H's (T, B, k, H): ragged; k = 100 and 250 take the backward's 64- and
+# 32-column blocks, k = 500 its shared sums past 48 KB; H = 300 and 1,030 give
+# dw's reduce 2 and 5 blocks (the last one partial) before db's
+H_CUDA_SHAPES = [(7, 3, 16, 200), (9, 2, 5, 64), (1, 1, 1, 1), (3, 2, 100, 40),
+                 (2, 3, 250, 33), (2, 2, 500, 40), (5, 9, 12, 300), (4, 5, 49, 1030)]
+
+
+@pytest.fixture
+def exact_bf16_products(cuda):
+    """cuBLAS's bf16 products with float32 sums, as the limits assume."""
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", H_CUDA_SHAPES)
+def test_cuda_kernel_h_matches_plain(exact_bf16_products, dt, shape):
+    from chip_smoke import h_checks, h_failures
+
+    scores, _err = h_checks(TKH.attn_scores, TKH.attn_scores_bwd, exact_bf16_products, 0,
+                            shapes=(shape,), dts=(dt,))  # asserts the rerun's bits
+    assert not h_failures(scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_h_without_bias(exact_bf16_products, dt):
+    from chip_smoke import h_operands, h_scores
+
+    ik, he, w, _b, de = h_operands(torch.Generator().manual_seed(3), exact_bf16_products,
+                                   7, 3, 16, 200, dt)
+    before = (TKH.attn_scores.launches, TKH.attn_scores_bwd.launches)
+    e = TKH.attn_scores(ik, he, w, None, dt)
+    dw, db, dk, dh = TKH.attn_scores_bwd(ik, he, w, None, de, dt)
+    torch.cuda.synchronize()
+    assert db is None and dw.shape == w.shape and dw.dtype == w.dtype
+    assert dk.dtype == ik.dtype and dh.dtype == he.dtype
+    assert (TKH.attn_scores.launches, TKH.attn_scores_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    scores, _err = h_scores((e, dw, db, dk, dh), (ik, he, w, None, de), dt)
+    assert set(scores) == {"e", "dw", "dimg_k", "dh_emb"} and max(scores.values()) <= 1.0

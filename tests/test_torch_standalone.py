@@ -70,6 +70,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
                  "models.transformer", "models.mobilenet_v2", "inference.batch_caption",
                  "parallel.distributed", "parallel.mesh", "parallel.vocab_parallel",
                  "compat.paddle_fmt", "compat.paddle_import", "inference.export_program",
+                 "ops.kernels.attention",
                  "utils.tracing"):
         assert "myimagecaptioningmodel_tpu_torch." + name in names
 
