@@ -65,7 +65,14 @@
 // channels, one channel per lane: the window staged as float, the window
 // rows it needs expanded into a ring of 3 rows, the depthwise outputs of
 // each row into ds [pixels][32], then ds @ wp[chunk] added into a float
-// accumulator [pixels][Cout] in shared memory.
+// accumulator [pixels][Cout] in shared memory. The window's and the
+// accumulator's channel rows are padded with zeros to a multiple of 4 (the
+// float4 reads), so any Cin, Cexp and Cout take this path (MobileNetV2 x0.35
+// has 5, 11, 22, 33, ...). The bf16 path takes them too: where a channel
+// count is not a multiple of 8 (4 for the float rows) its 16-byte copies of
+// that operand become element copies with the same zero fill, Cout's
+// n-tiles cover it rounded up to 8, and the epilogue stores element by
+// element.
 //
 // The chain layout differs only in the input row offset and strides, and
 // irb_chain_border writes its zero border rows, W tail and channel-pad
@@ -130,18 +137,21 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __flo
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Shared-memory floats of a float32 (th x tw) tile, section by section.
+// Shared-memory floats of a float32 (th x tw) tile, section by section; ci
+// and co: Cin and Cout rounded up to a multiple of 4, the rows' padded widths.
 struct IrbSmem {
-  int xs, es, ds, acc, we, wp, be, bd, wd, total;
+  int ci, co, xs, es, ds, acc, we, wp, be, bd, wd, total;
   __host__ __device__ IrbSmem(int th, int tw, int s, int cin, int cout) {
     const int wrows = (th - 1) * s + 3, wcols = (tw - 1) * s + 3, P = th * tw;
+    ci = ceil_div(cin, 4) * 4;
+    co = ceil_div(cout, 4) * 4;
     int o = 0;
-    xs = o;  o += wrows * wcols * cin;
+    xs = o;  o += wrows * wcols * ci;
     es = o;  o += 3 * wcols * kIrbCE;
     ds = o;  o += ceil_div(P, 16) * 16 * kIrbDLd;
     o = ceil_div(o, 4) * 4;
-    acc = o; o += P * cout;
-    we = o;  o += cin * kIrbCE;
+    acc = o; o += P * co;
+    we = o;  o += ci * kIrbCE;
     wp = o;  o += kIrbCE * ceil_div(cout, kIrbNT) * kIrbNT;
     be = o;  o += kIrbCE;
     bd = o;  o += kIrbCE;
@@ -158,7 +168,7 @@ __global__ void __launch_bounds__(kIrbThreads) irb_fma(IrbParams p, IrbPlan pl) 
   float *xs = sm + lay.xs, *es = sm + lay.es, *ds = sm + lay.ds, *acc = sm + lay.acc;
   float *we_s = sm + lay.we, *wp_s = sm + lay.wp, *be_s = sm + lay.be, *bd_s = sm + lay.bd;
   float* wd_s = sm + lay.wd;
-  const int s = p.stride, cin = p.cin, cout = p.cout, cexp = p.cexp;
+  const int s = p.stride, cin = p.cin, cout = p.cout, cexp = p.cexp, ci = lay.ci, co = lay.co;
   const int wld = ceil_div(cout, kIrbNT) * kIrbNT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32, nwarps = kIrbThreads / 32;
 
@@ -174,15 +184,15 @@ __global__ void __launch_bounds__(kIrbThreads) irb_fma(IrbParams p, IrbPlan pl) 
   const T* we = static_cast<const T*>(p.we);
   const T* wp = static_cast<const T*>(p.wp);
 
-  // 1. the input window, as float; zeros outside the image
-  for (int i = tid; i < xr * xc * cin; i += kIrbThreads) {
-    const int k = i % cin, rest = i / cin, wc = rest % xc, wr = rest / xc;
+  // 1. the input window, as float; zeros outside the image and past Cin
+  for (int i = tid; i < xr * xc * ci; i += kIrbThreads) {
+    const int k = i % ci, rest = i / ci, wc = rest % xc, wr = rest / xc;
     const int ir = ir0 + wr, ic = ic0 + wc;
-    xs[i] = (ir >= 0 && ir < p.H && ic >= 0 && ic < p.W)
+    xs[i] = (k < cin && ir >= 0 && ir < p.H && ic >= 0 && ic < p.W)
                 ? ld(x, (ir + p.x_row0) * p.x_row_stride + ic * p.x_col_stride + k)
                 : 0.f;
   }
-  for (int i = tid; i < P * cout; i += kIrbThreads) acc[i] = 0.f;
+  for (int i = tid; i < P * co; i += kIrbThreads) acc[i] = 0.f;
 
   const int nchunks = ceil_div(cexp, kIrbCE), split = blockIdx.y;
   const int ch_end = min(nchunks, (split + 1) * pl.cps);
@@ -190,9 +200,9 @@ __global__ void __launch_bounds__(kIrbThreads) irb_fma(IrbParams p, IrbPlan pl) 
     const int c0 = ch * kIrbCE;
     const bool live = c0 + lane < cexp;
     __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < cin * kIrbCE; i += kIrbThreads) {
-      const int c = c0 + i % kIrbCE;
-      we_s[i] = c < cexp ? ld(we, (long)(i / kIrbCE) * cexp + c) : 0.f;
+    for (int i = tid; i < ci * kIrbCE; i += kIrbThreads) {
+      const int c = c0 + i % kIrbCE, k = i / kIrbCE;
+      we_s[i] = c < cexp && k < cin ? ld(we, (long)k * cexp + c) : 0.f;
     }
     for (int i = tid; i < kIrbCE * wld; i += kIrbThreads) {
       const int c = c0 + i / wld, n = i % wld;
@@ -211,18 +221,18 @@ __global__ void __launch_bounds__(kIrbThreads) irb_fma(IrbParams p, IrbPlan pl) 
       for (int dy = i == 0 ? 0 : 3 - s; dy < 3; ++dy) {  // window rows not yet expanded
         const int wr = i * s + dy, ir = ir0 + wr;
         const bool row_in = ir >= 0 && ir < p.H;
-        const float* xrow = xs + (long)wr * xc * cin;
+        const float* xrow = xs + (long)wr * xc * ci;
         float* e = es + (wr % 3) * xc * kIrbCE;
         for (int w0 = warp * kIrbPJ; w0 < xc; w0 += nwarps * kIrbPJ) {
           float a[kIrbPJ] = {};
           if (row_in) {
-            for (int k = 0; k < cin; k += 4) {
+            for (int k = 0; k < ci; k += 4) {
               const float w_0 = we_s[(k + 0) * kIrbCE + lane], w_1 = we_s[(k + 1) * kIrbCE + lane];
               const float w_2 = we_s[(k + 2) * kIrbCE + lane], w_3 = we_s[(k + 3) * kIrbCE + lane];
 #pragma unroll
               for (int j = 0; j < kIrbPJ; ++j) {
                 const int wc = min(w0 + j, xc - 1);
-                const float4 v = *reinterpret_cast<const float4*>(xrow + wc * cin + k);
+                const float4 v = *reinterpret_cast<const float4*>(xrow + wc * ci + k);
                 a[j] = fmaf(v.x, w_0, a[j]);
                 a[j] = fmaf(v.y, w_1, a[j]);
                 a[j] = fmaf(v.z, w_2, a[j]);
@@ -254,11 +264,11 @@ __global__ void __launch_bounds__(kIrbThreads) irb_fma(IrbParams p, IrbPlan pl) 
       __syncthreads();  // the next row's expand overwrites the ring
     }
 
-    // acc[P][cout] += ds[P][32] @ wp_s[32][cout]
+    // acc[P][co] += ds[P][32] @ wp_s[32][co]
     const int tn = tid % 16, tp = tid / 16;
-    for (int n0 = 0; n0 < cout; n0 += kIrbNT) {
+    for (int n0 = 0; n0 < co; n0 += kIrbNT) {
       const int n = n0 + 4 * tn;
-      if (n >= cout) continue;
+      if (n >= co) continue;
       float a[16][4] = {};
       for (int c = 0; c < kIrbCE; ++c) {
         const float4 w = *reinterpret_cast<const float4*>(wp_s + c * wld + n);
@@ -276,7 +286,7 @@ __global__ void __launch_bounds__(kIrbThreads) irb_fma(IrbParams p, IrbPlan pl) 
       for (int jj = 0; jj < 16; ++jj) {
         const int pix = tp + 16 * jj;
         if (pix >= P) continue;
-        float4* o = reinterpret_cast<float4*>(acc + pix * cout + n);
+        float4* o = reinterpret_cast<float4*>(acc + pix * co + n);
         float4 v = *o;
         v.x += a[jj][0];
         v.y += a[jj][1];
@@ -292,7 +302,7 @@ __global__ void __launch_bounds__(kIrbThreads) irb_fma(IrbParams p, IrbPlan pl) 
   T* out = static_cast<T*>(p.out) + (long)b * p.out_batch;
   for (int i = tid; i < P * cout; i += kIrbThreads) {
     const int pix = i / cout, n = i % cout, r = r0 + pix / tw, q = q0 + pix % tw;
-    float v = acc[i];
+    float v = acc[pix * co + n];
     if (p.part != nullptr) {
       p.part[((((long)split * p.B + b) * pl.ho + r) * pl.wo + q) * cout + n] = v;
       continue;
@@ -365,23 +375,42 @@ __global__ void __launch_bounds__(kThreads) irb_tc(IrbParams p, IrbPlan pl) {
     const int sh = ce == 32 ? 2 : 1;  // log2 of the 16-byte vectors a we row: ce / 8
     for (int i = tid; i < pl.cin16 << sh; i += kThreads) {
       const int k = i >> sh, cc = (i & ((1 << sh) - 1)) * 8;
-      const bool in = k < cin && c0 + cc < cexp;
-      cp_async16(we_s + k * pl.ldwe + cc, in ? we + (long)k * cexp + c0 + cc : we, in ? 16 : 0);
+      if (cexp % 8 == 0) {
+        const bool in = k < cin && c0 + cc < cexp;
+        cp_async16(we_s + k * pl.ldwe + cc, in ? we + (long)k * cexp + c0 + cc : we, in ? 16 : 0);
+      } else {
+        for (int e = 0; e < 8; ++e)
+          we_s[k * pl.ldwe + cc + e] = k < cin && c0 + cc + e < cexp
+                                           ? we[(long)k * cexp + c0 + cc + e]
+                                           : __float2bfloat16(0.f);
+      }
     }
     for (int cc = warp; cc < ce; cc += kWarps) {  // a warp a wp row
       for (int n = lane * 8; n < pl.cout16; n += 256) {
-        const bool in = c0 + cc < cexp && n < cout;
-        cp_async16(wp_s + cc * pl.ldwp + n, in ? wp + (long)(c0 + cc) * cout + n : wp, in ? 16 : 0);
+        if (cout % 8 == 0) {
+          const bool in = c0 + cc < cexp && n < cout;
+          cp_async16(wp_s + cc * pl.ldwp + n, in ? wp + (long)(c0 + cc) * cout + n : wp,
+                     in ? 16 : 0);
+        } else {
+          for (int e = 0; e < 8; ++e)
+            wp_s[cc * pl.ldwp + n + e] = c0 + cc < cexp && n + e < cout
+                                             ? wp[(long)(c0 + cc) * cout + n + e]
+                                             : __float2bfloat16(0.f);
+        }
       }
     }
     // be, bd and the 9 rows of wd: 11 rows of ce floats, 4 a copy
     for (int i = tid; i < 11 << (sh + 1); i += kThreads) {
       const int r = i >> (sh + 1), cc = (i & ((2 << sh) - 1)) * 4;
-      const bool in = c0 + cc < cexp;
       const float* src = r == 0 ? p.be : r == 1 ? p.bd : p.wd + (long)(r - 2) * cexp;
       float* dst = reinterpret_cast<float*>(wb + (r == 0 ? pl.rbe : r == 1 ? pl.rbd : pl.rwd)) +
                    (r >= 2 ? (r - 2) * ce : 0);
-      cp_async16(dst + cc, in ? src + c0 + cc : p.be, in ? 16 : 0);
+      if (cexp % 4 == 0) {
+        const bool in = c0 + cc < cexp;
+        cp_async16(dst + cc, in ? src + c0 + cc : p.be, in ? 16 : 0);
+      } else {
+        for (int e = 0; e < 4; ++e) dst[cc + e] = c0 + cc + e < cexp ? src[c0 + cc + e] : 0.f;
+      }
     }
     cp_async_commit();
   };
@@ -411,17 +440,23 @@ __global__ void __launch_bounds__(kThreads) irb_tc(IrbParams p, IrbPlan pl) {
   // 1. the input window, bf16, zeros outside the image and past Cin
   {
     const int cpr = pl.cin16 / 8;
+    const bool vec = cin % 8 == 0 && p.x_col_stride % 8 == 0 && p.x_row_stride % 8 == 0;
     for (int i = tid; i < pl.nw16 * cpr; i += kThreads) {
       const int w = i / cpr, k = (i - w * cpr) * 8, off = xo_s[w];
-      const bool in = off >= 0 && k < cin;
-      cp_async16(xs + w * pl.ldx + k, in ? x + off + k : x, in ? 16 : 0);
+      if (vec) {
+        const bool in = off >= 0 && k < cin;
+        cp_async16(xs + w * pl.ldx + k, in ? x + off + k : x, in ? 16 : 0);
+      } else {
+        for (int e = 0; e < 8; ++e)
+          xs[w * pl.ldx + k + e] = off >= 0 && k + e < cin ? x[off + k + e] : __float2bfloat16(0.f);
+      }
     }
     cp_async_commit();
   }
 
   // the project's accumulators, in registers across every chunk
   const int wm = warp % pl.wgm, wn = warp / pl.wgm;
-  const int mtp = pl.p16 / 16, ntp = cout / 8;
+  const int mtp = pl.p16 / 16, ntp = ceil_div(cout, 8);
   float acc[PM][PN][4];
 #pragma unroll
   for (int i = 0; i < PM; ++i)
@@ -606,8 +641,12 @@ __global__ void __launch_bounds__(kThreads) irb_tc(IrbParams p, IrbPlan pl) {
 #pragma unroll
         for (int jj = 0; jj < PN; ++jj) {
           const int n = (wn * PN + jj) * 8 + 2 * c4;
-          if (n < cout)
+          if (n + 1 < cout && cout % 2 == 0)
             *reinterpret_cast<float2*>(dst + n) = make_float2(acc[ii][jj][2 * h], acc[ii][jj][2 * h + 1]);
+          else if (n < cout) {  // an odd Cout: element stores, none past it
+            dst[n] = acc[ii][jj][2 * h];
+            if (n + 1 < cout) dst[n + 1] = acc[ii][jj][2 * h + 1];
+          }
         }
       }
     return;
@@ -626,7 +665,8 @@ __global__ void __launch_bounds__(kThreads) irb_tc(IrbParams p, IrbPlan pl) {
       for (int jj = 0; jj < PN; ++jj) {
         const int n = (wn * PN + jj) * 8 + 2 * c4;
         if (n >= cout) continue;
-        float v0 = acc[ii][jj][2 * h] + p.bp[n], v1 = acc[ii][jj][2 * h + 1] + p.bp[n + 1];
+        float v0 = acc[ii][jj][2 * h] + p.bp[n];
+        float v1 = acc[ii][jj][2 * h + 1] + (n + 1 < cout ? p.bp[n + 1] : 0.f);
         if (p.shortcut) {
           v0 += __bfloat162float(xr[n]);
           v1 += __bfloat162float(xr[n + 1]);
@@ -636,14 +676,24 @@ __global__ void __launch_bounds__(kThreads) irb_tc(IrbParams p, IrbPlan pl) {
     }
   __syncthreads();
   bf16* out = static_cast<bf16*>(p.out);
-  const int vpr = cout / 8;
-  for (int t = tid; t < pl.p * vpr; t += kThreads) {
-    const int px = t / vpr, n = (t - px * vpr) * 8;
-    int im, i, j;
-    if (!pixel(px, im, i, j)) continue;
-    *reinterpret_cast<uint4*>(out + (long)(b0 + im) * p.out_batch +
-                              (r0 + i + p.out_row0) * p.out_row_stride + j * p.out_col_stride + n) =
-        *reinterpret_cast<const uint4*>(os + px * pl.ldo + n);
+  if (cout % 8 == 0 && p.out_col_stride % 8 == 0 && p.out_row_stride % 8 == 0) {
+    const int vpr = cout / 8;
+    for (int t = tid; t < pl.p * vpr; t += kThreads) {
+      const int px = t / vpr, n = (t - px * vpr) * 8;
+      int im, i, j;
+      if (!pixel(px, im, i, j)) continue;
+      *reinterpret_cast<uint4*>(out + (long)(b0 + im) * p.out_batch +
+                                (r0 + i + p.out_row0) * p.out_row_stride + j * p.out_col_stride +
+                                n) = *reinterpret_cast<const uint4*>(os + px * pl.ldo + n);
+    }
+  } else {  // element stores
+    for (int t = tid; t < pl.p * cout; t += kThreads) {
+      const int px = t / cout, n = t - px * cout;
+      int im, i, j;
+      if (!pixel(px, im, i, j)) continue;
+      out[(long)(b0 + im) * p.out_batch + (r0 + i + p.out_row0) * p.out_row_stride +
+          j * p.out_col_stride + n] = os[px * pl.ldo + n];
+    }
   }
 }
 
@@ -653,7 +703,7 @@ __global__ void __launch_bounds__(kThreads) irb_tc(IrbParams p, IrbPlan pl) {
 static bool plan(const int* a, int sms, IrbPlan* pl) {
   const int B = a[kIBatch], H = a[kIHeight], W = a[kIWidth], s = a[kIStride];
   const int cin = a[kICin], cexp = a[kICexp], cout = a[kICout];
-  const int ntp = cout / 8;
+  const int ntp = ceil_div(cout, 8);
   const bool wide = cout > 32;
   const int PM = wide ? Wide::PM : Narrow::PM, PN = wide ? Wide::PN : Narrow::PN;
   int wgn = 1;
@@ -671,7 +721,7 @@ static bool plan(const int* a, int sms, IrbPlan* pl) {
     t.nw16 = ceil_div(ni * t.wr * t.wc, 16) * 16;
     t.p = ni * th * wo; t.p16 = ceil_div(t.p, 16) * 16;
     t.cin16 = cin16; t.cout16 = cout16; t.wgm = wgm; t.wgn = wgn; t.wide = wide;
-    t.ldx = cin16 + 8; t.lde = ce + 8; t.ldd = ce + 8; t.ldo = cout + 8;
+    t.ldx = cin16 + 8; t.lde = ce + 8; t.ldd = ce + 8; t.ldo = ceil_div(cout, 8) * 8 + 8;
     t.ldwe = ce + 8; t.ldwp = cout16 + 8;
     size_t o = 0;
     auto take = [&](size_t bytes) { const size_t at = o; o += (bytes + 15) / 16 * 16; return (int)at; };
@@ -807,8 +857,8 @@ static bool fma_plan(const int* a, int sms, IrbPlan* pl) {
 static bool irb_plan(const int* a, IrbPlan* pl) {
   const int B = a[kIBatch], H = a[kIHeight], W = a[kIWidth], s = a[kIStride];
   const int cin = a[kICin], cexp = a[kICexp], cout = a[kICout];
-  if (B < 1 || H < 1 || W < 1 || (s != 1 && s != 2) || cin < 8 || cin % 8 || cexp < 8 ||
-      cexp % 8 || cout < 8 || cout % 8 || (a[kIShortcut] && (s != 1 || cin != cout)))
+  if (B < 1 || H < 1 || W < 1 || (s != 1 && s != 2) || cin < 1 || cexp < 1 || cout < 1 ||
+      (a[kIShortcut] && (s != 1 || cin != cout)))
     return false;
   const int sms = sm_count();
   if (sms == 0) return false;

@@ -64,9 +64,10 @@
 // gate read h_prev, p_hid reads h'. gxb already folds the global-feature gate
 // parts and all three gate biases (including gate_h's).
 //
-// Shapes: H and E multiples of 64 (the products' column tiles and K stages;
-// the attention's 8 slices of whole 16-byte vectors); others return
-// cudaErrorInvalidValue.
+// Shapes: H a multiple of 64 (the products' column tiles and K stages; the
+// attention's 8 slices of whole 16-byte vectors), E of 32 (the gate
+// product's K stages; the bf16 projection takes 32-column blocks when E is
+// not a multiple of 64); others return cudaErrorInvalidValue.
 #include "stream_product.cuh"
 #include "vocab_head.cuh"
 
@@ -491,8 +492,8 @@ static int lstm_step(const int* a, const LstmPtrs& p, int t, bool pdl, cudaStrea
                                   sent, p_hid, p.w_score, p.b_score, ctxp, p.flag, pdl, stream));
     CAPK_STEP(wsp::launch<bf, 4, true>(prod(ctxp, 0, p.w_out, p.b_out, kEF32Tanh, out, 1), M, H,
                                        H, pdl, stream));
-    CAPK_STEP(wsp::launch<bf, 4, true>(prod(out, 0, p.w_proj, p.b_proj, kEF32, proj, 1), M, E,
-                                       H, pdl, stream));
+    CAPK_STEP(wsp::launch_by_cols<bf, true>(prod(out, 0, p.w_proj, p.b_proj, kEF32, proj, 1), M,
+                                            E, H, pdl, stream));
   } else {
     const float* w_hs = static_cast<const float*>(p.w_hs);
     const DenseArgs none{};
@@ -555,7 +556,7 @@ static int lstm_greedy_decode(const int* a, const LstmPtrs& p, cudaStream_t stre
 
 static int check_args(const int* a, const LstmPtrs& p) {
   const int M = a[kLRows], E = a[kLEmb], H = a[kLHidden];
-  if (M < 1 || E < 64 || E % 64 || H < 64 || H % 64 || a[kLSlots] < 1 || a[kLImages] < 1 ||
+  if (M < 1 || E < 32 || E % 32 || H < 64 || H % 64 || a[kLSlots] < 1 || a[kLImages] < 1 ||
       M % a[kLImages] || (a[kLDtype] != kBF16 && a[kLDtype] != kF32) ||
       (p.word == nullptr && p.word_emb == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -634,18 +635,19 @@ int capk_lstm_product(const int* args, void* const* ptrs, cudaStream_t stream) {
   const bool ok = d.e_mode == capk::kELstm
                       ? capk::wsp::launch<__nv_bfloat16, 5, true>(d, args[0], args[1], args[2],
                                                                   pdl, stream)
-                      : capk::wsp::launch<__nv_bfloat16, 4, true>(d, args[0], args[1], args[2],
-                                                                  pdl, stream);
+                      : capk::wsp::launch_by_cols<__nv_bfloat16, true>(d, args[0], args[1],
+                                                                       args[2], pdl, stream);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 // The K splits (a cluster's blocks) of kernel B's product of M rows, [K, N]
 // weights (all nprob problems' columns), the gate's (80 columns a block) or
-// another's (64): split s takes the 32-row K chunks [s c / S, (s + 1) c / S),
-// c = K / 32.
+// another's (64, or 32 where N is an odd multiple of 32): split s takes the
+// 32-row K chunks [s c / S, (s + 1) c / S), c = K / 32.
 int capk_lstm_product_splits(int M, int N, int K, int gate) {
-  return capk::wsp::plan(M, N, K, gate ? capk::wsp::Cols<5>::NT : capk::wsp::kNT).splits;
+  namespace wsp = capk::wsp;
+  return wsp::plan(M, N, K, gate ? wsp::Cols<5>::NT : wsp::block_cols(N)).splits;
 }
 
 }  // extern "C"

@@ -136,9 +136,11 @@
 // (float, then rounded to T) and the float context by V's before its one
 // rounding.
 //
-// Shapes: the bf16 path takes D, F and E in multiples of 64 (whole column
-// tiles and K ranges) and D <= 1024 beyond 16 rows (tf_layernorm); others
-// return cudaErrorInvalidValue.
+// Shapes: the bf16 path takes D and F in multiples of 64 (whole column
+// tiles and K ranges), E in multiples of 32 (where E is not one of 64 the
+// head's product takes 32-column blocks over rows tf_layernorm normalized
+// first: one more kernel a step) and D <= 1024 beyond 16 rows
+// (tf_layernorm); others return cudaErrorInvalidValue.
 #include "stream_product.cuh"
 #include "topk_head.cuh"
 #include "vocab_head.cuh"
@@ -391,8 +393,8 @@ static bool launch_tf_dense(const TfDense& p, int M, int N, int K, bool pdl,
     return p.w_scale != nullptr ? launch_fma<int8_t>(p, M, N, K, pdl, stream)
                                 : launch_fma<float>(p, M, N, K, pdl, stream);
   else
-    return p.w_scale != nullptr ? wsp::launch<int8_t>(p, M, N, K, pdl, stream)
-                                : wsp::launch<bf>(p, M, N, K, pdl, stream);
+    return p.w_scale != nullptr ? wsp::launch_by_cols<int8_t>(p, M, N, K, pdl, stream)
+                                : wsp::launch_by_cols<bf>(p, M, N, K, pdl, stream);
 }
 
 // ---- attention -------------------------------------------------------------------
@@ -716,9 +718,13 @@ static int decode(const int* a, const TfPtrs& p, cudaStream_t stream, int* launc
                                          kEResidual, p.x, D, F, scale(p.s_fc2, (long)l * D)),
                                    B, D, F, pdl, stream));
     }
-    if (xn_rows) TF_LAUNCH(norm(p.lnf, p.lnf + D));
-    TF_LAUNCH(launch_tf_dense<T>(dense(ln_mode, ln_in, p.lnf, p.lnf + D, p.out_proj_w,
-                                       p.out_proj_b, kEStoreF32, p.proj, E, D),
+    // the head; at E not a multiple of 64 (32-column blocks) over rows
+    // tf_layernorm normalized, at any row count
+    const bool head_xn = xn_rows || (std::is_same<T, bf>::value && E % wsp::kNT);
+    if (head_xn) TF_LAUNCH(norm(p.lnf, p.lnf + D));
+    TF_LAUNCH(launch_tf_dense<T>(dense(head_xn ? kARows : kALayerNorm, head_xn ? p.xn : p.x,
+                                       p.lnf, p.lnf + D, p.out_proj_w, p.out_proj_b,
+                                       kEStoreF32, p.proj, E, D),
                                  B, E, D, pdl, stream));
     if (!beam) {
       // kernel A's tile kernel and merge (vocab_head.cu): two launches
@@ -765,7 +771,7 @@ static int decode_entry(const int* a, void* const* ptrs, cudaStream_t stream, in
       (beam ? (W < 1 || W > kMaxBeam || W > a[kVocab]) : W != 0))
     return (int)cudaErrorInvalidValue;
   // the weight-streaming products take whole 64-column tiles
-  if (a[kDtype] == kBF16 && (D % wsp::kNT || a[kFfn] % wsp::kNT || a[kEmb] % wsp::kNT))
+  if (a[kDtype] == kBF16 && (D % wsp::kNT || a[kFfn] % wsp::kNT || a[kEmb] % wsp::kKC))
     return (int)cudaErrorInvalidValue;
   const TfPtrs& p = *reinterpret_cast<const TfPtrs*>(ptrs);
   // int8 streams need their scales; int8 memory (greedy only) its scales
@@ -844,17 +850,17 @@ int capk_stream_product(const int* args, void* const* ptrs, cudaStream_t stream)
     d.a = xn;
   }
   const bool pdl = args[9] != 0;
-  const bool ok = args[5] ? capk::wsp::launch<int8_t>(d, args[0], args[1], args[2], pdl, stream)
-                          : capk::wsp::launch<__nv_bfloat16>(d, args[0], args[1], args[2], pdl,
-                                                             stream);
+  const bool ok = capk::launch_tf_dense<__nv_bfloat16>(d, args[0], args[1], args[2], pdl, stream);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 // The K splits (a cluster's blocks) of a weight-streaming product of M rows,
-// [K, N] weights: split s takes the 32-row K chunks [s c / S, (s + 1) c / S),
-// c = K / 32.
-int capk_stream_product_splits(int M, int N, int K) { return capk::wsp::plan(M, N, K).splits; }
+// [K, N] weights (64-column blocks, or 32 where N is an odd multiple of 32):
+// split s takes the 32-row K chunks [s c / S, (s + 1) c / S), c = K / 32.
+int capk_stream_product_splits(int M, int N, int K) {
+  return capk::wsp::plan(M, N, K, capk::wsp::block_cols(N)).splits;
+}
 
 // x [M, D]'s per-row statistics of each 64-column tile into stats [D / 64][M]
 // (mean, sum of squared deviations), as a decode's x-writing products leave

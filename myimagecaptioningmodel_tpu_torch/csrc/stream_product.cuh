@@ -19,7 +19,10 @@
 //     sums stay float32 (kEF32, kEF32Tanh: + the float32 bias, tanh), or the
 //     LSTM cell runs on them (kELstm, NS = 5: a block's 80 columns are the
 //     five gates of 16 hidden units, fused_step.py's pack_weights
-//     interleaving). nprob problems of one shape may run side by side.
+//     interleaving). nprob problems of one shape may run side by side. A
+//     product whose N is an odd multiple of 32 (the projection at E = 32;
+//     D's and E's head too, a plain store of rows normalized beforehand)
+//     takes NS = 2: 32-column blocks, the epilogue's lanes 0-15.
 //
 // Every definition here has internal linkage (static kernels and host
 // functions, constexpr constants), so each translation unit that includes
@@ -317,8 +320,8 @@ static __global__ void __launch_bounds__(Cols<NS>::THREADS, NS == 4 ? 2 : 1)
   const int c0 = 2 * lane;
   float2 bias2 = make_float2(0.f, 0.f), scale2 = make_float2(1.f, 1.f),
          pos2 = make_float2(0.f, 0.f);
-  if (NS == 4) bias2 = __ldg(reinterpret_cast<const float2*>(bias + n0 + c0));
-  if (!BM && p.w_scale != nullptr)
+  if (NS != 5 && c0 < NT) bias2 = __ldg(reinterpret_cast<const float2*>(bias + n0 + c0));
+  if (!BM && p.w_scale != nullptr && c0 < NT)
     scale2 = __ldg(reinterpret_cast<const float2*>(p.w_scale + n0 + c0));
   if (!BM && p.e_mode == kEEmbed) pos2 = __ldg(reinterpret_cast<const float2*>(p.pos + n0 + c0));
   griddep_wait();
@@ -535,10 +538,11 @@ static __global__ void __launch_bounds__(Cols<NS>::THREADS, NS == 4 ? 2 : 1)
         p.c_out[o] = c_new;
         p.s_out[o] = sigmoid(z[4]) * tc;
       }
-    } else {  // kEF32, kEF32Tanh (NS = 4): a warp per row, lane columns 2 lane, 2 lane + 1
+    } else {  // kEF32, kEF32Tanh (NS = 4, 2): a warp per row, lane columns 2 lane, 2 lane + 1
       for (int li = warp; li < rpo; li += THREADS / 32) {
         const int r = split + li * splits, row = m0 + r;
         if (r >= RB || row >= M) break;
+        if (c0 >= NT) continue;  // NS = 2: 32 columns, lanes 0-15
         float s0 = 0.f, s1 = 0.f;  // the slots in order
         for (int q = 0; q < slots; ++q) {
           const float2 v = *reinterpret_cast<const float2*>(Rb + (q * rpo + li) * C::LDC + c0);
@@ -558,6 +562,7 @@ static __global__ void __launch_bounds__(Cols<NS>::THREADS, NS == 4 ? 2 : 1)
     for (int li = warp; li < rpo; li += THREADS / 32) {
       const int r = split + li * splits, row = m0 + r;
       if (r >= RB || row >= M) break;
+      if (c0 >= NT) continue;  // NS = 2 (a store, no statistics): lanes 0-15
       float s0 = 0.f, s1 = 0.f;  // the slots in order
       for (int q = 0; q < slots; ++q) {
         const float2 v = *reinterpret_cast<const float2*>(Rb + (q * rpo + li) * C::LDC + c0);
@@ -618,6 +623,11 @@ static bool launch(const TfDense& p, int M, int N, int K, bool pdl, cudaStream_t
          : ((p.a_mode == kALayerNorm || p.e_mode == kEResidual || p.e_mode == kEEmbed) &&
             p.stats == nullptr))
     return false;
+  // D's and E's 32-column blocks (the head at E = 32): a store only; the
+  // LayerNorm preamble takes 8 warps, x's statistics 64-column tiles
+  if (!BM && NS == 2 &&
+      (p.a_mode == kALayerNorm || (p.e_mode != kEStore && p.e_mode != kEStoreF32)))
+    return false;
   const Plan s = plan(M, N * (BM ? p.nprob : 1), K, NT);
   switch (s.rb) {
     case 8:
@@ -631,6 +641,18 @@ static bool launch(const TfDense& p, int M, int N, int K, bool pdl, cudaStream_t
     default:
       return launch_shape<WT, 8, 1, NS, BM>(p, M, N, K, s, pdl, stream);
   }
+}
+
+// Output columns of a block for a product of N columns (kernel B's gate
+// aside): 64, or 32 where N is an odd multiple of 32 (E = 32).
+constexpr int block_cols(int N) { return N % kNT ? Cols<2>::NT : Cols<4>::NT; }
+
+// launch() in blocks of block_cols(N) columns.
+template <typename WT, bool BM = false>
+static bool launch_by_cols(const TfDense& p, int M, int N, int K, bool pdl,
+                           cudaStream_t stream) {
+  return N % kNT ? launch<WT, 2, BM>(p, M, N, K, pdl, stream)
+                 : launch<WT, 4, BM>(p, M, N, K, pdl, stream);
 }
 
 }  // namespace wsp

@@ -17,7 +17,8 @@ per-row scale, where the reference does.
 ``greedy_decode_ids`` runs kernel B's whole-decode graph when ``use_kernels``
 is on (CUDA), and the plain step otherwise. Unlike the reference it needs no
 batch padding: the kernels take any B >= 1 and mask their own ragged edges,
-and decoding is per row either way (they take H and E in multiples of 64).
+and decoding is per row either way (they take H in multiples of 64 and E
+in multiples of 32).
 
 ``teacher_forcing_logits`` is the training forward, with the reference's
 structure: everything that does not feed the recurrence is batched over

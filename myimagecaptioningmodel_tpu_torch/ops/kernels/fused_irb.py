@@ -35,8 +35,9 @@ depthwise accumulates in float32, adds its bias, applies ReLU6 and rounds
 to the activation dtype; the project product accumulates in float32, adds
 its bias and the residual in float32 and rounds once.
 
-Any B >= 1, any H and W, Cin, Cexp and Cout multiples of 8, stride 1 or 2
-(output ``(H - 1) // stride + 1`` rows, as a padded convolution gives). The
+Any B >= 1, any H and W, any Cin, Cexp and Cout (MobileNetV2 x0.35's 5,
+11, 22, ... too), stride 1 or 2 (output ``(H - 1) // stride + 1`` rows, as
+a padded convolution gives). The
 TPU kernel's VMEM row tile (``_pick_row_tile``) and its 128-lane channel
 padding inside the plain entry have no counterpart.
 """
@@ -219,9 +220,9 @@ def _launch(x: torch.Tensor, w: Union[FoldedIRB, PreparedIRB], stride: int, shor
     cout = w.wp.shape[1]
     if stride not in (1, 2):
         raise ValueError(f"kernel G takes stride 1 or 2, got {stride}")
-    if min(B, H, W) < 1 or cin % 8 or cexp % 8 or cout % 8 or min(cin, cexp, cout) < 8:
-        raise ValueError(f"kernel G takes B, H, W >= 1 and Cin, Cexp, Cout multiples of 8, "
-                         f"got B={B}, H={H}, W={W}, Cin={cin}, Cexp={cexp}, Cout={cout}")
+    if min(B, H, W, cin, cexp, cout) < 1:
+        raise ValueError(f"kernel G takes B, H, W, Cin, Cexp, Cout >= 1, got B={B}, H={H}, "
+                         f"W={W}, Cin={cin}, Cexp={cexp}, Cout={cout}")
     if shortcut and (stride != 1 or cin != cout):
         raise ValueError("the residual needs stride 1 and Cin == Cout")
     if not isinstance(w, PreparedIRB):

@@ -61,7 +61,7 @@ from myimagecaptioningmodel_tpu_torch.ops.quantization import (
 
 GATE_UNITS = 16  # hidden units of a gate-product block (csrc's gate_col)
 ATTN_SLICES = 8  # blocks of a row's attention cluster (csrc's kSlices)
-DIM_MULTIPLE = 64  # the kernels take H and E in multiples of it
+H_MULTIPLE, E_MULTIPLE = 64, 32  # the kernels take H and E in multiples of these
 
 
 class FusedStepParams(NamedTuple):
@@ -386,9 +386,9 @@ def _check(pk: PackedStep, img_k, img_v, rows: int, dt) -> Tuple[int, int]:
         if t is None:
             raise ValueError(f"{name}: missing (gxb: with_batch)")
         _build.require(t, name, dev, dtype, shape)
-    if H % DIM_MULTIPLE or E % DIM_MULTIPLE:
-        raise ValueError(f"the kernels take H and E in multiples of {DIM_MULTIPLE}, "
-                         f"got {H}, {E}")
+    if H % H_MULTIPLE or E % E_MULTIPLE:
+        raise ValueError(f"the kernels take H in multiples of {H_MULTIPLE} and E in multiples "
+                         f"of {E_MULTIPLE}, got {H}, {E}")
     if rows < 1 or rows % n_img:
         raise ValueError(f"{rows} rows do not share {n_img} images evenly")
     return S, n_img

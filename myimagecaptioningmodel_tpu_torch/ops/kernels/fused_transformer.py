@@ -88,6 +88,7 @@ from myimagecaptioningmodel_tpu_torch.ops.quantization import (
 NEG_INF = TM.NEG_INF  # beam score floor
 BEAM_MAX = 8  # csrc/fused_transformer.cu's kMaxBeam
 STREAM_TILE = 64  # csrc/fused_transformer.cu's wsp::kNT: output columns of a block
+HEAD_TILE = 32  # the head's narrower blocks (wsp::Cols<2>), where E is not a multiple of 64
 LN_ROWS = 16  # its wsp::kLnRows: beyond, a LayerNorm product's rows are normalized first
 LN_MAX_DIM = 1024  # by tf_layernorm, which takes D <= 1024
 
@@ -366,11 +367,15 @@ def _check(ftp: FusedTransformerDecode, max_length: int, n_heads: int, dt, rows:
     if D % 8 or E % 8 or F_ % 8 or D % n_heads:
         raise ValueError(f"kernels D and E take D, E, F in multiples of 8 and D a multiple "
                          f"of heads, got D={D}, E={E}, F={F_}, heads={n_heads}")
-    if dt == torch.bfloat16 and (D % STREAM_TILE or E % STREAM_TILE or F_ % STREAM_TILE or
-                                 (rows > LN_ROWS and D > LN_MAX_DIM)):
-        raise ValueError(f"the bfloat16 products take D, E, F in multiples of {STREAM_TILE} "
-                         f"(and D <= {LN_MAX_DIM} beyond {LN_ROWS} rows), got D={D}, E={E}, "
-                         f"F={F_}, rows={rows}")
+    # E not a multiple of STREAM_TILE: the head's 32-column blocks read rows
+    # tf_layernorm normalized, at any row count
+    ln_rows = rows > LN_ROWS or E % STREAM_TILE
+    if dt == torch.bfloat16 and (D % STREAM_TILE or E % HEAD_TILE or F_ % STREAM_TILE or
+                                 (ln_rows and D > LN_MAX_DIM)):
+        raise ValueError(f"the bfloat16 products take D and F in multiples of {STREAM_TILE}, E "
+                         f"in multiples of {HEAD_TILE} (and D <= {LN_MAX_DIM} beyond "
+                         f"{LN_ROWS} rows or at E not a multiple of {STREAM_TILE}), got D={D}, "
+                         f"E={E}, F={F_}, rows={rows}")
     if not 1 <= max_length <= P:
         raise ValueError(f"max_length {max_length} outside 1..{P} (learned positions)")
     if rows < 1 or M < 1:

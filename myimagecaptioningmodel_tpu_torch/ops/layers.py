@@ -96,7 +96,11 @@ def batch_norm(
 ) -> torch.Tensor:
     """Eval-mode BN with the moving statistics: float32 arithmetic, result
     in ``x.dtype``. One ``F.batch_norm`` pass (mixed bf16 input / float32
-    statistics on CUDA) instead of a chain of elementwise ops."""
+    statistics on CUDA) instead of a chain of elementwise ops. A float64 ``x``
+    beside float32 statistics (a float64 bundle's encoder) is normalized in
+    float32 too, as the JAX package's eval BN does."""
+    if x.dtype == torch.float64 and s["mean"].dtype != torch.float64:
+        return batch_norm(p, s, x.float(), channel_axis).double()
     y = F.batch_norm(
         x.movedim(channel_axis, 1), s["mean"], s["var"], p["scale"], p["offset"],
         False, 0.0, BN_EPS,

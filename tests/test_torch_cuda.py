@@ -77,7 +77,15 @@ rerun bit-equal, and without a score bias. The training workflow at small dims
 V=2050): the feeder's host buffers pinned and its batches on the card
 equal to the rows; ``loop.train``'s dev decode through kernel B with head A
 (35 launches each a dev batch) and kernel F 35 a step; ``evaluate()`` beam
-3 through B and C (35 each), A not at all.
+3 through B and C (35 each), A not at all. The quality corpus's shapes
+(``chip_smoke.py`` phase 30): kernel B's step, its bf16 products and its
+greedy and beam decodes at H=128, E=32 (the bf16 projection in 32-column
+blocks), a vocabulary of 19 words padded to 128 rows and 4 image slots, by
+the limits above, the near-tie rule over the real words; kernel F at every
+(M, K, N) of MobileNetV2 x0.35 at 48 px and B=16; kernel G at that
+encoder's 17 blocks, whose channel counts (5, 11, 22, 30, 33, ...) are not
+multiples of 8, in float32 and bfloat16 by G's limits (at B=1 the Cexp
+split's partials with an odd Cout).
 """
 
 import pytest
@@ -319,7 +327,37 @@ def _step_args(cuda, B, dt):
 @pytest.mark.parametrize("head", [True, False])  # greedy rows; beam rows (8, 128 x beam 4)
 @pytest.mark.parametrize("B", [1, 8, 16, 17, 32, 128, 512])  # the products' row tiles
 def test_cuda_fused_step_matches_plain(cuda, dt, B, head):
-    args = _step_args(cuda, B, dt)
+    _check_fused_step(_step_args(cuda, B, dt), dt, head)
+
+
+# the quality corpus's LSTM (chip_smoke.py phase 30): H=128, E=32, a vocabulary
+# of 19 words padded to 128 rows, 4 image slots (48 px, MobileNetV2 x0.35)
+QUALITY_DIMS = TD.DecoderDims(vocab_size=19, embedding_size=32, hidden_dim=128,
+                              vocab_pad_multiple=128)
+
+
+def _quality_step_args(cuda, B, dt):
+    g = torch.Generator(device="cpu").manual_seed(B)
+    params = tree_to_torch(TD.init(g, QUALITY_DIMS), cuda)
+    img = torch.rand(B, 4, 128, generator=g).to(cuda)
+    pre = TD.precompute(params, img, torch.rand(B, 128, generator=g).to(cuda), dt)
+    fp = TFS.prepare(params, pre, 0, dt)
+    word = torch.randint(0, 19, (B,), generator=g).to(cuda)
+    h = (torch.randn(B, 128, generator=g) * 0.1).to(cuda)
+    c = (torch.randn(B, 128, generator=g) * 0.1).to(cuda)
+    return fp, fp.emb_table[word], h, c, pre.img_k, pre.img_v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("B", [1, 16, 48])  # the eval batch; 16 images x beam 3
+def test_cuda_fused_step_at_the_quality_dims(cuda, dt, B, head):
+    """E = 32 (the bf16 projection in 32-column blocks), H = 128, 4 slots."""
+    _check_fused_step(_quality_step_args(cuda, B, dt), dt, head, v_real=19)
+
+
+def _check_fused_step(args, dt, head, v_real=None):
     fp = args[0]
     n = TFS.fused_decode_step.launches
     out = TFS.fused_decode_step(*args, with_head=head, compute_dtype=dt)
@@ -336,7 +374,7 @@ def test_cuda_fused_step_matches_plain(cuda, dt, B, head):
         assert (t - r).abs().mean() <= mean_tol
     if head:
         logits = torch.matmul(ref[2].to(dt).float(), fp.head_table.float().T) + fp.head_bias
-        assert _near_tie_ok(out[3], logits, dt)
+        assert _near_tie_ok(out[3], logits[:, :v_real], dt)
 
 
 @pytest.mark.cuda
@@ -369,7 +407,9 @@ def test_cuda_fused_step_gathers_words_and_shares_images(cuda, dt, B):
 # (name, problems, N, K, k_split, mode, gather) of each product of a bf16 step
 B_PRODUCTS = [("gate", 1, 5120, 1280, 256, "lstm", True), ("gate_rows", 1, 5120, 1280, 256,
                "lstm", False), ("p_hid", 1, 1024, 1024, 0, "tanh", False),
-              ("he_se", 2, 1024, 1024, 0, "f32", False), ("proj", 1, 256, 1024, 0, "f32", False)]
+              ("he_se", 2, 1024, 1024, 0, "f32", False), ("proj", 1, 256, 1024, 0, "f32", False),
+              # the quality corpus's LSTM (H=128, E=32): the projection's 32-column blocks
+              ("gate_e32", 1, 640, 160, 32, "lstm", True), ("proj_e32", 1, 32, 128, 0, "f32", False)]
 
 
 @pytest.mark.cuda
@@ -421,23 +461,23 @@ def test_cuda_step_product_matches_plain(cuda, name, P, N, K, k_split, mode, gat
 LSTM_DIMS = TD.DecoderDims(vocab_size=2050, embedding_size=64, hidden_dim=128)
 
 
-def _lstm_case(dev, n_img, dt, stop_bias, seed=0):
+def _lstm_case(dev, n_img, dt, stop_bias, seed=0, dims=LSTM_DIMS, slots=49):
     """Small random LSTM params (the embedding table and the output
     projection scaled up, so that rows and steps emit distinct words; a bias
     on <stop> so that rows stop at different steps) and one batch's
     ``Precomputed``."""
     gen = torch.Generator().manual_seed(seed)
-    params = tree_to_torch(TD.init(gen, LSTM_DIMS), dev)
+    params = tree_to_torch(TD.init(gen, dims), dev)
     params["out_proj"]["w"] *= 4.0
     params["embedding"]["table"] *= 4.0
     params["out_bias"][3] += stop_bias
-    return params, _lstm_pre(params, n_img, dt, seed + 100)
+    return params, _lstm_pre(params, n_img, dt, seed + 100, slots)
 
 
-def _lstm_pre(params, n_img, dt, seed):
+def _lstm_pre(params, n_img, dt, seed, slots=49):
     gen = torch.Generator().manual_seed(seed)
     dev = params["out_bias"].device
-    img = torch.randn(n_img, 49, 128, generator=gen).to(dev)
+    img = torch.randn(n_img, slots, 128, generator=gen).to(dev)
     return TD.precompute(params, img, torch.randn(n_img, 128, generator=gen).to(dev), dt)
 
 
@@ -466,11 +506,12 @@ def _lstm_greedy(params, pre, dt, early, packed=None):
                                       early_stop=early)
 
 
-def _lstm_greedy_ok(params, pre, ids, dt, early):
+def _lstm_greedy_ok(params, pre, ids, dt, early, v_real=None):
     logits, live = _lstm_forced(params, pre, ids, dt)
     if not early:
         live = torch.ones_like(live)
-    return _near_tie_ok(ids[live], logits[live], dt) and bool((ids[~live] == 0).all())
+    return (_near_tie_ok(ids[live], logits[live][:, :v_real], dt)
+            and bool((ids[~live] == 0).all()))
 
 
 @pytest.mark.cuda
@@ -560,6 +601,34 @@ def test_cuda_lstm_beam_graph_matches_plain(cuda, n_img, dt, early):
 
 def _tree_map(tree, fn):
     return {k: _tree_map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_lstm_decodes_at_the_quality_dims(cuda, dt, early):
+    """Greedy (B with A's head, one C call) and beam 3 (B with C) at the
+    quality corpus's dims, 16 images of 4 slots, against the plain decodes."""
+    from myimagecaptioningmodel_tpu_torch.inference import beam as TB
+
+    params, pre = _lstm_case(cuda, 16, dt, 4.0 if early else 0.0, seed=4, dims=QUALITY_DIMS,
+                             slots=4)
+    pk, ids = _lstm_greedy(params, pre, dt, early)
+    ref = TFS.lstm_greedy_decode_reference(pk, pre.img_k.to(dt), pre.img_v.to(dt), 5,
+                                           compute_dtype=dt, early_stop=early)
+    torch.cuda.synchronize()
+    if dt == torch.float32:
+        assert torch.equal(ids, ref)
+    assert _lstm_greedy_ok(params, pre, ids, dt, early, v_real=19)
+    assert int(ids.max()) < 19  # no padded row of the vocabulary wins
+    n = (TFS.fused_decode_step.launches, TVH.topk_vocab_head.launches)
+    ids, score = TB.beam_search_ids(params, pre, 5, 3, compute_dtype=dt, use_kernels=True,
+                                    early_stop=early)
+    torch.cuda.synchronize()
+    assert (TFS.fused_decode_step.launches, TVH.topk_vocab_head.launches) == (n[0] + 5, n[1] + 5)
+    rescore, steps = _beam_rescore(params, pre, ids, dt)
+    tol = (1e-4 if dt == torch.float32 else 2.5e-2) * steps.float().sqrt()
+    assert ((rescore - score).abs() <= tol).all()
 
 
 @pytest.mark.cuda
@@ -655,6 +724,22 @@ F_EDGES = [(1, 16, 96), (129, 16, 96), (4097, 13, 144), (3000, 48, 600), (1000, 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", F_EDGES)
 def test_cuda_matmul_stats_tile_edges(cuda, dt, M, K, N):
+    _check_matmul_stats(cuda, dt, M, K, N)
+
+
+# kernel F's (M, K, N) at the quality corpus's shapes (chip_smoke.py phase 30:
+# MobileNetV2 x0.35 at 48 px, B=16): K and N down to 5 and 8, not multiples of
+# 16-byte vectors
+F_QUALITY = [(64, 56, 336), (64, 112, 1280), (64, 198, 56), (64, 336, 56), (64, 336, 112),
+             (144, 22, 132), (144, 33, 198), (144, 66, 22), (144, 132, 22), (144, 132, 33),
+             (144, 198, 33), (576, 11, 66), (576, 48, 11), (576, 66, 11), (2304, 8, 48),
+             (2304, 30, 8), (2304, 48, 8), (9216, 5, 30), (9216, 11, 5), (9216, 11, 11)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", F_QUALITY)
+def test_cuda_matmul_stats_at_the_quality_shapes(cuda, dt, M, K, N):
     _check_matmul_stats(cuda, dt, M, K, N)
 
 
@@ -776,12 +861,12 @@ def _tf_case(dev, n_img, dt, stop_bias, seed=0):
     return params, TTF.precompute(params, img, gf, 2, dt)
 
 
-def _tf_logits(params, pre, ids, dt):
+def _tf_logits(params, pre, ids, dt, dims=TF_DIMS):
     """Teacher-forced logits on ``ids`` and the positions up to each row's
     first <stop>."""
     ids = ids.long()
     src = torch.cat([torch.full_like(ids[:, :1], 2), ids[:, :-1]], dim=1)
-    logits = TTF.teacher_forcing_logits(params, pre, src, TF_DIMS, 0, dt)
+    logits = TTF.teacher_forcing_logits(params, pre, src, dims, 0, dt)
     after = torch.cumsum((ids == 3).int(), dim=1) - (ids == 3).int() > 0
     return logits, ~after
 
@@ -846,6 +931,50 @@ def test_cuda_kernels_d_e_refuse_what_they_cannot_take(cuda):
                                 compute_dtype=torch.float32)
 
 
+# the quality corpus's transformer (chip_smoke.py phase 30): E=32, D=128, 4
+# heads, F=256, 19 words padded to 128 rows
+QUALITY_TF_DIMS = TTF.TransformerDims(vocab_size=19, embedding_size=32, model_dim=128,
+                                      num_layers=2, num_heads=4, mlp_ratio=2, max_positions=6,
+                                      vocab_pad_multiple=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_d_e_at_the_quality_dims(cuda, dt, int8):
+    """D greedy (int8 weights and int8 memory with ``int8``) and E beam 4 at
+    the quality corpus's dims, 16 images of 4 slots: in bf16 the head's
+    product takes 32-column blocks over rows tf_layernorm normalized. The
+    limits of the tests above, the near-tie rule over the real words."""
+    gen = torch.Generator().manual_seed(7)
+    params = tree_to_torch(TTF.init(gen, QUALITY_TF_DIMS), cuda)
+    params["out_bias"][3] += 2.5
+    if int8:
+        params = TTF.quantize_transformer_decoder(params)
+    img = torch.rand(16, 4, 128, generator=gen).to(cuda)
+    pre = TTF.precompute(params, img, torch.rand(16, 128, generator=gen).to(cuda), 4, dt)
+    rows = torch.arange(16, device=cuda)
+    ftp = TFT.prepare(params, pre, 4, dt, quantize_kv=int8)
+    ids = TFT.fused_greedy_decode(ftp, 5, 4, compute_dtype=dt, early_stop=True)
+    torch.cuda.synchronize()
+    ref = TFT.fused_greedy_decode_reference(ftp, 5, 4, compute_dtype=dt, early_stop=True)
+    if dt == torch.float32:
+        assert torch.equal(ids, ref)
+    mp, _dims, mpre = TFT._as_model(ftp, 4, rows)
+    logits, live = _tf_logits(mp, mpre, ids, dt, QUALITY_TF_DIMS)
+    assert _near_tie_ok(ids[live], logits[live][:, :19], dt) and (ids[~live] == 0).all()
+    ftp = TFT.prepare(params, pre, 4, dt)  # float memory: beam takes no int8 memory
+    quad = TFT.fused_beam_decode(ftp, 5, 4, 4, compute_dtype=dt, early_stop=True)
+    torch.cuda.synchronize()
+    ids, score = beam_backtrack(*quad, 0.0)
+    mp, _dims, mpre = TFT._as_model(ftp, 4, rows)
+    logits, live = _tf_logits(mp, mpre, ids, dt, QUALITY_TF_DIMS)
+    tok = torch.log_softmax(logits, dim=-1).gather(-1, ids.long()[..., None])[..., 0]
+    rescore, steps = (tok * live).sum(dim=1), live.sum(dim=1)
+    tol = (1e-4 if dt == torch.float32 else 2.5e-2) * steps.float().sqrt()
+    assert ((rescore - score).abs() <= tol).all() and int(ids.max()) < 19
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantize_kv", [False, True])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -903,7 +1032,10 @@ def test_cuda_kernel_e_int8_matches_plain(cuda, n_img, dt):
 STREAM_SHAPES = [(3072, 1024, "layernorm", "qkv"), (1024, 1024, "rows", "residual"),
                  (1024, 1024, "layernorm", "store"), (4096, 1024, "layernorm", "gelu"),
                  (1024, 4096, "rows", "residual"), (256, 1024, "layernorm", "store_f32"),
-                 (1024, 256, "gather", "embed")]
+                 (1024, 256, "gather", "embed"),
+                 # the quality corpus's head (E=32: 32-column blocks over
+                 # normalized rows) and embedding (K=32)
+                 (32, 128, "rows", "store_f32"), (128, 32, "gather", "embed")]
 
 
 @pytest.mark.cuda
@@ -1098,6 +1230,27 @@ def test_cuda_fused_irb_tilings(cuda, dt, B, H, W, cin, cexp, cout, stride, shor
     _check_fused_irb(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut)
 
 
+# kernel G at channel counts that are not multiples of 8, or under 8: the 17
+# blocks of MobileNetV2 x0.35 at 48 px, B=16 (chip_smoke.py phase 30), and
+# two of them at sizes with several row and column tiles (bf16: element
+# copies and stores, odd Cout in the Cexp split's partials)
+G_ANY_CHANNELS = [(16, 24, 24, 11, 11, 5, 1, False), (16, 24, 24, 5, 30, 8, 2, False),
+                  (16, 12, 12, 8, 48, 8, 1, True), (16, 12, 12, 8, 48, 11, 2, False),
+                  (16, 6, 6, 11, 66, 11, 1, True), (16, 6, 6, 11, 66, 22, 2, False),
+                  (16, 3, 3, 22, 132, 22, 1, True), (16, 3, 3, 22, 132, 33, 1, False),
+                  (16, 3, 3, 33, 198, 33, 1, True), (16, 3, 3, 33, 198, 56, 2, False),
+                  (16, 2, 2, 56, 336, 56, 1, True), (16, 2, 2, 56, 336, 112, 1, False),
+                  (2, 30, 37, 11, 66, 11, 1, True), (3, 25, 25, 5, 30, 8, 2, False),
+                  (1, 7, 7, 33, 198, 33, 1, True), (1, 3, 3, 22, 132, 33, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,cin,cexp,cout,stride,shortcut", G_ANY_CHANNELS)
+def test_cuda_fused_irb_any_channels(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut):
+    _check_fused_irb(cuda, dt, B, H, W, cin, cexp, cout, stride, shortcut)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_cuda_fused_irb_prepared_equals_folded(cuda, dt):
@@ -1123,9 +1276,6 @@ def test_cuda_fused_irb_refuses_what_it_cannot_take(cuda):
         TFI.fused_inverted_residual(x, fold, 2, True)
     with pytest.raises(TypeError):
         TFI.fused_inverted_residual(x.half(), fold, 1, True)
-    x12, fold12 = _g_case(cuda, 1, 8, 8, 12, 32, 16, torch.float32, 0)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        TFI.fused_inverted_residual(x12, fold12, 1, False)
     with pytest.raises(ValueError, match="contiguous"):
         TFI.fused_inverted_residual(x.transpose(1, 2), fold, 1, True)
     n = TFI.fused_inverted_residual.launches

@@ -17,6 +17,7 @@ from myimagecaptioningmodel_tpu import config as jconfig
 from myimagecaptioningmodel_tpu.data import image as jimage
 from myimagecaptioningmodel_tpu.evaluation import metrics as jmetrics
 from myimagecaptioningmodel_tpu_torch import config as tconfig
+from myimagecaptioningmodel_tpu_torch import parity_run as tparity
 from myimagecaptioningmodel_tpu_torch.compat import from_jax
 from myimagecaptioningmodel_tpu_torch.data import image as timage
 from myimagecaptioningmodel_tpu_torch.evaluation import metrics as tmetrics
@@ -64,13 +65,13 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert len(names) >= 20
     # the modules of kernels G, D/E and B, their decode graphs, the int8
     # transformer, the fused encoder, batch captioning, data and vocab tensor
-    # parallelism, the Paddle import and the serving export
+    # parallelism, the Paddle import, the serving export and the parity kit
     for name in ("ops.kernels.fused_irb", "ops.kernels.fused_transformer",
                  "ops.kernels.fused_step", "ops.kernels.decode_graphs",
                  "models.transformer", "models.mobilenet_v2", "inference.batch_caption",
                  "parallel.distributed", "parallel.mesh", "parallel.vocab_parallel",
                  "compat.paddle_fmt", "compat.paddle_import", "inference.export_program",
-                 "ops.kernels.attention",
+                 "ops.kernels.attention", "parity_run",
                  "utils.tracing"):
         assert "myimagecaptioningmodel_tpu_torch." + name in names
 
@@ -87,7 +88,7 @@ def test_port_imports_without_the_packages_the_card_lacks():
                  "training.checkpoint", "evaluation.cider", "train", "evaluate",
                  "dataset_gen", "inference.batch_caption", "parallel.distributed",
                  "parallel.mesh", "parallel.train_step", "parallel.vocab_parallel",
-                 "compat.paddle_import", "inference.export_program"):
+                 "compat.paddle_import", "inference.export_program", "parity_run"):
         assert "myimagecaptioningmodel_tpu_torch." + name in names
 
 
@@ -124,7 +125,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path
                  lambda: ttrain_main([]), lambda: tevaluate_main([]),
                  lambda: tbatch.caption_directory(cfg, str(tmp_path)),
                  lambda: tbatch.main([str(tmp_path)]),
-                 lambda: texport.export_decode(cfg)):
+                 lambda: texport.export_decode(cfg),
+                 lambda: tparity.main(["--workdir", str(tmp_path / "kit")])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert tcap.resolve_device("cpu") == torch.device("cpu")
