@@ -8,15 +8,17 @@ parallelism, the Paddle checkpoint import, the ``torch.export`` serving
 artifact, the LSTM decoder's training forward and backward with the
 attention scores' one-pass backward (kernel H), and the parity kit training
 both decoder families on a learnable corpus to the JAX package's BLEU bar,
-every serving mode read through the kernels.
+every serving mode read through the kernels, and the graft entry points
+(``graft_entry``, the twin of ``__graft_entry__.py``): the flagship's real-dims loss step, with kernel F too,
+and the dry run of both families on four ranks of a (data, model) grid.
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --quality-seeds 0 1 2 3 4   # phase 30 alone, per seed
 
 Phases (each prints one line; any failure exits non-zero with no result;
 29, 17 and 18 run right after 2, and 3 and 20 after them, and 21, 22 and
-23 right after 13, while torch.profiler still reads every event; 24-28 and
-30 run last):
+23 right after 13, while torch.profiler still reads every event; 24-28,
+30 and 31 run last):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``myimagecaptioningmodel_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -367,6 +369,23 @@ Phases (each prints one line; any failure exits non-zero with no result;
    their plain versions) do not. ``--quality-seeds`` runs this phase alone
    from each seed given, fails only on a kernel's fault, and counts the
    seeds that clear the bar and the bands (PERF.md keeps the count).
+31. the graft entry points (``graft_entry``, ``phase_graft_entry``, after
+   28's exports have ended): (a) kernel F against its plain version at
+   each of the 35 shapes of a B=8, 224 px forward (bf16); ``entry()`` on
+   the card, the flagship captioner's teacher-forcing loss at real dims
+   (B=8, 224 px, vocab 12416, H=1024, 35 steps, bf16), as the default
+   config runs it (no kernel) and with ``fuse_bn_stats`` (F 35 a forward):
+   both finite, within ``ENTRY_F_RTOL`` of each other, the encoder's
+   features of the two within ``ENTRY_F_FEAT_RTOL``; ms of the loss and of
+   the loss with every gradient (CUDA events, plain, F, F, plain) and the
+   peak MiB; (b) ``dryrun_multichip(4)``: four gloo ranks sharing the card
+   on a (data 2, model 2) grid, two float32 train steps and one greedy
+   decode of each family at the JAX package's dry-run dims; rank 0's line,
+   each family's loss equal on every rank and within ``DRY_RTOL`` of the
+   rank body's world-1 run, Adam's first moment after the step (the
+   gradient) and the loss's change in the step against that run
+   (``DRY_MU_RTOL``, ``DRY_MU_TREE_RTOL``, ``DRY_CHANGE_RTOL``), the ids of
+   each data index equal to its rows.
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -377,7 +396,8 @@ neighbouring ranks by that gap. Float32 products are compared with TF32 off
 
 The line before the last is one JSON object describing each kernel (the
 launches of A and B are phase 4's, those of C phase 8's beam service, those
-of F phase 12 (c)'s (phase 21 (b)'s under ``tf_train_launches``), those of D
+of F phase 12 (c)'s (phase 21 (b)'s under ``tf_train_launches``, phase 31
+(a)'s forward under ``entry_launches``), those of D
 and E phase 16's services, one per decode (serving phase 21's trained
 bundle under ``trained_bundle_launches``),
 those of D's and E's int8 modes phase 19's services, and G's phase 18's
@@ -1457,12 +1477,39 @@ def f_stats_errors(y, s, q, ry, rs, rq):
     }
 
 
+def f_operands(gen, dev, M, K, N, dt):
+    """Random x [M, K] and w [K, N] (unit-variance products) in ``dt``."""
+    x = torch.randn(M, K, device=dev, generator=gen).to(dt)
+    w = (torch.randn(K, N, device=dev, generator=gen) / K ** 0.5).to(dt)
+    return x, w
+
+
+def f_agreement(kernel, plain, x, w):
+    """Kernel F on (x, w) against its plain version -> (y within its limit,
+    max |y - plain y|, in bf16 the count of y beyond one ulp, the
+    ``f_stats_errors`` readings). y: float32 (TF32 off) to 1e-4 x max|y|,
+    bfloat16 to one bf16 ulp of the larger magnitude (the two accumulate in
+    other orders, so a value may round to the neighbouring bf16 number)
+    plus ``accumulation_bound``."""
+    y, s, q = kernel(x, w)
+    torch.cuda.synchronize()
+    ry, rs, rq = plain(x, w)
+    yf, ryf = y.float(), ry.float()
+    diff = (yf - ryf).abs()
+    err_y = float(diff.max())
+    beyond_one_ulp = None
+    if x.dtype == torch.float32:
+        ok_y = err_y <= 1e-4 * float(ryf.abs().max())
+    else:
+        over = diff - bf16_ulp(torch.maximum(yf.abs(), ryf.abs()))
+        ok_y = bool((over <= accumulation_bound(x, w)).all())
+        beyond_one_ulp = int((over > 0).sum())
+    return ok_y, err_y, beyond_one_ulp, f_stats_errors(y, s, q, ry, rs, rq)
+
+
 def phase_kernel_f(dev, seed):
-    """Kernel F against its plain version. y: float32 (TF32 off) to 1e-4 x
-    max|y|, bfloat16 to one bf16 ulp of the larger magnitude (the two
-    accumulate in other orders, so a value may round to the neighbouring bf16
-    number) plus ``accumulation_bound``. sum and sumsq by ``f_stats_errors``,
-    to F_STATS_TOL."""
+    """Kernel F against its plain version: y by ``f_agreement``, sum and
+    sumsq by ``f_stats_errors``, to F_STATS_TOL."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels.matmul_bn import (
         _matmul_stats_reference as plain,
         matmul_stats as kernel,
@@ -1475,23 +1522,10 @@ def phase_kernel_f(dev, seed):
     worst, times = 0.0, {}
     for dt in (torch.float32, torch.bfloat16):
         for name, M, K, N in F_SHAPES:
-            x = torch.randn(M, K, device=dev, generator=g).to(dt)
-            w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5).to(dt)
-            y, s, q = kernel(x, w)
-            torch.cuda.synchronize()
-            ry, rs, rq = plain(x, w)
-            yf, ryf = y.float(), ry.float()
-            diff = (yf - ryf).abs()
-            err_y = float(diff.max())
-            beyond_one_ulp = None
-            if dt == torch.float32:
-                ok_y = err_y <= 1e-4 * float(ryf.abs().max())
-            else:
-                over = diff - bf16_ulp(torch.maximum(yf.abs(), ryf.abs()))
-                ok_y = bool((over <= accumulation_bound(x, w)).all())
-                beyond_one_ulp = int((over > 0).sum())
+            x, w = f_operands(g, dev, M, K, N, dt)
+            ok_y, err_y, beyond_one_ulp, errs = f_agreement(kernel, plain, x, w)
+            if dt == torch.bfloat16:
                 worst = max(worst, err_y)
-            errs = f_stats_errors(y, s, q, ry, rs, rq)
             ok = ok_y and not f_stats_failures(errs)
             t_k = time_ms(lambda: kernel(x, w), reps=10)
             t_p = time_ms(lambda: plain(x, w), reps=10)
@@ -1510,7 +1544,7 @@ def phase_kernel_f(dev, seed):
                 bound_share=round(b_ms * 1e3 / d_k, 4))
             if not ok:
                 raise AssertionError(f"kernel F disagrees with its plain version ({dt}, {name})")
-            del x, w, y, ry, yf, ryf, diff
+            del x, w
     torch.cuda.empty_cache()
     return worst, times
 
@@ -5815,6 +5849,226 @@ def quality_seeds(dev, seeds) -> int:
     return 0
 
 
+# ---- phase 31: the graft entry points (graft_entry) ------------------------------
+
+# (a)'s limits: entry()'s bf16 loss at real dims with kernel F in the
+# encoder's stride-1 1x1 convs against the same step without it (F sums y
+# and y^2 in another order than the plain BN): 1.11e-4 relative on an H100,
+# the same in every call. The loss carries little of the encoder at random
+# init (its logits are nearly flat), so the encoder's raw features [8, 49,
+# 1280] of the entry batch with F and without it are held too, in float32:
+# 1.85e-5 on an H100 (2.1e-6 with F's plain version on a CPU); in bf16 they
+# move by 46% against float32 at init (train-mode BN amplifies each
+# rounding), F or not, and F against plain read 0.175 there.
+ENTRY_F_RTOL = 5e-4
+ENTRY_F_FEAT_RTOL = 1e-4
+
+
+def entry_feature_errs(args, opts) -> dict:
+    """The encoder's raw features of ``entry()``'s params and images with
+    kernel F (``fuse_bn_stats``) against without it -> {dtype: |F - plain|
+    / |plain|} in float32 (held) and bfloat16 (printed)."""
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        o = opts._replace(compute_dtype=dt)
+        with torch.no_grad():
+            plain, fused = (C.img2feature_tree(*args[:3], o._replace(fuse_bn_stats=f))[1]
+                            .float() for f in (False, True))
+        out[dt] = float((fused - plain).norm() / plain.norm())
+    return out
+# (b): ranks of dryrun_multichip on the one card, a (data 2, model 2) grid,
+# against the rank body's world-1 run in this process from the same trees,
+# float32 with TF32 off (this process's switches, which the ranks take):
+# each family's loss 1.1e-6 (LSTM) and 1.8e-6 (transformer) on an H100,
+# with cuDNN's TF32 left on in the ranks alone 3.9e-4 and 4.1e-3; Adam's
+# first moment, the worst decoder-side leaf and the whole tree, and the
+# loss's change in the step (the update's effect): the limits of
+# tests/test_torch_graft_entry.py, which holds the world-1 run to the JAX
+# package's step. On an H100 (LSTM, transformer): moment 2.0e-4 / 2.1e-4 a
+# leaf, 7.0e-4 / 8.6e-5 the tree, change 5.6e-3 / 1.7e-3, the zero leaf
+# 1.4e-11 / none.
+DRY_WORLD, DRY_RTOL = 4, 1e-5
+DRY_MU_RTOL, DRY_MU_TREE_RTOL, DRY_CHANGE_RTOL = 5e-3, 0.15, 5e-2
+# a leaf whose gradient is zero in exact arithmetic (the LSTM attention
+# score's bias: a softmax ignores a shift), held to this share of the
+# largest leaf's norm
+DRY_ZERO_LEAF, DRY_ZERO_GRAD_LEAVES = 1e-6, ("decoder/attention/score/b",)
+
+
+def dry_step_errs(got, want):
+    """One family's dry-run step against another (``dryrun_rank``'s
+    results) -> {"loss": relative error, "mu_leaf": the worst |got - want|
+    / |want| of a decoder-side leaf of Adam's first moment, "mu_tree": the
+    same over the whole tree concatenated, "change": the relative error of
+    the loss's change in the step, "zero_leaf": the worst norm of a
+    zero-gradient leaf over the largest leaf's}."""
+    from myimagecaptioningmodel_tpu_torch.parallel.mesh import leaf_paths
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import tree_leaves
+
+    def flat(tree):
+        return dict(zip(leaf_paths(tree), (np.asarray(v, np.float64)
+                                           for v in tree_leaves(tree))))
+
+    g, w = flat(got["mu"]), flat(want["mu"])
+    assert g.keys() == w.keys()
+    scale = max(np.linalg.norm(v) for v in w.values())
+    leaf = max(np.linalg.norm(g[k] - w[k]) / np.linalg.norm(w[k]) for k in w
+               if not k.startswith("encoder/") and k not in DRY_ZERO_GRAD_LEAVES)
+    zero = max((np.linalg.norm(g[k] - w[k]) / scale for k in w if k in DRY_ZERO_GRAD_LEAVES),
+               default=0.0)
+    cat = [np.concatenate([t[k].ravel() for k in w]) for t in (g, w)]
+    change = want["loss_after"] - want["loss"]
+    return {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "mu_leaf": float(leaf),
+            "mu_tree": float(np.linalg.norm(cat[0] - cat[1]) / np.linalg.norm(cat[1])),
+            "change": abs(got["loss_after"] - got["loss"] - change) / abs(change),
+            "zero_leaf": float(zero)}
+
+
+def entry_timings(fn, args, dev, reps=10):
+    """ms of the loss alone (no autograd) and of the loss and every
+    gradient, CUDA events, and the peak MiB above what was allocated
+    before, of one forward and backward."""
+    from myimagecaptioningmodel_tpu_torch.parallel.train_step import tree_leaves
+
+    leaves = tree_leaves(args[0])
+
+    def fwd():
+        with torch.no_grad():
+            fn(*args)
+
+    def fwd_bwd():
+        torch.autograd.grad(fn(*args), leaves)
+
+    out = {"fwd_ms": time_ms(fwd, reps, warmup=2), "fwd_bwd_ms": time_ms(fwd_bwd, reps, 2)}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fwd_bwd()
+    torch.cuda.synchronize()
+    out["peak_mib"] = round((torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20, 1)
+    return out
+
+
+def phase_graft_entry(dev, card):
+    """Phase 31. (a) ``graft_entry.entry()`` on the card: the flagship
+    captioner's teacher-forcing loss at real dims (B=8, 224 px, vocab 12416,
+    H=1024, 35 steps, bf16) as the user calls it (kernel-free: the default
+    config keeps ``fuse_bn_stats`` off), and the same step with
+    ``fuse_bn_stats=True`` (kernel F once a stride-1 1x1 conv, 35 a
+    forward): the two losses finite and within ``ENTRY_F_RTOL``, the
+    encoder's features within ``ENTRY_F_FEAT_RTOL``; ms of the loss and of
+    the loss and its gradients, in turns, and the peak MiB. (b)
+    ``dryrun_multichip(DRY_WORLD)``: gloo ranks sharing the card on a (data
+    2, model 2) grid, two train steps and one greedy decode of each family;
+    each family's loss the same on every rank, and each rank's step against
+    the rank body's world-1 run in this process (``dry_step_errs``: the
+    loss, Adam's first moment, the loss's change in the step); the ids of
+    each data index equal to that run's rows. Before (a), kernel F against
+    its plain version (``f_agreement``, ``F_STATS_TOL``) at each of the
+    entry step's 35 shapes in bf16. -> (F's launches in one forward of (a),
+    F's largest |y - plain y| there)."""
+    from myimagecaptioningmodel_tpu_torch import graft_entry as GE
+    from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.ops.kernels.matmul_bn import (
+        _matmul_stats_reference as plain,
+        matmul_stats as kernel,
+    )
+
+    t0 = time.perf_counter()
+    # F against its plain version at each of the entry step's 35 shapes, bf16
+    g = torch.Generator(device=dev).manual_seed(31)
+    f_worst, f_failed = 0.0, []
+    shapes = forward_f_shapes(GE.ENTRY_BATCH, GE.ENTRY_IMAGE)
+    for name, M, K, N in shapes:
+        ok_y, err_y, _beyond, errs = f_agreement(kernel, plain,
+                                                 *f_operands(g, dev, M, K, N, torch.bfloat16))
+        f_worst = max(f_worst, err_y)
+        if not ok_y or f_stats_failures(errs):
+            f_failed.append(name)
+    if f_failed:
+        raise AssertionError(f"phase 31 (a): kernel F off its plain version at {f_failed}")
+    fn, args = GE.entry()
+    opts_f = GE.entry_options()._replace(fuse_bn_stats=True)
+
+    def fn_f(params, state, images, captions):
+        return C.loss_fn(params, state, images, captions, opts_f)[0]
+
+    fns = {"plain": fn, "kernel_f": fn_f}
+    losses, launches = {}, {}
+    for name, f in fns.items():
+        with counting() as run:
+            losses[name] = float(f(*args).detach())
+        launches[name] = {k: v for k, v in run.counts.items() if v}
+    times = {name: [] for name in fns}
+    for name in ("plain", "kernel_f", "kernel_f", "plain"):
+        times[name].append(entry_timings(fns[name], args, dev))
+    rel = abs(losses["kernel_f"] - losses["plain"]) / abs(losses["plain"])
+    feat_rel = entry_feature_errs(args, GE.entry_options())
+    say("graft_entry", card=card.replace(" ", "_"), batch=GE.ENTRY_BATCH,
+        image=GE.ENTRY_IMAGE, dtype=GE.entry_options().compute_dtype,
+        f_shapes_held=len(shapes), f_max_abs_err=f_worst,
+        loss=losses["plain"], loss_f=losses["kernel_f"], loss_f_rel=rel,
+        feat_f_rel=feat_rel["float32"], feat_f_rel_bf16=feat_rel["bfloat16"],
+        launches=json.dumps(launches["plain"]).replace(" ", ""),
+        launches_f=json.dumps(launches["kernel_f"]).replace(" ", ""),
+        **{f"{k}_{name}": [t[k] for t in times[name]]
+           for name in fns for k in ("fwd_ms", "fwd_bwd_ms", "peak_mib")})
+    if not (np.isfinite(losses["plain"]) and np.isfinite(losses["kernel_f"])
+            and rel <= ENTRY_F_RTOL and feat_rel["float32"] <= ENTRY_F_FEAT_RTOL):
+        raise AssertionError(f"phase 31 (a): entry() losses {losses}, {rel:.3g} apart "
+                             f"(limit {ENTRY_F_RTOL}), features {feat_rel} apart "
+                             f"(limit {ENTRY_F_FEAT_RTOL})")
+    if launches["plain"] or launches["kernel_f"] != {"matmul_stats": len(shapes)}:
+        raise AssertionError(f"phase 31 (a): launches {launches}")
+    del fn, fn_f, fns, args
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    ranks = GE.dryrun_multichip(DRY_WORLD)
+    t_ranks = time.perf_counter() - t1
+    one = GE.dryrun_rank(0, DRY_WORLD)
+
+    def rows(r):  # a rank's rows of the global batch: its data index's
+        size, d = r["grid"][:2]
+        n = 2 * DRY_WORLD // size
+        return slice(d * n, (d + 1) * n)
+
+    limits = {"loss": DRY_RTOL, "mu_leaf": DRY_MU_RTOL, "mu_tree": DRY_MU_TREE_RTOL,
+              "change": DRY_CHANGE_RTOL}
+    errs, one_loss, ids_equal = {}, {}, {}
+    for arch in ("lstm", "transformer"):
+        per_rank = [dry_step_errs(r[arch], one[arch]) for r in ranks]
+        errs[arch] = {k: max(e[k] for e in per_rank) for k in per_rank[0]}
+        one_loss[arch] = len({r[arch]["loss"] for r in ranks}) == 1
+        ids_equal[arch] = all(np.array_equal(r[arch]["ids"], one[arch]["ids"][rows(r)])
+                              for r in ranks)
+    say("graft_dryrun", card=card.replace(" ", "_"), world=DRY_WORLD,
+        grid=json.dumps([r["grid"] for r in ranks]).replace(" ", ""),
+        loss=ranks[0]["lstm"]["loss"], transformer_loss=ranks[0]["transformer"]["loss"],
+        loss_one=one["lstm"]["loss"], transformer_loss_one=one["transformer"]["loss"],
+        errs=json.dumps(errs).replace(" ", ""),
+        one_loss=json.dumps(one_loss).replace(" ", ""),
+        ids_equal=json.dumps(ids_equal).replace(" ", ""),
+        ranks_seconds=round(t_ranks, 1), seconds_a=round(t_a, 1))
+    grid = [r["grid"] for r in ranks]
+    if grid != [(2, d, 2, m) for d in range(2) for m in range(2)]:
+        raise AssertionError(f"phase 31 (b): grid {grid}")
+    over = {(arch, k): e[k] for arch, e in errs.items() for k in limits if e[k] > limits[k]}
+    over.update({(arch, "zero_leaf"): e["zero_leaf"] for arch, e in errs.items()
+                 if e["zero_leaf"] > DRY_ZERO_LEAF})
+    if over:
+        raise AssertionError(f"phase 31 (b): against world 1 {over} (limits {limits})")
+    if not (all(one_loss.values()) and all(ids_equal.values())):
+        raise AssertionError(f"phase 31 (b): one loss a family {one_loss}, "
+                             f"ids by rows {ids_equal}")
+    say("graft_phase", seconds=round(time.perf_counter() - t0, 1))
+    return launches["kernel_f"]["matmul_stats"], f_worst
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -5912,6 +6166,7 @@ def main(argv=None) -> int:
                 if proc is not None and proc.poll() is None:
                     proc.kill()
                     proc.wait()
+    entry_f_launches, err_f_entry = phase_graft_entry(dev, card)  # 31, after the exports' traces
 
     bf16 = torch.bfloat16
     f_key = (bf16, "conv3_1_expand")
@@ -5979,10 +6234,10 @@ def main(argv=None) -> int:
          "batch_caption_launches": in_paths(bc, "topk_vocab_head")},
         {"name": "matmul_stats", "route": "cuda", "source": KERNEL_F_SRC,
          "replaces": KERNEL_F_TPU, "launches": train_launches["matmul_stats"],
-         "tf_train_launches": tf_f_launches, "max_abs_err": err_f, "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
+         "tf_train_launches": tf_f_launches, "max_abs_err": max(err_f, err_f_entry), "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
          "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2],
          "trainer_launches": in_trainer("matmul_stats"), "dp_launches": in_paths(dp, "matmul_stats"),
-         "tp_launches": in_paths(tp, "matmul_stats")},
+         "tp_launches": in_paths(tp, "matmul_stats"), "entry_launches": entry_f_launches},
     ]
     def de_at(t, busy_ms):
         """D's or E's numbers at one batch, the device busy ms per decode beside."""

@@ -399,10 +399,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawned(fn, rank, world, address, threads, out, args):
+def _spawned(fn, rank, world, address, threads, tf32, out, args):
     try:
         if threads:
             torch.set_num_threads(threads)
+        # the parent's float32 precision: a fresh process starts from
+        # PyTorch's defaults, and a rank that rounds its products otherwise
+        # than the process it is held to moves the loss with its rows
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         initialize(address, world, rank, backend="gloo")
         try:
             # pickled by value here: the queue's pickler would share a
@@ -424,7 +428,8 @@ def spawn_local(fn: Callable, nprocs: int, args: tuple = (), timeout: float = 60
     runs several ranks on one GPU, where NCCL refuses) -> each rank's
     return value, in rank order. ``fn`` and ``args`` are pickled
     (``fn`` by import path; a module-level function). ``threads`` > 0 sets
-    each process's torch threads. Raises if a rank fails or the group does
+    each process's torch threads; each takes this process's TF32 switches
+    (cuBLAS's and cuDNN's). Raises if a rank fails or the group does
     not finish within ``timeout`` seconds; every process is stopped
     before this returns."""
     import multiprocessing as mp
@@ -434,7 +439,9 @@ def spawn_local(fn: Callable, nprocs: int, args: tuple = (), timeout: float = 60
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     address = f"tcp://localhost:{free_port()}"
-    procs = [ctx.Process(target=_spawned, args=(fn, r, nprocs, address, threads, out, args),
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    procs = [ctx.Process(target=_spawned,
+                         args=(fn, r, nprocs, address, threads, tf32, out, args),
                          daemon=True)
              for r in range(nprocs)]
     for p in procs:

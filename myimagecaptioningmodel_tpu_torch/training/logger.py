@@ -49,8 +49,12 @@ class Logger:
     def _save_conf(self) -> None:
         if not self.write:
             return
-        with open(self._conf_path, "w", encoding="utf-8") as f:
+        # written aside and renamed: the other ranks of a group read this
+        # file while rank 0 writes it, and must never see it half written
+        tmp = self._conf_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
             f.write(json.dumps(self._conf))
+        os.replace(tmp, self._conf_path)
 
     # ---- persisted run state -------------------------------------------------
 

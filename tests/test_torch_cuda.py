@@ -85,8 +85,15 @@ the limits above, the near-tie rule over the real words; kernel F at every
 (M, K, N) of MobileNetV2 x0.35 at 48 px and B=16; kernel G at that
 encoder's 17 blocks, whose channel counts (5, 11, 22, 30, 33, ...) are not
 multiples of 8, in float32 and bfloat16 by G's limits (at B=1 the Cexp
-split's partials with an odd Cout).
+split's partials with an odd Cout). The graft entry's real-dims loss
+step (``graft_entry.entry()``, bf16): no kernel at the default config, the
+card's loss within ``ENTRY_CPU_RTOL`` of the CPU's, and with
+``fuse_bn_stats`` kernel F 35 times a forward, the loss and the encoder's
+float32 features within ``chip_smoke.ENTRY_F_RTOL`` and
+``ENTRY_F_FEAT_RTOL`` of the plain step's.
 """
+
+import math
 
 import pytest
 import torch
@@ -1577,3 +1584,39 @@ def test_cuda_kernel_h_without_bias(exact_bf16_products, dt):
                                                                         before[1] + 1)
     scores, _err = h_scores((e, dw, db, dk, dh), (ik, he, w, None, de), dt)
     assert set(scores) == {"e", "dw", "dimg_k", "dh_emb"} and max(scores.values()) <= 1.0
+
+
+# entry()'s bf16 loss on the card against the CPU's: 9.449680 on an H100,
+# 9.449060 on the CPU of its host (6.6e-5; 9.449675 on a Xeon with AMX:
+# each CPU build rounds its bf16 convolutions its own way)
+ENTRY_CPU_RTOL = 2e-4
+
+
+@pytest.mark.cuda
+def test_cuda_graft_entry_loss_and_kernel_f(cuda):
+    """``graft_entry.entry()`` on the card: its bf16 loss at real dims
+    launches no kernel (the default config), equals the CPU's within
+    ``ENTRY_CPU_RTOL``, and the same step with ``fuse_bn_stats`` launches F
+    35 times and lands within ``chip_smoke.ENTRY_F_RTOL`` (1.1e-4 read
+    there), the encoder's float32 features within
+    ``chip_smoke.ENTRY_F_FEAT_RTOL``."""
+    from chip_smoke import ENTRY_F_FEAT_RTOL, ENTRY_F_RTOL, entry_feature_errs
+    from myimagecaptioningmodel_tpu_torch import graft_entry as GE
+    from myimagecaptioningmodel_tpu_torch.models import captioner as TC
+
+    fn, args = GE.entry()
+    assert args[0]["img_embed"]["w"].is_cuda and args[2].is_cuda
+    n = TMB.matmul_stats.launches
+    loss = float(fn(*args).detach())
+    assert TMB.matmul_stats.launches == n
+    opts = GE.entry_options()._replace(fuse_bn_stats=True)
+    loss_f = float(TC.loss_fn(*args, opts)[0].detach())
+    assert TMB.matmul_stats.launches - n == 35
+    feat_rel = entry_feature_errs(args, GE.entry_options())["float32"]
+    cpu_fn, cpu_args = GE.entry("cpu")
+    with torch.no_grad():
+        loss_cpu = float(cpu_fn(*cpu_args))
+    assert all(math.isfinite(x) for x in (loss, loss_f, loss_cpu))
+    assert abs(loss - loss_cpu) <= ENTRY_CPU_RTOL * abs(loss_cpu)
+    assert abs(loss_f - loss) <= ENTRY_F_RTOL * abs(loss)
+    assert feat_rel <= ENTRY_F_FEAT_RTOL

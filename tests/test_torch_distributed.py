@@ -29,7 +29,7 @@ inputs (float64, JAX under x64):
   world), the loss misses JAX's by over 1e-3 relative.
 
 ``spawn_local`` itself fails at once, not at its timeout, when a rank dies
-before it reports.
+before it reports, and its ranks take the parent's TF32 switches.
 """
 
 import os
@@ -182,13 +182,25 @@ def rank_worker(rank, d):
         "bn": _bn_rank(rank, d),
         "step": _step_rank(rank),
         "step_fault": _step_rank(rank, fault=True),
+        "tf32": (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32),
     }
     return out
 
 
+# the parent's TF32 switches while it spawns the ranks: both the other way
+# round from PyTorch's defaults, which a fresh process starts from
+PARENT_TF32 = (True, False)
+
+
 @pytest.fixture(scope="module")
 def ranks():
-    return tdist.spawn_local(rank_worker, WORLD, args=(bn_inputs(),), threads=1, timeout=300)
+    was = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = PARENT_TF32
+    try:
+        return tdist.spawn_local(rank_worker, WORLD, args=(bn_inputs(),), threads=1,
+                                 timeout=300)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
 
 
 # ---- the helpers ------------------------------------------------------------------
@@ -250,6 +262,10 @@ def test_rank_helpers(ranks):
         assert out["distinct"] == 3  # "a b" on both ranks, counted once
         np.testing.assert_array_equal(out["gather"], [[0, 10], [1, 11]])
         np.testing.assert_array_equal(out["put_tree"], [0.0] * 3)  # rank 0's values
+
+
+def test_ranks_take_the_parent_s_tf32_switches(ranks):
+    assert [out["tf32"] for out in ranks] == [PARENT_TF32] * WORLD
 
 
 def _dies_on_rank_1(rank):

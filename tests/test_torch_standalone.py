@@ -65,13 +65,14 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert len(names) >= 20
     # the modules of kernels G, D/E and B, their decode graphs, the int8
     # transformer, the fused encoder, batch captioning, data and vocab tensor
-    # parallelism, the Paddle import, the serving export and the parity kit
+    # parallelism, the Paddle import, the serving export, the parity kit and
+    # the graft entry points
     for name in ("ops.kernels.fused_irb", "ops.kernels.fused_transformer",
                  "ops.kernels.fused_step", "ops.kernels.decode_graphs",
                  "models.transformer", "models.mobilenet_v2", "inference.batch_caption",
                  "parallel.distributed", "parallel.mesh", "parallel.vocab_parallel",
                  "compat.paddle_fmt", "compat.paddle_import", "inference.export_program",
-                 "ops.kernels.attention", "parity_run",
+                 "ops.kernels.attention", "parity_run", "graft_entry",
                  "utils.tracing"):
         assert "myimagecaptioningmodel_tpu_torch." + name in names
 
