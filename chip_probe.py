@@ -3,7 +3,7 @@
 phases of C's, A's and G's tile kernels in SM cycles, and D's, E's and the
 LSTM decodes.
 
-    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de,b,train,loop,bc] [--package-root DIR]
+    python3 chip_probe.py [--trace-only] [--parts fc,ag,ab,enc,de,b,train,attn_train,h,loop,bc] [--package-root DIR]
 
 1. Kernel F (``matmul_stats``) at every ``chip_smoke.F_SHAPES`` shape and
    kernel C (``topk_vocab_head``) at M in {32, 512}, k in {1, 4, 8, 32},
@@ -66,7 +66,9 @@ LSTM decodes.
    variants in turns over four rounds of 5-step windows (median, quartiles,
    range, peak MiB, device busy of one profiled step): the LSTM (fused)
    with ``layers.relu6``'s tie gradient against ``torch.clamp``'s, the LSTM
-   (fused) at bn_stat_rows 0, 16 and 32, the transformer unfused and fused.
+   (fused) at bn_stat_rows 0, 16 and 32, the transformer unfused and fused,
+   the LSTM (fused) with ``fused_attn_bwd`` off and on (kernel H; part
+   ``attn_train`` runs this set alone).
 10. (part ``loop``) ``probe_loop``: ``loop.train`` on phase 23's corpus
    and config, one epoch of 8 steps a run, in turns after a warm-up run:
    the reader serial or
@@ -76,6 +78,10 @@ LSTM decodes.
    24's 300 items at batch 128, phase 24's modes, for this checkout's or
    ``--package-root``'s package: images/s in 5 warm runs, and the decode
    alone on rows already on the card.
+12. (part ``h``) ``probe_h``: what holds kernel H's bf16 backward: cycles
+   a round of tanh, ``mma`` and bf16x2 fma (alone and together) on one
+   quarter SM, and the backward's main kernel at full width with its
+   tanh, its ``mma`` or its slot groups taken out of a copy of the source.
 
 Each traced copy is built by ``traced_library`` (every anchor must occur
 once in the source, or the probe stops) and run through the port's own
@@ -200,10 +206,10 @@ def probe_kernels(dev):
             print(f"  {name[:90]} {ln.split('info    :')[-1].strip()}", flush=True)
 
 
-def traced_library(name: str, points, out_name: str):
+def traced_library(name: str, points, out_name: str, trace: bool = True):
     """Build a copy of csrc/``name`` with each anchor of ``points`` (found
-    once) replaced and an entry ``capk_set_trace``, into ``build/trace/`` ->
-    the loaded library, with the package's C signatures."""
+    once) replaced and (``trace``) an entry ``capk_set_trace``, into
+    ``build/trace/`` -> the loaded library, with the package's C signatures."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
 
     src = (_build.CSRC_DIR / name).read_text()
@@ -211,8 +217,9 @@ def traced_library(name: str, points, out_name: str):
         if src.count(anchor) != 1:
             raise AssertionError(f"trace anchor not found once in {name}: {anchor!r}")
         src = src.replace(anchor, replacement)
-    src += ('\nextern "C" int capk_set_trace(long long* p) {\n'
-            "  return (int)cudaMemcpyToSymbol(g_trace, &p, sizeof(p));\n}\n")
+    if trace:
+        src += ('\nextern "C" int capk_set_trace(long long* p) {\n'
+                "  return (int)cudaMemcpyToSymbol(g_trace, &p, sizeof(p));\n}\n")
     out = _build.BUILD_DIR / "trace"
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{out_name}.cu").write_text(src)
@@ -223,7 +230,8 @@ def traced_library(name: str, points, out_name: str):
     if r.returncode:
         raise RuntimeError(f"nvcc failed on the traced copy:\n{r.stderr[-4000:]}")
     lib = ctypes.CDLL(str(lib_path))
-    lib.capk_set_trace.argtypes = [ctypes.c_void_p]
+    if trace:
+        lib.capk_set_trace.argtypes = [ctypes.c_void_p]
     for fn, argtypes in _build._SIGNATURES.items():
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = argtypes
@@ -936,22 +944,27 @@ def probe_b_products(dev):
                   bound_share=round(b_us / chain_us, 3))
 
 
-def probe_train(dev, rounds: int = 4, reps: int = 5):
+def probe_train(dev, rounds: int = 4, reps: int = 5, only=None):
     """Part ``train``: bf16 B=128 train steps at full width, variants in
     turns (each round runs them in order, then in reverse) over ``rounds``
     rounds of ``reps``-step windows: the median, quartiles and range of each
     variant's ms per step (CUDA events), its peak MiB above base, and its
-    device busy ms in one profiled step. Three sets: the LSTM, fused, with
-    ``layers.relu6``'s tie gradient against ``torch.clamp``'s (the port's
-    earlier gradient); the LSTM, fused, at bn_stat_rows 0, 16 and 32; the
-    transformer, unfused and fused."""
+    device busy ms in one profiled step. Four sets (``only``: these alone):
+    the LSTM, fused, with ``layers.relu6``'s tie gradient against
+    ``torch.clamp``'s (the port's earlier gradient); the LSTM, fused, at
+    bn_stat_rows 0, 16 and 32; the transformer, unfused and fused; the LSTM,
+    fused, with the decoder's ``fused_attn_bwd`` off (the default) and on
+    (kernel H; the step's call of ``teacher_forcing_logits`` patched, no
+    default changed)."""
+    import functools
     import tempfile
 
-
     from myimagecaptioningmodel_tpu_torch.models import captioner as C
+    from myimagecaptioningmodel_tpu_torch.models import decoder as D
     from myimagecaptioningmodel_tpu_torch.ops import layers as L
 
     tie_relu6 = L.relu6
+    tf_logits = D.teacher_forcing_logits
 
     def clamp_relu6(x):
         return torch.clamp(x, 0.0, 6.0)
@@ -962,7 +975,10 @@ def probe_train(dev, rounds: int = 4, reps: int = 5):
                          for r in (0, 16, 32)},
         "transformer": {"plain": (False, S.TF_ARCH, tie_relu6),
                         "kernel": (True, S.TF_ARCH, tie_relu6)},
+        "fused_attn_bwd": {"off": (True, (), tie_relu6), "on": (True, (), tie_relu6)},
     }
+    if only is not None:
+        sets = {k: v for k, v in sets.items() if k in only}
     with tempfile.TemporaryDirectory() as root:
         for name, variants in sets.items():
             cfgs = {v: S.train_cfg(root, "bfloat16", fuse, 128, 1e-4, extra)
@@ -979,6 +995,8 @@ def probe_train(dev, rounds: int = 4, reps: int = 5):
             def run(v, k):
                 nonlocal params, opt_state, state
                 L.relu6 = variants[v][2]
+                if name == "fused_attn_bwd" and v == "on":
+                    D.teacher_forcing_logits = functools.partial(tf_logits, fused_attn_bwd=True)
                 try:
                     for _ in range(k):
                         params, opt_state, state, _s, _l, _lr = fns[v](
@@ -986,6 +1004,7 @@ def probe_train(dev, rounds: int = 4, reps: int = 5):
                         n[0] += 1
                 finally:
                     L.relu6 = tie_relu6
+                    D.teacher_forcing_logits = tf_logits
 
             order = list(variants)
             ms, peak = {v: [] for v in order}, {v: 0.0 for v in order}
@@ -1015,6 +1034,113 @@ def probe_train(dev, rounds: int = 4, reps: int = 5):
                       windows_ms=[round(x, 3) for x in ms[v]])
             del fns, params, opt_state, state
             torch.cuda.empty_cache()
+
+
+# Microbenchmarks of one quarter SM's pipes: each warp runs rounds of
+# independent instructions on registers; kind 0: 8 tanh.approx.f32, 1: 8
+# tanh.approx.bf16x2, 2: 3 mma.sync m16n8k16 (bf16 -> float32), 3: 2 and 0,
+# 4: 40 fma.rn.bf16x2, 5: 4 and 0.
+H_PIPES_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+template <int KIND>
+__global__ void pipes(float* out, int iters, long long* cycles) {
+  float a[8], acc[3][4] = {};
+  uint32_t u[8];
+  for (int i = 0; i < 8; ++i) { a[i] = threadIdx.x * 1e-3f + i * 0.1f; u[i] = 0x3e003e00u + i; }
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+    if (KIND == 2 || KIND == 3)
+      for (int q = 0; q < 3; ++q)
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+                     "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+                     : "+f"(acc[q][0]), "+f"(acc[q][1]), "+f"(acc[q][2]), "+f"(acc[q][3])
+                     : "r"(u[0]), "r"(u[1]), "r"(u[2]), "r"(u[3]), "r"(u[4]), "r"(u[5]));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (KIND == 0 || KIND == 3 || KIND == 5) asm volatile("tanh.approx.f32 %0, %0;" : "+f"(a[i]));
+      if (KIND == 1) asm volatile("tanh.approx.bf16x2 %0, %0;" : "+r"(u[i]));
+      if (KIND == 4 || KIND == 5)
+        for (int q = 0; q < 5; ++q) asm volatile("fma.rn.bf16x2 %0, %0, %0, %0;" : "+r"(u[i]));
+    }
+  }
+  const long long t1 = clock64();
+  float s = acc[0][0] + acc[1][1] + acc[2][2];
+  for (int i = 0; i < 8; ++i) s += a[i] + __uint_as_float(u[i]);
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+}
+extern "C" int run_pipes(int kind, int blocks, int threads, int iters, float* out, long long* cyc) {
+  void (*k[])(float*, int, long long*) = {pipes<0>, pipes<1>, pipes<2>, pipes<3>, pipes<4>, pipes<5>};
+  k[kind]<<<blocks, threads>>>(out, iters, cyc);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+H_PIPE_KINDS = ("8 tanh.approx.f32", "8 tanh.approx.bf16x2", "3 mma", "3 mma + 8 tanh",
+                "40 bf16x2 fma", "40 bf16x2 fma + 8 tanh")
+# Ablations of kernel H's bf16 backward (anchors of csrc/attn_scores.cu):
+# the tanh a multiply, the three mma of a tile an xor into the sums, no
+# slot group at all (what is left: staging, stores, the epilogue)
+H_NO_TANH = ('asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = x * 0.5f;")
+H_NO_MMA = ("""        mma_bf16(dk_acc[j], dz, sel_k, sel_k);
+        mma_bf16(dh_acc, dz, sel_t0, sel_t1);
+        mma_bf16(dw_acc, zde, kOnes, kOnes);""",
+            """        dk_acc[j][0] += __uint_as_float(dz[0] ^ dz[1] ^ dz[2] ^ dz[3]);
+        dh_acc[0] += __uint_as_float(zde[0] ^ zde[1] ^ zde[2] ^ zde[3]);""")
+H_NO_GROUPS = ("groups = min(kBwdGroups, (K - k0 + 7) >> 3);",
+               "groups = 0 * min(kBwdGroups, (K - k0 + 7) >> 3);")
+
+
+def probe_h(dev):
+    """Part ``h``: what holds kernel H's bf16 backward. (1) The pipes of one
+    quarter SM (``H_PIPES_SRC``, one block of 1024 threads an SM): cycles a
+    round of each kind's instructions a warp, the median over the SMs. (2)
+    The backward at (34, 128, 49, 1024) through copies of
+    ``csrc/attn_scores.cu`` with parts taken out (``H_NO_*``; their results
+    are wrong, only their time is read): its main kernel's device µs, three
+    profiled calls each, beside the sound copy's."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+    out = _build.BUILD_DIR / "trace"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "h_pipes.cu").write_text(H_PIPES_SRC)
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        str(out / "libh_pipes.so"), str(out / "h_pipes.cu")],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc failed on the pipes' probe:\n{r.stderr[-4000:]}")
+    pipes = ctypes.CDLL(str(out / "libh_pipes.so"))
+    pipes.run_pipes.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    sms, threads, iters = torch.cuda.get_device_properties(dev).multi_processor_count, 1024, 4096
+    buf = torch.empty(sms * threads, device=dev)
+    cyc = torch.empty(sms, dtype=torch.int64, device=dev)
+    for kind, name in enumerate(H_PIPE_KINDS):
+        for n in (256, iters):
+            _build.check(pipes.run_pipes(kind, sms, threads, n, buf.data_ptr(), cyc.data_ptr()),
+                         "run_pipes")
+        per_round = 4 * float(cyc.double().median()) / (threads // 32 * iters)
+        S.say("probe_h_pipes", kind=name, cycles_a_round_a_quarter_sm=round(per_round, 2))
+
+    ops = S.h_operands(torch.Generator().manual_seed(0), dev, *S.H_SHAPES[0], torch.bfloat16)
+    ik, he, w, b, de = ops
+    sound = _build.load_library()
+    variants = {"sound": (), "no_tanh": (H_NO_TANH,), "no_mma": (H_NO_MMA,),
+                "no_tanh_no_mma": (H_NO_TANH, H_NO_MMA), "no_groups": (H_NO_GROUPS,)}
+    for name, points in variants.items():
+        _build._lib = traced_library("attn_scores.cu", points, f"h_{name}", trace=False)
+        try:
+            for _ in range(3):
+                KH.attn_scores_bwd(ik, he, w, b, de, torch.bfloat16)
+            reads = []
+            for _ in range(3):
+                _wall, events = S.profile_events(
+                    lambda: KH.attn_scores_bwd(ik, he, w, b, de, torch.bfloat16))
+                reads.append(sum(S.dev_us(e) for e in events if "attn_scores_bwd_bf16" in e.key))
+        finally:
+            _build._lib = sound
+        S.say("probe_h_backward", variant=name, T_B_k_H="34,128,49,1024",
+              main_kernel_device_us=[round(x, 2) for x in reads])
 
 
 def probe_loop(dev, rounds: int = 3):
@@ -1121,7 +1247,8 @@ def main(argv=None) -> int:
                          "enc: the fused and plain eval encoders' forward times; de: kernels "
                          "D's and E's decodes and products; b: kernel B's steps, decodes and "
                          "products; train: bf16 train steps (relu6's gradient, bn_stat_rows, "
-                         "the transformer); loop: loop.train's wall (reader, rolling saves); "
+                         "the transformer, the LSTM's fused_attn_bwd); attn_train: the last "
+                         "set alone; h: what holds kernel H's backward; loop: loop.train's wall (reader, rolling saves); "
                          "bc: batch captioning's images/s")
     ap.add_argument("--package-root", default=None,
                     help="(parts ab, enc, de, b, bc) measure the package of this checkout "
@@ -1158,6 +1285,10 @@ def main(argv=None) -> int:
         probe_b(dev)
     if "train" in parts:
         probe_train(dev)
+    elif "attn_train" in parts:
+        probe_train(dev, only=("fused_attn_bwd",))
+    if "h" in parts:
+        probe_h(dev)
     if "loop" in parts:
         probe_loop(dev)
     if "bc" in parts:

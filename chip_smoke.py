@@ -5023,9 +5023,16 @@ H_SHAPES = ((34, 128, 49, 1024), (7, 3, 16, 200))  # (T, B, k, H): full width, r
 # H100 SXM's 1.98 GHz boost clock; 67 TFLOP/s float32 outside the tensor
 # cores is the same clock's 128 FMA lanes an SM
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
-H_FLOPS = {"fwd": 3, "bwd": 9}  # a (t, b, k, h) element: add, fma | add, 2 for dw, 4 for dz, 2 sums
+# a (t, b, k, h) element's operations on the 32-bit lanes: float32 add, fma |
+# add, 2 for dw, 4 for dz, 2 sums; bf16 (its sums on the tensor cores,
+# ``H_TENSOR_FLOPS``) add | add, z de, 4 for dz
+H_FLOPS = {torch.float32: {"fwd": 3, "bwd": 9}, torch.bfloat16: {"fwd": 1, "bwd": 6}}
+H_TENSOR_FLOPS = {"fwd": 2, "bwd": 6}  # bf16: z w | the three sums, a multiply-add each
 H_TERMS = ("e", "dw", "db", "dimg_k", "dh_emb")
 H_REDUCE_THREADS = 256  # csrc/attn_scores.cu's kReduceThreads: db's partial sums
+# The largest relative error of tanh.approx.f32 as the PTX ISA states it: the
+# bf16 path of csrc/attn_scores.cu evaluates z with it (``h_tanh_terms``)
+H_TANH_EPS = 2.0 ** -11
 
 
 def h_operands(gen, dev, T, B, K, H, dt):
@@ -5052,16 +5059,21 @@ def h_scores(got, ops, dt):
     two values (e: and one of the product before the bias). e, dimg_k and
     dh_emb add (2 n + 8) 2^-24 sum |terms|, the float32 sums of their n terms
     in other orders (``accumulation_bound``'s rule), with 8 more for a tanh
-    that differs by a float32 ulp or two; the terms are the plain version's
+    that differs by a float32 ulp or two (bf16: the kernel's tanh.approx.f32
+    adds ``h_tanh_terms``); the terms are the plain version's
     rounded z w (e, n = H) and dz over t (dimg_k) and over k (dh_emb).
     dw and db sum n = T B k terms, too many for that rule: it would pass a dw
     of zeros. Each is held instead to the float64 sum of the plain version's
     rounded terms (z de, de), by the bound of the kernel's own order plus
     the plain version's measured distance from that sum: dw sums T k terms a
-    thread, then the B partials in order, (T k + B + 8) 2^-24 sum |z de|; db
-    sums ceil(n / 256) terms in each of 256 threads, then a tree of 8 levels,
-    (ceil(n / 256) + 16) 2^-24 sum |de|. Pass: every score <= 1 (a value
-    that is not finite scores inf)."""
+    column and image (float32: one by one; bf16: 16 exact products a
+    tensor-core step, taken to err no more than as many float32 additions),
+    then the B (times k / 64 in bf16) partials in order, (T k + B + 8)
+    2^-24 sum |z de|; db by (ceil(n / 256) + 16) 2^-24 sum |de|, the bound of
+    ceil(n / 256) terms in each of 256 threads, then a tree of 8 levels (the
+    kernel's order errs less: each image's T k terms over 256 threads and a
+    tree, then the B partials over a warp and a butterfly). Pass: every
+    score <= 1 (a value that is not finite scores inf)."""
     from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
 
     ik, he, w, b, de = ops
@@ -5080,6 +5092,7 @@ def h_scores(got, ops, dt):
                * ded.double().abs().sum().reshape(1)}
         del zde
         sums = {"e": torch.matmul(z.float().abs(), wd.float().abs())}
+        tanh = h_tanh_terms(z, wd, ded) if dt == torch.bfloat16 else {}
         dz = ((ded[..., None] * wd) * (1.0 - torch.square(z))).float().abs()
         del z
         sums["dimg_k"], sums["dh_emb"] = dz.sum(0), dz.sum(2)
@@ -5094,6 +5107,8 @@ def h_scores(got, ops, dt):
                 lim = own[name] + (r.double() - exact[name]).abs()
             else:
                 lim = (2 * n[name] + 8) * u * sums[name]
+            if name in tanh:
+                lim = lim + tanh[name]
             if g0.dtype == torch.bfloat16:
                 lim = lim + bf16_ulp(torch.maximum(g.abs(), r.abs()))
                 if name == "e":  # the product's own rounding, before the bias
@@ -5103,6 +5118,46 @@ def h_scores(got, ops, dt):
             score = (diff / lim.clamp_min(1e-30)).nan_to_num(nan=float("inf"))
             scores[name] = float(score.max())
     return scores, err
+
+
+def h_tanh_terms(z, wd, ded):
+    """What kernel H's bf16 tanh adds to ``h_scores``' limits -> {term: limit
+    of each element}. The kernel evaluates tanh.approx.f32 (relative error
+    up to ``H_TANH_EPS``) on the bf16 sum and rounds to bf16; the plain
+    version rounds float32 tanh. So a z (``z``: the plain version's, bf16)
+    may land on its bf16 neighbour, u_z = one bf16 ulp of |z| away
+    (``H_TANH_EPS`` is below half of one). Carried through each sum:
+
+    - e (exact products, float32 sums): sum_h |w| u_z;
+    - dimg_k, dh_emb: each term's dz = rnd(rnd(de w) rnd(1 - rnd(z^2))),
+      every rounding of a moved input one more ulp of its result: z^2 moves
+      by d_s = 2 |z| u_z + u_z^2 + ulp(z^2 + d_s), 1 - z^2 by d_o = d_s +
+      ulp(1 - z^2 + d_o), dz by |de w| d_o + ulp(|de w| (1 - z^2 + d_o));
+      1 - z^2 cancels near |z| = 1, where one ulp of z is most of it;
+    - dw: sum |de| H_TANH_EPS |z|, the stated error to first order. Each of
+      its T B k terms' own worst case (|de| u_z) would sum past what a
+      missing image moves dw at full width, a fault this check must see;
+      the terms' signs follow de's, so the moved z's partly cancel.
+    Each ulp is that of the larger value the rounding can see (``ulp_up``)."""
+    def ulp_up(mag):  # an ulp of any value up to one ulp above mag
+        return bf16_ulp(mag * (1 + 2.0 ** -7))
+
+    az = z.float().abs()
+    uz = ulp_up(az)
+    out = {"e": torch.matmul(uz, wd.float().abs()),
+           "dw": (H_TANH_EPS * az * ded.float().abs()[..., None]).sum((0, 1, 2))[:, None]}
+    sq = torch.square(z)  # the plain version's rounded z^2 and 1 - z^2
+    one_m = (1.0 - sq).float()
+    sq = sq.float()
+    d_s = 2 * az * uz + uz * uz
+    d_s = d_s + ulp_up(sq + d_s)
+    del az, uz, sq
+    d_o = d_s + ulp_up(one_m + d_s)
+    del d_s
+    dew = (ded[..., None] * wd).float().abs()
+    d_dz = dew * d_o + ulp_up(dew * (one_m + d_o))
+    out["dimg_k"], out["dh_emb"] = d_dz.sum(0), d_dz.sum(2)
+    return out
 
 
 def h_checks(fwd, bwd, dev, seed, shapes=H_SHAPES, dts=(torch.float32, torch.bfloat16),
@@ -5138,18 +5193,43 @@ def h_failures(scores):
 def bound_h(T, B, K, H, dt, part):
     """(least ms, "bytes" or "operations", its three parts in ms) for kernel
     H's forward or backward: the bytes of its inputs and outputs once at
-    3.35 TB/s; its float32 operations at 67 TFLOP/s (elementwise and sums:
-    no product the tensor cores could take); its T B k H tanh at the special
-    function units' rate (``SFU_OPS_PER_S``)."""
+    3.35 TB/s; its operations: float32's all on the 32-bit lanes at 67
+    TFLOP/s; bf16's elementwise ones at that rate (a packed bf16 pair counts
+    two) and its sums, products the tensor cores take, at 989 TFLOP/s; its
+    T B k H tanh at the special function units' rate (``SFU_OPS_PER_S``, one
+    tanh an operation: tanh.approx.f32)."""
     s = torch.empty((), dtype=dt).element_size()
     n = T * B * K * H
     act = (B * K * H + T * B * H) * s
     nbytes = act + (T * B * K * s + H * s if part == "fwd" else T * B * K * s + act + H * 4 + 4)
+    tensor = H_TENSOR_FLOPS[part] / PEAK_OPS_PER_S[torch.bfloat16] if dt == torch.bfloat16 else 0
     parts = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-             "flops_ms": H_FLOPS[part] * n / PEAK_OPS_PER_S[torch.float32] * 1e3,
+             "flops_ms": (H_FLOPS[dt][part] / PEAK_OPS_PER_S[torch.float32] + tensor) * n * 1e3,
              "tanh_ms": n / SFU_OPS_PER_S * 1e3}
     ms = max(parts.values())
     return ms, "bytes" if parts["bytes_ms"] == ms else "operations", parts
+
+
+def h_tanh_reading(dev):
+    """The bf16 kernels' tanh (``kernel_tanh``: tanh.approx.f32) of every
+    finite bf16 value against float64 tanh: its largest relative error, which
+    must stay within ``H_TANH_EPS`` (the stated figure ``h_tanh_terms``
+    carries), and the values whose bf16 rounding differs from the plain
+    version's."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    x = x[torch.isfinite(x.float())]
+    t = KH.kernel_tanh(x.to(dev)).cpu().double()
+    ref = torch.tanh(x.double())
+    rel = ((t - ref).abs() / ref.abs().clamp_min(1e-300)).where(ref != 0, (t != 0).double())
+    plain = torch.tanh(x.to(dev)).cpu()  # the plain version's z of x + 0
+    moved = int((plain != t.float().to(torch.bfloat16)).sum())
+    worst = float(rel.max())
+    say("kernel_h_tanh", values=x.numel(), max_rel_err=worst,
+        max_rel_err_log2=round(float(torch.log2(torch.tensor(worst))), 3),
+        stated=H_TANH_EPS, bf16_results_moved=moved, ok=worst <= H_TANH_EPS)
+    assert worst <= H_TANH_EPS, f"tanh.approx.f32 erred {worst} > {H_TANH_EPS}"
 
 
 def h_timings(dev, seed, dt=torch.bfloat16, shape=H_SHAPES[0]):
@@ -5403,6 +5483,7 @@ def phase_attn_scores(dev, seed):
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     try:
+        h_tanh_reading(dev)
         scores, err = h_checks(KH.attn_scores, KH.attn_scores_bwd, dev, seed)
         failed = h_failures(scores)
         assert not failed, f"phase 29 (a): kernel H over its limits: {failed}"
@@ -6272,7 +6353,8 @@ def main(argv=None) -> int:
         r = t_h[part]
         kernels.append({"name": name, "route": "cuda", "source": KERNEL_H_SRC,
                         "replaces": KERNEL_H_REPLACES, "launches": h_launches[name],
-                        "kernels_per_count": 2 if part == "bwd" else 1,
+                        # the backward: its pass, dw's and db's partial sums, db's sum
+                        "kernels_per_count": 3 if part == "bwd" else 1,
                         "max_abs_err": err_h, "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": None, "device_ms": r["device_ms"],

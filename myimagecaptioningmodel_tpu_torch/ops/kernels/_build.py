@@ -61,6 +61,8 @@ _SIGNATURES = {
     "capk_fused_irb": [_PI, _PVP, _VP],
     "capk_attn_scores": [_I] * 5 + [_VP] * 6,
     "capk_attn_scores_bwd": [_I] * 5 + [_VP] * 4 + [_I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _VP],
+    "capk_attn_scores_bwd_scratch_rows": [_I, _I, _I],
+    "capk_attn_tanh_bf16": [_VP, _VP, _I, _VP],
 }
 
 

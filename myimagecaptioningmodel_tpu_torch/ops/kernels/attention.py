@@ -101,8 +101,9 @@ def attn_scores_bwd(img_k: torch.Tensor, h_emb: torch.Tensor, w: torch.Tensor,
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """(dw [H, 1], db [1] or None, dimg_k [B, k, H], dh_emb [T, B, H]), each in
     its primal's dtype. Launches kernel H's backward (one pass over the
-    inputs, then dw's fixed-order sum over B) for CUDA tensors: two kernels,
-    counted once in ``launches``."""
+    inputs, then dw's fixed-order sum over B and db's over the images; in
+    bf16 with k > 64 also dh_emb's sum over the slot blocks) for CUDA
+    tensors: two to four kernels, counted once in ``launches``."""
     if img_k.device.type == "cpu":
         return attn_scores_bwd_reference(img_k, h_emb, w, b, de, dt)
     ik, he, wd, (T, B, K, H) = _operands(img_k, h_emb, w, dt)
@@ -113,10 +114,12 @@ def attn_scores_bwd(img_k: torch.Tensor, h_emb: torch.Tensor, w: torch.Tensor,
     dk = torch.empty((B, K, H), dtype=img_k.dtype, device=dev)
     dw = torch.empty((H, 1), dtype=w.dtype, device=dev)
     db = None if b is None else torch.empty((1,), dtype=b.dtype, device=dev)
-    part = torch.empty((B, H), dtype=torch.float32, device=dev)
     lib = _build.load_library()
+    code = _build.dtype_code(dt)
+    part = torch.empty((lib.capk_attn_scores_bwd_scratch_rows(code, T, K), B, H),
+                       dtype=torch.float32, device=dev)
     _build.check(lib.capk_attn_scores_bwd(
-        _build.dtype_code(dt), T, B, K, H, ik.data_ptr(), he.data_ptr(), wd.data_ptr(),
+        code, T, B, K, H, ik.data_ptr(), he.data_ptr(), wd.data_ptr(),
         ded.data_ptr(), _storage_code(dh, "dh_emb"), dh.data_ptr(),
         _storage_code(dk, "dimg_k"), dk.data_ptr(), part.data_ptr(),
         _storage_code(dw, "dw"), dw.data_ptr(),
@@ -128,3 +131,16 @@ def attn_scores_bwd(img_k: torch.Tensor, h_emb: torch.Tensor, w: torch.Tensor,
 
 
 attn_scores_bwd.launches = 0
+
+
+def kernel_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernels' tanh of a CUDA bf16 tensor, before they round it:
+    tanh.approx.f32 of each element, float32. For reading its error on the
+    card; no kernel of the training path."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError(f"kernel_tanh takes a CUDA bf16 tensor, got {x.dtype} on {x.device}")
+    x = x.contiguous()
+    t = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    _build.check(_build.load_library().capk_attn_tanh_bf16(
+        x.data_ptr(), t.data_ptr(), x.numel(), _build.stream_ptr(x.device)), "capk_attn_tanh_bf16")
+    return t

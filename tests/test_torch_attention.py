@@ -31,7 +31,12 @@ the JAX side takes the same numpy tree. The loss is ``mean(logits^2)``.
   ``vocab_parallel`` in a group of one: the fused path's bits.
 
 Kernel H itself (``csrc/attn_scores.cu``) is held to its plain version on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 29).
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 29). Here,
+at (T, B, k, H) = (7, 3, 16, 200), float32 and bfloat16, the limits of that
+check (``chip_smoke.h_scores``) are fed the plain versions: with their sums
+in another order and, in bf16, their tanh moved by the kernel's stated
+worst-case error they score <= 1; with each planted fault of
+``chip_fault_check.H_FAULTS`` they score > 1.
 """
 
 import functools
@@ -239,3 +244,73 @@ def test_fused_composes_with_vocab_parallel():
     assert torch.equal(l_vp, l_f)
     for name, a, b in zip(leaf_names(), g_vp, g_f):
         assert torch.equal(a, b), name
+
+
+H_LIMIT_SHAPE = (7, 3, 16, 200)
+
+
+def h_limit_operands(dt):
+    import chip_smoke as S
+
+    gen = torch.Generator().manual_seed(sum(H_LIMIT_SHAPE))
+    return S.h_operands(gen, "cpu", *H_LIMIT_SHAPE, dt)
+
+
+def h_other_order(fwd, bwd, ops, dt):
+    """The outputs of ``fwd``/``bwd`` with every sum over h, t, b and k
+    taken in reversed order: the operands flipped, the outputs flipped back."""
+    import chip_smoke as S
+
+    ik, he, w, b, de = ops
+    e, dw, db, dk, dh = S.h_run(fwd, bwd, (ik.flip(0, 1, 2), he.flip(0, 1, 2), w.flip(0), b,
+                                           de.flip(0, 1, 2)), dt)
+    return e.flip(0, 1, 2), dw.flip(0), db, dk.flip(0, 1, 2), dh.flip(0, 1, 2)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("sign", [1.0, -1.0], ids=["up", "down"])
+def test_kernel_h_limits_pass_the_stated_tanh_error(monkeypatch, dt, sign):
+    """The plain versions as the kernel differs from them: every sum in
+    another order and, in bf16, every z moved by the stated worst case of
+    tanh.approx.f32 (``chip_smoke.H_TANH_EPS``, all in one direction) before
+    its rounding to bf16. The float32 kernel evaluates libm tanhf, the
+    plain version's own function on the card: its z is not moved. The check
+    passes (every score <= 1)."""
+    import chip_smoke as S
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+    def moved_z(img_k, h_emb, d):
+        x = img_k[None].to(d) + h_emb.to(d)[:, :, None, :]
+        return (torch.tanh(x.double()) * (1 + sign * S.H_TANH_EPS)).to(d)
+
+    ops = h_limit_operands(dt)
+    with monkeypatch.context() as m:  # the got side only
+        if dt == torch.bfloat16:
+            m.setattr(KH, "_z", moved_z)
+        got = h_other_order(KH.attn_scores_reference, KH.attn_scores_bwd_reference, ops, dt)
+    want = S.h_run(KH.attn_scores_reference, KH.attn_scores_bwd_reference, ops, dt)
+    assert any(not torch.equal(g, w) for g, w in zip(got, want) if g is not None)
+    scores, _err = S.h_scores(got, ops, dt)
+    assert set(scores) == set(S.H_TERMS)
+    assert max(scores.values()) <= 1.0, scores
+
+
+H_FAULT_NAMES = ("one_minus_z2_dropped", "bias_dropped", "dimg_k_misses_last_t",
+                 "dw_misses_last_image", "db_misses_last_t")
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("fault", H_FAULT_NAMES)
+def test_kernel_h_limits_catch_each_fault(dt, fault):
+    """Each of chip_fault_check.py part 12's plants, applied to the plain
+    versions, scores > 1."""
+    import chip_fault_check as F
+    import chip_smoke as S
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+
+    plants = {p.__name__.strip("_"): p for p in F.H_FAULTS}
+    assert tuple(plants) == H_FAULT_NAMES  # every plant of part 12, in its order
+    fwd, bwd = plants[fault](KH.attn_scores_reference, KH.attn_scores_bwd_reference)
+    ops = h_limit_operands(dt)
+    scores, _err = S.h_scores(S.h_run(fwd, bwd, ops, dt), ops, dt)
+    assert max(scores.values()) > 1.0, (fault, scores)

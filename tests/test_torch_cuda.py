@@ -1540,9 +1540,11 @@ def test_cuda_exported_artifact_equals_plain_decode(cuda, tmp_path, beam):
     assert torch.equal(got, want)
 
 
-# kernel H's (T, B, k, H): ragged; k = 100 and 250 take the backward's 64- and
-# 32-column blocks, k = 500 its shared sums past 48 KB; H = 300 and 1,030 give
-# dw's reduce 2 and 5 blocks (the last one partial) before db's
+# kernel H's (T, B, k, H): ragged; in float32 k = 100 and 250 take the
+# backward's 64- and 32-column blocks, k = 500 its shared sums past 48 KB; in
+# bf16 k = 100, 250 and 500 take 2, 4 and 8 slot blocks (dh_emb's partial
+# sums), H = 33, 300 and 1,030 the forward's element-wise loads; H = 300 and
+# 1,030 give dw's reduce 2 and 5 blocks (the last one partial) before db's
 H_CUDA_SHAPES = [(7, 3, 16, 200), (9, 2, 5, 64), (1, 1, 1, 1), (3, 2, 100, 40),
                  (2, 3, 250, 33), (2, 2, 500, 40), (5, 9, 12, 300), (4, 5, 49, 1030)]
 
