@@ -3,11 +3,12 @@ kernel E's inputs, in kernel G and the int8 modes of kernels D and E, in
 kernel A, in kernel B, in the transformer's training and in kernel H, and
 read what each scores against ``chip_smoke.py``'s limits, beside the sound path.
 
-    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8,9,10,11,12]
+    python3 chip_fault_check.py [--seed 0] [--parts 1,2,3,4,5,6,7,8,9,10,11,12,13]
 
 Needs one CUDA card. Each fault is patched in at run time, in this process
 (or, for part 10's data-parallel faults, in each rank's process) only;
-nothing in the checkout changes. Twelve parts:
+nothing in the checkout changes (part 13 builds its planted copies of
+kernel I's source under the package's ``build/``). Thirteen parts:
 
 1. Phase 11's check (``chip_smoke.f_stats_errors`` against ``F_STATS_TOL``)
    at every shape of ``F_SHAPES`` in bfloat16, with the kernel's sum and
@@ -145,6 +146,17 @@ nothing in the checkout changes. Twelve parts:
     every case, and the sound kernel pass. Beside each, phase 29 (c)'s check
     of the decoder's fused bf16 step at B=128 with the same plant is read
     (the sound kernel must pass it; a fault need not be caught there).
+13. Phase 32's checks of kernel I (``chip_smoke.i_checks`` at the 53 BN
+    shapes at B=128 and phase 30's x0.35 shapes, bf16 and float32, exact
+    and subset), each plant a copy of ``csrc/bn_train.cu`` with one edit,
+    built into its own library (``build/plants/``) that kernel I's entries
+    call in its place: the mean left out of x̂ (in the backward's sums and
+    dx); one partial row skipped in the merge; the ReLU6's tie gradient 1
+    instead of 1/2; the statistics' and the backward's sums one row short
+    of ``rows`` (the subset's boundary, and the exact BN's last row). Then
+    phase 25 (b)'s float32 exact-BN case (2 gloo ranks against one) with
+    the exact dx taking this rank's row count for n instead of the global
+    batch's. Each must be caught and the sound kernel pass.
 
     python3 chip_fault_check.py --parts 3   # part 3 only
 
@@ -157,8 +169,10 @@ gain, which part 3 reads for the limit's resolution).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import subprocess
 import sys
 import tempfile
 
@@ -208,21 +222,25 @@ def stats_fault_readings(dev, seed):
 
 def faulty_conv_bn(stats=None, drop_dscale=False):
     """The fused conv + BN with a fault in its statistics (``stats(y, s, q,
-    n) -> (mean, var)``) or in its backward."""
-    from myimagecaptioningmodel_tpu_torch.ops import layers as L
+    n) -> (mean, var)``; the normalize pass a plain stand-in) or in its
+    backward (kernel I's dx on a zero Σdy·x̂)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
     from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
 
     sound = MB._Conv1x1BN
 
     class Faulty(sound):
         @staticmethod
-        def forward(ctx, w, scale, offset, x_flat):
+        def forward(ctx, w, scale, offset, x_flat, act):
             if stats is None:
-                return sound.forward(ctx, w, scale, offset, x_flat)
+                return sound.forward(ctx, w, scale, offset, x_flat, act)
             y, s, q = MB.matmul_stats(x_flat, w)
             mean, var = stats(y, s, q, x_flat.shape[0])
-            yn, inv = L.bn_normalize(y, mean, var, scale, offset)
-            ctx.save_for_backward(w, scale, x_flat, y, mean, inv)
+            yn = KBN.bn_normalized(y, mean, KBN.bn_inv(var), scale, offset)
+            if act:
+                yn = torch.clamp(yn, 0.0, 6.0)
+            ctx.save_for_backward(w, scale, offset, x_flat, y, mean, var)
+            ctx.n, ctx.act = x_flat.shape[0], act
             ctx.mark_non_differentiable(mean, var)
             return yn, mean, var
 
@@ -230,15 +248,15 @@ def faulty_conv_bn(stats=None, drop_dscale=False):
         def backward(ctx, dyn, dmean, dvar):
             if not drop_dscale:
                 return sound.backward(ctx, dyn, dmean, dvar)
-            w, scale, x_flat, y, mean, inv = ctx.saved_tensors
-            n = y.shape[0]
-            dy32 = dyn.to(mean.dtype)
-            xhat = (y.to(mean.dtype) - mean) * inv
-            doffset, dscale = dy32.sum(0), (dy32 * xhat).sum(0)
-            dy_conv = ((scale * inv / n) * (n * dy32 - doffset)).to(x_flat.dtype)
+            w, scale, offset, x_flat, y, mean, var = ctx.saved_tensors
+            dyn = KBN.rows_of(dyn)
+            doffset, dscale = KBN.bn_grad_sums(dyn, y, mean, var, scale, offset, y.shape[0],
+                                               ctx.act)
+            dy_conv = KBN.bn_dx(dyn, y, mean, var, scale, offset, doffset,
+                                torch.zeros_like(dscale), ctx.n, ctx.act, True).to(x_flat.dtype)
             dw = torch.matmul(x_flat.t(), dy_conv).to(w.dtype)
             dx = torch.matmul(dy_conv, w.t()).to(x_flat.dtype)
-            return dw, dscale.to(scale.dtype), doffset.to(scale.dtype), dx
+            return dw, dscale.to(scale.dtype), doffset.to(scale.dtype), dx, None
 
     return Faulty
 
@@ -277,9 +295,10 @@ def train_fault_readings(dev, seed, root):
     ref_params, ref_state = C.init(torch.Generator().manual_seed(seed),
                                    C.ModelOptions.from_config(cfg32))
     images, caps = S.train_batch(cfg32, dev, seed)
-    runs = {label: S.one_step_run(S.train_cfg(root, dtype, False, 32, lr), ref_params,
-                                  ref_state, dev, images, caps)[0]
-            for label, dtype in (("unfused", "float32"), ("float64", "float64"))}
+    with S.plain_in_float64():  # phase 12 (a)'s float64 step, on F's and I's plain versions
+        runs = {label: S.one_step_run(S.train_cfg(root, dtype, False, 32, lr), ref_params,
+                                      ref_state, dev, images, caps)[0]
+                for label, dtype in (("unfused", "float32"), ("float64", "float64"))}
     unfused = S.step_errors(runs["unfused"], runs["float64"], lr)
     S.say("fault", check="phase12a", fault="unfused_reference", **unfused)
     sound_cls, failed = MB._Conv1x1BN, {}
@@ -1037,11 +1056,11 @@ def _subset_rows_per_rank():
     orig = L._BNTrainSubset.forward
     dist = L.distributed
 
-    def forward(ctx, scale, offset, x, stat_rows):
+    def forward(ctx, scale, offset, x, stat_rows, act=False):
         index, sums = dist.process_index, L.global_sums
         dist.process_index, L.global_sums = (lambda: 0), (lambda *s: s)
         try:
-            return orig(ctx, scale, offset, x, min(stat_rows, x.shape[0]))
+            return orig(ctx, scale, offset, x, min(stat_rows, x.shape[0]), act)
         finally:
             dist.process_index, L.global_sums = index, sums
 
@@ -1050,21 +1069,26 @@ def _subset_rows_per_rank():
 
 def _bn_backward_per_rank():
     """Only the BN backward's sums (Σdy, Σdy·x̂) left unreduced: dx from
-    this rank's own backward statistics, the forward's still global."""
+    this rank's own backward statistics, the forward's still global (the
+    plain and the kernel-F BN's backward alike)."""
     from myimagecaptioningmodel_tpu_torch.ops import layers as L
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
     from myimagecaptioningmodel_tpu_torch.parallel import distributed
 
-    world, orig = distributed.process_count(), L.bn_backward
+    world = distributed.process_count()
 
-    def bn_backward(*args):
-        sums = L.global_sums
-        L.global_sums = lambda *s: tuple(t * world for t in s)
-        try:
-            return orig(*args)
-        finally:
-            L.global_sums = sums
+    def per_rank(orig):
+        def backward(ctx, *grads):
+            sums = L.global_sums
+            L.global_sums = lambda *s: tuple(t * world for t in s)
+            try:
+                return orig(ctx, *grads)
+            finally:
+                L.global_sums = sums
+        return staticmethod(backward)
 
-    L.bn_backward = bn_backward
+    L._BNTrain.backward = per_rank(L._BNTrain.backward)
+    MB._Conv1x1BN.backward = per_rank(MB._Conv1x1BN.backward)
 
 
 DP_FAULTS = {"exact_bn": (_bn_per_rank, _bn_backward_per_rank, _mean_of_rank_means),
@@ -1395,11 +1419,119 @@ def h_fault_readings(dev, seed):
     return caught
 
 
+# ---- part 13: kernel I ---------------------------------------------------------------
+# {plant: (text of csrc/bn_train.cu, its replacement, occurrences)}
+I_PLANTS = {
+    "xhat_without_mean": ("mul(sub(xv, m[j]), inv[j])", "mul(xv, inv[j])", 2),
+    "merge_skips_a_partial_row": ("p < nparts; p += kMergeGroups",
+                                  "p < nparts - 1; p += kMergeGroups", 1),
+    "tie_gradient_one": ("? S(0.5) : S(0)", "? S(1) : S(0)", 1),
+    "sums_one_row_short": ("const long r1 = r0 + chunk < rows ? r0 + chunk : rows;",
+                           "const long r1 = r0 + chunk < rows - 1 ? r0 + chunk : rows - 1;", 1),
+}
+
+
+def build_i_plants():
+    """Each plant's copy of kernel I's source built into its own library
+    (one nvcc each, all started together) -> {plant: library path}."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC_DIR / "bn_train.cu").read_text()
+    out = _build.BUILD_DIR / "plants"
+    out.mkdir(parents=True, exist_ok=True)
+    libs, procs = {}, []
+    for name, (old, new, count) in I_PLANTS.items():
+        if src.count(old) != count:
+            raise AssertionError(f"plant {name}: {old!r} occurs {src.count(old)} times, not {count}")
+        path = out / f"bn_{name}.cu"
+        path.write_text(src.replace(old, new))
+        libs[name] = out / f"libbn_{name}.so"
+        procs.append((name, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(libs[name]), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    _build._run(procs, "build kernel I's plants")
+    return libs
+
+
+class _i_library:
+    """Kernel I's entries calling the library at ``path`` (None: the sound one)."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __enter__(self):
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
+
+        self.saved = _build.load_library()
+        if self.path is not None:
+            lib = ctypes.CDLL(str(self.path))
+            for name, argtypes in _build._SIGNATURES.items():
+                if name.startswith("capk_bn_"):
+                    fn = getattr(lib, name)
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            _build._lib = lib
+
+    def __exit__(self, *exc):
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
+
+        _build._lib = self.saved
+        return False
+
+
+def _dx_n_per_rank():
+    """Kernel I's exact dx with n this rank's rows instead of the global
+    batch's (the statistics and the sums stay global): the count each BN
+    saves for its backward divided by the world."""
+    from myimagecaptioningmodel_tpu_torch.ops import layers as L
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
+    from myimagecaptioningmodel_tpu_torch.parallel import distributed
+
+    world = distributed.process_count()
+
+    def per_rank(orig):
+        def forward(ctx, *args):
+            out = orig(ctx, *args)
+            ctx.n //= world
+            return out
+        return staticmethod(forward)
+
+    L._BNTrain.forward = per_rank(L._BNTrain.forward)
+    MB._Conv1x1BN.forward = per_rank(MB._Conv1x1BN.forward)
+
+
+def i_fault_readings(dev, seed, root):
+    """Part 13 -> {fault: caught}."""
+    caught = {}
+    libs = build_i_plants()
+    full, small = S.bn_shapes(), S.bn_shapes(16, 48, 0.35)
+    for name, path in (("i_sound", None), *libs.items()):
+        with _i_library(path):
+            try:
+                S.i_checks(dev, seed, full, (torch.bfloat16, torch.float32), 128,
+                           S.I_SUBSET_ROWS, "fault_i")
+                S.i_checks(dev, seed, small, (torch.bfloat16, torch.float32), 16, 8,
+                           "fault_i_quality")
+                caught[name], detail = False, ""
+            except AssertionError as e:
+                caught[name], detail = True, str(e)[:200]
+        S.say("fault", check="phase32", fault=name, caught=caught[name], detail=detail)
+    torch.cuda.empty_cache()
+    dcfg = S.dp_cfg(root, "exact_bn_f32")
+    one = S.dp_run(dcfg, seed, dev)
+    for plant in (None, _dx_n_per_rank):
+        name = "dp_exact_bn_f32_sound" if plant is None else "exact_bn_f32/dx_n_per_rank"
+        r, failed = S.dp_readings(dcfg, seed, dev, one, plant)
+        caught[name] = bool(failed)
+        S.say("fault", check="phase25b", case="exact_bn_f32", fault=name, failed=failed,
+              caught=caught[name], **{k: v for k, v in r.items() if k.endswith("_err")})
+    return caught
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Read what planted faults score against "
                                              "chip_smoke.py's limits on one CUDA card.")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated parts to run")
     args = ap.parse_args(argv)
     parts = {int(x) for x in args.parts.split(",")}
@@ -1447,11 +1579,14 @@ def main(argv=None) -> int:
             summary["phase26_28_caught"] = tp_fault_readings(dev, args.seed, root, card)
     if 12 in parts:
         summary["phase29_caught"] = h_fault_readings(dev, args.seed)
+    if 13 in parts:
+        with tempfile.TemporaryDirectory() as root:
+            summary["phase32_25b_caught"] = i_fault_readings(dev, args.seed, root)
     print(json.dumps(summary))
     sound = ("sound", "encoder_sound", "e_sound", "walker_sound", "export_sound", "served_sound",
              "reader_sound", "decode_sound", "bleu_sound", "resume_sound", "bc_sound",
              "dp_exact_bn_sound", "dp_subset_bn_r96_sound", "dp_exact_bn_f32_sound",
-             "tp_sound", "paddle_sound", "export_sound", "h_sound")
+             "tp_sound", "paddle_sound", "export_sound", "h_sound", "i_sound")
     if any(bool(v.get(f)) for v in summary.values() for f in sound):
         return 1
     return 0 if all(bool(v[f]) for k, v in summary.items() if k != "phase11_caught"

@@ -64,9 +64,10 @@ LSTM decodes.
 
 9. (part ``train``) ``probe_train``: bf16 B=128 train steps at full width,
    variants in turns over four rounds of 5-step windows (median, quartiles,
-   range, peak MiB, device busy of one profiled step): the LSTM (fused)
-   with ``layers.relu6``'s tie gradient against ``torch.clamp``'s, the LSTM
-   (fused) at bn_stat_rows 0, 16 and 32, the transformer unfused and fused,
+   range, peak MiB, device busy and kernels of one profiled step): the
+   LSTM with ``fuse_bn_stats`` off and on (kernel I's BN in every layer,
+   F's sums feeding 35 of them), the LSTM (fused) at bn_stat_rows 0, 16
+   and 32, the transformer unfused and fused,
    the LSTM (fused) with ``fused_attn_bwd`` off and on (kernel H; part
    ``attn_train`` runs this set alone).
 10. (part ``loop``) ``probe_loop``: ``loop.train`` on phase 23's corpus
@@ -82,6 +83,18 @@ LSTM decodes.
    a round of tanh, ``mma`` and bf16x2 fma (alone and together) on one
    quarter SM, and the backward's main kernel at full width with its
    tanh, its ``mma`` or its slot groups taken out of a copy of the source.
+13. (part ``quality_bn``) ``probe_quality_bn``: phase 30's LSTM arm (the
+   kit's config on its corpus, float32, kernel F on, under
+   ``cudnn_deterministic``) trained one epoch (14 steps) from each of
+   seeds 0-4, three times: through kernel I, again through kernel I, and
+   with kernel I's entries running their plain versions on the card; each
+   step's loss, the kernel's rerun bit for bit, and where the kernel's and
+   the plain path's losses part.
+14. (part ``kink``) ``probe_kink``: phase 22 (a) (``chip_smoke.py``'s
+   ``subset_step_errors``) from each of seeds 0-4, its float32 steps through
+   kernel I and through I's plain versions, every float64 step on the plain
+   versions: each step's errors, the ``img_global`` ReLU's flipped signs
+   and the checks it would fail.
 
 Each traced copy is built by ``traced_library`` (every anchor must occur
 once in the source, or the probe stops) and run through the port's own
@@ -93,7 +106,9 @@ Needs one card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import io
 import os
 import subprocess
 import sys
@@ -949,10 +964,9 @@ def probe_train(dev, rounds: int = 4, reps: int = 5, only=None):
     turns (each round runs them in order, then in reverse) over ``rounds``
     rounds of ``reps``-step windows: the median, quartiles and range of each
     variant's ms per step (CUDA events), its peak MiB above base, and its
-    device busy ms in one profiled step. Four sets (``only``: these alone):
-    the LSTM, fused, with ``layers.relu6``'s tie gradient against
-    ``torch.clamp``'s (the port's earlier gradient); the LSTM, fused, at
-    bn_stat_rows 0, 16 and 32; the transformer, unfused and fused; the LSTM,
+    device busy ms and device kernels in one profiled step. Four sets
+    (``only``: these alone): the LSTM with ``fuse_bn_stats`` off and on;
+    the LSTM, fused, at bn_stat_rows 0, 16 and 32; the transformer, unfused and fused; the LSTM,
     fused, with the decoder's ``fused_attn_bwd`` off (the default) and on
     (kernel H; the step's call of ``teacher_forcing_logits`` patched, no
     default changed)."""
@@ -961,28 +975,20 @@ def probe_train(dev, rounds: int = 4, reps: int = 5, only=None):
 
     from myimagecaptioningmodel_tpu_torch.models import captioner as C
     from myimagecaptioningmodel_tpu_torch.models import decoder as D
-    from myimagecaptioningmodel_tpu_torch.ops import layers as L
 
-    tie_relu6 = L.relu6
     tf_logits = D.teacher_forcing_logits
-
-    def clamp_relu6(x):
-        return torch.clamp(x, 0.0, 6.0)
-
     sets = {
-        "relu6": {"tie": (True, (), tie_relu6), "clamp": (True, (), clamp_relu6)},
-        "bn_stat_rows": {f"R{r}": (True, (("model.bn_stat_rows", r),), tie_relu6)
-                         for r in (0, 16, 32)},
-        "transformer": {"plain": (False, S.TF_ARCH, tie_relu6),
-                        "kernel": (True, S.TF_ARCH, tie_relu6)},
-        "fused_attn_bwd": {"off": (True, (), tie_relu6), "on": (True, (), tie_relu6)},
+        "fuse_bn_stats": {"off": (False, ()), "on": (True, ())},
+        "bn_stat_rows": {f"R{r}": (True, (("model.bn_stat_rows", r),)) for r in (0, 16, 32)},
+        "transformer": {"plain": (False, S.TF_ARCH), "kernel": (True, S.TF_ARCH)},
+        "fused_attn_bwd": {"off": (True, ()), "on": (True, ())},
     }
     if only is not None:
         sets = {k: v for k, v in sets.items() if k in only}
     with tempfile.TemporaryDirectory() as root:
         for name, variants in sets.items():
             cfgs = {v: S.train_cfg(root, "bfloat16", fuse, 128, 1e-4, extra)
-                    for v, (fuse, extra, _r) in variants.items()}
+                    for v, (fuse, extra) in variants.items()}
             first = next(iter(cfgs.values()))
             ref = C.init(torch.Generator().manual_seed(0), C.ModelOptions.from_config(first))
             images, caps = S.train_batch(first, dev, 1)
@@ -994,7 +1000,6 @@ def probe_train(dev, rounds: int = 4, reps: int = 5, only=None):
 
             def run(v, k):
                 nonlocal params, opt_state, state
-                L.relu6 = variants[v][2]
                 if name == "fused_attn_bwd" and v == "on":
                     D.teacher_forcing_logits = functools.partial(tf_logits, fused_attn_bwd=True)
                 try:
@@ -1003,7 +1008,6 @@ def probe_train(dev, rounds: int = 4, reps: int = 5, only=None):
                             params, opt_state, state, n[0], images, caps)
                         n[0] += 1
                 finally:
-                    L.relu6 = tie_relu6
                     D.teacher_forcing_logits = tf_logits
 
             order = list(variants)
@@ -1031,9 +1035,75 @@ def probe_train(dev, rounds: int = 4, reps: int = 5, only=None):
                       images_per_s_at_median=round(128 / med * 1e3, 1),
                       peak_mib_above_base=round(peak[v], 1),
                       device_busy_ms=round(sum(S.dev_us(e) for e in events) / 1e3, 3),
+                      device_kernels=sum(e.count for e in events),
                       windows_ms=[round(x, 3) for x in ms[v]])
             del fns, params, opt_state, state
             torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def cudnn_without_tf32():
+    """cuDNN's float32 convolutions in full float32 while active, as
+    ``chip_smoke.py`` runs every phase (this script leaves cuDNN's TF32 on
+    for its bf16 timings)."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+def probe_quality_bn(dev, seeds=(0, 1, 2, 3, 4), epochs=1):
+    """Part ``quality_bn`` (the module docstring's 13): each step's loss of
+    phase 30's LSTM arm through kernel I (twice) and through its plain
+    versions on the card, from each seed."""
+    import tempfile
+
+    from myimagecaptioningmodel_tpu_torch.config import replace_nested
+    from myimagecaptioningmodel_tpu_torch.training import loop
+
+    for seed in seeds:
+        losses = {}
+        with (tempfile.TemporaryDirectory() as root, S.cudnn_deterministic(),
+              cudnn_without_tf32()):
+            _path, cfg = S.quality_corpus(os.path.join(root, "quality"), seed)
+            for run in ("kernel", "kernel_again", "plain"):
+                c = cfg
+                for path, value in (("train.max_epoch", epochs),
+                                    ("train.checkpoint_path", os.path.join(root, run, "save")),
+                                    ("log.log_path", os.path.join(root, run, "log")),
+                                    ("train.checkpoint_every_n_steps", False), *S.NO_EXPORTS):
+                    c = replace_nested(c, path, value)
+                plain = S.plain_in_float64(i_every_dtype=True)
+                with (plain if run == "plain" else contextlib.nullcontext(),
+                      S.loop_probe() as probe, contextlib.redirect_stdout(io.StringIO())):
+                    loop.train(c, device=dev)
+                losses[run] = probe.loss_values()
+        k, p = np.array(losses["kernel"]), np.array(losses["plain"])
+        rel = np.abs(k - p) / np.abs(p)
+        apart = [i for i, r in enumerate(rel) if r > 1e-6]
+        S.say("probe_quality_bn", seed=seed, steps=len(k), dtype="float32",
+              kernel_rerun_bit_equal=losses["kernel"] == losses["kernel_again"],
+              first_step_apart_1e6=apart[0] + 1 if apart else None,
+              rel_diff=[float(f"{r:.3g}") for r in rel],
+              kernel=[round(x, 7) for x in losses["kernel"]],
+              plain=[round(x, 7) for x in losses["plain"]])
+        torch.cuda.empty_cache()
+
+
+def probe_kink(dev, seeds=(0, 1, 2, 3, 4)):
+    """Part ``kink`` (the module docstring's 14)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root, cudnn_without_tf32():
+        for seed in seeds:
+            for plain in (False, True):
+                errs, _ref = S.subset_step_errors(dev, seed, root, plain_i=plain)
+                for path, e in errs.items():
+                    S.say("probe_kink", seed=seed, path=path, plain_i=plain,
+                          failed=S.step_failures(e), **e)
+                torch.cuda.empty_cache()
 
 
 # Microbenchmarks of one quarter SM's pipes: each warp runs rounds of
@@ -1246,10 +1316,12 @@ def main(argv=None) -> int:
                     help="fc: kernels F and C; ag: A and G; ab: A's and G's device times only; "
                          "enc: the fused and plain eval encoders' forward times; de: kernels "
                          "D's and E's decodes and products; b: kernel B's steps, decodes and "
-                         "products; train: bf16 train steps (relu6's gradient, bn_stat_rows, "
+                         "products; train: bf16 train steps (fuse_bn_stats off and on, bn_stat_rows, "
                          "the transformer, the LSTM's fused_attn_bwd); attn_train: the last "
                          "set alone; h: what holds kernel H's backward; loop: loop.train's wall (reader, rolling saves); "
-                         "bc: batch captioning's images/s")
+                         "bc: batch captioning's images/s; quality_bn: phase 30's LSTM losses "
+                         "through kernel I and its plain versions; kink: phase 22 (a) from "
+                         "seeds 0-4, its float32 steps through kernel I and its plain versions")
     ap.add_argument("--package-root", default=None,
                     help="(parts ab, enc, de, b, bc) measure the package of this checkout "
                          "instead")
@@ -1293,6 +1365,10 @@ def main(argv=None) -> int:
         probe_loop(dev)
     if "bc" in parts:
         probe_batch_caption(dev)
+    if "quality_bn" in parts:
+        probe_quality_bn(dev)
+    if "kink" in parts:
+        probe_kink(dev)
     return 0
 
 

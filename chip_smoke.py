@@ -16,7 +16,7 @@ and the dry run of both families on four ranks of a (data, model) grid.
     python3 chip_smoke.py --quality-seeds 0 1 2 3 4   # phase 30 alone, per seed
 
 Phases (each prints one line; any failure exits non-zero with no result;
-29, 17 and 18 run right after 2, and 3 and 20 after them, and 21, 22 and
+29, 32, 17 and 18 run right after 2, and 3 and 20 after them, and 21, 22 and
 23 right after 13, while torch.profiler still reads every event; 24-28,
 30 and 31 run last):
 
@@ -89,8 +89,8 @@ Phases (each prints one line; any failure exits non-zero with no result;
 12. the training slice at full width (MobileNetV2 x1.0 at 224 px, H=1024,
    E=256, vocab 12295 padded to 12416, sentence length 35), random weights
    from ``--seed`` through ``compat/from_jax.train_tree``: (a) one B=32
-   step in float32 fused and unfused, each held against a float64 step
-   (limits at ``TRAIN_LIMITS``); (b) kernel F launches 35 times per forward
+   step in float32 fused and unfused, each held against a float64 step on
+   kernels F's and I's plain versions (limits at ``TRAIN_LIMITS``); (b) kernel F launches 35 times per forward
    fused and never unfused; (c) 20 bfloat16 fused steps at B=128 on one
    batch (lr 1e-3): the loss is finite and falls, F launches 700 times;
    (d) the trained model exported with ``export_inference_bundle`` and
@@ -189,8 +189,8 @@ Phases (each prints one line; any failure exits non-zero with no result;
    12295 padded to 12416, sentence length 35; MobileNetV2 x1.0 at 224 px;
    random weights from ``--seed``): (a) one B=32 step in float32, unfused and
    fused, against a float64 step (float32 at LayerNorm, the residual stream
-   and the scores in both packages): the unfused step within
-   ``F32_STEP_LIMITS``, the fused one as close as the unfused one
+   and the scores in both packages; on F's and I's plain versions): the
+   unfused step within ``F32_STEP_LIMITS``, the fused one as close as the unfused one
    (``TF_FUSED_LIMITS``), F 35 launches a forward fused and none unfused,
    every leaf under ``decoder/layers`` changed by each step; (b) 20 bf16
    fused steps at B=128 on one batch (lr ``TF_LR``): the loss is finite and
@@ -211,8 +211,9 @@ Phases (each prints one line; any failure exits non-zero with no result;
 22. the subset-statistics BN (``model.bn_stat_rows``) on the LSTM at full
    width: one float32 B=32 step with R=8, unfused and fused (whose 1x1 convs
    keep full-batch statistics through kernel F), each against its own
-   path's float64 step (the fused one's on F's plain version,
-   ``plain_f_in_float64``), within ``F32_STEP_LIMITS``; 20 bf16 fused steps at
+   path's float64 step (on kernels F's and I's plain versions,
+   ``plain_in_float64``), within ``F32_STEP_LIMITS`` (``img_global`` read
+   off the ReLU's kink, ``relu_kink``); 20 bf16 fused steps at
    B=128 with R=16 (the loss falls); ms per bf16 B=128 fused step at R=0, 16
    and 32 in turns (0, 16, 32, 32, 16, 0; 3 steps a window), images/s, peak
    memory, and a profile of each.
@@ -374,7 +375,8 @@ Phases (each prints one line; any failure exits non-zero with no result;
    each of the 35 shapes of a B=8, 224 px forward (bf16); ``entry()`` on
    the card, the flagship captioner's teacher-forcing loss at real dims
    (B=8, 224 px, vocab 12416, H=1024, 35 steps, bf16), as the default
-   config runs it (no kernel) and with ``fuse_bn_stats`` (F 35 a forward):
+   config runs it (kernel I's forward passes, 53 each) and with
+   ``fuse_bn_stats`` (F 35 a forward, I's statistics 18):
    both finite, within ``ENTRY_F_RTOL`` of each other, the encoder's
    features of the two within ``ENTRY_F_FEAT_RTOL``; ms of the loss and of
    the loss with every gradient (CUDA events, plain, F, F, plain) and the
@@ -386,6 +388,19 @@ Phases (each prints one line; any failure exits non-zero with no result;
    gradient) and the loss's change in the step against that run
    (``DRY_MU_RTOL``, ``DRY_MU_TREE_RTOL``, ``DRY_CHANGE_RTOL``), the ids of
    each data index equal to its rows.
+32. kernel I (``ops/kernels/batch_norm.py``: ``bn_stats``, ``bn_apply``,
+   ``bn_grad_sums``, ``bn_dx``; ``phase_kernel_i``, right after 29) against
+   its plain versions by ``i_check``'s limits at the 53 train-mode BN
+   shapes of MobileNetV2 x1.0 at B=128, 224 px and at phase 30's x0.35
+   shapes (48 px, B=16), bf16 and float32 (float64 at a few), exact and
+   subset, each layer with its ReLU6 or without as it runs, a channel on
+   each of the ReLU6's ends, every entry rerun bit-equal; each entry's µs,
+   device µs, plain µs, bound and PyTorch call's µs at ``I_TIMED``'s
+   shapes, and the four in a row against ``F.batch_norm``'s forward and
+   backward. The train phases (13, 21, 22, 23, 25, 26, 30, 31) check I's
+   launches a step (``i_want``: 53 of each entry a step, ``bn_stats`` 18
+   with ``fuse_bn_stats``), and 13 (c) prints the contiguous copies kernel
+   I's layers made of a strided x or dy (``kernel_i_copies``).
 
 Near-tie rule: ids must agree wherever the plain version's top-2 logit gap
 exceeds 1e-3 x max|logit| (float32) or 2e-2 (bfloat16 and int8 tables); for
@@ -428,6 +443,14 @@ and its phase 26 (c) numbers on each slice under ``slice{rows}_b{B}``;
 H's two entries (``attn_scores``, ``attn_scores_bwd``) carry phase 29's
 launches in one fused decoder step (``attn_scores_bwd`` counts a call, which
 launches two kernels, the backward and dw's reduce: ``kernels_per_count``)
+and I's four entries phase 12 (c)'s launches (with the other train phases'
+under ``tf_train_launches``, ``trainer_launches``, ``dp_launches``,
+``tp_launches``, ``entry_launches``), ``conv3_1_expand``'s numbers and
+under ``conv2_1_expand`` and ``conv9`` theirs, ``fwd_bwd`` the four in a
+row against ``F.batch_norm``'s forward and backward (``library_ms``:
+``torch.batch_norm_stats``, ``batch_norm_elemt``,
+``batch_norm_backward_reduce`` and ``batch_norm_backward_elemt``, each the
+entry's function without the ReLU6)
 and its full-width bf16 numbers, the
 bound's three parts, the autograd path's ms and device ms, and (c)'s ms a
 step of each variant; every entry carries ``quality_launches``, phase 30's
@@ -1652,13 +1675,73 @@ TRAIN_LIMITS = {"loss_rel": 1e-7, "error_ratio": 3.0, "error_floor": 1e-6,
                 "update_agree_drop": 0.005}
 
 
-def step_errors(run, ref, lr):
-    """A float32 run's errors against the float64 run, by group."""
+class img_global_pre:
+    """Context manager: for each ``captioner.img2feature_tree`` call while
+    active, the pre-activations [B, H] of its ``relu(dense(img_global,
+    pooled features))`` in float64 (``.values``), recomputed from the call's
+    own features by the same ops; the recomputation must give the call's
+    ``global_feat`` bit for bit (asserted)."""
+
+    def __enter__(self):
+        from myimagecaptioningmodel_tpu_torch.models import captioner as C
+        from myimagecaptioningmodel_tpu_torch.ops import layers as L
+
+        self.C, self.orig, self.values = C, C.img2feature_tree, []
+
+        def wrapped(params, state, images, opts, train=True):
+            out = self.orig(params, state, images, opts, train)
+            with torch.no_grad():
+                pre = L.dense(params["img_global"], out[1].mean(dim=1), opts.dtype)
+            if not torch.equal(torch.relu(pre), out[2].detach()):
+                raise AssertionError("img_global's pre-activations did not recompute bit-equal")
+            self.values.append(pre.double())
+            return out
+
+        C.img2feature_tree = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.C.img2feature_tree = self.orig
+        return False
+
+
+def relu_kink(pre, ref_pre):
+    """``img_global``'s ReLU between a float32 step and its float64
+    reference, from their pre-activations [B, H] (``img_global_pre``) ->
+    (the output units whose sign agrees at every image, readings): the
+    elements on different sides of zero (``relu_flips``), the largest
+    float32 error at one of them in units of the error's RMS over all
+    elements (``flip_err_in_rms``: a sign that rounding flipped sits within
+    a few RMS), and the pre-activations' relative L2 error."""
+    flip = (pre > 0) != (ref_pre > 0)
+    err = pre - ref_pre
+    rms = float(err.square().mean().sqrt())
+    worst = float(err[flip].abs().max()) / max(rms, 1e-300) if flip.any() else 0.0
+    return ~flip.any(0), {"relu_flips": int(flip.sum()), "flip_err_in_rms": worst,
+                          "flip_pre_in_std": [float(v) for v in
+                                              ref_pre[flip].abs() / ref_pre.std()],
+                          "pre_rel_l2": float(err.norm() / ref_pre.norm())}
+
+
+def step_errors(run, ref, lr, kink=None):
+    """A float32 run's errors against the float64 run, by group. With
+    ``kink`` (the two steps' ``img_global`` pre-activations), ``img_global``'s
+    gradient is read over the output units whose ReLU the two steps agree
+    on at every image (``relu_kink``; its readings join the result, and the
+    reading over every unit stands as ``img_global_every_unit_rel_l2``): at
+    a unit that a rounding put on the other side of the kink, the two
+    steps took different one-sided derivatives."""
     loss, grads, updates, state = run
     rloss, rgrads, rupdates, rstate = ref
     out = {"loss_rel": abs(loss - rloss) / abs(rloss)}
     for g in GROUPS:
         out[f"grad_rel_l2_{g}"] = rel_l2(grads[g], rgrads[g])
+        if g == "img_global" and kink is not None:
+            keep, readings = relu_kink(*kink)
+            out["img_global_every_unit_rel_l2"] = out[f"grad_rel_l2_{g}"]
+            out[f"grad_rel_l2_{g}"] = rel_l2([x[..., keep] for x in grads[g]],
+                                             [x[..., keep] for x in rgrads[g]])
+            out.update(readings)
         agree = sum(int(((a.double() - b).abs() <= 1e-3 * lr).sum())
                     for a, b in zip(updates[g], rupdates[g]))
         out[f"update_agree_share_{g}"] = agree / sum(b.numel() for b in rupdates[g])
@@ -1691,6 +1774,7 @@ def one_step_run(cfg, ref_params, ref_state, dev, images, caps):
     before = {g: [p.detach().clone() for p in tree_leaves(params[g])] for g in GROUPS}
     layers_before = [p.detach().clone() for p in layer_leaves(params)]
     MB.matmul_stats.launches = 0
+    zero_i_counts()
     params, opt_state, new_state, _n, loss, _lr = step(params, opt_state, state, 0,
                                                        images, caps)
     torch.cuda.synchronize()
@@ -1743,13 +1827,18 @@ def phase_train(dev, seed, root):
     for label, dtype, fuse in (("unfused", "float32", False), ("fused", "float32", True),
                                ("float64", "float64", False)):
         cfg = train_cfg(root, dtype, fuse, 32, lr)
-        runs[label], launches, _ = one_step_run(cfg, ref_params, ref_state, dev, images, caps)
+        with plain_in_float64():
+            runs[label], launches, _ = one_step_run(cfg, ref_params, ref_state, dev, images, caps)
+            i_launched = i_counts()
         want = 35 if fuse else 0
         if launches != want:
             raise AssertionError(f"kernel F launched {launches} times in one forward, "
                                  f"expected {want} (fuse_bn_stats={fuse})")
+        if i_launched != i_want(1, fuse, dtype=dtype):
+            raise AssertionError(f"kernel I: {i_launched} in one step, expected "
+                                 f"{i_want(1, fuse, dtype=dtype)} (fuse_bn_stats={fuse}, {dtype})")
         say("train_step_one", B=32, dtype=dtype, fuse_bn_stats=fuse, loss=runs[label][0],
-            kernel_f_launches=launches)
+            kernel_f_launches=launches, kernel_i_launches=json.dumps(i_launched).replace(" ", ""))
     errs = {label: step_errors(runs[label], runs["float64"], lr) for label in ("unfused", "fused")}
     for label in ("unfused", "fused"):
         say("train_vs_float64", path=label, **errs[label])
@@ -1766,22 +1855,29 @@ def phase_train(dev, seed, root):
     cfg = train_cfg(root, "bfloat16", True, 128, lr)
     images, caps = train_batch(cfg, dev, seed + 1)
     step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
+
+    copies = dict(KBN.copies)
     MB.matmul_stats.launches = 0
+    zero_i_counts()
     losses, t0 = [], time.perf_counter()
     for i in range(20):
         params, opt_state, state, _n, loss, _lr = step(params, opt_state, state, i,
                                                        images, caps)
         losses.append(float(loss))
     seconds = time.perf_counter() - t0
-    launches = {"matmul_stats": MB.matmul_stats.launches}
+    launches = {"matmul_stats": MB.matmul_stats.launches, **i_counts()}
     finite = all(np.isfinite(losses))
     say("train_bf16", B=128, steps=20, params=n_params, first_loss=losses[0],
         last_loss=losses[-1], losses=[round(x, 4) for x in losses], finite=finite,
-        seconds=round(seconds, 2), launches=json.dumps(launches).replace(" ", ""))
+        seconds=round(seconds, 2), launches=json.dumps(launches).replace(" ", ""),
+        # contiguous copies kernel I's layers made of a strided x or dy (a pass each)
+        kernel_i_copies=json.dumps({k: KBN.copies[k] - copies[k] for k in copies}).replace(" ", ""))
     if not finite or not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    if launches["matmul_stats"] != 35 * 20:
-        raise AssertionError(f"kernel F: {launches} launches in 20 steps, expected 700")
+    if launches != {"matmul_stats": 35 * 20, **i_want(20, True)}:
+        raise AssertionError(f"kernels F and I: {launches} launches in 20 steps, expected "
+                             f"{ {'matmul_stats': 700, **i_want(20, True)} }")
 
     # (d) export the trained model and serve it greedily from the bundle
     p_np, s_np = reference_tree(params, state)
@@ -1842,6 +1938,7 @@ def kernel_kind(name: str) -> str:
     """A coarse class of a device kernel, from its name."""
     n = name.lower()
     for kind, marks in (("kernel_f", ("matmul_stats", "stats_reduce")),
+                        ("kernel_i", ("capk::bn::",)),
                         ("conv", ("conv", "cudnn", "dgrad", "wgrad", "fprop")),
                         ("gemm", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
                         ("reduce", ("reduce",)),
@@ -3062,9 +3159,18 @@ TF_ARCH = (("model.decoder.arch", "transformer"),)
 # (img_embed), 9.1e-6 (img_global); BN means 6.5e-6 std, variances 4.9e-5.
 # The transformer's fused step is also held to its unfused one's distance
 # as in phase 12 (a) (``TF_FUSED_LIMITS``; ratios read 0.93-1.05).
+# img_global's gradient is read over the units whose ReLU both steps put on
+# the same side of zero at every image (``relu_kink``): a pre-activation
+# closer to zero than the float32 step's error flips with the rounding, and
+# there the two steps take different one-sided derivatives (one of 32 x
+# 1,024 units flipped at seed 0 once kernel I changed the BN sums'
+# rounding: 3.66e-3 over every unit). At most ``relu_flips`` such elements,
+# each within ``flip_err_in_rms`` RMS of the float32 pre-activations' error
+# (PERF.md §6: seeds 0-4, `chip_probe.py --parts kink`).
 F32_STEP_LIMITS = {"loss_rel": 1e-6, "grad_rel_l2_decoder": 1e-4, "grad_rel_l2_encoder": 0.05,
                    "grad_rel_l2_img_embed": 0.01, "grad_rel_l2_img_global": 1e-4,
-                   "bn_mean_in_std": 1e-3, "bn_var_rel": 1e-3}
+                   "bn_mean_in_std": 1e-3, "bn_var_rel": 1e-3,
+                   "relu_flips": 2, "flip_err_in_rms": 6.0}
 TF_FUSED_LIMITS = dict(TRAIN_LIMITS, loss_rel=1e-6)
 TF_LR = 1e-4  # phase 21 (b)'s bf16 steps
 
@@ -3198,22 +3304,26 @@ def phase_tf_train(dev, seed, root):
     images, caps = train_batch(cfg32, dev, seed)
 
     # (a) one step from the same weights: float32 unfused and fused, float64
-    runs = {}
+    runs, pres = {}, {}
     for label, dtype, fuse in (("unfused", "float32", False), ("fused", "float32", True),
                                ("float64", "float64", False)):
         cfg = train_cfg(root, dtype, fuse, 32, lr, TF_ARCH)
-        runs[label], launches, unchanged = one_step_run(cfg, ref_params, ref_state, dev,
-                                                        images, caps)
+        with plain_in_float64(), img_global_pre() as pre:
+            runs[label], launches, unchanged = one_step_run(cfg, ref_params, ref_state, dev,
+                                                            images, caps)
+            i_launched = i_counts()
+        pres[label] = pre.values[0]
         n_layer = len(layer_leaves(ref_params))
         say("tf_train_step_one", B=32, dtype=dtype, fuse_bn_stats=fuse, loss=runs[label][0],
             kernel_f_launches=launches, layer_leaves=n_layer, layer_leaves_unchanged=unchanged)
-        if launches != (35 if fuse else 0):
-            raise AssertionError(f"kernel F launched {launches} times in one transformer "
-                                 f"forward (fuse_bn_stats={fuse})")
+        if launches != (35 if fuse else 0) or i_launched != i_want(1, fuse, dtype=dtype):
+            raise AssertionError(f"kernels F and I launched {launches}, {i_launched} times in "
+                                 f"one transformer step (fuse_bn_stats={fuse}, {dtype})")
         if unchanged:
             raise AssertionError(f"{unchanged} of {n_layer} decoder/layers leaves unchanged "
                                  f"by a step ({label})")
-    errs = {label: step_errors(runs[label], runs["float64"], lr) for label in ("unfused", "fused")}
+    errs = {label: step_errors(runs[label], runs["float64"], lr,
+                               (pres[label], pres["float64"])) for label in ("unfused", "fused")}
     for label in ("unfused", "fused"):
         say("tf_train_vs_float64", path=label, **errs[label])
     bad = step_failures(errs["unfused"])
@@ -3233,56 +3343,82 @@ def phase_tf_train(dev, seed, root):
     images, caps = train_batch(cfg, dev, seed + 1)
     step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
     MB.matmul_stats.launches = 0
+    zero_i_counts()
     losses, t0 = [], time.perf_counter()
     for i in range(20):
         params, opt_state, state, _n, loss, _lr = step(params, opt_state, state, i, images, caps)
         losses.append(float(loss))
     seconds = time.perf_counter() - t0
-    f_launches = MB.matmul_stats.launches
+    f_launches = {"matmul_stats": MB.matmul_stats.launches, **i_counts()}
     finite = all(np.isfinite(losses))
     say("tf_train_bf16", B=128, steps=20, params=n_params, first_loss=losses[0],
         last_loss=losses[-1], losses=[round(x, 4) for x in losses], finite=finite,
-        seconds=round(seconds, 2), kernel_f_launches=f_launches)
+        seconds=round(seconds, 2), launches=json.dumps(f_launches).replace(" ", ""))
     if not finite or not losses[-1] < losses[0]:
         raise AssertionError(f"the transformer's loss did not fall: {losses}")
-    if f_launches != 35 * 20:
-        raise AssertionError(f"kernel F: {f_launches} launches in 20 steps, expected 700")
+    if f_launches != {"matmul_stats": 35 * 20, **i_want(20, True)}:
+        raise AssertionError(f"kernels F and I: {f_launches} launches in 20 steps")
 
     # (c) export, reload (leaf for leaf) and serve greedy (D) and beam 4 (E)
     served = serve_trained(dev, cfg, params, state, images[:8])
     return f_launches, served, (ref_params, ref_state, params, opt_state, state, images, caps)
 
 
-class plain_f_in_float64:
-    """Context manager: kernel F's wrapper runs its plain version on float64
-    inputs (the kernel takes float32 and bfloat16), for a float64 reference
-    of the fused path; other dtypes reach the kernel as before."""
+class plain_in_float64:
+    """Context manager: kernels F's and I's wrappers run their plain versions
+    on float64 inputs, so that a float64 reference step is independent of
+    both kernels (F takes float32 and bfloat16 only; I takes float64 too,
+    and a float64 step through it would hold kernel I against itself); with
+    ``i_every_dtype`` kernel I's entries run their plain versions on every
+    dtype (a float32 step without kernel I, for a diagnosis). Other calls
+    reach the kernels as before, and a kernel's launches count on the
+    module's attribute, which is the routing function while active (the
+    entries count on their module-level name): ``i_counts`` and
+    ``one_step_run`` read them there."""
+
+    def __init__(self, i_every_dtype=False):
+        self.i_every_dtype = i_every_dtype
 
     def __enter__(self):
+        from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
         from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
 
-        self.MB, self.kernel = MB, MB.matmul_stats
+        self.MB, self.kernel, self.KBN = MB, MB.matmul_stats, KBN
 
         def stats(x, w):
             if x.dtype == torch.float64:
                 return MB._matmul_stats_reference(x, w)
             return self.kernel(x, w)
 
-        stats.launches = 0  # the kernel counts on the module's matmul_stats
+        def routed(kernel, plain):
+            def entry(t, *a):
+                if self.i_every_dtype or t.dtype == torch.float64:
+                    return plain(t, *a)
+                return kernel(t, *a)
+            entry.launches = 0
+            return entry
+
         MB.matmul_stats = stats
+        for fn in KBN.ENTRIES:
+            setattr(KBN, fn.__name__, routed(fn, getattr(KBN, fn.__name__ + "_reference")))
         return self
 
     def __exit__(self, *exc):
         self.MB.matmul_stats = self.kernel
+        for fn in self.KBN.ENTRIES:
+            setattr(self.KBN, fn.__name__, fn)
         return False
 
 
-def phase_bn_subset(dev, seed, root):
-    """Phase 22: ``bn_stat_rows`` on the LSTM at full width: one float32 B=32
-    step with R=8, fused and not, each against the same path's float64 step
-    (the fused one's with kernel F's plain version); 20 bf16
-    B=128 fused steps with R=16; ms per step at R=0, 16 and 32 (fused) in
-    turns, and profiles of R=16 and R=0."""
+def subset_step_errors(dev, seed, root, plain_i=False):
+    """Phase 22 (a): one float32 B=32 step with ``bn_stat_rows`` 8 on the LSTM
+    at full width, unfused and fused, each against its own path's float64
+    step (with R < B the fused path is another function: its 1x1 convs keep
+    full-batch statistics), the float64 steps on kernels F's and I's plain
+    versions (``plain_in_float64``; with ``plain_i`` the float32 steps on
+    I's plain versions too) -> ({path: ``step_errors`` with the ReLU's
+    kink}, the reference (params, state) drawn from ``seed``). Raises if a
+    kernel's launches in a step are off."""
     from myimagecaptioningmodel_tpu_torch.models import captioner as C
 
     lr = 1e-3
@@ -3291,29 +3427,43 @@ def phase_bn_subset(dev, seed, root):
     ref_params, ref_state = C.init(torch.Generator().manual_seed(seed),
                                    C.ModelOptions.from_config(cfg32))
     images, caps = train_batch(cfg32, dev, seed)
-    runs = {}
+    runs, pres = {}, {}
     for label, dtype, fuse in (("unfused", "float32", False), ("fused", "float32", True),
                                ("float64", "float64", False), ("fused_float64", "float64", True)):
-        with plain_f_in_float64():
+        with plain_in_float64(i_every_dtype=plain_i), img_global_pre() as pre:
             runs[label], launches, _ = one_step_run(train_cfg(root, dtype, fuse, 32, lr, r8),
                                                     ref_params, ref_state, dev, images, caps)
+            i_launched = i_counts()
+        pres[label] = pre.values[0]
         say("bn_subset_step_one", B=32, bn_stat_rows=8, dtype=dtype, fuse_bn_stats=fuse,
-            loss=runs[label][0], kernel_f_launches=launches)
-        if launches != (35 if fuse and dtype == "float32" else 0) and dev.type == "cuda":
+            seed=seed, plain_i=plain_i, loss=runs[label][0], kernel_f_launches=launches)
+        if launches != (35 if fuse and dtype == "float32" else 0):
             raise AssertionError(f"kernel F launched {launches} times in one forward "
                                  f"(fuse_bn_stats={fuse}, bn_stat_rows=8)")
-    # with R < B the fused path is another function (its 1x1 convs keep
-    # full-batch statistics): each float32 step against its own float64 one
-    errs = {label: step_errors(runs[label], runs[ref], lr)
+        want = i_want(1, fuse, dtype="float64" if plain_i else dtype)
+        if i_launched != want:
+            raise AssertionError(f"kernel I launched {i_launched} in one step, expected {want} "
+                                 f"(fuse_bn_stats={fuse}, bn_stat_rows=8, {dtype})")
+    errs = {label: step_errors(runs[label], runs[ref], lr, (pres[label], pres[ref]))
             for label, ref in (("unfused", "float64"), ("fused", "fused_float64"))}
     for label in ("unfused", "fused"):
-        say("bn_subset_vs_float64", path=label, bn_stat_rows=8, **errs[label])
+        say("bn_subset_vs_float64", path=label, bn_stat_rows=8, seed=seed, plain_i=plain_i,
+            **errs[label])
+    return errs, (ref_params, ref_state)
+
+
+def phase_bn_subset(dev, seed, root):
+    """Phase 22: ``bn_stat_rows`` on the LSTM at full width: (a)
+    ``subset_step_errors`` within ``F32_STEP_LIMITS``; 20 bf16 B=128 fused
+    steps with R=16; ms per step at R=0, 16 and 32 (fused) in turns, and
+    profiles of R=16 and R=0."""
+    lr = 1e-3
+    errs, (ref_params, ref_state) = subset_step_errors(dev, seed, root)
     bad = [f"{label}:{k}" for label in errs for k in step_failures(errs[label])]
     say("bn_subset_checks", limits=json.dumps(F32_STEP_LIMITS).replace(" ", ""), failed=bad,
         ok=not bad)
     if bad:
         raise AssertionError(f"the subset-statistics BN step is too far from float64: {bad}")
-    del runs
     torch.cuda.empty_cache()
 
     r16 = (("model.bn_stat_rows", 16),)
@@ -3321,14 +3471,19 @@ def phase_bn_subset(dev, seed, root):
     images, caps = train_batch(cfg, dev, seed + 1)
     step, params, opt_state, state = trainer(cfg, ref_params, ref_state, dev)
     losses = []
+    zero_i_counts()
     for i in range(20):
         params, opt_state, state, _n, loss, _lr = step(params, opt_state, state, i, images, caps)
         losses.append(float(loss))
     finite = all(np.isfinite(losses))
     say("bn_subset_bf16", B=128, bn_stat_rows=16, steps=20, first_loss=losses[0],
-        last_loss=losses[-1], losses=[round(x, 4) for x in losses], finite=finite)
+        last_loss=losses[-1], losses=[round(x, 4) for x in losses], finite=finite,
+        kernel_i_launches=json.dumps(i_counts()).replace(" ", ""))
     if not finite or not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall with bn_stat_rows=16: {losses}")
+    if i_counts() != i_want(20, True):
+        raise AssertionError(f"kernel I: {i_counts()} in 20 steps at bn_stat_rows=16, "
+                             f"expected {i_want(20, True)}")
     rows = {f"R{r}": (True, (("model.bn_stat_rows", r),)) for r in (0, 16, 32)}
     phase_train_timing(dev, root, (ref_params, ref_state, params, opt_state, state, images, caps),
                        paths=rows, order=("R0", "R16", "R32", "R32", "R16", "R0"), reps=3,
@@ -3489,13 +3644,14 @@ class loop_probe:
 
 def launch_counters():
     from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as KH
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as FI
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as FS
     from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as FT
     from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
     from myimagecaptioningmodel_tpu_torch.ops.kernels import vocab_head as VH
 
-    return {"greedy_vocab_argmax": VH.greedy_vocab_argmax, "fused_decode_step": FS.fused_decode_step,
+    return {**{fn.__name__: fn for fn in KBN.ENTRIES},"greedy_vocab_argmax": VH.greedy_vocab_argmax, "fused_decode_step": FS.fused_decode_step,
             "topk_vocab_head": VH.topk_vocab_head, "matmul_stats": MB.matmul_stats,
             "fused_greedy_decode": FT.fused_greedy_decode,
             "fused_beam_decode": FT.fused_beam_decode,
@@ -3651,12 +3807,12 @@ def cider_by_caption(cfg, mode, ids_batches):
 
 
 def loop_launches_want(steps, evals, dev_batches, arch="lstm"):
-    """A loop run's launches: F 35 a step, and per dev batch B and A 35 (the
+    """A loop run's launches: F 35 a step, I ``i_want``'s, and per dev batch B and A 35 (the
     LSTM's greedy decode) or D once (the transformer's); H never (the train
     step keeps the decoder's default, ``fused_attn_bwd=False``), E and G
     never (no beam decode, no eval-mode encoder)."""
     lstm = arch == "lstm"
-    return {"matmul_stats": 35 * steps, "topk_vocab_head": 0,
+    return {**i_want(steps, True), "matmul_stats": 35 * steps, "topk_vocab_head": 0,
             "fused_decode_step": 35 * evals * dev_batches if lstm else 0,
             "greedy_vocab_argmax": 35 * evals * dev_batches if lstm else 0,
             "fused_greedy_decode": 0 if lstm else evals * dev_batches,
@@ -4163,6 +4319,7 @@ def dp_readings(cfg, seed, dev, one, plant=None):
          **{f"{k}_err": v for k, v in errs.items()},
          "ranks_bit_equal": equal_ranks, "collectives_per_step": ranks[0]["collectives"],
          "f_launches_each": [x["f_launches"] for x in ranks],
+         "i_launches_each": json.dumps([x["i_launches"] for x in ranks]).replace(" ", ""),
          "step_ms_each": [x["step_ms"] for x in ranks],
          "seconds": round(time.perf_counter() - t0, 1)}
     limits = DP_LIMITS[cfg.model.compute_dtype]
@@ -4171,6 +4328,8 @@ def dp_readings(cfg, seed, dev, one, plant=None):
         failed.append("ranks_differ")
     if any(x["f_launches"] != one["f_launches"] for x in ranks):  # as many as one process
         failed.append("f_launches")
+    if any(x["i_launches"] != i_want(DP_STEPS, cfg.model.fuse_bn_stats) for x in ranks + [one]):
+        failed.append("i_launches")
     if any(v != "exact" for x in ranks for v in x["gloo_cuda"].values()):
         failed.append("gloo_cuda")
     return r, failed
@@ -4183,7 +4342,7 @@ def dp_run(cfg, seed, dev, rows=None, steps=DP_STEPS, model_parallel=1):
     (the encoder's gradients the first step's update takes, on the host),
     "digest" (of the params and BN state; with ``model_parallel`` > 1, a
     vocab-parallel grid of the process group, of the replicated params),
-    "f_launches" (kernel F's)}."""
+    "f_launches" (kernel F's), "i_launches" (kernel I's, by entry)}."""
     import hashlib
 
     from myimagecaptioningmodel_tpu_torch.models import captioner as C
@@ -4229,7 +4388,8 @@ def dp_run(cfg, seed, dev, rows=None, steps=DP_STEPS, model_parallel=1):
     return {"losses": [float(x) for x in losses],
             "state": TS.tree_map(lambda t: t.detach().cpu(), state), "state1": first,
             "enc_grads1": grads1, "digest": digest.hexdigest(),
-            "f_launches": run.counts["matmul_stats"]}
+            "f_launches": run.counts["matmul_stats"],
+            "i_launches": {k: run.counts[k] for k in I_NAMES}}
 
 
 def gloo_on_cuda(dev) -> dict:
@@ -4383,7 +4543,8 @@ def phase_data_parallel(dev, seed, root, card, before_b=None):
     # layer's sums forward and backward (the encoder trains)
     n_bn = bn_layers(base)
     want_calls = 2 + 2 * n_bn
-    want_launches = {"matmul_stats": 4 * 35, "fused_decode_step": 35, "greedy_vocab_argmax": 35}
+    want_launches = {"matmul_stats": 4 * 35, "fused_decode_step": 35, "greedy_vocab_argmax": 35,
+                     **i_want(4, True)}
     plain_ms, group_ms = np.mean(ms["plain"]), np.mean(ms["group"])
     say("dp_world1", card=card.replace(" ", "_"), backend="nccl", steps=len(grouped.losses),
         losses_bit_equal=same, losses=grouped.loss_values(),
@@ -4415,7 +4576,8 @@ def phase_data_parallel(dev, seed, root, card, before_b=None):
         say("dp_two_processes", card=card.replace(" ", "_"), case=case, **r)
         if failed:
             raise AssertionError(f"two processes against one ({case}): {failed}")
-        launches[f"dp2_{case}_rank0"] = {"matmul_stats": r["f_launches_each"][0]}
+        launches[f"dp2_{case}_rank0"] = {"matmul_stats": r["f_launches_each"][0],
+                                         **json.loads(r["i_launches_each"])[0]}
     say("dp_phase", seconds=round(time.perf_counter() - t0, 1))
     return launches
 
@@ -4563,6 +4725,7 @@ def tp_readings(cfg, tf_cfg, seed, dev, one, plant=None):
          **{f"{k}_err": v for k, v in errs.items()},
          "replicated_bit_equal": equal_ranks,
          "f_launches_each": [x["f_launches"] for x in ranks], "f_launches_one": one["f_launches"],
+         "i_launches_each": json.dumps([x["i_launches"] for x in ranks]).replace(" ", ""),
          "peak_mib_each": [x["peak_mib"] for x in ranks], "peak_mib_one": one["peak_mib"],
          "lstm_decode_bit_equal_each": lstm_same,
          "lstm_launches_each": json.dumps([x["lstm_launches"] for x in ranks]).replace(" ", ""),
@@ -4576,6 +4739,8 @@ def tp_readings(cfg, tf_cfg, seed, dev, one, plant=None):
         failed.append("replicated_differ")
     if any(x["f_launches"] != one["f_launches"] for x in ranks):
         failed.append("f_launches")
+    if any(x["i_launches"] != i_want(TP_STEPS, cfg.model.fuse_bn_stats) for x in ranks + [one]):
+        failed.append("i_launches")
     if not all(x["tie_ok"] for x in ranks):
         failed.append("tie_rule")
     if not all(x["embed_ok"] for x in ranks):
@@ -4726,7 +4891,8 @@ def phase_vocab_tp(dev, seed, root, card):
     say("tp_phase", seconds=round(time.perf_counter() - t0, 1))
     return {"tp_lstm_dev_decode_rank0": json.loads(r["lstm_launches_each"])[0],
             "tp_tf_dev_decode_rank0": json.loads(r["tf_launches_each"])[0],
-            "tp_train_rank0": {"matmul_stats": r["f_launches_each"][0]}}
+            "tp_train_rank0": {"matmul_stats": r["f_launches_each"][0],
+                               **json.loads(r["i_launches_each"])[0]}}
 
 
 # ---- phase 27: the Paddle checkpoint import ---------------------------------------------
@@ -5741,7 +5907,7 @@ def phase_quality(dev, seed, root, card, strict=True):
         T = cfg.model.decoder.infer_max_length
         decodes = QUALITY_EPOCHS * n_dev + n_dev + n_test  # dev BLEU each epoch, the kit's scores
         want = {"matmul_stats": 35 * steps, "fused_decode_step": T * decodes,
-                "greedy_vocab_argmax": T * decodes}
+                "greedy_vocab_argmax": T * decodes, **i_want(steps, True)}
         launches["lstm_kit"] = {k: v for k, v in kit_run.counts.items() if v}
         if launches["lstm_kit"] != want:
             bad.append(f"the kit's run: launches {launches['lstm_kit']} (expected {want})")
@@ -5798,7 +5964,7 @@ def phase_quality(dev, seed, root, card, strict=True):
             tf_result = loop.train(tf_cfg, device=dev)
         tf_train_s = time.perf_counter() - t1
         want = {"matmul_stats": 35 * tf_result["final_step"],
-                "fused_greedy_decode": QUALITY_EPOCHS * n_dev}
+                "fused_greedy_decode": QUALITY_EPOCHS * n_dev, **i_want(tf_result["final_step"], True)}
         launches["tf_train"] = {k: v for k, v in tf_run.counts.items() if v}
         if launches["tf_train"] != want:
             bad.append(f"the transformer's run: launches {launches['tf_train']} (expected {want})")
@@ -6036,10 +6202,10 @@ def entry_timings(fn, args, dev, reps=10):
 def phase_graft_entry(dev, card):
     """Phase 31. (a) ``graft_entry.entry()`` on the card: the flagship
     captioner's teacher-forcing loss at real dims (B=8, 224 px, vocab 12416,
-    H=1024, 35 steps, bf16) as the user calls it (kernel-free: the default
-    config keeps ``fuse_bn_stats`` off), and the same step with
-    ``fuse_bn_stats=True`` (kernel F once a stride-1 1x1 conv, 35 a
-    forward): the two losses finite and within ``ENTRY_F_RTOL``, the
+    H=1024, 35 steps, bf16) as the user calls it (the default config keeps
+    ``fuse_bn_stats`` off: kernel I's statistics and normalize passes, 53
+    each), and the same step with ``fuse_bn_stats=True`` (kernel F once a
+    stride-1 1x1 conv, 35 a forward, and kernel I's statistics 18 times): the two losses finite and within ``ENTRY_F_RTOL``, the
     encoder's features within ``ENTRY_F_FEAT_RTOL``; ms of the loss and of
     the loss and its gradients, in turns, and the peak MiB. (b)
     ``dryrun_multichip(DRY_WORLD)``: gloo ranks sharing the card on a (data
@@ -6050,7 +6216,7 @@ def phase_graft_entry(dev, card):
     each data index equal to that run's rows. Before (a), kernel F against
     its plain version (``f_agreement``, ``F_STATS_TOL``) at each of the
     entry step's 35 shapes in bf16. -> (F's launches in one forward of (a),
-    F's largest |y - plain y| there)."""
+    kernel I's in the plain one by entry, F's largest |y - plain y| there)."""
     from myimagecaptioningmodel_tpu_torch import graft_entry as GE
     from myimagecaptioningmodel_tpu_torch.models import captioner as C
     from myimagecaptioningmodel_tpu_torch.ops.kernels.matmul_bn import (
@@ -6102,7 +6268,10 @@ def phase_graft_entry(dev, card):
         raise AssertionError(f"phase 31 (a): entry() losses {losses}, {rel:.3g} apart "
                              f"(limit {ENTRY_F_RTOL}), features {feat_rel} apart "
                              f"(limit {ENTRY_F_FEAT_RTOL})")
-    if launches["plain"] or launches["kernel_f"] != {"matmul_stats": len(shapes)}:
+    # the loss alone: kernel I's forward passes, 53 a forward (18 statistics with F)
+    if (launches["plain"] != {k: v for k, v in i_want(1, False, backward=False).items() if v}
+            or launches["kernel_f"] != {"matmul_stats": len(shapes),
+                                        **{k: v for k, v in i_want(1, True, False).items() if v}}):
         raise AssertionError(f"phase 31 (a): launches {launches}")
     del fn, fn_f, fns, args
     torch.cuda.empty_cache()
@@ -6147,7 +6316,386 @@ def phase_graft_entry(dev, card):
         raise AssertionError(f"phase 31 (b): one loss a family {one_loss}, "
                              f"ids by rows {ids_equal}")
     say("graft_phase", seconds=round(time.perf_counter() - t0, 1))
-    return launches["kernel_f"]["matmul_stats"], f_worst
+    return launches["kernel_f"]["matmul_stats"], {
+        k: launches["plain"].get(k, 0) for k in I_NAMES}, f_worst
+
+
+# ---- phase 32: kernel I, train-mode BN's passes ----------------------------------
+
+KERNEL_I_SRC = "myimagecaptioningmodel_tpu_torch/csrc/bn_train.cu"
+# not a TPU kernel: the JAX package's hand-written BN VJP that XLA fuses
+# (and :284 _bn_train_subset, ops/pallas/matmul_bn.py:120 _conv1x1_bn_bwd's BN half)
+KERNEL_I_REPLACES = "myimagecaptioningmodel_tpu/ops/layers.py:188"
+I_NAMES = ("bn_stats", "bn_apply", "bn_grad_sums", "bn_dx")
+# kernel I's limits against its plain version on the same inputs (each
+# reading is the error over its limit; > 1 fails). The sums (bn_stats,
+# bn_grad_sums) add in other orders than torch's: within I_SUM_TOL x the
+# sum of the terms' magnitudes (float32: each order's error is below ~120
+# float32 roundings of that sum, the kernel's ~50 rows a thread then ~64
+# thread rows, torch's its own; float64 1e-12). y and dx within one ulp of
+# their dtype at their magnitude, plus I_ELEM_ULPS roundings of the
+# statistics' dtype on each of their terms' magnitudes (the plain version
+# takes torch.rsqrt, a few ulps from the kernel's correctly rounded
+# 1 / sqrt, and CUDA's s * (1 / n) for s / n), plus, where the ReLU6's slope
+# may differ (y before rounding within I_ELEM_ULPS roundings of its terms of
+# 0, or y within one ulp and those roundings of 6, x off the mean), dy on
+# that element. mean and var against the plain version's from the same sums:
+# 4 and 8 roundings of mean and of q / n + mean^2.
+I_SUM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-5, torch.float64: 1e-12}
+I_ELEM_ULPS = 16
+I_SUBSET_ROWS = 16  # R at B=128 (phase 22's); 8 at phase 30's B=16
+I_TIMED = ("conv3_1_expand", "conv2_1_expand", "conv9")  # (M, C) 1,605,632 x 96, x 32; 6,272 x 1,280
+
+
+def bn_shapes(B=128, size=224, scale=1.0):
+    """(layer, M, C, act) of every train-mode BN of one MobileNetV2 forward,
+    in order: 53 at x1.0; the 35 stride-1 1x1 convs among them are the ones
+    kernel F takes with ``fuse_bn_stats`` (their BN skips ``bn_stats``)."""
+    from myimagecaptioningmodel_tpu_torch.models.mobilenet_v2 import BOTTLENECK_PARAMS
+
+    hw, in_c = (size - 1) // 2 + 1, int(32 * scale)
+    shapes = [("conv1_1", B * hw * hw, in_c, True)]
+    for stage, (t, c, n, s) in enumerate(BOTTLENECK_PARAMS, start=2):
+        c = int(c * scale)
+        for i in range(1, n + 1):
+            exp = int(round(in_c * t))
+            shapes.append((f"conv{stage}_{i}_expand", B * hw * hw, exp, True))
+            hw = (hw - 1) // (s if i == 1 else 1) + 1
+            shapes.append((f"conv{stage}_{i}_dwise", B * hw * hw, exp, True))
+            shapes.append((f"conv{stage}_{i}_linear", B * hw * hw, c, False))
+            in_c = c
+    shapes.append(("conv9", B * hw * hw, 1280, True))
+    return shapes
+
+
+def i_want(steps, fused, backward=True, dtype="bfloat16"):
+    """Kernel I's launches in ``steps`` train steps of the encoder at x1.0
+    (53 BN layers; with ``fuse_bn_stats`` kernel F's sums feed the 35 1x1
+    convs' BN, so ``bn_stats`` runs 18 times a forward); without
+    ``backward`` a forward alone; none for a float64 step, which the smoke
+    runs on the plain versions (``plain_in_float64``)."""
+    n_bn = 53
+    steps = 0 if dtype == "float64" else steps
+    return {"bn_stats": (n_bn - 35 if fused else n_bn) * steps, "bn_apply": n_bn * steps,
+            "bn_grad_sums": n_bn * steps if backward else 0,
+            "bn_dx": n_bn * steps if backward else 0}
+
+
+def i_counts():
+    """Kernel I's launches by entry since ``zero_i_counts``, read on the
+    module's attributes (``plain_in_float64`` routes through its own)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
+
+    return {fn.__name__: getattr(KBN, fn.__name__).launches for fn in KBN.ENTRIES}
+
+
+def zero_i_counts():
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
+
+    for fn in KBN.ENTRIES:
+        fn.launches = 0
+        getattr(KBN, fn.__name__).launches = 0
+
+
+def i_operands(dev, M, C, dt, rows, seed):
+    """x [M, C], dy, scale, offset on the card: each channel shifted and
+    spread, channel 0 constant (0.5, summed exactly) with offset 0 and
+    channel 1 the same with offset 6 (the BN output sits on the ReLU6's
+    ends); the last row of the statistics' rows (and, for a subset, the
+    first row past them) 64 spreads out in x and 64x in dy, so that a row
+    lost or gained at the boundary shows."""
+    g = torch.Generator(device=dev).manual_seed(seed * 1000003 + M * 1283 + C)
+    spread = 0.5 + torch.rand(C, device=dev, generator=g)
+    shift = torch.randn(C, device=dev, generator=g)
+    x = torch.randn(M, C, device=dev, generator=g) * spread + shift
+    dy = torch.randn(M, C, device=dev, generator=g)
+    for r in {rows - 1, min(rows, M - 1)}:
+        if r >= 0:
+            x[r] = shift + 64 * spread
+            dy[r] *= 64
+    sd = torch.float64 if dt == torch.float64 else torch.float32
+    scale = (1 + 0.2 * torch.randn(C, device=dev, generator=g)).to(sd)
+    offset = (0.3 * torch.randn(C, device=dev, generator=g)).to(sd)
+    x[:, 0] = 0.5
+    offset[0] = 0.0
+    if C > 1:
+        x[:, 1] = 0.5
+        offset[1] = 6.0
+    return x.to(dt).contiguous(), dy.to(dt).contiguous(), scale, offset
+
+
+def ulp_of(t, dt):
+    """One ulp of dtype ``dt`` at each magnitude of ``t`` (float64)."""
+    bits = {torch.bfloat16: 8, torch.float32: 24, torch.float64: 53}[dt]
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(1e-300))) - (bits - 1))
+
+
+def i_check(dev, M, C, dt, act, rows=None, seed=0):
+    """Kernel I's four entries against their plain versions at one shape:
+    the exact BN (``rows`` None) or the subset's over the first ``rows`` rows
+    of x [M, C] (``ratio`` B / R as the layer passes it, taken as M / rows).
+    -> ({entry: reading (error over its limit)}, {entry: max |kernel - plain|}).
+    Each kernel reruns bit-equal (asserted)."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
+
+    exact = rows is None
+    nrows = M if exact else rows
+    ratio = 1.0 if exact else M / rows
+    x, dy, scale, offset = i_operands(dev, M, C, dt, nrows, seed)
+    sd = scale.dtype
+    u = 2.0 ** -(53 if sd == torch.float64 else 24)
+    tol = I_SUM_TOL[dt]
+    read, err = {}, {}
+
+    def score(name, got, want, lim):
+        d = (got.double() - want.double()).abs()
+        read[name] = max(read.get(name, 0.0), float((d / lim.clamp_min(1e-300)).max()))
+        err[name] = max(err.get(name, 0.0), float(d.max()))
+
+    def twice(fn, *a):
+        first, again = fn(*a), fn(*a)
+        pairs = zip(first, again) if isinstance(first, tuple) else [(first, again)]
+        if not all(torch.equal(p, q) for p, q in pairs):
+            raise AssertionError(f"kernel I: {fn.__name__} reran to other bits at "
+                                 f"M={M}, C={C}, {dt}")
+        return first
+
+    # (a) the statistics' sums
+    s, q = twice(KBN.bn_stats, x, nrows)
+    ps, pq = KBN.bn_stats_reference(x, nrows)
+    x64 = x[:nrows].double()
+    score("bn_stats", s, ps, tol * x64.abs().sum(0))
+    score("bn_stats", q, pq, tol * (x64 * x64).sum(0))
+    # (b) from the kernel's sums; y against the plain formula at the kernel's statistics
+    y, mean, var = twice(KBN.bn_apply, x, s, q, nrows, scale, offset, act)
+    _py, pmean, pvar = KBN.bn_apply_reference(x, s, q, nrows, scale, offset, act)
+    score("bn_apply", mean, pmean, 4 * u * pmean.double().abs())
+    score("bn_apply", var, pvar, 8 * u * (q.double() / nrows + pmean.double() ** 2))
+    inv = KBN.bn_inv(var)
+    yr = KBN.bn_normalized(x, mean, inv, scale, offset)
+    if act:
+        yr = torch.clamp(yr, 0.0, 6.0)
+    xm = (x.double() - mean.double()).abs()
+    a = (inv * scale).double().abs()
+    score("bn_apply", y, yr, ulp_of(torch.maximum(y.double().abs(), yr.double().abs()), dt)
+          + I_ELEM_ULPS * u * (xm * a + offset.double().abs()))
+    # where the ReLU6's slope may differ between the two (y within one ulp of
+    # 0 or 6, x off the mean)
+    if act:
+        y0 = KBN.bn_normalized(x, mean, inv, scale, offset).double()
+        slack = 2 * I_ELEM_ULPS * u * (xm * a + offset.double().abs())
+        near = (((y0.abs() <= slack)
+                 | ((y0 - 6).abs() <= ulp_of(torch.full_like(y0, 6), dt) + slack))
+                & (xm > 0)).double()
+    else:
+        near = torch.zeros_like(xm)
+    # (c) the backward's sums
+    g_off, g_sc = twice(KBN.bn_grad_sums, dy, x, mean, var, scale, offset, nrows, act, ratio)
+    p_off, p_sc = KBN.bn_grad_sums_reference(dy, x, mean, var, scale, offset, nrows, act, ratio)
+    d = KBN._cotangent(dy, x, mean, inv, scale, offset, act).double()
+    xh = (x.double() - mean.double()) * inv.double()
+    flip = dy.double().abs() * near
+    score("bn_grad_sums", g_off, p_off, ratio * (tol * d[:nrows].abs().sum(0) + flip[:nrows].sum(0)))
+    score("bn_grad_sums", g_sc, p_sc, ratio * (tol * (d * xh)[:nrows].abs().sum(0)
+                                                + (flip * xh.abs())[:nrows].sum(0)))
+    # (d) dx from the kernel's sums
+    xd = x if (exact or act) else None
+    dx = twice(KBN.bn_dx, dy, xd, mean, var, scale, offset, g_off, g_sc, nrows, act, exact)
+    pdx = KBN.bn_dx_reference(dy, x, mean, var, scale, offset, g_off, g_sc, nrows, act, exact)
+    if exact:
+        k = (scale * inv / nrows).double().abs()
+        terms = k * (nrows * d.abs() + g_off.double().abs() + xh.abs() * g_sc.double().abs())
+        moved = k * nrows * flip
+    else:
+        k = (scale * inv).double().abs()
+        terms, moved = k * d.abs(), k * flip
+    score("bn_dx", dx, pdx, ulp_of(torch.maximum(dx.double().abs(), pdx.double().abs()), dt)
+          + I_ELEM_ULPS * u * terms + moved)
+    # the ties: the constant channels' outputs sit on 0 and 6
+    ends = [(y[:, 0] == 0).all()] + ([(y[:, 1] == 6).all()] if C > 1 else [])
+    if act and not all(bool(e) for e in ends):
+        raise AssertionError(f"kernel I: the constant channels' y is off the ReLU6's ends "
+                             f"at M={M}, C={C}, {dt}")
+    return read, err
+
+
+def i_checks(dev, seed, shapes, dts, B, subset_rows, label):
+    """``i_check`` at each (layer, M, C, act) of ``shapes`` (a batch of B
+    images) and dtype, exact and over the first ``subset_rows`` images ->
+    ({entry: worst reading}, {entry: max |kernel - plain|}); prints one line
+    a dtype."""
+    worst, errs = {}, {}
+    for dt in dts:
+        per, fails = {}, []
+        for name, M, C, act in shapes:
+            for rows in (None, M // B * subset_rows):
+                if rows == 0:
+                    continue
+                read, err = i_check(dev, M, C, dt, act, rows, seed)
+                for k, v in read.items():
+                    per[k] = max(per.get(k, 0.0), v)
+                    worst[k] = max(worst.get(k, 0.0), v)
+                    errs[k] = max(errs.get(k, 0.0), err[k])
+                    if v > 1.0:
+                        fails.append(f"{name}{'' if rows is None else '/R'}:{k}")
+        say(label, dtype=str(dt).split(".")[-1], shapes=len(shapes),
+            readings=json.dumps({k: round(v, 4) for k, v in per.items()}).replace(" ", ""),
+            failed=fails[:8], ok=not fails)
+        if fails:
+            raise AssertionError(f"kernel I off its plain version ({dt}): {fails[:8]}")
+    return worst, errs
+
+
+def bound_i(M, C, dt, part, act=True):
+    """One entry of kernel I at the exact BN over M rows: each input read
+    once, each output written once (the per-channel vectors too), and its
+    float32 operations an element (the ReLU6's recomputed y and slope with
+    ``act``) at the float32 rate."""
+    es = torch.tensor([], dtype=dt).element_size()
+    el, vec = M * C, C * 4
+    nbytes, ops = {"bn_stats": (el * es + 2 * vec, 3),
+                   "bn_apply": (2 * el * es + 6 * vec, 6 if act else 4),
+                   "bn_grad_sums": (2 * el * es + 6 * vec, 12 if act else 5),
+                   "bn_dx": (3 * el * es + 6 * vec, 14 if act else 8)}[part]
+    return bound(nbytes, ops * el, torch.float32)
+
+
+def i_library(x, dy, scale, offset, B):
+    """The PyTorch calls timed beside kernel I, on the same channels-last
+    tensors (NCHW views of ``[M, C]``), each computing one entry's function
+    without the ReLU6: ``torch.batch_norm_stats`` (mean, inverse std) for
+    ``bn_stats``, ``torch.batch_norm_elemt`` (the normalize at given
+    statistics) for ``bn_apply``, ``torch.batch_norm_backward_reduce``
+    (Σdy, Σdy·(x - mean) and from them dscale, doffset) for ``bn_grad_sums``
+    and ``torch.batch_norm_backward_elemt`` (dx from those sums) for
+    ``bn_dx`` -> ({entry: call}, the whole train-mode BN forward and
+    backward: ``F.batch_norm(training=True)``, cuDNN where it dispatches)."""
+    import torch.nn.functional as Fn
+
+    M, C = x.shape
+    hw = int(round((M // B) ** 0.5))
+    x4 = x.view(B, hw, hw, C).permute(0, 3, 1, 2)  # NCHW in channels-last memory
+    dy4 = dy.view(B, hw, hw, C).permute(0, 3, 1, 2)
+    mean, invstd = torch.batch_norm_stats(x4, 1e-5)
+    sum_dy, sum_dy_xmu, _dw, _db = torch.batch_norm_backward_reduce(
+        dy4, x4, mean, invstd, scale, True, True, True)
+    count = torch.full((1,), M, dtype=torch.int32, device=x.device)
+    xg = x4.detach().requires_grad_()
+
+    def fwd_bwd():
+        y = Fn.batch_norm(xg, None, None, scale, offset, True, 0.1, 1e-5)
+        return torch.autograd.grad(y, xg, dy4)
+
+    return {"bn_stats": lambda: torch.batch_norm_stats(x4, 1e-5),
+            "bn_apply": lambda: torch.batch_norm_elemt(x4, scale, offset, mean, invstd, 1e-5),
+            "bn_grad_sums": lambda: torch.batch_norm_backward_reduce(
+                dy4, x4, mean, invstd, scale, True, True, True),
+            "bn_dx": lambda: torch.batch_norm_backward_elemt(
+                dy4, x4, mean, invstd, scale, sum_dy, sum_dy_xmu, count)}, fwd_bwd
+
+
+def i_timings(dev, seed, B=128):
+    """Kernel I at ``I_TIMED``'s shapes, bf16, the exact BN with the layer's
+    ReLU6: each entry's µs (CUDA events) and device µs, its plain version's
+    µs, the PyTorch call's (``i_library``: the same function without the
+    ReLU6) and the bound; the four
+    in a row against ``F.batch_norm``'s forward and backward.
+    -> {layer: {entry: readings}, layer + ":fwd_bwd": {...}}."""
+    from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
+
+    bf16 = torch.bfloat16
+    shapes = {name: (M, C, act) for name, M, C, act in bn_shapes(B)}
+    out = {}
+    for name in I_TIMED:
+        M, C, act = shapes[name]
+        x, dy, scale, offset = i_operands(dev, M, C, bf16, M, seed)
+        s, q = KBN.bn_stats(x, M)
+        y, mean, var = KBN.bn_apply(x, s, q, M, scale, offset, act)
+        g_off, g_sc = KBN.bn_grad_sums(dy, x, mean, var, scale, offset, M, act)
+        calls = {"bn_stats": (KBN.bn_stats, KBN.bn_stats_reference, (x, M)),
+                 "bn_apply": (KBN.bn_apply, KBN.bn_apply_reference,
+                              (x, s, q, M, scale, offset, act)),
+                 "bn_grad_sums": (KBN.bn_grad_sums, KBN.bn_grad_sums_reference,
+                                  (dy, x, mean, var, scale, offset, M, act)),
+                 "bn_dx": (KBN.bn_dx, KBN.bn_dx_reference,
+                           (dy, x, mean, var, scale, offset, g_off, g_sc, M, act, True))}
+        try:  # a yardstick only: a PyTorch call that fails leaves its numbers out
+            library, fwd_bwd = i_library(x, dy, scale, offset, B)
+        except RuntimeError as e:
+            say("kernel_i_library", layer=name, error=str(e)[:200])
+            library, fwd_bwd = dict.fromkeys(calls), None
+        for part, call in library.items():
+            try:
+                if call is not None:
+                    call()
+                    torch.cuda.synchronize()
+            except RuntimeError as e:
+                say("kernel_i_library", layer=name, entry=part, error=str(e)[:200])
+                library[part] = None
+        lib_dev = device_us_each([f for f in library.values() if f is not None])
+        lib_dev = dict(zip([n for n, f in library.items() if f is not None], lib_dev))
+        dev_us = device_us_each([lambda k=k, a=a: k(*a) for k, _p, a in calls.values()])
+        row = {}
+        for (part, (kernel, plain, args)), d_us in zip(calls.items(), dev_us):
+            b_ms, b_by = bound_i(M, C, bf16, part, act)
+            lib = library[part]
+            row[part] = {"ms": time_ms(lambda: kernel(*args)),
+                         "plain_ms": time_ms(lambda: plain(*args), reps=5, warmup=1),
+                         "bound_ms": b_ms, "bound_by": b_by, "device_ms": d_us / 1e3,
+                         "library_ms": time_ms(lib) if lib is not None else None,
+                         "library_device_ms": lib_dev[part] / 1e3 if part in lib_dev else None}
+            say("kernel_i_timing", layer=name, M=M, C=C, act=act, entry=part,
+                **{k: (round(v, 5) if isinstance(v, float) else v) for k, v in row[part].items()},
+                bound_share=round(b_ms / (d_us / 1e3), 4))
+
+        def chain():
+            s_, q_ = KBN.bn_stats(x, M)
+            _y, m_, v_ = KBN.bn_apply(x, s_, q_, M, scale, offset, act)
+            go, gs = KBN.bn_grad_sums(dy, x, m_, v_, scale, offset, M, act)
+            return KBN.bn_dx(dy, x, m_, v_, scale, offset, go, gs, M, act, True)
+
+        whole = {"ms": time_ms(chain), "bound_ms": sum(r["bound_ms"] for r in row.values()),
+                 "cudnn_ms": time_ms(fwd_bwd) if fwd_bwd else None}
+        both = device_us_each([chain, fwd_bwd] if fwd_bwd else [chain])
+        whole["device_ms"] = both[0] / 1e3
+        whole["cudnn_device_ms"] = both[1] / 1e3 if fwd_bwd else None
+        say("kernel_i_fwd_bwd", layer=name, M=M, C=C, act=act,
+            **{k: (round(v, 5) if v is not None else None) for k, v in whole.items()})
+        out[name] = row
+        out[name + ":fwd_bwd"] = whole
+        del x, dy, y, calls, library
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernel_i(dev, seed):
+    """Phase 32: kernel I (``ops/kernels/batch_norm.py``, ``csrc/bn_train.cu``)
+    against its plain versions (``i_check``'s limits) at the 53 train-mode
+    BN shapes of MobileNetV2 x1.0 at B=128, 224 px, and at phase 30's
+    (x0.35, 48 px, B=16: channel counts 5, 11, ... that no 16-byte vector
+    divides; and the x1.0 encoder at 48 px that phase 30 trains, float32),
+    bfloat16 and float32, exact and subset (R=16; 8 at B=16), each
+    with the layer's ReLU6 or without it as the layer runs, a channel on
+    each of the ReLU6's ends; float64 (phase 13's reference steps run it) at
+    a few of them; every entry rerun bit-equal; then ``i_timings``.
+    -> ({entry: max |kernel - plain|}, timings)."""
+    t0 = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    full, small = bn_shapes(), bn_shapes(16, 48, 0.35)
+    _w, errs = i_checks(dev, seed, full, (bf16, f32), 128, I_SUBSET_ROWS, "kernel_i")
+    _w, e2 = i_checks(dev, seed, small, (bf16, f32), 16, 8, "kernel_i_quality")
+    # the shapes phase 30 trains (its config's x1.0 encoder at 48 px, float32)
+    _w, e4 = i_checks(dev, seed, bn_shapes(16, 48), (f32,), 16, 8, "kernel_i_quality_x1")
+    picked = [s for s in full if s[0] in ("conv1_1", "conv6_3_linear", "conv9")]
+    _w, e3 = i_checks(dev, seed, picked + small[:6], (torch.float64,), 128, I_SUBSET_ROWS,
+                      "kernel_i_float64")
+    for e in (e2, e3, e4):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    timings = i_timings(dev, seed)
+    say("kernel_i_phase", seconds=round(time.perf_counter() - t0, 1),
+        max_abs_err=json.dumps(errs).replace(" ", ""))
+    return errs, timings
 
 
 def main(argv=None) -> int:
@@ -6177,6 +6725,7 @@ def main(argv=None) -> int:
     err_a, t_a = phase_kernel_a(dev, args.seed)
     t_slices = phase_a_slices(dev, args.seed, t_a)  # phase 26 (c), early: see 17-18
     h_launches, err_h, t_h, h_steps = phase_attn_scores(dev, args.seed)  # 29, early too
+    err_i, t_i = phase_kernel_i(dev, args.seed)  # 32, early too
     # phases 17-18 early: run after the training and decode profiles (and
     # ~120 profiler sessions), torch.profiler came back with events missing
     # or none on the card, though it read them in a fresh process
@@ -6247,7 +6796,7 @@ def main(argv=None) -> int:
                 if proc is not None and proc.poll() is None:
                     proc.kill()
                     proc.wait()
-    entry_f_launches, err_f_entry = phase_graft_entry(dev, card)  # 31, after the exports' traces
+    entry_f_launches, entry_i_launches, err_f_entry = phase_graft_entry(dev, card)  # 31, after the exports' traces
 
     bf16 = torch.bfloat16
     f_key = (bf16, "conv3_1_expand")
@@ -6315,7 +6864,7 @@ def main(argv=None) -> int:
          "batch_caption_launches": in_paths(bc, "topk_vocab_head")},
         {"name": "matmul_stats", "route": "cuda", "source": KERNEL_F_SRC,
          "replaces": KERNEL_F_TPU, "launches": train_launches["matmul_stats"],
-         "tf_train_launches": tf_f_launches, "max_abs_err": max(err_f, err_f_entry), "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
+         "tf_train_launches": tf_f_launches["matmul_stats"], "max_abs_err": max(err_f, err_f_entry), "ms": t_f[f_key][0], "plain_ms": t_f[f_key][1],
          "bound_ms": t_f[f_key][3], "bound_by": t_f[f_key][4], "library_ms": t_f[f_key][2],
          "trainer_launches": in_trainer("matmul_stats"), "dp_launches": in_paths(dp, "matmul_stats"),
          "tp_launches": in_paths(tp, "matmul_stats"), "entry_launches": entry_f_launches},
@@ -6364,6 +6913,18 @@ def main(argv=None) -> int:
                         "autograd_fwd_bwd_ms": t_h["autograd"]["ms"],
                         "autograd_fwd_bwd_device_ms": t_h["autograd"]["device_ms"],
                         "decoder_step_ms": {v: h_steps[v]["ms"] for v in H_VARIANTS}})
+    for part in I_NAMES:
+        r = t_i[I_TIMED[0]][part]
+        kernels.append({"name": part, "route": "cuda", "source": KERNEL_I_SRC,
+                        "replaces": KERNEL_I_REPLACES, "launches": train_launches[part],
+                        # the sums: per-block partial rows, then their merge
+                        "kernels_per_count": 2 if part in ("bn_stats", "bn_grad_sums") else 1,
+                        "max_abs_err": err_i[part], **r,
+                        **{layer: t_i[layer][part] for layer in I_TIMED[1:]},
+                        "fwd_bwd": {layer: t_i[layer + ":fwd_bwd"] for layer in I_TIMED},
+                        "tf_train_launches": tf_f_launches[part],
+                        "trainer_launches": in_trainer(part), "dp_launches": in_paths(dp, part),
+                        "tp_launches": in_paths(tp, part), "entry_launches": entry_i_launches[part]})
     int8_paths = {"fused_greedy_decode[int8]": "tf_int8",
                   "fused_greedy_decode[int8+int8_kv]": "tf_int8_kv"}
     for entry in kernels:  # phase 30's launches by path; an int8 mode's own paths only

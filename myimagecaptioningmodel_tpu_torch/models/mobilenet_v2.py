@@ -20,6 +20,8 @@ Two forwards:
   (``ops/kernels/matmul_bn.conv1x1_bn_train``), under the reference's
   condition; ``bn_stat_rows`` > 0 takes the other convs' BN statistics from
   the first rows (``layers.batch_norm_train``), as the reference does.
+  Each train-mode BN takes its ReLU6 into its own passes (kernel I on a
+  card, ``ops/kernels/batch_norm.py``).
   ``use_fused_irb`` (eval mode only) folds BN into every conv and runs each
   of the 17 inverted-residual blocks as kernel G
   (``ops/kernels/fused_irb.fused_inverted_residual``) on NHWC activations;
@@ -172,16 +174,15 @@ def _apply_conv_bn(p, s, x, stride: int, padding: int, groups: int, act: bool,
             and w.shape[2] == 1 and w.shape[3] == 1):
         from myimagecaptioningmodel_tpu_torch.ops.kernels import matmul_bn as MB
 
-        x, mean, var = MB.conv1x1_bn_train(w, p["bn"], x, compute_dtype)
-        bn_s = L.moving_update(s["bn"], mean, var)
-    else:
-        x = L.conv2d(w, x.permute(0, 3, 1, 2), stride, padding, groups,
-                     compute_dtype).permute(0, 2, 3, 1)
-        if train:
-            x, bn_s = L.batch_norm_train(p["bn"], s["bn"], x, bn_stat_rows)
-        else:
-            x, bn_s = L.batch_norm(p["bn"], s["bn"], x, channel_axis=-1), s["bn"]
-    return (L.relu6(x) if act else x), {"bn": bn_s}
+        x, mean, var = MB.conv1x1_bn_train(w, p["bn"], x, compute_dtype, act)
+        return x, {"bn": L.moving_update(s["bn"], mean, var)}
+    x = L.conv2d(w, x.permute(0, 3, 1, 2), stride, padding, groups,
+                 compute_dtype).permute(0, 2, 3, 1)
+    if train:  # the ReLU6 inside the BN's passes (kernel I on a card)
+        x, bn_s = L.batch_norm_train(p["bn"], s["bn"], x, bn_stat_rows, act)
+        return x, {"bn": bn_s}
+    x = L.batch_norm(p["bn"], s["bn"], x, channel_axis=-1)
+    return (L.relu6(x) if act else x), {"bn": s["bn"]}
 
 
 def apply(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,

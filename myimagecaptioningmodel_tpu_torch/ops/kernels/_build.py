@@ -37,7 +37,7 @@ _lib = None
 build_seconds = None  # wall time of the nvcc run, None if the library was reused
 ptxas_log = ""
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _PI, _PVP = ctypes.POINTER(_I), ctypes.POINTER(_VP)
 _SIGNATURES = {
     "capk_vocab_argmax_nblocks": [_I],
@@ -63,6 +63,11 @@ _SIGNATURES = {
     "capk_attn_scores_bwd": [_I] * 5 + [_VP] * 4 + [_I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _VP],
     "capk_attn_scores_bwd_scratch_rows": [_I, _I, _I],
     "capk_attn_tanh_bf16": [_VP, _VP, _I, _VP],
+    "capk_bn_partial_rows": [_I] * 4,
+    "capk_bn_stats": [_I] * 5 + [_VP, _VP, _I, _VP, _VP, _VP],
+    "capk_bn_apply": [_I] * 4 + [_VP] * 3 + [_D, _VP, _VP, _I] + [_VP] * 4,
+    "capk_bn_grad_sums": [_I] * 4 + [_VP] * 6 + [_I, _D, _VP, _I, _VP, _VP, _VP],
+    "capk_bn_dx": [_I] * 4 + [_VP] * 8 + [_D, _I, _I, _VP, _VP],
 }
 
 

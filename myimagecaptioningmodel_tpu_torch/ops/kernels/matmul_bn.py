@@ -11,10 +11,11 @@ and bound in that file's note); on a CPU tensor it runs
 ``_matmul_stats_reference``, the plain version.
 
 ``conv1x1_bn_train`` is the reference's train-mode 1x1 conv + BN over an
-NHWC batch, with its hand-written backward: the BN backward of
-``ops/layers.bn_backward`` applied to the conv output, then the two matrix
-products a 1x1-conv backward is. The backward is plain PyTorch, as the JAX
-package leaves it to XLA. Inside a process group the statistics are the
+NHWC batch, with its hand-written backward: kernel F's sums feed kernel I's
+normalize pass (``ops/kernels/batch_norm.py``, with the layer's ReLU6 when
+``act``), kernel I's two backward passes give the conv output's cotangent,
+then the two matrix products a 1x1-conv backward is, left to
+``torch.matmul`` as the JAX package leaves them to XLA. Inside a process group the statistics are the
 global batch's (``ops/layers.py``): kernel F's sums are all-reduced, and F
 itself is unchanged.
 """
@@ -27,6 +28,7 @@ import torch
 
 from myimagecaptioningmodel_tpu_torch.ops import layers as L
 from myimagecaptioningmodel_tpu_torch.ops.kernels import _build
+from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
 from myimagecaptioningmodel_tpu_torch.parallel import distributed
 
 
@@ -83,35 +85,41 @@ def row_tile() -> int:
 
 
 class _Conv1x1BN(torch.autograd.Function):
-    """(w [K, N], scale, offset, x_flat [M, K]) -> (normalized y [M, N] in
-    x's dtype, batch mean [N], batch var [N]); the same triple as conv +
-    ``layers._BNTrain``, with the statistics read folded into the product."""
+    """(w [K, N], scale, offset, x_flat [M, K], act) -> (normalized y [M, N]
+    in x's dtype, batch mean [N], batch var [N]); the same triple as conv +
+    ``layers._BNTrain``, with the statistics read folded into the product
+    and the normalize (+ ReLU6) and BN backward passes kernel I's."""
 
     @staticmethod
-    def forward(ctx, w, scale, offset, x_flat):
+    def forward(ctx, w, scale, offset, x_flat, act):
         y, s, q = matmul_stats(x_flat, w)
         # in a process group, the global batch's sums: kernel F's per-rank
         # sums all-reduced over the data group before the mean and variance
         s, q = L.global_sums(s, q)
-        mean, var = L.batch_stats(s, q, x_flat.shape[0] * distributed.data_size())
-        yn, inv = L.bn_normalize(y, mean, var, scale, offset)
-        ctx.save_for_backward(w, scale, x_flat, y, mean, inv)
+        n = x_flat.shape[0] * distributed.data_size()
+        yn, mean, var = KBN.bn_apply(y, s, q, n, scale, offset, act)
+        ctx.save_for_backward(w, scale, offset, x_flat, y, mean, var)
+        ctx.n, ctx.act = n, act
         ctx.mark_non_differentiable(mean, var)
         return yn, mean, var
 
     @staticmethod
     def backward(ctx, dyn, _dmean, _dvar):
-        w, scale, x_flat, y, mean, inv = ctx.saved_tensors
-        dy_conv, dscale, doffset = L.bn_backward(dyn, y, mean, inv, scale)
-        dy_conv = dy_conv.to(x_flat.dtype)
+        w, scale, offset, x_flat, y, mean, var = ctx.saved_tensors
+        dyn = KBN.rows_of(dyn, "dy")
+        doffset, dscale = KBN.bn_grad_sums(dyn, y, mean, var, scale, offset, y.shape[0],
+                                           ctx.act)
+        g_off, g_sc = L.global_sums(doffset, dscale)
+        dy_conv = KBN.bn_dx(dyn, y, mean, var, scale, offset, g_off, g_sc, ctx.n, ctx.act,
+                            True).to(x_flat.dtype)
         # a 1x1-conv backward is two matrix products
         dw = torch.matmul(x_flat.t(), dy_conv).to(w.dtype)
         dx = torch.matmul(dy_conv, w.t()).to(x_flat.dtype)
-        return dw, dscale, doffset, dx
+        return dw, dscale.to(scale.dtype), doffset.to(scale.dtype), dx, None
 
 
-def conv1x1_bn_train(w: torch.Tensor, bn_p, x: torch.Tensor, compute_dtype):
-    """Fused train-mode 1x1 conv + BN over an NHWC batch.
+def conv1x1_bn_train(w: torch.Tensor, bn_p, x: torch.Tensor, compute_dtype, act: bool = False):
+    """Fused train-mode 1x1 conv + BN (+ ReLU6 when ``act``) over an NHWC batch.
 
     ``w`` is the OIHW ``[Cout, Cin, 1, 1]`` weight. -> (normalized output
     [B, H, W, Cout] in the compute dtype, batch mean, batch var), the triple
@@ -122,5 +130,6 @@ def conv1x1_bn_train(w: torch.Tensor, bn_p, x: torch.Tensor, compute_dtype):
     dt = compute_dtype
     x_flat = x.to(dt).reshape(-1, Cin)
     w_kn = w.reshape(Cout, Cin).t().to(dt).contiguous()
-    yn, mean, var = _Conv1x1BN.apply(w_kn, bn_p["scale"], bn_p["offset"], x_flat.contiguous())
+    yn, mean, var = _Conv1x1BN.apply(w_kn, bn_p["scale"], bn_p["offset"], x_flat.contiguous(),
+                                     act)
     return yn.reshape(B, H, W, Cout), mean, var

@@ -19,7 +19,10 @@ the channel axis as an argument for that reason.
 Train-mode BN (``batch_norm_train``) is the reference's ``_bn_train``: one
 pass of float32 statistics (float64 for float64 inputs), ``E[x^2] - mean^2``
 clamped at 0, the *biased* variance, and a backward written by hand in two
-passes over (x, dy). The moving statistics keep ``BN_MOMENTUM`` of the old
+passes over (x, dy), with the layer's ReLU6 (``act``) inside the normalize
+pass and its gradient inside the backward's. The four passes are kernel I
+(``ops/kernels/batch_norm.py``) on a CUDA tensor and its plain versions on
+the CPU. The moving statistics keep ``BN_MOMENTUM`` of the old
 value (``nn.BatchNorm2d``'s momentum and unbiased running variance differ).
 With ``stat_rows`` it is the reference's subset-statistics BN
 (``_bn_train_subset``, ``model.bn_stat_rows``): statistics from the first R
@@ -45,13 +48,15 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as KBN
 from myimagecaptioningmodel_tpu_torch.ops.quantization import is_quantized
 from myimagecaptioningmodel_tpu_torch.parallel import distributed
 
 Params = Dict[str, Any]
 
 BN_MOMENTUM = 0.9  # Paddle batch_norm default
-BN_EPS = 1e-5
+BN_EPS = KBN.BN_EPS
+stat_dtype = KBN.stat_dtype
 
 
 def dense(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -141,11 +146,6 @@ def init_batch_norm(num_ch: int) -> Tuple[Params, Params]:
             {"mean": torch.zeros(num_ch), "var": torch.ones(num_ch)})
 
 
-def stat_dtype(x: torch.Tensor) -> torch.dtype:
-    """BN statistics dtype: float32, float64 for float64 inputs."""
-    return torch.float64 if x.dtype == torch.float64 else torch.float32
-
-
 def global_sums(*sums: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Per-channel sums of this process -> their sums over its data group
     (one all-reduce for all of them; under vocab tensor parallelism the
@@ -157,94 +157,71 @@ def global_sums(*sums: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(flat.split([t.numel() for t in sums]))
 
 
-def batch_stats(s: torch.Tensor, q: torch.Tensor, n: int):
-    """(Σx, Σx², count) -> (mean, biased variance): ``E[x^2] - mean^2``
-    clamped at 0, the reference's one-pass statistics."""
-    mean = s / n
-    return mean, torch.clamp(q / n - mean.square(), min=0.0)
-
-
-def bn_normalize(x, mean, var, scale, offset):
-    """(x - mean) * rsqrt(var + eps) * scale + offset in the statistics'
-    dtype, over a channel-last ``x`` -> (y in ``x.dtype``, inv)."""
-    inv = torch.rsqrt(var + BN_EPS)
-    y = ((x.to(mean.dtype) - mean) * (inv * scale) + offset).to(x.dtype)
-    return y, inv
-
-
-def bn_backward(dy, x, mean, inv, scale):
-    """The reference's two-pass BN backward over a channel-last ``x`` (the
-    statistics take no cotangent) -> (dx in ``x.dtype``, dscale, doffset).
-    In a process group, dx takes the global Σdy and Σdy·x̂ over the global
-    count; dscale and doffset are this rank's sums."""
-    sd = mean.dtype
-    dims = tuple(range(x.ndim - 1))
-    n = x.numel() // x.shape[-1] * distributed.data_size()
-    dy32 = dy.to(sd)
-    xhat = (x.to(sd) - mean) * inv
-    doffset = dy32.sum(dims)  # pass 1: both sums in one read of (dy, x)
-    dscale = (dy32 * xhat).sum(dims)
-    g_offset, g_scale = global_sums(doffset, dscale)
-    dx = (scale * inv / n) * (n * dy32 - g_offset - xhat * g_scale)  # pass 2
-    return dx.to(x.dtype), dscale.to(scale.dtype), doffset.to(scale.dtype)
-
-
 class _BNTrain(torch.autograd.Function):
-    """(scale, offset, channel-last x) -> (y, batch mean, batch var)."""
+    """(scale, offset, channel-last x[, act]) -> (y, batch mean, batch var),
+    with ``act`` the layer's ReLU6 inside the normalize pass and its
+    gradient inside the backward's (kernel I's four passes, module
+    docstring)."""
 
     @staticmethod
-    def forward(ctx, scale, offset, x):
-        x32 = x.to(stat_dtype(x))
-        dims = tuple(range(x.ndim - 1))
-        s, q = global_sums(x32.sum(dims), x32.square().sum(dims))
-        mean, var = batch_stats(s, q, x.numel() // x.shape[-1] * distributed.data_size())
-        y, inv = bn_normalize(x, mean, var, scale, offset)
-        ctx.save_for_backward(scale, x, mean, inv)
+    def forward(ctx, scale, offset, x, act=False):
+        x2 = KBN.rows_of(x, "x")
+        m = x.numel() // x.shape[-1]
+        s, q = global_sums(*KBN.bn_stats(x2, m))
+        n = m * distributed.data_size()
+        y, mean, var = KBN.bn_apply(x2, s, q, n, scale, offset, act)
+        ctx.save_for_backward(scale, offset, x, mean, var)
+        ctx.n, ctx.act = n, act
         ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        return y.view(x.shape), mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        scale, x, mean, inv = ctx.saved_tensors
-        dx, dscale, doffset = bn_backward(dy, x, mean, inv, scale)
-        return dscale, doffset, dx
+        scale, offset, x, mean, var = ctx.saved_tensors
+        x2, dy2 = KBN.rows_of(x), KBN.rows_of(dy, "dy")
+        doffset, dscale = KBN.bn_grad_sums(dy2, x2, mean, var, scale, offset,
+                                           x.numel() // x.shape[-1], ctx.act)
+        g_off, g_sc = global_sums(doffset, dscale)  # dx takes the global sums
+        dx = KBN.bn_dx(dy2, x2, mean, var, scale, offset, g_off, g_sc, ctx.n, ctx.act, True)
+        return dscale.to(scale.dtype), doffset.to(scale.dtype), dx.view(x.shape), None
 
 
 class _BNTrainSubset(torch.autograd.Function):
     """The reference's ``_bn_train_subset``: (scale, offset, channel-last x,
-    R) -> (y, mean, var) with the statistics of the first R rows of the
-    leading axis of the global batch (this rank's rows among them; a rank
-    whose rows all lie past R adds zeros), every row normalized with them.
-    The backward treats the statistics as constants: dx = dy * scale * inv
-    elementwise, and dscale, doffset are this rank's sums over its rows
-    among the R, times the global B / R. Only those rows of x are saved."""
+    R[, act]) -> (y, mean, var) with the statistics of the first R rows of
+    the leading axis of the global batch (this rank's rows among them; a
+    rank whose rows all lie past R adds zeros), every row normalized with
+    them. The backward treats the statistics as constants: dx = dy′ * scale
+    * inv elementwise, and dscale, doffset are this rank's sums over its
+    rows among the R, times the global B / R. Without ``act`` only those
+    rows of x are saved."""
 
     @staticmethod
-    def forward(ctx, scale, offset, x, stat_rows):
+    def forward(ctx, scale, offset, x, stat_rows, act=False):
         b = x.shape[0]
         rows = min(max(stat_rows - distributed.data_index() * b, 0), b)
-        xs = x[:rows].to(stat_dtype(x))
-        dims = tuple(range(x.ndim - 1))
-        s, q = global_sums(xs.sum(dims), xs.square().sum(dims))
-        mean, var = batch_stats(s, q, stat_rows * (x[0].numel() // x.shape[-1]))
-        y, inv = bn_normalize(x, mean, var, scale, offset)
-        # a copy: a view of x[:rows] would keep all B rows alive until backward
-        ctx.save_for_backward(scale, x[:rows].clone(), mean, inv)
+        x2 = KBN.rows_of(x, "x")
+        per = x[0].numel() // x.shape[-1]  # rows of [M, C] an image
+        s, q = global_sums(*KBN.bn_stats(x2, rows * per))
+        y, mean, var = KBN.bn_apply(x2, s, q, stat_rows * per, scale, offset, act)
+        # without act a copy of the R rows: a view of x[:rows] would keep
+        # all B rows alive until backward; with act dx reads every row of x
+        ctx.save_for_backward(scale, offset, x if act else x[:rows].clone(), mean, var)
+        ctx.rows, ctx.act = rows * per, act
         ctx.ratio = b * distributed.data_size() / stat_rows
         ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        return y.view(x.shape), mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        scale, xs, mean, inv = ctx.saved_tensors
-        sd = mean.dtype
-        dims = tuple(range(xs.ndim - 1))
-        dys = dy[: xs.shape[0]].to(sd)
-        xhat = (xs.to(sd) - mean) * inv
-        doffset = dys.sum(dims) * ctx.ratio
-        dscale = (dys * xhat).sum(dims) * ctx.ratio
-        dx = (dy.to(sd) * (scale * inv)).to(dy.dtype)
-        return dscale.to(scale.dtype), doffset.to(scale.dtype), dx, None
+        scale, offset, xs, mean, var = ctx.saved_tensors
+        x2, dy2 = KBN.rows_of(xs), KBN.rows_of(dy, "dy")
+        doffset, dscale = KBN.bn_grad_sums(dy2, x2, mean, var, scale, offset, ctx.rows,
+                                           ctx.act, ctx.ratio)
+        dx = KBN.bn_dx(dy2, x2 if ctx.act else None, mean, var, scale, offset, None, None,
+                       1, ctx.act, False)
+        return (dscale.to(scale.dtype), doffset.to(scale.dtype), dx.view(dy.shape), None,
+                None)
 
 
 def moving_update(s: Params, mean: torch.Tensor, var: torch.Tensor) -> Params:
@@ -253,15 +230,16 @@ def moving_update(s: Params, mean: torch.Tensor, var: torch.Tensor) -> Params:
             "var": BN_MOMENTUM * s["var"] + (1.0 - BN_MOMENTUM) * var}
 
 
-def batch_norm_train(p: Params, s: Params, x: torch.Tensor,
-                     stat_rows: int = 0) -> Tuple[torch.Tensor, Params]:
+def batch_norm_train(p: Params, s: Params, x: torch.Tensor, stat_rows: int = 0,
+                     act: bool = False) -> Tuple[torch.Tensor, Params]:
     """Train-mode BN over all but the last (channel) axis of ``x`` ->
     (y in ``x.dtype``, new moving statistics). ``0 < stat_rows < B`` (B the
     global batch in a process group) takes the statistics from the first
     ``stat_rows`` rows (``_BNTrainSubset``); otherwise the exact BN, as the
-    reference's ``batch_norm``."""
+    reference's ``batch_norm``. ``act``: ``relu6`` of the output, with the
+    reference's gradient, inside the BN's own passes."""
     if 0 < stat_rows < x.shape[0] * distributed.data_size():
-        y, mean, var = _BNTrainSubset.apply(p["scale"], p["offset"], x, stat_rows)
+        y, mean, var = _BNTrainSubset.apply(p["scale"], p["offset"], x, stat_rows, act)
     else:
-        y, mean, var = _BNTrain.apply(p["scale"], p["offset"], x)
+        y, mean, var = _BNTrain.apply(p["scale"], p["offset"], x, act)
     return y, moving_update(s, mean, var)

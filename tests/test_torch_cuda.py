@@ -90,7 +90,13 @@ step (``graft_entry.entry()``, bf16): no kernel at the default config, the
 card's loss within ``ENTRY_CPU_RTOL`` of the CPU's, and with
 ``fuse_bn_stats`` kernel F 35 times a forward, the loss and the encoder's
 float32 features within ``chip_smoke.ENTRY_F_RTOL`` and
-``ENTRY_F_FEAT_RTOL`` of the plain step's.
+``ENTRY_F_FEAT_RTOL`` of the plain step's. Kernel I (train-mode BN's four
+passes) against its plain versions by ``chip_smoke.i_check``'s limits at
+the training path's largest and widest shapes and at ragged ones (C 11, 5
+and 1: no 16-byte vector), float32, bfloat16 and float64, exact and
+subset, with and without the ReLU6, each entry rerun bit-equal; its
+entries' refusals and launch counts; the layers' exact BN with its ReLU6
+against the same function in float64 on the CPU.
 """
 
 import math
@@ -104,6 +110,7 @@ from myimagecaptioningmodel_tpu_torch.models import transformer as TTF
 from myimagecaptioningmodel_tpu_torch.ops import layers as TL
 from myimagecaptioningmodel_tpu_torch.ops.backtrack import beam_backtrack
 from myimagecaptioningmodel_tpu_torch.ops.kernels import attention as TKH
+from myimagecaptioningmodel_tpu_torch.ops.kernels import batch_norm as TKI
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_irb as TFI
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_step as TFS
 from myimagecaptioningmodel_tpu_torch.ops.kernels import fused_transformer as TFT
@@ -1622,3 +1629,83 @@ def test_cuda_graft_entry_loss_and_kernel_f(cuda):
     assert abs(loss - loss_cpu) <= ENTRY_CPU_RTOL * abs(loss_cpu)
     assert abs(loss_f - loss) <= ENTRY_F_RTOL * abs(loss)
     assert feat_rel <= ENTRY_F_FEAT_RTOL
+
+
+# kernel I's (M, C, act): conv3_1_expand, conv9 and conv6_1_linear at B=128,
+# then C that no 16-byte vector divides, and one channel
+I_CUDA_SHAPES = [(1605632, 96, True), (6272, 1280, True), (25088, 96, False), (1000, 11, True),
+                 (777, 5, False), (64, 1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subset", [False, True], ids=["exact", "subset"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("M,C,act", I_CUDA_SHAPES)
+def test_cuda_kernel_i_matches_plain(cuda, M, C, act, dt, subset):
+    from chip_smoke import i_check
+
+    read, _err = i_check(cuda, M, C, dt, act, M // 8 if subset else None)  # asserts reruns
+    assert max(read.values()) <= 1.0, read
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_i_refuses_what_it_cannot_take(cuda):
+    x = torch.randn(64, 8, device=cuda)
+    v = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError):
+        TKI.bn_stats(x.half(), 64)
+    with pytest.raises(ValueError):  # strided
+        TKI.bn_stats(x.t().contiguous().t(), 64)
+    with pytest.raises(ValueError):
+        TKI.bn_stats(x, 65)
+    with pytest.raises(TypeError):  # float32 x takes float32 statistics
+        TKI.bn_apply(x, v.double(), v, 64, v, v, False)
+    with pytest.raises(ValueError):
+        TKI.bn_apply(x, v[:4], v, 64, v, v, False)
+    with pytest.raises(ValueError):
+        TKI.bn_grad_sums(x, x[:32], v, v, v, v, 64, False)
+    with pytest.raises(ValueError):
+        TKI.bn_dx(x, None, v, v, v, v, v, v, 64, False, True)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_i_launch_counts(cuda):
+    x = torch.randn(300, 24, device=cuda)
+    v = torch.ones(24, device=cuda)
+    for fn, args in ((TKI.bn_stats, (x, 300)), (TKI.bn_apply, (x, v, v, 300, v, v, True)),
+                     (TKI.bn_grad_sums, (x, x, v, v, v, v, 300, True)),
+                     (TKI.bn_dx, (x, x, v, v, v, v, v, v, 300, True, True))):
+        before = fn.launches
+        fn(*args)
+        fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))  # plain version
+        assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_bn_train_with_relu6_matches_float64(cuda, dt):
+    """``layers.batch_norm_train(act=True)`` on the card against the same
+    function in float64 on the CPU, on the same (rounded) inputs, with a
+    constant channel on the ReLU6's end: y, mean, var, dscale, doffset and
+    dx to 1e-5 of each one's largest magnitude in float32, 1e-2 in bf16."""
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(16, 14, 14, 64, generator=g) * 2 + 0.5)
+    x[..., 3] = 0.5
+    x = x.to(dt)
+    scale, offset = 1 + 0.2 * torch.randn(64, generator=g), 0.1 * torch.randn(64, generator=g)
+    offset[3] = 0.0
+    dy = torch.randn(16, 14, 14, 64, generator=g).to(dt)
+    outs = []
+    for dev, xdt in ((cuda, dt), ("cpu", torch.float64)):
+        s, o, xx = (t.to(dev).requires_grad_() for t in (scale, offset, x.to(xdt)))
+        p = {"scale": s, "offset": o}
+        st = {"mean": torch.zeros(64, device=dev), "var": torch.ones(64, device=dev)}
+        y, new = TL.batch_norm_train(p, st, xx, act=True)
+        outs.append([y, new["mean"], new["var"],
+                     *torch.autograd.grad(y, (s, o, xx), dy.to(dev, xdt))])
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    for name, got, want in zip(("y", "mean", "var", "dscale", "doffset", "dx"), *outs):
+        err = (got.detach().cpu().double() - want.detach().double()).abs().max()
+        assert err <= tol * want.abs().max(), (name, float(err))
+    assert float(outs[0][4][3]) == pytest.approx(0.5 * float(dy[..., 3].double().sum()),
+                                                 rel=tol)
